@@ -9,7 +9,10 @@ PyTorch version on the card, then drives the Bento request path
 (``make_mount`` -> ``Mount.submit`` / ``PosixView`` -> xv6 -> journal ->
 ``KernelServices.checksum_batch`` -> the CUDA blockhash kernel) and checks
 each result against the same stream run with ``device="cpu"``, which the
-CPU tests hold byte-identical to the JAX reference package. Every phase
+CPU tests hold byte-identical to the JAX reference package. Then it serves
+rwkv6-7b at full width and depth (``serve.step`` -> ``models/rwkv`` -> the
+CUDA WKV6 kernel for every prefill), checks the prefill against the same
+prefill through the plain version, and traces where the time goes. Every phase
 asserts and prints one JSON line; the last line is the device record. It
 imports nothing of JAX and exits non-zero, printing no result, when no
 CUDA device is present or when run outside a checkout.
@@ -42,6 +45,17 @@ CUDA_CORE_OPS_PER_S = 67e12
 KERNEL_SHAPES = ((1, 2), (1, 4), (1, 1024), (63, 1024), (4096, 1024),
                  (32768, 1024))
 HEADLINE_SHAPE = (63, 1024)
+
+SOURCES = ("blockhash", "wkv6")  # src/repro_torch/csrc/<name>.cu
+
+# (B, S, H, K, V, chunk): the three shapes of tests/test_kernels.py's WKV6
+# sweep, then the serve's full width (rwkv6-7b: 64 heads of 64, chunk 32,
+# batch 4, prompt 1024).
+WKV6_SHAPES = ((2, 64, 3, 16, 16, 16), (1, 128, 2, 32, 32, 32),
+               (1, 64, 1, 8, 8, 64), (4, 1024, 64, 64, 64, 32))
+WKV6_HEADLINE = ((4, 1024, 64, 64, 64, 32), "bfloat16")
+WKV6_TOL = 1e-4  # x max(1, max|ref|), for y and the state
+SERVE = {"arch": "rwkv6-7b", "batch": 4, "prompt": 1024, "gen": 32}
 
 
 def emit(phase: str, **fields) -> None:
@@ -217,21 +231,26 @@ def phase_device():
     return card
 
 
-def phase_kernel():
-    """Build, then hold the CUDA blockhash against the plain version on
-    the card and against the numpy oracle, exactly, at every shape."""
-    import torch
-
+def phase_build():
+    """Build every CUDA source at once, one nvcc each."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.blockhash import kernel as K
-    from repro_torch.kernels.blockhash import ref
 
     t0 = time.perf_counter()
-    _build.build("blockhash")
+    _build.build_all(SOURCES)
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _build.build_log("blockhash").splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", sources=["blockhash"], seconds=build_s, ptxas=ptxas)
+    ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
+                    if "registers" in ln or "spill" in ln or "smem" in ln]
+             for name in SOURCES}
+    emit("build", sources=list(SOURCES), seconds=build_s, ptxas=ptxas)
+
+
+def phase_kernel():
+    """Hold the CUDA blockhash against the plain version on the card and
+    against the numpy oracle, exactly, at every shape."""
+    import torch
+
+    from repro_torch.kernels.blockhash import kernel as K
+    from repro_torch.kernels.blockhash import ref
 
     rng = np.random.default_rng(2024)
     dev = torch.device("cuda")
@@ -633,6 +652,314 @@ def phase_torch_device():
          ops_per_s=out, image_identical=same)
 
 
+
+# --- the rwkv6 serve (models/rwkv -> kernels/wkv6 -> csrc/wkv6.cu) ----------------------
+
+
+def wkv6_work(B, S, H, K, V, C, esize):
+    """(bytes, float32 operations) of one WKV6 scan, from the formulas in
+    csrc/wkv6.cu's header: each input read once (r, k, v, w, u in their
+    dtype, the state in f32), each output written once (y and the state
+    in f32); an exp, a compare and a multiply-add's two halves count one
+    operation each."""
+    P = C * (C - 1) // 2
+    per_chunk = (4 * C * K                   # logw = -exp(w), cumsum, Le
+                 + 7 * P * K                 # tmp: sub, clip, exp, 2 mul, add
+                 + 2 * P * V                 # tmp @ v
+                 + 3 * C * K + 2 * C * V     # (sum_k r u k) v
+                 + 2 * C * K + 2 * C * K * V + C * V  # (r exp(Le)) @ S, add
+                 + 3 * C * K + K             # k exp(Li_last - Li), exp(Li_last)
+                 + 2 * K * V + 2 * C * K * V)  # decay S + kd^T v
+    nbytes = ((B * S * H * (3 * K + V) + H * K) * esize
+              + B * S * H * V * 4 + 2 * B * H * K * V * 4)
+    return nbytes, B * H * (S // C) * per_chunk
+
+
+def phase_wkv6_kernel():
+    """Hold the CUDA WKV6 scan against the plain version on the card, in
+    f32 and bf16, at every shape: y and the state each within
+    1e-4 x max(1, max|ref|)."""
+    import torch
+
+    from repro_torch.kernels.wkv6 import kernel as K
+    from repro_torch.kernels.wkv6 import ref
+
+    rng = np.random.default_rng(2025)
+    dev = torch.device("cuda")
+    rows = []
+    for B, S, H, Kd, V, C in WKV6_SHAPES:
+        n = lambda *shape: rng.standard_normal(shape, dtype=np.float32)
+        arrays = (n(B, S, H, Kd) * 0.5, n(B, S, H, Kd) * 0.5, n(B, S, H, V),
+                  n(B, S, H, Kd) * 0.3, n(H, Kd) * 0.3, n(B, H, Kd, V) * 0.1)
+        big = B * S * H >= 1 << 16
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            r, k, v, w, u = (torch.from_numpy(a).to(dev, dt)
+                             for a in arrays[:5])
+            s0 = torch.from_numpy(arrays[5]).to(dev)
+            y, st = K.wkv6_chunked(r, k, v, w, u, s0, chunk=C)
+            y_ref, st_ref = ref.wkv6(r, k, v, w, u, s0, chunk=C)
+            torch.cuda.synchronize()
+            errs, ok = [], True
+            for got, want in ((y, y_ref), (st, st_ref)):
+                err = (got - want).abs().max().item()
+                ok &= err <= WKV6_TOL * max(1.0, want.abs().max().item())
+                errs.append(err)
+            assert ok, f"wkv6 disagrees at {(B, S, H, Kd, V, C)} {dtype}: {errs}"
+            ms = device_ms(lambda: K.wkv6_chunked(r, k, v, w, u, s0, chunk=C))
+            plain_ms = device_ms(lambda: ref.wkv6(r, k, v, w, u, s0, chunk=C),
+                                 count=5 if big else 20,
+                                 reps=10 if big else 20)
+            nbytes, ops = wkv6_work(B, S, H, Kd, V, C, r.element_size())
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / CUDA_CORE_OPS_PER_S * 1e3
+            row = {"shape": [B, S, H, Kd, V, C], "dtype": dtype,
+                   "max_abs_err": max(errs), "y_err": errs[0],
+                   "state_err": errs[1], "within_tol": ok, "ms": ms,
+                   "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
+                   "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                   "share_of_bound": max(bytes_ms, ops_ms) / ms}
+            rows.append(row)
+            emit("wkv6_kernel", **row)
+            del r, k, v, w, u, s0, y, st, y_ref, st_ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_serve_rwkv6():
+    """The model path: rwkv6-7b at full width and depth in bf16, seeded
+    random weights on the card, batch 4, a 1024-token prompt and 32
+    greedy tokens through serve.step, with the wkv6 count set to 0 just
+    before and read after the prefill and after each decode step. Then the
+    same prefill through the plain version, in bf16 and in f32, and the
+    smoke config on the card against the CPU path, which the CPU tests hold
+    to the reference."""
+    import functools
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.kernels.wkv6 import kernel as K
+    from repro_torch.kernels.wkv6 import ops
+    from repro_torch.models import lm, params as P
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+
+    bundle = registry.get(SERVE["arch"])
+    cfg, run = bundle.model, bundle.run
+    ctx = ShardingCtx.null()
+    dev = torch.device("cuda")
+    B, prompt, gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(0)
+    prm = P.materialize(lm.param_specs(cfg), g, dev, dtype=run.compute_dtype)
+    tokens = torch.randint(0, cfg.vocab_size, (B, prompt), generator=g,
+                           device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    materialize_s = time.perf_counter() - t0
+    leaves = list(P.leaves(prm))
+    n_params = sum(t.numel() for t in leaves)
+    assert n_params == 7_576_621_056, n_params
+    assert (cfg.num_layers, cfg.d_model) == (32, 4096)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+
+    prefill = make_prefill_step(cfg, run, ctx)
+    decode = make_decode_step(cfg, run, ctx)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    tok, cache = prefill(prm, {"tokens": tokens})
+    ids = [tok.cpu()]
+    prefill_cold_s = time.perf_counter() - t0
+    prefill_launches = K.launches()
+    step_launches = []
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        l0 = K.launches()
+        tok, cache = decode(prm, cache, {
+            "tokens": tok[:, None],
+            "pos": torch.tensor(prompt + i, dtype=torch.int32)})
+        ids.append(tok.cpu())
+        step_launches.append(K.launches() - l0)
+    decode_s = time.perf_counter() - t0
+    main_launches = K.launches()
+    peak = torch.cuda.max_memory_allocated()
+    assert prefill_launches == cfg.num_layers, prefill_launches
+    assert step_launches == [0] * (gen - 1), step_launches
+    ids = torch.stack(ids, dim=1).numpy()
+    assert ids.shape == (B, gen) and ((0 <= ids) & (ids < cfg.vocab_size)).all()
+    del cache
+
+    def timed_prefill(params, rn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = lm.prefill_fn(cfg, rn, ctx, params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def through_ref(fn):
+        """``fn()`` with ``ops.wkv6`` pointed at the plain version."""
+        kernel_wkv = ops.wkv6
+        ops.wkv6 = functools.partial(kernel_wkv, use_kernel=False)
+        l0 = K.launches()
+        out = fn()
+        ops.wkv6 = kernel_wkv
+        assert K.launches() == l0, "the plain prefill launched the kernel"
+        return out
+
+    def rel_by_layer(a, b):
+        return [((x - y).abs().max() / y.abs().max()).item()
+                for x, y in zip(a, b)]
+
+    def logits_err(a, b):
+        scale = max(1.0, b.float().abs().max().item())
+        return (a.float() - b.float()).abs().max().item(), scale
+
+    # The same bf16 prefill, warm, through the kernel and the plain
+    # version. Layer 0's scan sees identical inputs in both, so its state
+    # must agree to f32 rounding; from there each layer's y is rounded to
+    # bf16, where an f32 difference near a rounding boundary flips an ulp,
+    # and 32 random layers amplify such flips. So the logits are held in
+    # f32 below, with the same weights, and reported here.
+    (logits, cache), prefill_s = timed_prefill(prm, run)
+    (logits_ref, cache_ref), prefill_ref_s = through_ref(
+        lambda: timed_prefill(prm, run))
+    assert logits.shape == (B, cfg.vocab_size)
+    assert torch.isfinite(logits).all() and torch.isfinite(logits_ref).all()
+    wkv_rel = rel_by_layer(cache["wkv"], cache_ref["wkv"])
+    assert wkv_rel[0] <= 1e-4, f"layer 0 wkv state differs: {wkv_rel[0]}"
+    bf16_err, bf16_scale = logits_err(logits, logits_ref)
+    first_token_repeats = bool(
+        (logits.argmax(-1).cpu().numpy() == ids[:, 0]).all())
+    del cache, cache_ref
+
+    # The same prefill in f32 (the bf16 weights widened exactly; matmuls
+    # in full f32, TF32 off), through the kernel and the plain version:
+    # the last-token logits within 2e-2 x max(1, max|logits|).
+    assert not torch.backends.cuda.matmul.allow_tf32
+    prm32 = P.tree_map(lambda t: t.float(), prm)
+    run32 = run.replace(compute_dtype="float32")
+    (logits32, cache32), prefill_f32_s = timed_prefill(prm32, run32)
+    (logits32_ref, cache32_ref), _ = through_ref(
+        lambda: timed_prefill(prm32, run32))
+    wkv32_rel = rel_by_layer(cache32["wkv"], cache32_ref["wkv"])
+    assert wkv32_rel[0] <= 1e-4, f"layer 0 f32 wkv state: {wkv32_rel[0]}"
+    f32_err, f32_scale = logits_err(logits32, logits32_ref)
+    assert f32_err <= 2e-2 * f32_scale, (f32_err, f32_scale)
+    bf16_vs_f32_err, _ = logits_err(logits, logits32)
+    # the kernel moves the bf16 logits less than bf16 itself moves them
+    assert bf16_err < bf16_vs_f32_err, (bf16_err, bf16_vs_f32_err)
+    del prm32, cache32, cache32_ref, logits_ref, logits32_ref
+    torch.cuda.empty_cache()
+
+    # the smoke config in f32, every leaf random, on the card (the CUDA
+    # kernel) against the CPU (the plain version)
+    smoke, srun = bundle.smoke, run.replace(compute_dtype="float32")
+    gcpu = torch.Generator().manual_seed(1)
+    sprm = P.materialize(lm.param_specs(smoke), gcpu, "cpu")
+    for t in P.leaves(sprm):
+        t.add_(0.1 * torch.randn(t.shape, generator=gcpu))
+    stoks = torch.randint(0, smoke.vocab_size, (2, 4 * smoke.scan_chunk),
+                          generator=gcpu, dtype=torch.int32)
+    sprm_dev = P.tree_map(lambda t: t.to(dev), sprm)
+    l0 = K.launches()
+    with torch.inference_mode():
+        s_cpu, _ = lm.prefill_fn(smoke, srun, ctx, sprm, {"tokens": stoks})
+        s_dev, _ = lm.prefill_fn(smoke, srun, ctx, sprm_dev,
+                                 {"tokens": stoks.to(dev)})
+    assert K.launches() - l0 == smoke.num_layers
+    smoke_err = (s_dev.cpu() - s_cpu).abs().max().item()
+    smoke_scale = max(1.0, s_cpu.abs().max().item())
+    assert smoke_err <= 1e-4 * smoke_scale, (smoke_err, smoke_scale)
+
+    emit("serve_rwkv6", arch=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, params=n_params, param_bytes=param_bytes,
+         dtype=run.compute_dtype, batch=B, prompt=prompt, gen=gen,
+         materialize_s=materialize_s,
+         prefill_ms=prefill_s * 1e3, prefill_cold_ms=prefill_cold_s * 1e3,
+         prefill_ref_ms=prefill_ref_s * 1e3,
+         prefill_f32_ms=prefill_f32_s * 1e3,
+         decode_ms_per_token=decode_s / (gen - 1) * 1e3,
+         tokens_per_s=B * (gen - 1) / decode_s,
+         request_tokens_per_s=B * gen / (prefill_cold_s + decode_s),
+         peak_memory_bytes=peak,
+         wkv6_launches_per_prefill=prefill_launches,
+         wkv6_launches_per_decode_step=max(step_launches),
+         generated_ids_row0=ids[0].tolist(),
+         first_token_repeats_in_warm_prefill=first_token_repeats,
+         wkv_rel_err_by_layer=wkv_rel, logits_bf16_max_abs_err=bf16_err,
+         logits_bf16_scale=bf16_scale,
+         wkv_rel_err_by_layer_f32=wkv32_rel, logits_f32_max_abs_err=f32_err,
+         logits_f32_scale=f32_scale, logits_bf16_vs_f32_err=bf16_vs_f32_err,
+         smoke_card_vs_cpu_err=smoke_err)
+    return main_launches, prm, tokens
+
+
+def _device_window(prof) -> dict:
+    import torch
+
+    by_name = {}
+    for e in prof.key_averages():  # device events only: no double count
+        us = e.self_device_time_total
+        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            by_name[e.key] = (us, e.count)
+    return by_name
+
+
+def phase_serve_trace(prm, tokens):
+    """Where the time goes in the serve: one prefill, then 8 decode steps,
+    each under ``torch.profiler``; the device's busy time is the sum of
+    its kernels' and copies' own times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+
+    bundle = registry.get(SERVE["arch"])
+    cfg, run = bundle.model, bundle.run
+    ctx = ShardingCtx.null()
+    prefill = make_prefill_step(cfg, run, ctx)
+    decode = make_decode_step(cfg, run, ctx)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof_p:
+        t0 = time.perf_counter()
+        tok, cache = prefill(prm, {"tokens": tokens})
+        tok.cpu()
+        prefill_wall = time.perf_counter() - t0
+    with profile(activities=acts) as prof_d:
+        t0 = time.perf_counter()
+        for i in range(8):
+            tok, cache = decode(prm, cache, {
+                "tokens": tok[:, None],
+                "pos": torch.tensor(SERVE["prompt"] + i, dtype=torch.int32)})
+            tok.cpu()
+        decode_wall = time.perf_counter() - t0
+    out = {}
+    for name, prof, wall in (("prefill", prof_p, prefill_wall),
+                             ("decode_8_steps", prof_d, decode_wall)):
+        by_name = _device_window(prof)
+        busy_s = sum(us for us, _ in by_name.values()) * 1e-6
+        assert busy_s > 0, f"the profiler saw no device time in {name}"
+        wkv_us = sum(us for k, (us, _) in by_name.items() if "wkv6" in k)
+        wkv_n = sum(c for k, (_, c) in by_name.items() if "wkv6" in k)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+        out[name] = {"wall_s": wall, "device_busy_s": busy_s,
+                     "device_idle_share": 1 - busy_s / wall,
+                     "wkv6_us": wkv_us, "wkv6_launches": wkv_n,
+                     "wkv6_share_of_device": wkv_us * 1e-6 / busy_s,
+                     "device_top": [{"name": k[:80], "us": us, "count": c}
+                                    for k, (us, c) in top]}
+    assert out["prefill"]["wkv6_launches"] == cfg.num_layers, out["prefill"]
+    assert out["decode_8_steps"]["wkv6_launches"] == 0
+    emit("serve_trace", **out)
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py runs from the root of a checkout: "
@@ -647,6 +974,7 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     card = phase_device()
+    phase_build()
     rows = phase_kernel()
     main_launches, _rates = phase_bento()
     phase_trace()
@@ -655,8 +983,14 @@ def main() -> int:
     phase_recovery()
     phase_upgrade()
     phase_torch_device()
+    wkv_rows = phase_wkv6_kernel()
+    wkv_launches, prm, tokens = phase_serve_rwkv6()
+    phase_serve_trace(prm, tokens)
+    del prm, tokens
 
     head = next(r for r in rows if tuple(r["shape"]) == HEADLINE_SHAPE)
+    wkv_head = next(r for r in wkv_rows
+                    if (tuple(r["shape"]), r["dtype"]) == WKV6_HEADLINE)
     print(json.dumps({"kernels": [{
         "name": "blockhash", "route": "cuda",
         "source": "src/repro_torch/csrc/blockhash.cu",
@@ -668,7 +1002,18 @@ def main() -> int:
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None,
-        "shapes": rows}], "card": card,
+        "shapes": rows}, {
+        "name": "wkv6", "route": "cuda",
+        "source": "src/repro_torch/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/wkv6/kernel.py:72",
+        "launches": wkv_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in wkv_rows),
+        "tolerance": f"{WKV6_TOL} x max(1, max|ref|)",
+        "shape": wkv_head["shape"], "dtype": wkv_head["dtype"],
+        "ms": wkv_head["ms"], "plain_ms": wkv_head["plain_ms"],
+        "bound_ms": wkv_head["bound_ms"], "bound_by": wkv_head["bound_by"],
+        "library_ms": None,
+        "shapes": wkv_rows}], "card": card,
         "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

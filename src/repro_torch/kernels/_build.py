@@ -1,7 +1,8 @@
 """Builds the port's CUDA sources at first use and loads them with ctypes.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface,
+Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` for ``sm_90a``
+(several sources build at once, ``build_all``) into a shared library with
+a plain C interface,
 ``build/repro_torch/<name>-<digest>.so`` at the root of the checkout. The
 digest covers the source and the flags, so an edited source builds anew
 and an unchanged one is reused. A ``threading.Lock`` serialises callers
@@ -21,7 +22,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -50,31 +51,48 @@ def target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists, and
-    return its path. Raises with the compiler's output when nvcc fails."""
-    t = target(name)
-    if t.exists():
-        return t
+def build_all(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile each ``csrc/<name>.cu`` that has no up-to-date library, one
+    ``nvcc`` per source, all started together, and return every name's
+    path. Raises with the compilers' output when any nvcc fails."""
+    targets = {name: target(name) for name in names}
+    if all(t.exists() for t in targets.values()):
+        return targets
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / ".lock", "w") as lockfile:
         fcntl.flock(lockfile, fcntl.LOCK_EX)
         try:
-            if t.exists():  # another process built it while we waited
-                return t
-            tmp = t.with_name(f"{t.name}.{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            t.with_suffix(".log").write_text(proc.stdout)
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"CUDA build of {name}.cu failed (nvcc exit "
-                                   f"{proc.returncode}):\n{proc.stdout}")
-            os.replace(tmp, t)
+            # another process may have built some while we waited
+            procs = {}
+            for name, t in targets.items():
+                if not t.exists():
+                    tmp = t.with_name(f"{t.name}.{os.getpid()}.tmp")
+                    procs[name] = (tmp, subprocess.Popen(
+                        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                         str(CSRC / f"{name}.cu")],
+                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                        text=True))
+            failed = []
+            for name, (tmp, proc) in procs.items():
+                out, _ = proc.communicate()
+                targets[name].with_suffix(".log").write_text(out)
+                if proc.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    failed.append(f"CUDA build of {name}.cu failed (nvcc exit "
+                                  f"{proc.returncode}):\n{out}")
+                else:
+                    os.replace(tmp, targets[name])
+            if failed:
+                raise RuntimeError("\n".join(failed))
         finally:
             fcntl.flock(lockfile, fcntl.LOCK_UN)
-    return t
+    return targets
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists, and
+    return its path."""
+    return build_all([name])[name]
 
 
 def build_log(name: str) -> str:
