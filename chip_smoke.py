@@ -12,8 +12,12 @@ each result against the same stream run with ``device="cpu"``, which the
 CPU tests hold byte-identical to the JAX reference package. Then it serves
 rwkv6-7b at full width and depth (``serve.step`` -> ``models/rwkv`` -> the
 CUDA WKV6 kernel for every prefill), checks the prefill against the same
-prefill through the plain version, and traces where the time goes. Every phase
-asserts and prints one JSON line; the last line is the device record. It
+prefill through the plain version, and traces where the time goes. Then it
+holds the SSD and flash attention kernels against their plain versions and
+serves zamba2-7b at full width and depth the same way (``models/mamba2`` ->
+the CUDA SSD kernel in each Mamba2 layer's prefill, the shared attention
+block -> the CUDA flash attention kernel). Every phase asserts and prints
+JSON lines; the last line is the device record. It
 imports nothing of JAX and exits non-zero, printing no result, when no
 CUDA device is present or when run outside a checkout.
 """
@@ -32,11 +36,12 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM, NVIDIA's data sheet: device-memory rate, and the float32 rate
-# outside the tensor cores (the table's nearest entry for the kernel's
-# integer multiply-adds).
+# H100 SXM, NVIDIA's data sheet: device-memory rate, the float32 rate
+# outside the tensor cores (the table's nearest entry for the blockhash
+# kernel's integer multiply-adds), and the tensor cores' dense bf16 rate.
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
 
 # (nblocks, wpb): the probe, a 16-byte input, a 4093-byte block padded to
 # whole words, one full journal commit (nlog=64 holds 63 blocks), one
@@ -46,7 +51,7 @@ KERNEL_SHAPES = ((1, 2), (1, 4), (1, 1024), (63, 1024), (4096, 1024),
                  (32768, 1024))
 HEADLINE_SHAPE = (63, 1024)
 
-SOURCES = ("blockhash", "wkv6")  # src/repro_torch/csrc/<name>.cu
+SOURCES = ("blockhash", "wkv6", "ssd", "flash_attention")  # csrc/<name>.cu
 
 # (B, S, H, K, V, chunk): the three shapes of tests/test_kernels.py's WKV6
 # sweep, then the serve's full width (rwkv6-7b: 64 heads of 64, chunk 32,
@@ -56,6 +61,34 @@ WKV6_SHAPES = ((2, 64, 3, 16, 16, 16), (1, 128, 2, 32, 32, 32),
 WKV6_HEADLINE = ((4, 1024, 64, 64, 64, 32), "bfloat16")
 WKV6_TOL = 1e-4  # x max(1, max|ref|), for y and the state
 SERVE = {"arch": "rwkv6-7b", "batch": 4, "prompt": 1024, "gen": 32}
+
+# (b, S, H, P, N, chunk): the three shapes of tests/test_kernels.py's SSD
+# sweep, then the serve's full width (zamba2-7b: 112 heads, P = N = 64,
+# chunk 128, batch 4, prompt 1024).
+SSD_SHAPES = ((2, 128, 3, 16, 8, 32), (1, 256, 2, 64, 64, 128),
+              (1, 64, 1, 8, 8, 64), (4, 1024, 112, 64, 64, 128))
+SSD_HEADLINE = ((4, 1024, 112, 64, 64, 128), "bfloat16")
+SSD_TOL = 2e-4  # x max(1, max|ref|), for y and the state
+# (B, Sq, Skv, Hq, Hkv, D, causal, window, softcap): the five shapes of
+# tests/test_kernels.py's flash sweep, a softcap case at the serve's
+# head_dim, lengths no tile divides (Skv != Sq under a window; the serve's
+# shared block at a 1000-token prompt), then the serve's shared block
+# (zamba2-7b: 32 heads of 112).
+FLASH_CASES = ((2, 256, 256, 4, 2, 64, True, 0, 0.0),
+               (1, 512, 512, 8, 8, 128, True, 0, 0.0),
+               (2, 256, 256, 4, 4, 64, False, 0, 0.0),
+               (1, 512, 512, 4, 2, 64, True, 128, 0.0),
+               (1, 256, 512, 4, 1, 64, False, 0, 0.0),
+               (1, 256, 256, 4, 2, 112, True, 0, 5.0),
+               (2, 100, 300, 4, 2, 112, True, 64, 0.0),
+               (4, 1000, 1000, 32, 32, 112, True, 0, 0.0),
+               (4, 1024, 1024, 32, 32, 112, True, 0, 0.0))
+FLASH_HEADLINE = ((4, 1024, 1024, 32, 32, 112, True, 0, 0.0), "bfloat16")
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # atol = rtol, as the tests
+# odd_prompt: a prefill whose length neither a flash block (128) nor the
+# SSD chunk (128) divides
+ZAMBA = {"arch": "zamba2-7b", "batch": 4, "prompt": 1024, "gen": 32,
+         "odd_prompt": 1000}
 
 
 def emit(phase: str, **fields) -> None:
@@ -778,9 +811,8 @@ def phase_serve_rwkv6():
     t0 = time.perf_counter()
     for i in range(gen - 1):
         l0 = K.launches()
-        tok, cache = decode(prm, cache, {
-            "tokens": tok[:, None],
-            "pos": torch.tensor(prompt + i, dtype=torch.int32)})
+        tok, cache = decode(prm, cache, {"tokens": tok[:, None],
+                                         "pos": prompt + i})
         ids.append(tok.cpu())
         step_launches.append(K.launches() - l0)
     decode_s = time.perf_counter() - t0
@@ -935,9 +967,8 @@ def phase_serve_trace(prm, tokens):
     with profile(activities=acts) as prof_d:
         t0 = time.perf_counter()
         for i in range(8):
-            tok, cache = decode(prm, cache, {
-                "tokens": tok[:, None],
-                "pos": torch.tensor(SERVE["prompt"] + i, dtype=torch.int32)})
+            tok, cache = decode(prm, cache, {"tokens": tok[:, None],
+                                             "pos": SERVE["prompt"] + i})
             tok.cpu()
         decode_wall = time.perf_counter() - t0
     out = {}
@@ -958,6 +989,488 @@ def phase_serve_trace(prm, tokens):
     assert out["prefill"]["wkv6_launches"] == cfg.num_layers, out["prefill"]
     assert out["decode_8_steps"]["wkv6_launches"] == 0
     emit("serve_trace", **out)
+
+
+# --- the zamba2 serve (models/mamba2 -> kernels/ssd, kernels/flash_attention) ------------
+
+
+def bound(nbytes: int, ops: int, dtype: str) -> dict:
+    """The least time the card could take: the bytes at the HBM rate, or
+    the operations at the peak rate of their type (the tensor cores' bf16
+    rate for bf16 inputs, the CUDA cores' float32 rate for float32)."""
+    rate = BF16_TENSOR_OPS_PER_S if dtype == "bfloat16" else CUDA_CORE_OPS_PER_S
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / rate * 1e3
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "peak_ops_per_s": rate}
+
+
+def ssd_work(b, S, H, P, N, C, esize):
+    """(bytes, operations) of one SSD scan: each input read once (x, B, C
+    in their dtype; dt, A_log, D and the state in f32), each output written
+    once (y and the state in f32); the operations of csrc/ssd.cu's header,
+    counting only the C(C+1)/2 pairs s <= t of the C x C products, a
+    multiply-add's two halves and an exp one operation each. B and C are
+    shared by the heads, so the products C_t . B_s are counted once per
+    (batch, chunk), everything else once per (batch, head, chunk)."""
+    pairs = C * (C + 1) // 2
+    shared = 2 * pairs * N                   # C_t . B_s
+    per_head = (2 * C                        # dt * A, cumsum
+                + 6 * pairs                  # sub, clip, exp, two products
+                + 2 * pairs * P              # M x
+                + 4 * C                      # exp(Li), the state's weights
+                + 2 * C * N * P + 4 * C * P  # exp(Li) (h C_t), D x, sums
+                + C * P + 2 * C * P * N + 2 * P * N)  # the state update
+    nbytes = ((b * S * H * P + 2 * b * S * N) * esize + b * S * H * 4
+              + 2 * H * 4 + b * S * H * P * 4 + 2 * b * H * P * N * 4)
+    return nbytes, b * (S // C) * (shared + H * per_head)
+
+
+def flash_work(B, Sq, Skv, Hq, Hkv, D, causal, window, softcap, esize):
+    """(bytes, operations) of one attention forward: q, k, v read once and
+    o written once in their dtype; for every admissible (query, key) pair,
+    the two D-long products and five operations of the online softmax
+    (scale, max, subtract, exp, sum), two more under a softcap."""
+    i = np.arange(Sq)
+    hi = np.minimum(i, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(Sq, int)
+    pairs = int(np.maximum(hi - lo + 1, 0).sum())
+    ops = B * Hq * pairs * (4 * D + 5 + (2 if softcap > 0 else 0))
+    nbytes = (2 * B * Sq * Hq * D + 2 * B * Skv * Hkv * D) * esize
+    return nbytes, ops
+
+
+def ptxas_lines(name: str) -> list:
+    from repro_torch.kernels import _build
+
+    return [ln.strip() for ln in _build.build_log(name).splitlines()
+            if "registers" in ln or "spill" in ln]
+
+
+def phase_ssd_kernel():
+    """Hold the CUDA SSD scan against the plain version on the card, in
+    f32 and bf16, at every shape: y and the state each within
+    2e-4 x max(1, max|ref|)."""
+    import torch
+
+    from repro_torch.kernels.ssd import kernel as K
+    from repro_torch.kernels.ssd import ref
+
+    rng = np.random.default_rng(2026)
+    dev = torch.device("cuda")
+    rows = []
+    for b, S, H, P, N, C in SSD_SHAPES:
+        n = lambda *shape: rng.standard_normal(shape, dtype=np.float32)
+        arrays = (n(b, S, H, P), np.logaddexp(0, n(b, S, H)).astype(np.float32),
+                  n(b, S, N) * 0.5, n(b, S, N) * 0.5, n(H) * 0.3,
+                  1 + 0.1 * n(H), n(b, H, P, N) * 0.1)
+        big = b * S * H >= 1 << 16
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            x, Bm, Cm = (torch.from_numpy(arrays[i]).to(dev, dt)
+                         for i in (0, 2, 3))
+            dts, A_log, D, s0 = (torch.from_numpy(arrays[i]).to(dev)
+                                 for i in (1, 4, 5, 6))
+            args = (x, dts, Bm, Cm, A_log, D, s0)
+            y, st = K.ssd_chunked(*args, chunk=C)
+            y_ref, st_ref = ref.ssd(*args, chunk=C)
+            torch.cuda.synchronize()
+            errs, ok = [], True
+            for got, want in ((y, y_ref), (st, st_ref)):
+                err = (got - want).abs().max().item()
+                ok &= err <= SSD_TOL * max(1.0, want.abs().max().item())
+                errs.append(err)
+            assert ok, f"ssd disagrees at {(b, S, H, P, N, C)} {dtype}: {errs}"
+            ms = device_ms(lambda: K.ssd_chunked(*args, chunk=C))
+            plain_ms = device_ms(lambda: ref.ssd(*args, chunk=C),
+                                 count=5 if big else 20,
+                                 reps=10 if big else 20)
+            row = {"shape": [b, S, H, P, N, C], "dtype": dtype,
+                   "max_abs_err": max(errs), "y_err": errs[0],
+                   "state_err": errs[1], "within_tol": ok, "ms": ms,
+                   "plain_ms": plain_ms,
+                   **bound(*ssd_work(b, S, H, P, N, C, x.element_size()),
+                           dtype)}
+            row["share_of_bound"] = row["bound_ms"] / ms
+            rows.append(row)
+            emit("ssd_kernel", **row)
+            del x, Bm, Cm, dts, A_log, D, s0, args, y, st, y_ref, st_ref
+    emit("ssd_kernel_build", ptxas=ptxas_lines("ssd"),
+         smem_bytes_serve={"bfloat16": K.smem_bytes(64, 64, 128, 2),
+                           "float32": K.smem_bytes(64, 64, 128, 4)})
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_flash_attention_kernel():
+    """Hold the CUDA flash attention against the plain version on the card,
+    in f32 and bf16, at every case: |got - want| <= tol + tol |want|, tol
+    2e-5 in f32 and 2e-2 in bf16. Where one PyTorch call computes the same
+    function (no window, no softcap), time scaled_dot_product_attention on
+    the same inputs as the library's yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ref
+
+    rng = np.random.default_rng(2027)
+    dev = torch.device("cuda")
+    rows = []
+    for case in FLASH_CASES:
+        B, Sq, Skv, Hq, Hkv, D, causal, window, softcap = case
+        arrays = [rng.standard_normal(s, dtype=np.float32) for s in
+                  ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D))]
+        kw = {"causal": causal, "window": window, "softcap": softcap}
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = (torch.from_numpy(a).to(dev, getattr(torch, dtype))
+                       for a in arrays)
+            out = K.flash_attention_fwd(q, k, v, **kw)
+            want = ref.attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            tol = FLASH_TOL[dtype]
+            diff = (out.float() - want.float()).abs()
+            ok = bool((diff <= tol + tol * want.float().abs()).all())
+            err = diff.max().item()
+            assert out.dtype == q.dtype and ok, \
+                f"flash attention disagrees at {case} {dtype}: {err}"
+            ms = device_ms(lambda: K.flash_attention_fwd(q, k, v, **kw))
+            plain_ms = device_ms(lambda: ref.attention(q, k, v, **kw),
+                                 count=5, reps=10)
+            library_ms = lib_err = None
+            if window == 0 and softcap == 0:
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv)
+                lib_err = (sdpa().transpose(1, 2).float()
+                           - want.float()).abs().max().item()
+                library_ms = device_ms(sdpa)
+            row = {"case": list(case), "dtype": dtype, "max_abs_err": err,
+                   "within_tol": ok, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "library_max_abs_err": lib_err,
+                   **bound(*flash_work(*case, q.element_size()), dtype)}
+            row["share_of_bound"] = row["bound_ms"] / ms
+            rows.append(row)
+            emit("flash_attention_kernel", **row)
+            del q, k, v, out, want, diff
+    emit("flash_attention_kernel_build", ptxas=ptxas_lines("flash_attention"),
+         smem_bytes_d112=K.smem_bytes(112))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _kernel_counts():
+    from repro_torch.kernels.blockhash import kernel as BH
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.ssd import kernel as SSD
+    from repro_torch.kernels.wkv6 import kernel as WKV
+
+    return {"blockhash": BH, "wkv6": WKV, "ssd": SSD, "flash_attention": FA}
+
+
+def zamba2_trace(cfg, run, prm, tokens) -> dict:
+    """Where the time goes in the zamba2 serve: one prefill, then 8 decode
+    steps, each under ``torch.profiler``; the device's busy time is the sum
+    of its kernels' and copies' own times, and the ssd and flash kernels'
+    time and launches are read from it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.launch import serve
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+
+    ctx = ShardingCtx.null()
+    prefill = make_prefill_step(cfg, run, ctx)
+    decode = make_decode_step(cfg, run, ctx)
+    prompt = tokens.shape[1]
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof_p:
+        t0 = time.perf_counter()
+        tok, cache = prefill(prm, {"tokens": tokens})
+        tok.cpu()
+        prefill_wall = time.perf_counter() - t0
+    cache = serve.pad_cache(cfg, cache, 8)
+    with profile(activities=acts) as prof_d:
+        t0 = time.perf_counter()
+        for i in range(8):
+            tok, cache = decode(prm, cache, {"tokens": tok[:, None],
+                                             "pos": prompt + i})
+            tok.cpu()
+        decode_wall = time.perf_counter() - t0
+    del cache
+    trace = {}
+    for name, prof, wall in (("prefill", prof_p, prefill_wall),
+                             ("decode_8_steps", prof_d, decode_wall)):
+        by_name = _device_window(prof)
+        busy_s = sum(us for us, _ in by_name.values()) * 1e-6
+        assert busy_s > 0, f"the profiler saw no device time in {name}"
+        part = {"wall_s": wall, "device_busy_s": busy_s,
+                "device_idle_share": 1 - busy_s / wall}
+        for kname, key in (("ssd", "ssd_kernel"), ("flash", "flash_fwd")):
+            us = sum(u for k, (u, _) in by_name.items() if key in k)
+            part[f"{kname}_us"] = us
+            part[f"{kname}_launches"] = sum(
+                c for k, (_, c) in by_name.items() if key in k)
+            part[f"{kname}_share_of_device"] = us * 1e-6 / busy_s
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+        part["device_top"] = [{"name": k[:80], "us": us, "count": c}
+                              for k, (us, c) in top]
+        trace[name] = part
+    return trace
+
+
+def phase_serve_zamba2():
+    """The model path: zamba2-7b at full width and depth in bf16, seeded
+    random weights on the card, batch 4, a 1024-token prompt and 32 greedy
+    tokens through launch/serve.generate, with every kernel count set to 0
+    just before and read just after, and the ssd and flash counts read
+    after the prefill and after each decode step. Then generate again (the
+    same ids), how far the KV cache's length alone moves the bf16 logits, a
+    1000-token prefill (both kernels at lengths no block divides), the
+    same prefill through the plain versions, in bf16 and in f32, the smoke
+    config on the card against the CPU path (which the CPU tests hold to
+    the reference), and a profiled prefill and 8 decode steps."""
+    import functools
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm, params as P
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+
+    kernels = _kernel_counts()
+    SSD, FA = kernels["ssd"], kernels["flash_attention"]
+    bundle = registry.get(ZAMBA["arch"])
+    cfg, run = bundle.model, bundle.run
+    ctx = ShardingCtx.null()
+    dev = torch.device("cuda")
+    B, prompt, gen = ZAMBA["batch"], ZAMBA["prompt"], ZAMBA["gen"]
+    napp = cfg.num_layers // cfg.shared_attn_every
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(0)
+    prm = P.materialize(lm.param_specs(cfg), g, dev, dtype=run.compute_dtype)
+    tokens = torch.randint(0, cfg.vocab_size, (B, prompt), generator=g,
+                           device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    materialize_s = time.perf_counter() - t0
+    leaves = list(P.leaves(prm))
+    n_params = sum(t.numel() for t in leaves)
+    assert n_params == 6_751_130_832, n_params
+    assert (cfg.num_layers, cfg.d_model, cfg.head_dim, napp) == (81, 3584, 112, 13)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+
+    # the main path: serve.generate (prefill, the KV cache padded for
+    # generation, greedy decode), with every count set to 0 just before
+    # and read just after
+    torch.cuda.reset_peak_memory_stats()
+    for mod in kernels.values():
+        mod.reset_launches()
+    ids, times = serve.generate(cfg, run, prm, tokens, gen)
+    main_launches = {name: mod.launches() for name, mod in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    assert main_launches == {"blockhash": 0, "wkv6": 0, "ssd": cfg.num_layers,
+                             "flash_attention": napp}, main_launches
+    assert ids.shape == (B, gen) and ((0 <= ids) & (ids < cfg.vocab_size)).all()
+
+    # the same steps one at a time, with the ssd and flash counts read
+    # after the prefill and after each decode step: the same greedy ids
+    prefill = make_prefill_step(cfg, run, ctx)
+    decode = make_decode_step(cfg, run, ctx)
+    l0 = (SSD.launches(), FA.launches())
+    tok, cache = prefill(prm, {"tokens": tokens})
+    cache = serve.pad_cache(cfg, cache, gen)
+    step_ids = [tok.cpu()]
+    prefill_launches = (SSD.launches() - l0[0], FA.launches() - l0[1])
+    step_launches = []
+    for i in range(gen - 1):
+        l0 = (SSD.launches(), FA.launches())
+        tok, cache = decode(prm, cache, {"tokens": tok[:, None],
+                                         "pos": prompt + i})
+        step_ids.append(tok.cpu())
+        step_launches.append((SSD.launches() - l0[0], FA.launches() - l0[1]))
+    del cache
+    assert prefill_launches == (cfg.num_layers, napp), prefill_launches
+    assert step_launches == [(0, 0)] * (gen - 1), step_launches
+    assert (torch.stack(step_ids, dim=1).numpy() == ids).all()
+
+    # run to run, generate gives the same ids
+    ids_again, _ = serve.generate(cfg, run, prm, tokens, gen)
+    assert (ids_again == ids).all(), "generate differs from run to run"
+
+    # The KV cache's length alone moves the bf16 logits: one prefill, its
+    # cache padded by 4 slots and by gen, the same tokens (generate's ids)
+    # fed to both for 3 decode steps. The slots past pos weigh nothing, but
+    # the products over the cache run at another length.
+    with torch.inference_mode():
+        _, cache = lm.prefill_fn(cfg, run, ctx, prm, {"tokens": tokens})
+        short, full = (serve.pad_cache(cfg, cache, n) for n in (4, gen))
+        del cache
+        pad_probe = []
+        for i in range(3):
+            feed = {"tokens": torch.from_numpy(ids[:, i:i + 1]).to(
+                dev, torch.int32), "pos": prompt + i}
+            la, short = lm.decode_fn(cfg, run, ctx, prm, short, feed)
+            lb, full = lm.decode_fn(cfg, run, ctx, prm, full, feed)
+            assert (lb.argmax(-1).cpu().numpy() == ids[:, i + 1]).all()
+            top2 = lb.float().topk(2, dim=-1).values
+            pad_probe.append({
+                "step": i + 1,
+                "logits_max_abs_diff": (la.float() - lb.float()).abs().max().item(),
+                "argmax_differs_in_rows": (la.argmax(-1) != lb.argmax(-1)
+                                           ).nonzero().flatten().tolist(),
+                "top2_margin_by_row": (top2[:, 0] - top2[:, 1]).tolist()})
+        del short, full, la, lb
+
+    # a prompt that no flash block and no SSD chunk divides goes through
+    # both kernels all the same
+    odd = ZAMBA["odd_prompt"]
+    l0 = (SSD.launches(), FA.launches())
+    with torch.inference_mode():
+        logits_odd, _ = lm.prefill_fn(cfg, run, ctx, prm,
+                                      {"tokens": tokens[:, :odd].contiguous()})
+    odd_launches = (SSD.launches() - l0[0], FA.launches() - l0[1])
+    assert odd_launches == (cfg.num_layers, napp), odd_launches
+    assert torch.isfinite(logits_odd).all()
+    del logits_odd
+
+    def timed_prefill(params, rn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = lm.prefill_fn(cfg, rn, ctx, params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def through_ref(fn):
+        """``fn()`` with ``ops.ssd`` and ``ops.flash_attention`` pointed at
+        the plain versions."""
+        kernel_ssd, kernel_fa = ssd_ops.ssd, fa_ops.flash_attention
+        ssd_ops.ssd = functools.partial(kernel_ssd, use_kernel=False)
+        fa_ops.flash_attention = functools.partial(kernel_fa, use_kernel=False)
+        l0 = (SSD.launches(), FA.launches())
+        try:
+            out = fn()
+        finally:
+            ssd_ops.ssd, fa_ops.flash_attention = kernel_ssd, kernel_fa
+        assert (SSD.launches(), FA.launches()) == l0, \
+            "the plain prefill launched a kernel"
+        return out
+
+    def rel_by_layer(a, b):
+        return [((x - y).abs().max() / y.abs().max()).item()
+                for x, y in zip(a, b)]
+
+    def logits_err(a, b):
+        scale = max(1.0, b.float().abs().max().item())
+        return (a.float() - b.float()).abs().max().item(), scale
+
+    # The same bf16 prefill, warm, through the kernels and the plain
+    # versions. Layer 0's scan sees identical inputs in both; from there
+    # bf16 rounding of each layer's output amplifies f32 differences, so
+    # the logits are held in f32 below and reported here.
+    (logits, cache), prefill_s = timed_prefill(prm, run)
+    (logits_ref, cache_ref), prefill_ref_s = through_ref(
+        lambda: timed_prefill(prm, run))
+    assert logits.shape == (B, cfg.vocab_size)
+    assert torch.isfinite(logits).all() and torch.isfinite(logits_ref).all()
+    ssm_rel = rel_by_layer(cache["mamba"]["ssm"], cache_ref["mamba"]["ssm"])
+    assert ssm_rel[0] <= 1e-4, f"layer 0 ssm state differs: {ssm_rel[0]}"
+    k_rel = rel_by_layer(cache["attn"]["k"].float(),
+                         cache_ref["attn"]["k"].float())
+    bf16_err, bf16_scale = logits_err(logits, logits_ref)
+    first_token_repeats = bool(
+        (logits.argmax(-1).cpu().numpy() == ids[:, 0]).all())
+    del cache, cache_ref
+
+    # The same prefill in f32 (the bf16 weights widened exactly; matmuls
+    # in full f32, TF32 off), through the kernels and the plain versions:
+    # the last-token logits within 2e-2 x max(1, max|logits|).
+    assert not torch.backends.cuda.matmul.allow_tf32
+    prm32 = P.tree_map(lambda t: t.float(), prm)
+    run32 = run.replace(compute_dtype="float32")
+    (logits32, cache32), prefill_f32_s = timed_prefill(prm32, run32)
+    (logits32_ref, cache32_ref), _ = through_ref(
+        lambda: timed_prefill(prm32, run32))
+    ssm32_rel = rel_by_layer(cache32["mamba"]["ssm"],
+                             cache32_ref["mamba"]["ssm"])
+    assert ssm32_rel[0] <= 1e-4, f"layer 0 f32 ssm state: {ssm32_rel[0]}"
+    f32_err, f32_scale = logits_err(logits32, logits32_ref)
+    assert f32_err <= 2e-2 * f32_scale, (f32_err, f32_scale)
+    bf16_vs_f32_err, _ = logits_err(logits, logits32)
+    # the kernels move the bf16 logits less than bf16 itself moves them
+    assert bf16_err < bf16_vs_f32_err, (bf16_err, bf16_vs_f32_err)
+    del prm32, cache32, cache32_ref, logits_ref, logits32_ref
+    torch.cuda.empty_cache()
+
+    # the smoke config in f32, every leaf random, on the card (the CUDA
+    # kernels) against the CPU (the plain versions); a prompt of 128 tokens
+    # is a multiple of the chunk (16) and of a flash block (128), one of
+    # 100 of neither
+    smoke, srun = bundle.smoke, run.replace(compute_dtype="float32")
+    gcpu = torch.Generator().manual_seed(1)
+    sprm = P.materialize(lm.param_specs(smoke), gcpu, "cpu")
+    for t in P.leaves(sprm):
+        t.add_(0.1 * torch.randn(t.shape, generator=gcpu))
+    sprm_dev = P.tree_map(lambda t: t.to(dev), sprm)
+    smoke_err = {}
+    for slen in (128, 100):
+        stoks = torch.randint(0, smoke.vocab_size, (2, slen), generator=gcpu,
+                              dtype=torch.int32)
+        l0 = (SSD.launches(), FA.launches())
+        with torch.inference_mode():
+            s_cpu, _ = lm.prefill_fn(smoke, srun, ctx, sprm, {"tokens": stoks})
+            s_dev, _ = lm.prefill_fn(smoke, srun, ctx, sprm_dev,
+                                     {"tokens": stoks.to(dev)})
+        assert (SSD.launches() - l0[0], FA.launches() - l0[1]) == (
+            smoke.num_layers, smoke.num_layers // smoke.shared_attn_every)
+        err = (s_dev.cpu() - s_cpu).abs().max().item()
+        scale = max(1.0, s_cpu.abs().max().item())
+        assert err <= 1e-4 * scale, (slen, err, scale)
+        smoke_err[slen] = err
+
+    trace = zamba2_trace(cfg, run, prm, tokens)
+    assert (trace["prefill"]["ssd_launches"],
+            trace["prefill"]["flash_launches"]) == (cfg.num_layers, napp)
+    assert trace["decode_8_steps"]["ssd_launches"] == 0
+    assert trace["decode_8_steps"]["flash_launches"] == 0
+
+    emit("serve_zamba2", arch=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, shared_block_applications=napp, params=n_params,
+         param_bytes=param_bytes, dtype=run.compute_dtype, batch=B,
+         prompt=prompt, gen=gen, materialize_s=materialize_s,
+         prefill_ms=prefill_s * 1e3, prefill_cold_ms=times["prefill_s"] * 1e3,
+         prefill_ref_ms=prefill_ref_s * 1e3,
+         prefill_f32_ms=prefill_f32_s * 1e3,
+         decode_ms_per_token=times["decode_s_per_token"] * 1e3,
+         tokens_per_s=B / times["decode_s_per_token"],
+         request_tokens_per_s=B * gen / (
+             times["prefill_s"] + (gen - 1) * times["decode_s_per_token"]),
+         peak_memory_bytes=peak,
+         ssd_launches_per_prefill=prefill_launches[0],
+         flash_launches_per_prefill=prefill_launches[1],
+         launches_per_decode_step=[max(n for n, _ in step_launches),
+                                   max(n for _, n in step_launches)],
+         main_path_launches=main_launches,
+         generated_ids_row0=ids[0].tolist(),
+         first_token_repeats_in_warm_prefill=first_token_repeats,
+         ssm_rel_err_by_layer=ssm_rel, attn_k_rel_err_by_application=k_rel,
+         logits_bf16_max_abs_err=bf16_err, logits_bf16_scale=bf16_scale,
+         ssm_rel_err_by_layer_f32=ssm32_rel, logits_f32_max_abs_err=f32_err,
+         logits_f32_scale=f32_scale, logits_bf16_vs_f32_err=bf16_vs_f32_err,
+         smoke_card_vs_cpu_err=smoke_err, rerun_ids_equal=True,
+         cache_pad_probe=pad_probe, odd_prompt=odd,
+         odd_prompt_launches=list(odd_launches), trace=trace)
+    return main_launches
 
 
 def main() -> int:
@@ -986,11 +1499,19 @@ def main() -> int:
     wkv_rows = phase_wkv6_kernel()
     wkv_launches, prm, tokens = phase_serve_rwkv6()
     phase_serve_trace(prm, tokens)
-    del prm, tokens
+    del prm, tokens  # the rwkv6 weights (the f32 copy went in its phase)
+    torch.cuda.empty_cache()
+    ssd_rows = phase_ssd_kernel()
+    flash_rows = phase_flash_attention_kernel()
+    zamba_launches = phase_serve_zamba2()
 
     head = next(r for r in rows if tuple(r["shape"]) == HEADLINE_SHAPE)
     wkv_head = next(r for r in wkv_rows
                     if (tuple(r["shape"]), r["dtype"]) == WKV6_HEADLINE)
+    ssd_head = next(r for r in ssd_rows
+                    if (tuple(r["shape"]), r["dtype"]) == SSD_HEADLINE)
+    flash_head = next(r for r in flash_rows
+                      if (tuple(r["case"]), r["dtype"]) == FLASH_HEADLINE)
     print(json.dumps({"kernels": [{
         "name": "blockhash", "route": "cuda",
         "source": "src/repro_torch/csrc/blockhash.cu",
@@ -1013,7 +1534,30 @@ def main() -> int:
         "ms": wkv_head["ms"], "plain_ms": wkv_head["plain_ms"],
         "bound_ms": wkv_head["bound_ms"], "bound_by": wkv_head["bound_by"],
         "library_ms": None,
-        "shapes": wkv_rows}], "card": card,
+        "shapes": wkv_rows}, {
+        "name": "ssd", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:69",
+        "launches": zamba_launches["ssd"],
+        "max_abs_err": max(r["max_abs_err"] for r in ssd_rows),
+        "tolerance": f"{SSD_TOL} x max(1, max|ref|)",
+        "shape": ssd_head["shape"], "dtype": ssd_head["dtype"],
+        "ms": ssd_head["ms"], "plain_ms": ssd_head["plain_ms"],
+        "bound_ms": ssd_head["bound_ms"], "bound_by": ssd_head["bound_by"],
+        "library_ms": None,
+        "shapes": ssd_rows}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
+        "launches": zamba_launches["flash_attention"],
+        "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
+        "tolerance": {d: f"{t} + {t} |ref|" for d, t in FLASH_TOL.items()},
+        "shape": flash_head["case"], "dtype": flash_head["dtype"],
+        "ms": flash_head["ms"], "plain_ms": flash_head["plain_ms"],
+        "bound_ms": flash_head["bound_ms"],
+        "bound_by": flash_head["bound_by"],
+        "library_ms": flash_head["library_ms"],
+        "shapes": flash_rows}], "card": card,
         "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """Serving launcher: batched prefill + greedy decode loop.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
         --smoke --device cpu --batch 4 --prompt-len 32 --gen 16
 
@@ -26,6 +26,23 @@ from repro_torch.models import lm, params as P
 from repro_torch.serve.step import make_decode_step, make_prefill_step
 
 
+def pad_cache(cfg: ModelConfig, cache, gen: int):
+    """Room for ``gen`` generated tokens in the prompt-sized KV cache that
+    prefill returns, as ``repro/launch/serve.py`` pads it: the sequence
+    axis (third from last) of every k and v grows by ``gen`` zero slots.
+    A sliding-window ring buffer keeps its size, and a recurrent state
+    (rwkv6's, the Mamba2 layers') has no sequence axis."""
+    if cfg.sliding_window > 0 or cfg.family != "hybrid" or "attn" not in cache:
+        return cache
+
+    def pad_seq(x):  # (..., S, H, D) -> (..., S + gen, H, D)
+        return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, gen))
+
+    return {"mamba": cache["mamba"],
+            "attn": {"k": pad_seq(cache["attn"]["k"]),
+                     "v": pad_seq(cache["attn"]["v"])}}
+
+
 def generate(cfg: ModelConfig, run: RunConfig, prm, tokens: torch.Tensor,
              gen: int) -> Tuple[np.ndarray, Dict[str, float]]:
     """Prefill ``tokens`` (B, S), then decode greedily until ``gen`` tokens
@@ -38,12 +55,14 @@ def generate(cfg: ModelConfig, run: RunConfig, prm, tokens: torch.Tensor,
 
     t0 = time.perf_counter()
     tok, cache = prefill(prm, {"tokens": tokens})
+    cache = pad_cache(cfg, cache, gen)
     out_tokens = [tok.cpu().numpy()]
     t_prefill = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        pos = torch.tensor(prompt_len + i, dtype=torch.int32)
+        # a Python int: nothing of the step's masks lands on another device
+        pos = prompt_len + i
         tok, cache = decode(prm, cache, {"tokens": tok[:, None], "pos": pos})
         out_tokens.append(tok.cpu().numpy())
     t_decode = time.perf_counter() - t0

@@ -1,13 +1,14 @@
-"""Shared model components: RMS norm, embedding, logits.
+"""Shared model components: RMS norm, RoPE, MLP, embedding, logits.
 
-RoPE, the MLP and the cross-entropy loss wait for the slices that need
-them (ROADMAP Queue 1 item 8)."""
+The cross-entropy loss waits for the training slice (ROADMAP Queue 1
+item 8)."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.distributed.sharding import ShardingCtx
@@ -23,6 +24,62 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 def rms_norm_specs(d: int) -> P.TensorSpec:
     return P.dense((d,), (None,), init="ones")
+
+
+# --- RoPE -------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)  # (head_dim/2,)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: (..., S) int. The head splits into
+    halves (not interleaved pairs), as the reference splits it."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)  # (D/2,)
+    angles = positions[..., None].float() * freqs  # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --- MLP ----------------------------------------------------------------------
+
+
+def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict:
+    ff = d_ff or cfg.d_ff
+    return {
+        "w_gate": P.dense((cfg.d_model, ff), ("fsdp", "mlp")),
+        "w_up": P.dense((cfg.d_model, ff), ("fsdp", "mlp")),
+        "w_down": P.dense((ff, cfg.d_model), ("mlp", "fsdp")),
+    }
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in the activations' dtype (the reference pins the product's
+    output type to it)."""
+    return x @ w.to(x.dtype)
+
+
+def mlp_apply(w: Dict, x: torch.Tensor, ctx: ShardingCtx,
+              act: str = "silu") -> torch.Tensor:
+    gate = matmul(x, w["w_gate"])
+    up = matmul(x, w["w_up"])
+    gate = ctx.constrain(gate, ("batch", "seq_inner", "mlp")[: gate.ndim])
+    # jax.nn.gelu defaults to the tanh approximation
+    h = (F.silu(gate) if act == "silu" else F.gelu(gate, approximate="tanh")) * up
+    out = matmul(h, w["w_down"])
+    return ctx.constrain(out, ("batch", "seq", "embed")[: out.ndim])
+
+
+# --- Embedding / logits ---------------------------------------------------------
 
 
 def embed_specs(cfg: ModelConfig) -> Dict:
@@ -45,9 +102,9 @@ def logits_fn(w: Dict, x: torch.Tensor, ctx: ShardingCtx) -> torch.Tensor:
     """Logits in the activations' dtype (the reference pins the product's
     output type to it)."""
     if "unembed" in w:
-        logits = x @ w["unembed"].to(x.dtype)
+        logits = matmul(x, w["unembed"])
     else:
-        logits = x @ w["embedding"].to(x.dtype).T
+        logits = matmul(x, w["embedding"].T)
     return ctx.constrain(logits, ("batch", "seq", "vocab")[: logits.ndim])
 
 

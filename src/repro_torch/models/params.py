@@ -56,6 +56,19 @@ def leaves(tree):
         yield tree
 
 
+def layer(tree, i: int):
+    """Layer ``i`` of a tree of stacked ``(L, ...)`` tensors (views)."""
+    return tree_map(lambda t: t[i], tree)
+
+
+def stack_layers(trees):
+    """Per-layer trees stacked back into one tree of ``(L, ...)`` tensors."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_layers([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
 def map_specs(fn: Callable[[TensorSpec], Any], tree):
     """``fn`` applied to every spec of a spec tree."""
     def check(spec):

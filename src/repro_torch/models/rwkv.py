@@ -225,19 +225,6 @@ def layer_decode(cfg, run, ctx, w, x, state):
 # --- stacked -------------------------------------------------------------------------
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a tree of stacked ``(L, ...)`` tensors (views)."""
-    return P.tree_map(lambda t: t[i], tree)
-
-
-def _stack(trees):
-    """The per-layer trees stacked back into ``(L, ...)`` tensors."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
-
-
 def stack_specs(cfg: ModelConfig) -> Dict:
     return {"layers": P.stack_tree(cfg.num_layers, layer_specs(cfg))}
 
@@ -257,23 +244,23 @@ def state_specs(cfg: ModelConfig, batch: int) -> Dict:
 
 def stack_apply(cfg, run, ctx, w, x, *, chunk):
     for i in range(cfg.num_layers):
-        x = layer_apply(cfg, run, ctx, _layer(w["layers"], i), x, chunk=chunk)
+        x = layer_apply(cfg, run, ctx, P.layer(w["layers"], i), x, chunk=chunk)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def stack_prefill(cfg, run, ctx, w, x, *, chunk):
     states = []
     for i in range(cfg.num_layers):
-        x, st = layer_prefill(cfg, run, ctx, _layer(w["layers"], i), x,
+        x, st = layer_prefill(cfg, run, ctx, P.layer(w["layers"], i), x,
                               chunk=chunk)
         states.append(st)
-    return x, _stack(states)
+    return x, P.stack_layers(states)
 
 
 def stack_decode(cfg, run, ctx, w, state, x):
     states = []
     for i in range(cfg.num_layers):
-        x, st = layer_decode(cfg, run, ctx, _layer(w["layers"], i), x,
-                             _layer(state, i))
+        x, st = layer_decode(cfg, run, ctx, P.layer(w["layers"], i), x,
+                             P.layer(state, i))
         states.append(st)
-    return x, _stack(states)
+    return x, P.stack_layers(states)

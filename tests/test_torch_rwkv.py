@@ -105,7 +105,7 @@ def run_both(compute_dtype, n_decode=S_GEN):
         pl, pcache = lm.decode_fn(
             pcfg, prun, CTX, pprm, pcache,
             {"tokens": torch.from_numpy(toks[:, t:t + 1]),
-             "pos": torch.tensor(t, dtype=torch.int32)})
+             "pos": t})
         out.append((f"decode {i} logits", pl, jl))
         for key in ("wkv", "last_tmix", "last_cmix"):
             out.append((f"decode {i} cache {key}", pcache[key], jcache[key]))
@@ -173,7 +173,7 @@ def test_prefill_decode_matches_own_forward():
         t = S_PROMPT + i
         logits, cache = lm.decode_fn(cfg, run, CTX, prm, cache,
                                      {"tokens": toks[:, t:t + 1],
-                                      "pos": torch.tensor(t)})
+                                      "pos": t})
         got.append(logits)
     want = full[:, S_PROMPT - 1:S_PROMPT - 1 + S_gen]
     assert_close(torch.stack(got, dim=1), want, 5e-3, "decode vs forward")
@@ -216,10 +216,18 @@ def test_bundle_equals_reference(arch):
             == dataclasses.asdict(jax_registry.get(arch)))
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "zamba2-7b", "whisper-small"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "zamba2-7b", "whisper-small",
+                                  "olmoe-1b-7b", "llama-3.2-vision-11b"])
 def test_unported_families_raise(arch):
+    """The dense, MoE, VLM and audio families raise, naming their ROADMAP
+    item; the hybrid family (zamba2) is ported and builds."""
+    cfg = registry.get(arch).smoke
+    if cfg.family in lm.PORTED:
+        assert cfg.family == "hybrid"
+        assert P.count_params(lm.param_specs(cfg)) == cfg.param_count() > 0
+        return
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        lm.param_specs(registry.get(arch).smoke)
+        lm.param_specs(cfg)
 
 
 def test_materialize_init_rules():
