@@ -271,9 +271,7 @@ def phase_build():
     t0 = time.perf_counter()
     _build.build_all(SOURCES)
     build_s = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
-                    if "registers" in ln or "spill" in ln or "smem" in ln]
-             for name in SOURCES}
+    ptxas = {name: ptxas_lines(name) for name in SOURCES}
     emit("build", sources=list(SOURCES), seconds=build_s, ptxas=ptxas)
 
 
@@ -941,6 +939,23 @@ def _device_window(prof) -> dict:
     return by_name
 
 
+def _kernel_kind(name: str) -> str:
+    """A device kernel's kind, from its name in the profiler: the port's
+    two zamba2 kernels, cuBLAS matrix products (``nvjet``, ``gemv`` and
+    the older ``gemm``/``xmma`` names), PyTorch's elementwise and
+    reduction kernels, copies, or other."""
+    low = name.lower()
+    for kind, keys in (("ssd", ("ssd_kernel",)), ("flash", ("flash_fwd",)),
+                       ("matmul", ("gemm", "gemv", "xmma", "nvjet", "cutlass",
+                                   "cublas")),
+                       ("elementwise", ("elementwise",)),
+                       ("reduction", ("reduce",)),
+                       ("copy", ("memcpy", "memset", "copy"))):
+        if any(k in low for k in keys):
+            return kind
+    return "other"
+
+
 def phase_serve_trace(prm, tokens):
     """Where the time goes in the serve: one prefill, then 8 decode steps,
     each under ``torch.profiler``; the device's busy time is the sum of
@@ -1045,7 +1060,7 @@ def ptxas_lines(name: str) -> list:
     from repro_torch.kernels import _build
 
     return [ln.strip() for ln in _build.build_log(name).splitlines()
-            if "registers" in ln or "spill" in ln]
+            if any(w in ln for w in ("entry function", "registers", "spill"))]
 
 
 def phase_ssd_kernel():
@@ -1054,6 +1069,7 @@ def phase_ssd_kernel():
     2e-4 x max(1, max|ref|)."""
     import torch
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels.ssd import kernel as K
     from repro_torch.kernels.ssd import ref
 
@@ -1098,7 +1114,10 @@ def phase_ssd_kernel():
             del x, Bm, Cm, dts, A_log, D, s0, args, y, st, y_ref, st_ref
     emit("ssd_kernel_build", ptxas=ptxas_lines("ssd"),
          smem_bytes_serve={"bfloat16": K.smem_bytes(64, 64, 128, 2),
-                           "float32": K.smem_bytes(64, 64, 128, 4)})
+                           "float32": K.smem_bytes(64, 64, 128, 4)},
+         blocks_per_sm_by_smem_serve={
+             "bfloat16": _build.blocks_per_sm(K.smem_bytes(64, 64, 128, 2)),
+             "float32": _build.blocks_per_sm(K.smem_bytes(64, 64, 128, 4))})
     torch.cuda.empty_cache()
     return rows
 
@@ -1112,6 +1131,7 @@ def phase_flash_attention_kernel():
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ref
 
@@ -1157,7 +1177,11 @@ def phase_flash_attention_kernel():
             emit("flash_attention_kernel", **row)
             del q, k, v, out, want, diff
     emit("flash_attention_kernel_build", ptxas=ptxas_lines("flash_attention"),
-         smem_bytes_d112=K.smem_bytes(112))
+         smem_bytes_d112={"bfloat16": K.smem_bytes(112, 2),
+                          "float32": K.smem_bytes(112, 4)},
+         blocks_per_sm_by_smem_d112={
+             "bfloat16": _build.blocks_per_sm(K.smem_bytes(112, 2)),
+             "float32": _build.blocks_per_sm(K.smem_bytes(112, 4))})
     torch.cuda.empty_cache()
     return rows
 
@@ -1217,6 +1241,12 @@ def zamba2_trace(cfg, run, prm, tokens) -> dict:
             part[f"{kname}_launches"] = sum(
                 c for k, (_, c) in by_name.items() if key in k)
             part[f"{kname}_share_of_device"] = us * 1e-6 / busy_s
+        kinds = {}
+        for k, (us, c) in by_name.items():
+            kind = kinds.setdefault(_kernel_kind(k), {"us": 0.0, "count": 0})
+            kind["us"] += us
+            kind["count"] += c
+        part["device_by_kind"] = kinds
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
         part["device_top"] = [{"name": k[:80], "us": us, "count": c}
                               for k, (us, c) in top]

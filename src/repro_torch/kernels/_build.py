@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` for ``sm_90a``
 (several sources build at once, ``build_all``) into a shared library with
 a plain C interface,
 ``build/repro_torch/<name>-<digest>.so`` at the root of the checkout. The
-digest covers the source and the flags, so an edited source builds anew
-and an unchanged one is reused. A ``threading.Lock`` serialises callers
+digest covers the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header builds anew and an unchanged one is
+reused. A ``threading.Lock`` serialises callers
 in one process (the parallel drain and the SQPOLL thread can reach a
 kernel at once) and a file lock serialises processes sharing the build
 directory. Nothing here runs at import: this module imports on hosts
@@ -29,6 +30,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+SM_SMEM = 233472  # bytes of shared memory on one H100 SM (228 KiB)
+BLOCK_RESERVED = 1024  # of which the runtime keeps this much per block
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -45,8 +49,11 @@ def _nvcc() -> str:
 
 
 def target(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
+    """Where ``csrc/<name>.cu`` builds to, keyed by the source, the shared
+    headers ``csrc/*.cuh`` it may include, and the flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update("\0".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -109,3 +116,9 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(str(build(name)))
         return lib
+
+
+def blocks_per_sm(smem: int) -> int:
+    """How many blocks of ``smem`` bytes of dynamic shared memory fit on
+    one H100 SM at once (registers and threads may allow fewer)."""
+    return SM_SMEM // (smem + BLOCK_RESERVED)

@@ -2,8 +2,10 @@
 (``csrc/flash_attention.cu``).
 
 The Hopper counterpart of the Pallas ``flash_attention_fwd``: one launch
-computes the whole (B, Hq, Sq) output, one thread block per (query tile of
-64 rows, head, batch) walking the key tiles with the online softmax. The
+computes the whole (B, Hq, Sq) output, one thread block per (query tile,
+head, batch) walking the key tiles with the online softmax: bf16 inputs on
+the tensor cores (``mma.sync``, tiles of 128 rows), float32 on the CUDA
+cores (tiles of 64). The
 library builds on the first call on a CUDA device
 (``repro_torch.kernels._build``); importing this module needs no
 ``nvcc``. ``launches()`` counts the launches this process made, so a run
@@ -26,6 +28,7 @@ _entry = None
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may have
 MAX_D = 128
 BQ = BKV = 64  # query rows of a block, keys of a tile (as in the source)
+BQ_TC = 128  # query rows of a block of the bf16 tensor-core kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -40,9 +43,14 @@ def reset_launches() -> None:
         _launches = 0
 
 
-def smem_bytes(D: int) -> int:
-    """Dynamic shared memory of one block (``smem_floats`` in the source):
-    q and k transposed with padded rows, v, and p transposed, in float32."""
+def smem_bytes(D: int, esize: int) -> int:
+    """Dynamic shared memory of one block (``bf16_smem_bytes`` and
+    ``smem_floats`` in the source). bf16 (``esize`` 2): the q tile of
+    ``BQ_TC`` rows and two stages of a key and a value tile, in bf16, D
+    padded to a multiple of 16, rows 8 elements longer. float32: q and k
+    transposed with padded rows, v, and p transposed, in float32."""
+    if esize == 2:
+        return (BQ_TC + 4 * BKV) * (-(-D // 16) * 16 + 8) * 2
     qs, ks = BQ + 4, BKV + 1
     p_offset = (D * qs + D * ks + BKV * D + 3) // 4 * 4
     return 4 * (p_offset + BKV * qs)

@@ -1,8 +1,10 @@
 """ctypes binding of the CUDA SSD kernel (``csrc/ssd.cu``).
 
 The Hopper counterpart of the Pallas ``ssd_chunked``: one launch scans a
-whole (b, S, H) batch chunk by chunk, with one thread block per (batch,
-head) carrying its (P, N) state. The library builds on the first call on a
+whole (b, S, H) batch chunk by chunk. bf16 inputs run on the tensor cores
+(``mma.sync``), one thread block per (batch, pair of heads) carrying
+their (P, N) states; float32 inputs on the CUDA cores, one block per
+(batch, head). The library builds on the first call on a
 CUDA device (``repro_torch.kernels._build``); importing this module needs
 no ``nvcc``. ``launches()`` counts the launches this process made, so a
 run can show that its prefills went through the kernel.
@@ -23,7 +25,8 @@ _launches = 0
 _entry = None
 
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may have
-MAX_CHUNK = 256  # the chunk's scan runs one token per thread of a block
+MAX_CHUNK = 256  # the CUDA-core kernel's scan runs a token per thread
+HEADS_PER_BLOCK = 2  # the tensor-core kernel's: C.B^T is shared by them
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -38,10 +41,31 @@ def reset_launches() -> None:
         _launches = 0
 
 
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def tensor_core_smem_bytes(P: int, N: int, chunk: int) -> int:
+    """Dynamic shared memory of one block of the bf16 tensor-core kernel
+    (``bf16_smem_bytes`` in the source): x of ``HEADS_PER_BLOCK`` heads, B
+    and C in bf16 with rows 8 elements longer, the heads' states in f32
+    with rows of N + 8 floats, and four f32 vectors of the chunk per head;
+    P, N and the chunk padded to multiples of 16."""
+    pp, np_, cp = _pad16(P), _pad16(N), _pad16(chunk)
+    g = HEADS_PER_BLOCK
+    return (2 * (g * cp * (pp + 8) + 2 * cp * (np_ + 8))
+            + 4 * (g * pp * (np_ + 8) + g * 4 * cp))
+
+
 def smem_bytes(P: int, N: int, chunk: int, esize: int) -> int:
-    """Dynamic shared memory of one block (``smem_bytes`` in the source):
-    x, B and C of a chunk in the input's dtype (``esize`` bytes), M, the
-    state and four per-token vectors in float32."""
+    """Dynamic shared memory of one block of the kernel the launch picks:
+    the tensor-core kernel for bf16 inputs (``esize`` 2) where its padded
+    tiles fit a block; else (float32, or bf16 tiles too wide) the
+    CUDA-core kernel (``smem_bytes`` in the source): x, B and C of a chunk
+    in the input's dtype, M, the state and four per-token vectors in
+    float32."""
+    if esize == 2 and tensor_core_smem_bytes(P, N, chunk) <= SMEM_LIMIT:
+        return tensor_core_smem_bytes(P, N, chunk)
     return (esize * (chunk * P + 2 * chunk * N)
             + 4 * (chunk * chunk + N * P + 4 * chunk + 32))
 

@@ -25,6 +25,10 @@ def pytest_configure(config):
         "markers",
         "slow: exhaustive sweep outside the tier-1 time budget "
         "(run with --runslow; CI covers a bounded subset)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device and skips without one "
+        "(python -m pytest -m cuda on a machine with the card)")
 
 
 def pytest_collection_modifyitems(config, items):

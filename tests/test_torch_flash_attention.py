@@ -19,6 +19,7 @@ jnp = pytest.importorskip("jax.numpy")
 from repro.kernels.flash_attention import kernel as jax_kernel  # noqa: E402
 from repro.kernels.flash_attention import ref as jax_ref  # noqa: E402
 from repro.models import attention as jax_attention  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as K  # noqa: E402
 from repro_torch.kernels.flash_attention import ops, ref  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
@@ -93,10 +94,18 @@ def test_kernel_path_refuses_inputs_that_require_grad():
 
 
 def test_kernel_shared_memory():
-    """q and k transposed, v and p in f32: 103 KiB at D=112, so two blocks
-    share an SM; every D up to 128 fits one block."""
-    assert K.smem_bytes(112) == 105664
-    assert all(K.smem_bytes(d) <= K.SMEM_LIMIT for d in range(1, K.MAX_D + 1))
+    """bf16: the q tile of 128 rows and two stages of a key and a value
+    tile of 64, in bf16 with rows padded by 16 bytes: 90 KiB at D=112, so
+    two blocks share an SM, as the design relies on. f32: q and k
+    transposed, v and p in f32, 103 KiB, two blocks. Every D up to 128
+    fits one block in both."""
+    assert K.smem_bytes(112, 2) == (128 + 4 * 64) * 120 * 2 == 92160
+    assert K.smem_bytes(112, 4) == 105664
+    assert _build.blocks_per_sm(K.smem_bytes(112, 2)) == 2
+    assert _build.blocks_per_sm(K.smem_bytes(128, 2)) == 2
+    assert _build.blocks_per_sm(K.smem_bytes(112, 4)) == 2
+    assert all(K.smem_bytes(d, e) <= K.SMEM_LIMIT
+               for d in range(1, K.MAX_D + 1) for e in (2, 4))
 
 
 @pytest.mark.parametrize("Sq,Skv", [(128, 128), (96, 96), (128, 48)])
@@ -148,3 +157,45 @@ def test_decode_attention_and_ring_layout_match_reference(window, pos):
                                           jnp.int32(pos - 1), window=window,
                                           softcap=2.0)
     close(out, want, TOL["float32"])
+
+
+def flash_tensor_core_emulation(q, k, v, *, causal, block=64):
+    """csrc/flash_attention.cu's bf16 kernel in plain torch: bf16 q, k, v;
+    q k^T exact into float32; the online softmax over key tiles of
+    ``block`` in float32, p rounded to bf16 before p v, the row sums taken
+    from the float32 p; the output rounded to bf16."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    f32 = torch.float32
+    qf = q.float().transpose(1, 2)  # (B, Hq, Sq, D)
+    kf, vf = (t.float().transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1)
+              for t in (k, v))
+    m = torch.full((B, Hq, Sq, 1), -1e30, dtype=f32)
+    l = torch.zeros((B, Hq, Sq, 1), dtype=f32)
+    acc = torch.zeros((B, Hq, Sq, D), dtype=f32)
+    qpos = torch.arange(Sq)[:, None]
+    for k0 in range(0, Skv, block):
+        s = qf @ kf[:, :, k0:k0 + block].transpose(-1, -2) / D ** 0.5
+        if causal:
+            kpos = torch.arange(k0, min(k0 + block, Skv))[None, :]
+            s = torch.where(kpos <= qpos, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha, p = torch.exp(m - m_new), torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + block]
+        m = m_new
+    return (acc / l).transpose(1, 2).to(torch.bfloat16)
+
+
+def test_tensor_core_rounding_holds_the_bf16_tolerance():
+    """The bf16 kernel's rounding, emulated at the smoke's causal GQA case
+    at the serve's head_dim: within 2e-2 + 2e-2 |ref| of the plain
+    version, the tolerance chip_smoke.py holds the kernel to, with most of
+    it to spare."""
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16)
+                  for a in inputs(1, 512, 512, 4, 2, 112, seed=7))
+    got = flash_tensor_core_emulation(tq, tk, tv, causal=True).float()
+    want = ref.attention(tq, tk, tv, causal=True).float()
+    tol = TOL["bfloat16"]
+    share = ((got - want).abs() / (tol + tol * want.abs())).max().item()
+    assert share <= 0.5, share
