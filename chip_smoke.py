@@ -42,6 +42,9 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12
+# The card's host link, PCIe Gen5 x16: 128 GB/s both ways on the same data
+# sheet, so 64 GB/s for the words that cross it one way.
+HOST_LINK_BYTES_PER_S = 64e9
 
 # (nblocks, wpb): the probe, a 16-byte input, a 4093-byte block padded to
 # whole words, one full journal commit (nlog=64 holds 63 blocks), one
@@ -277,28 +280,32 @@ def phase_build():
 
 def phase_kernel():
     """Hold the CUDA blockhash against the plain version on the card and
-    against the numpy oracle, exactly, at every shape."""
+    against the numpy oracle, exactly, at every shape: through the public
+    wrapper on words in device memory, and as the main path runs it
+    (``ops._Staging.hash``: the kernel reads mapped pinned host words).
+    Time both; the main path's way is bounded by the host link."""
     import torch
 
     from repro_torch.kernels.blockhash import kernel as K
-    from repro_torch.kernels.blockhash import ref
+    from repro_torch.kernels.blockhash import ops, ref
 
     rng = np.random.default_rng(2024)
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    st = ops.staging(dev)
     rows = []
     for n, wpb in KERNEL_SHAPES:
         if (n, wpb) == (1, 2):
-            raw = np.frombuffer(b"probe" + b"\0" * 3, dtype=np.uint32)
-            w = raw.reshape(1, 2).copy()
+            blocks = [b"probe"]
         elif (n, wpb) == (1, 1024):
-            data = rng.integers(0, 256, 4093, dtype=np.uint8).tobytes()
-            w = np.frombuffer(data + b"\0" * 3, dtype=np.uint32)
-            w = w.reshape(1, 1024).copy()
+            blocks = [rng.integers(0, 256, 4093, dtype=np.uint8).tobytes()]
         else:
             w = rng.integers(0, 2**32, (n, wpb), dtype=np.uint64)
             w = w.astype(np.uint32)
             w[0] = 0xFFFFFFFF
             w[-1] = 0xFFFFFFFF
+            blocks = [row.tobytes() for row in w]
+        w = ops._words(blocks)
+        assert w.shape == (n, wpb)
         pows_np = ref.powers(wpb)
         words_cpu = torch.from_numpy(w.view(np.int32).copy())
         words = words_cpu.to(dev)
@@ -306,6 +313,7 @@ def phase_kernel():
 
         got = K.blockhash_batch(words, pows)
         plain = ref.blockhash(words, pows)
+        pinned = st.hash(blocks)
         torch.cuda.synchronize()
         # the numpy oracle, whole array: u64 products summed with u64
         # wraparound keep the low 32 bits exact (ref.blockhash_np's method)
@@ -315,13 +323,24 @@ def phase_kernel():
         sample = sorted({0, n - 1, *range(0, n, max(1, n // 16))})
         exact = (torch.equal(got, plain)
                  and np.array_equal(got_u32, want)
+                 and pinned == want.tolist()
                  and all(int(got_u32[i]) == ref.blockhash_np(w[i].tobytes())
                          for i in sample))
         max_abs_err = int(np.abs(got_u32.astype(np.int64)
                                  - want.astype(np.int64)).max())
         assert exact, f"blockhash disagrees at {(n, wpb)}"
 
-        ms = device_ms(lambda: K.blockhash_batch(words, pows))
+        # the main path's launch on the words it staged, without its wait
+        # (a wait cannot be captured in a CUDA graph); then with the wait,
+        # events around 20 calls in a row, the host's launch cost included
+        def launch_pinned(wait=False):
+            K.hash_pinned(st.host_words.data_ptr(), ops._pows(wpb, dev)
+                          .data_ptr(), st.host_out.data_ptr(), n, wpb,
+                          torch.cuda.current_stream().cuda_stream, wait)
+        ms = device_ms(launch_pinned)
+        pinned_call = call_ms(lambda: launch_pinned(wait=True))
+        assert st.out_u32[:n].tolist() == want.tolist()
+        resident_ms = device_ms(lambda: K.blockhash_batch(words, pows))
         eager_ms = call_ms(lambda: K.blockhash_batch(words, pows))
         ms_with_copies = call_ms(
             lambda: K.blockhash_batch(words_cpu.to(dev), pows).cpu())
@@ -329,18 +348,122 @@ def phase_kernel():
         nbytes = n * wpb * 4 + wpb * 4 + n * 4
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = 2 * n * wpb / CUDA_CORE_OPS_PER_S * 1e3
+        # the main path's words cross the host link to the card
+        link_ms = n * wpb * 4 / HOST_LINK_BYTES_PER_S * 1e3
         row = {"shape": [n, wpb], "exact": exact, "max_abs_err": max_abs_err,
-               "ms": ms, "eager_call_ms": eager_ms,
+               "ms": ms, "pinned_call_ms": pinned_call,
+               "device_resident_ms": resident_ms, "eager_call_ms": eager_ms,
                "ms_with_copies": ms_with_copies,
                "plain_ms": plain_ms, "bytes": nbytes,
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-               "achieved_GBps": nbytes / (ms * 1e-3) / 1e9}
+               "host_link_bound_ms": max(link_ms, bytes_ms, ops_ms),
+               "host_link_share": max(link_ms, bytes_ms, ops_ms) / ms,
+               "link_GBps": n * wpb * 4 / (ms * 1e-3) / 1e9,
+               "device_resident_GBps": nbytes / (resident_ms * 1e-3) / 1e9}
+        if (n, wpb) == HEADLINE_SHAPE:
+            row.update(blockhash_call(rng))
         rows.append(row)
         emit("kernel", name="blockhash", **row)
         del words, words_cpu, pows, got, plain
     torch.cuda.empty_cache()
     return rows
+
+
+def blockhash_call(rng, reps: int = 200, threads: int = 4) -> dict:
+    """The host's time for one ``ops.checksum_batch`` at one commit (63
+    random blocks of 4096 bytes), as the journal calls it: the median of
+    ``reps`` calls on the host clock; the same calls split by stage, from
+    the stamps ``ops._Staging.hash`` keeps of its last call (each stage's
+    median; ``entry`` is the device lookup before ``hash``, ``return``
+    what follows it); the call as the first port made it (per-block padding,
+    ``np.stack``, a pageable copy, the checked wrapper, ``.tolist()``) on
+    the same blocks; ``threads`` callers at once, each with its own
+    blocks, which the staging lock serialises (calls a second, all
+    threads together, against one thread's); and ``torch.profiler``'s CPU
+    operations over 20 calls."""
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.blockhash import kernel as K
+    from repro_torch.kernels.blockhash import ops
+
+    def commit():
+        return [rng.integers(0, 256, 4096, dtype=np.uint8).tobytes()
+                for _ in range(HEADLINE_SHAPE[0])]
+
+    blocks = commit()
+    want = [ops.ref.blockhash_np(b) for b in blocks]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    st = ops.staging(dev)
+    assert ops.checksum_batch(blocks, device=dev) == want
+
+    def host_ms(fn):
+        for _ in range(10):
+            fn()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def parent_call():
+        words = torch.from_numpy(np.stack([
+            np.frombuffer(b + b"\0" * (-len(b) % 4), dtype=np.uint32)
+            for b in blocks]).view(np.int32)).to(dev)
+        out = K.blockhash_batch(words, ops._pows(words.shape[1], dev))
+        return [x & 0xFFFFFFFF for x in out.tolist()]
+
+    assert parent_call() == want
+    l0 = K.launches()
+    call = host_ms(lambda: ops.checksum_batch(blocks, device=dev))
+    assert K.launches() - l0 == reps + 10  # one launch a call
+    parent = host_ms(parent_call)
+
+    split = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        got = ops.checksum_batch(blocks, device=dev)
+        split.append(np.diff([t0, *st.stamps, time.perf_counter()]) * 1e3)
+        assert got == want
+    split_ms = dict(zip(("entry", *st.STAGES, "return"),
+                        np.median(split, axis=0).tolist()))
+
+    batches = [commit() for _ in range(threads)]
+    wants = [[ops.ref.blockhash_np(b) for b in bs] for bs in batches]
+    barrier = threading.Barrier(threads)
+    got = [None] * threads
+
+    def run(i):
+        barrier.wait()
+        got[i] = [ops.checksum_batch(batches[i], device=dev)
+                  for _ in range(reps)]
+
+    workers = [threading.Thread(target=run, args=(i,))
+               for i in range(threads)]
+    t0 = time.perf_counter()
+    for th in workers:
+        th.start()
+    for th in workers:
+        th.join()
+    together_s = time.perf_counter() - t0
+    assert got == [[w] * reps for w in wants]
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(20):
+            ops.checksum_batch(blocks, device=dev)
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return {"call_ms": call, "parent_call_ms": parent,
+            "call_split_ms": split_ms,
+            "calls_per_s_one_thread": 1e3 / call,
+            f"calls_per_s_{threads}_threads": threads * reps / together_s,
+            "call_profile_top": [
+                {"name": e.key[:60], "self_cpu_us_per_call":
+                 e.self_cpu_time_total / 20, "count": e.count}
+                for e in top[:8]]}
 
 
 def phase_bento():
@@ -387,6 +510,7 @@ def phase_bento():
     assert same, "bento image on cuda differs from the cpu run"
     assert cpu_calls == calls
     emit("bento", launches=main_launches, checksum_batch_calls=delta,
+         checksum_ms_per_call=rates["checksum_s"] / delta * 1e3,
          blocks_per_launch=blocks / max(1, ks.counters["checksum_batch_calls"]),
          launches_per_flushed_batch=launched, image_identical_to_cpu=same,
          cuda=rates, cpu=cpu_rates)
@@ -523,6 +647,93 @@ def phase_dedup():
          checksum_blocks_per_call=ks.counters["checksum_blocks"]
          / ks.counters["checksum_batch_calls"])
     mf.close()
+
+
+def phase_parallel_drain(threads: int = 4, blocks: int = 512,
+                         piece: int = 128, rounds: int = 4):
+    """Verified reads from ``threads`` submitters at once on a dedup-bento
+    mount, first with the serial drain, then with a pool of ``threads``
+    workers (``Mount.enable_parallel_drain``), which runs read-only
+    groups on different files at once, so their checksum calls meet at
+    the blockhash staging lock. Each submitter reads its own file of
+    ``blocks`` blocks in pieces of ``piece``, ``rounds`` times, the files'
+    blocks dropped from the buffer cache before each round, so every read
+    fetches from the device and hashes what it fetched. (The files
+    together stay inside the cache: a request that meets a full cache
+    can evict its own hits, the reference's fault in ROADMAP Queue 3.)
+    Every read is checked; launches equal checksum calls; the host ms per
+    checksum call (the lock's wait included) and the wall time, serial
+    against parallel."""
+    import threading
+
+    from repro_torch.core.interface import SubmissionEntry
+    from repro_torch.fs.mounts import make_mount
+    from repro_torch.kernels.blockhash import kernel as K
+
+    mf = make_mount("dedup-bento", n_blocks=32768)
+    v, ks, m = mf.view, mf.services, mf.mount
+    fs = m.module
+    paths = [f"/p{t}" for t in range(threads)]
+
+    def content(t, blk):
+        return (b"%4s%012d" % (paths[t].encode(), blk)) * 256
+
+    for t, path in enumerate(paths):
+        for b0 in range(0, blocks, 48):
+            v.write_many([(path, b * 4096, content(t, b))
+                          for b in range(b0, min(b0 + 48, blocks))],
+                         create=True, fsync=True)
+    # made beforehand, so the readers hold the interpreter lock briefly
+    want = {(t, b0): b"".join(content(t, b) for b in range(b0, b0 + piece))
+            for t in range(threads) for b0 in range(0, blocks, piece)}
+    inos = [v.stat(path).ino for path in paths]
+    homes = [fs._bmap_ro(fs._iget(ino), b, {}) for ino in inos
+             for b in range(blocks)]
+    spent = time_checksums(ks)
+    stats = fs._blockstore.stats
+
+    def read_all():
+        bad = []
+
+        def run(t, barrier):
+            barrier.wait()
+            for b0 in range(0, blocks, piece):
+                comp, = m.submit([SubmissionEntry(
+                    "read", (inos[t], b0 * 4096, piece * 4096))])
+                if not comp.ok or comp.result != want[t, b0]:
+                    bad.append((t, b0, comp.errno))
+
+        c0, l0, s0 = checksum_calls(ks), K.launches(), spent["s"]
+        v0, x0 = stats["verified_blocks"], stats["corruptions_detected"]
+        wall = 0.0
+        for _ in range(rounds):
+            ks.sb_invalidate_blocks(fs.sb_cap, homes)
+            barrier = threading.Barrier(threads)
+            workers = [threading.Thread(target=run, args=(t, barrier))
+                       for t in range(threads)]
+            t0 = time.perf_counter()
+            for th in workers:
+                th.start()
+            for th in workers:
+                th.join()
+            wall += time.perf_counter() - t0
+        calls = checksum_calls(ks) - c0
+        assert not bad and stats["corruptions_detected"] == x0, (
+            bad[:4], stats["corruptions_detected"] - x0)
+        assert stats["verified_blocks"] - v0 == rounds * len(homes)
+        assert calls > 0 and K.launches() - l0 == calls, (
+            calls, K.launches() - l0)
+        return {"wall_s": wall, "checksum_calls": calls,
+                "verified_blocks": stats["verified_blocks"] - v0,
+                "checksum_ms_per_call": (spent["s"] - s0) / calls * 1e3,
+                "checksum_share": (spent["s"] - s0) / wall}
+
+    serial = read_all()
+    m.enable_parallel_drain(threads)
+    parallel = read_all()
+    mf.close()
+    emit("parallel_drain", threads=threads, file_blocks=blocks, piece=piece,
+         rounds=rounds, serial=serial, parallel=parallel)
 
 
 def _crash_image(device, point: int, torn: int = -1):
@@ -688,40 +899,83 @@ def phase_torch_device():
 
 
 def wkv6_work(B, S, H, K, V, C, esize):
-    """(bytes, float32 operations) of one WKV6 scan, from the formulas in
-    csrc/wkv6.cu's header: each input read once (r, k, v, w, u in their
-    dtype, the state in f32), each output written once (y and the state
-    in f32); an exp, a compare and a multiply-add's two halves count one
-    operation each."""
+    """(bytes, product operations, other operations) of one WKV6 scan, from
+    the formulas in csrc/wkv6.cu's header: each input read once (r, k, v,
+    w, u in their dtype, the state in f32), each output written once (y
+    and the state in f32). The products are the four matrix products: the
+    multiply-adds of r and k under the decays, tmp v (the u bonus on tmp's
+    diagonal included), (r exp(Le)) S and kd^T v. The rest is logw, the
+    cumulative sums, the decays' exponentials and every scaling. An exp, a
+    compare, and a multiply-add's two halves count one operation each."""
     P = C * (C - 1) // 2
-    per_chunk = (4 * C * K                   # logw = -exp(w), cumsum, Le
-                 + 7 * P * K                 # tmp: sub, clip, exp, 2 mul, add
-                 + 2 * P * V                 # tmp @ v
-                 + 3 * C * K + 2 * C * V     # (sum_k r u k) v
-                 + 2 * C * K + 2 * C * K * V + C * V  # (r exp(Le)) @ S, add
-                 + 3 * C * K + K             # k exp(Li_last - Li), exp(Li_last)
-                 + 2 * K * V + 2 * C * K * V)  # decay S + kd^T v
+    products = (2 * P * K                    # r k^T, s < t
+                + 2 * P * V + 2 * C * V      # tmp v, the bonus with it
+                + 2 * C * K * V              # (r exp(Le)) S
+                + 2 * C * K * V)             # kd^T v
+    other = (4 * C * K                       # logw = -exp(w), cumsum, Le
+             + 5 * P * K                     # sub, clip, exp, times A
+             + 3 * C * K                     # sum_k r u k
+             + 2 * C * K + C * V             # r exp(Le), add
+             + 3 * C * K + K                 # k exp(Li_last - Li), exp(Li_last)
+             + 2 * K * V)                    # decay S
     nbytes = ((B * S * H * (3 * K + V) + H * K) * esize
               + B * S * H * V * 4 + 2 * B * H * K * V * 4)
-    return nbytes, B * H * (S // C) * per_chunk
+    n = B * H * (S // C)
+    return nbytes, n * products, n * other
+
+
+def wkv6_bound(B, S, H, K, V, C, dtype):
+    """The least time of one WKV6 scan: the bytes at the HBM rate, or the
+    operations at the peak rate of their type, added: for bf16 inputs the
+    products at the tensor cores' bf16 rate and the rest at the CUDA
+    cores' float32 rate, for float32 inputs all at the CUDA cores' rate.
+    ``earlier_bound_ms`` is the bound the CUDA-core kernel was given:
+    every operation at the CUDA cores' rate, whatever the dtype."""
+    esize = 2 if dtype == "bfloat16" else 4
+    nbytes, products, other = wkv6_work(B, S, H, K, V, C, esize)
+    prod_rate = (BF16_TENSOR_OPS_PER_S if dtype == "bfloat16"
+                 else CUDA_CORE_OPS_PER_S)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (products / prod_rate + other / CUDA_CORE_OPS_PER_S) * 1e3
+    earlier_ms = max(bytes_ms,
+                     (products + other) / CUDA_CORE_OPS_PER_S * 1e3)
+    return {"bytes": nbytes, "product_ops": products, "other_ops": other,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "earlier_bound_ms": earlier_ms}
+
+
+def wkv6_inputs(rng, B, S, H, K, V, regime):
+    """r, k, v, w, u, state as float32 numpy arrays. ``smoke`` draws w as
+    tests/test_kernels.py does (N(0, 0.3): a decay of about 0.37 a token);
+    ``strong``, w ~ N(2, 1), decays down to exp(-50) a token or less;
+    ``weak``, w ~ N(-4, 0.5), about 0.98 a token."""
+    n = lambda *shape: rng.standard_normal(shape, dtype=np.float32)
+    r, k, v = n(B, S, H, K) * 0.5, n(B, S, H, K) * 0.5, n(B, S, H, V)
+    w = {"smoke": lambda: n(B, S, H, K) * 0.3,
+         "strong": lambda: 2.0 + n(B, S, H, K),
+         "weak": lambda: -4.0 + 0.5 * n(B, S, H, K)}[regime]()
+    return r, k, v, w, n(H, K) * 0.3, n(B, H, K, V) * 0.1
 
 
 def phase_wkv6_kernel():
     """Hold the CUDA WKV6 scan against the plain version on the card, in
-    f32 and bf16, at every shape: y and the state each within
-    1e-4 x max(1, max|ref|)."""
+    f32 and bf16, at every shape and, at the serve's shape, under strong
+    and weak decay: y and the state each within 1e-4 x max(1, max|ref|)."""
     import torch
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels.wkv6 import kernel as K
     from repro_torch.kernels.wkv6 import ref
 
     rng = np.random.default_rng(2025)
     dev = torch.device("cuda")
+    cases = [(shape, "smoke") for shape in WKV6_SHAPES] + [
+        (WKV6_HEADLINE[0], regime) for regime in ("strong", "weak")]
     rows = []
-    for B, S, H, Kd, V, C in WKV6_SHAPES:
-        n = lambda *shape: rng.standard_normal(shape, dtype=np.float32)
-        arrays = (n(B, S, H, Kd) * 0.5, n(B, S, H, Kd) * 0.5, n(B, S, H, V),
-                  n(B, S, H, Kd) * 0.3, n(H, Kd) * 0.3, n(B, H, Kd, V) * 0.1)
+    for (B, S, H, Kd, V, C), regime in cases:
+        arrays = wkv6_inputs(rng, B, S, H, Kd, V, regime)
         big = B * S * H >= 1 << 16
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
@@ -732,28 +986,38 @@ def phase_wkv6_kernel():
             y_ref, st_ref = ref.wkv6(r, k, v, w, u, s0, chunk=C)
             torch.cuda.synchronize()
             errs, ok = [], True
+            finite = bool(torch.isfinite(y).all() and torch.isfinite(st).all())
             for got, want in ((y, y_ref), (st, st_ref)):
                 err = (got - want).abs().max().item()
                 ok &= err <= WKV6_TOL * max(1.0, want.abs().max().item())
                 errs.append(err)
-            assert ok, f"wkv6 disagrees at {(B, S, H, Kd, V, C)} {dtype}: {errs}"
+            assert finite and ok, (f"wkv6 disagrees at {(B, S, H, Kd, V, C)} "
+                                   f"{dtype} {regime}: {errs}")
             ms = device_ms(lambda: K.wkv6_chunked(r, k, v, w, u, s0, chunk=C))
             plain_ms = device_ms(lambda: ref.wkv6(r, k, v, w, u, s0, chunk=C),
                                  count=5 if big else 20,
                                  reps=10 if big else 20)
-            nbytes, ops = wkv6_work(B, S, H, Kd, V, C, r.element_size())
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops / CUDA_CORE_OPS_PER_S * 1e3
             row = {"shape": [B, S, H, Kd, V, C], "dtype": dtype,
+                   "regime": regime,
+                   "tensor_cores": K.uses_tensor_cores(Kd, V, C,
+                                                       r.element_size()),
                    "max_abs_err": max(errs), "y_err": errs[0],
-                   "state_err": errs[1], "within_tol": ok, "ms": ms,
-                   "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
-                   "bound_ms": max(bytes_ms, ops_ms),
-                   "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                   "share_of_bound": max(bytes_ms, ops_ms) / ms}
+                   "state_err": errs[1],
+                   "y_scale": y_ref.abs().max().item(),
+                   "state_scale": st_ref.abs().max().item(),
+                   "within_tol": ok, "ms": ms, "plain_ms": plain_ms,
+                   **wkv6_bound(B, S, H, Kd, V, C, dtype)}
+            row["share_of_bound"] = row["bound_ms"] / ms
             rows.append(row)
             emit("wkv6_kernel", **row)
             del r, k, v, w, u, s0, y, st, y_ref, st_ref
+    serve = WKV6_HEADLINE[0][3:]
+    emit("wkv6_kernel_build", ptxas=ptxas_lines("wkv6"),
+         smem_bytes_serve={"bfloat16": K.smem_bytes(*serve, 2),
+                           "float32": K.smem_bytes(*serve, 4)},
+         blocks_per_sm_by_smem_serve={
+             "bfloat16": _build.blocks_per_sm(K.smem_bytes(*serve, 2)),
+             "float32": _build.blocks_per_sm(K.smem_bytes(*serve, 4))})
     torch.cuda.empty_cache()
     return rows
 
@@ -1523,6 +1787,7 @@ def main() -> int:
     phase_trace()
     phase_other_kinds()
     phase_dedup()
+    phase_parallel_drain()
     phase_recovery()
     phase_upgrade()
     phase_torch_device()
@@ -1537,7 +1802,8 @@ def main() -> int:
 
     head = next(r for r in rows if tuple(r["shape"]) == HEADLINE_SHAPE)
     wkv_head = next(r for r in wkv_rows
-                    if (tuple(r["shape"]), r["dtype"]) == WKV6_HEADLINE)
+                    if (tuple(r["shape"]), r["dtype"]) == WKV6_HEADLINE
+                    and r["regime"] == "smoke")
     ssd_head = next(r for r in ssd_rows
                     if (tuple(r["shape"]), r["dtype"]) == SSD_HEADLINE)
     flash_head = next(r for r in flash_rows
@@ -1552,7 +1818,9 @@ def main() -> int:
         "shape": list(HEADLINE_SHAPE),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": None,
+        "host_link_bound_ms": head["host_link_bound_ms"],
+        "device_resident_ms": head["device_resident_ms"],
+        "library_ms": None, "call_ms": head["call_ms"],
         "shapes": rows}, {
         "name": "wkv6", "route": "cuda",
         "source": "src/repro_torch/csrc/wkv6.cu",
@@ -1563,6 +1831,7 @@ def main() -> int:
         "shape": wkv_head["shape"], "dtype": wkv_head["dtype"],
         "ms": wkv_head["ms"], "plain_ms": wkv_head["plain_ms"],
         "bound_ms": wkv_head["bound_ms"], "bound_by": wkv_head["bound_by"],
+        "earlier_bound_ms": wkv_head["earlier_bound_ms"],
         "library_ms": None,
         "shapes": wkv_rows}, {
         "name": "ssd", "route": "cuda",

@@ -1,5 +1,5 @@
 // Warp-level tensor-core and copy helpers shared by the port's kernels
-// (csrc/flash_attention.cu, csrc/ssd.cu): cp.async copies into shared
+// (csrc/flash_attention.cu, csrc/ssd.cu, csrc/wkv6.cu): cp.async copies into shared
 // memory, ldmatrix fragment loads and the bf16 mma.sync.m16n8k16 with a
 // float32 accumulator, and the bf16 high + remainder split that keeps a
 // float32 operand to about 16 significant bits through two products.
@@ -58,7 +58,15 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
 }
-// The same, each matrix transposed.
+// Two 8x8 bf16 matrices; lanes 0-15 give the row addresses (lane l, row
+// l % 8 of matrix l / 8), and each lane gets one register of each.
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p)));
+}
+// The x4 form, each matrix transposed.
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "

@@ -19,6 +19,7 @@ from repro_torch.kernels import _build
 _count_lock = threading.Lock()
 _launches = 0
 _entry = None
+_pinned_entry = None
 
 
 def launches() -> int:
@@ -41,6 +42,17 @@ def _launcher():
         fn.restype = ctypes.c_int
         _entry = fn
     return _entry
+
+
+def _pinned():
+    global _pinned_entry
+    if _pinned_entry is None:
+        fn = _build.library("blockhash").blockhash_pinned
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_void_p, ctypes.c_int]
+        fn.restype = ctypes.c_int
+        _pinned_entry = fn
+    return _pinned_entry
 
 
 def blockhash_batch(words: torch.Tensor, pows: torch.Tensor) -> torch.Tensor:
@@ -75,3 +87,22 @@ def blockhash_batch(words: torch.Tensor, pows: torch.Tensor) -> torch.Tensor:
     with _count_lock:
         _launches += 1
     return out
+
+
+def hash_pinned(host_words: int, pows: int, host_out: int, n: int, wpb: int,
+                stream: int, wait: bool = True) -> None:
+    """One checksum batch's device work in one call (``blockhash_pinned``
+    in the source): the kernel reads ``n * wpb`` int32 words from pinned
+    host memory at ``host_words`` and writes ``n`` hashes to pinned host
+    memory at ``host_out``, with ``pows`` on the device, launching on
+    ``stream`` of the host thread's current device; then, with ``wait``,
+    a wait for the stream (without it the launch can be captured in a
+    CUDA graph, as ``chip_smoke.py`` times it). Arguments are addresses
+    (``data_ptr()``) of buffers fit for the kernel, which ``ops._Staging``
+    owns; nothing is checked here. Counted as one launch."""
+    global _launches
+    rc = _pinned()(host_words, pows, host_out, n, wpb, stream, int(wait))
+    if rc != 0:
+        raise RuntimeError(f"blockhash kernel launch failed: CUDA error {rc}")
+    with _count_lock:
+        _launches += 1

@@ -2,9 +2,12 @@
 
 The Hopper counterpart of the Pallas ``wkv6_chunked``: one launch scans a
 whole (B, S, H) batch chunk by chunk, with one thread block per (batch,
-head) carrying its (K, V) state. The library builds on the first call on a
-CUDA device (``repro_torch.kernels._build``); importing this module needs
-no ``nvcc``. ``launches()`` counts the launches this process made, so a
+head) carrying its (K, V) state. bf16 inputs with K and V multiples of 8
+run on the tensor cores (``mma.sync``, float32 operands split into bf16
+high + remainder), float32 inputs and other bf16 widths on the CUDA cores
+in float32. The library builds on the first call on a CUDA device
+(``repro_torch.kernels._build``); importing this module needs no
+``nvcc``. ``launches()`` counts the launches this process made, so a
 run can show that its prefills went through the kernel.
 """
 
@@ -37,8 +40,42 @@ def reset_launches() -> None:
         _launches = 0
 
 
-def smem_bytes(K: int, V: int, chunk: int) -> int:
-    """Dynamic shared memory of one block (``smem_floats`` in the source)."""
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def tensor_core_smem_bytes(K: int, V: int, chunk: int) -> int:
+    """Dynamic shared memory of one block of the bf16 tensor-core kernel
+    (``TcLayout`` in the source), K, V and the chunk padded to multiples of
+    16: the state transposed in f32 (rows of K + 8 floats), Li and Le in
+    f32 (rows of K + 4), u, the chunk's decay and the sums of its segments
+    of 8 tokens; two stages of r, k, w, v and the split r exp(Le), kd and
+    k~ in bf16 (rows 8 elements longer); tmp split in bf16 (rows of chunk
+    + 8); the table of a segment's 36 pairs, padded to 48 bytes."""
+    kp, vp, cp = _pad16(K), _pad16(V), _pad16(chunk)
+    ks, vs = kp + 8, vp + 8
+    return (4 * (vp * (kp + 8) + 2 * cp * (kp + 4) + 2 * kp + cp // 8 * kp)
+            + 2 * (2 * (3 * cp * ks + cp * vs) + 6 * cp * ks
+                   + 2 * cp * (cp + 8))
+            + 48)
+
+
+def uses_tensor_cores(K: int, V: int, chunk: int, esize: int) -> bool:
+    """Whether the launch picks the tensor-core kernel: bf16 inputs
+    (``esize`` 2), K and V multiples of 8 (rows that cp.async moves in
+    16-byte pieces), and tiles that fit a block (``takes_tc`` in the
+    source)."""
+    return (esize == 2 and K % 8 == 0 and V % 8 == 0
+            and tensor_core_smem_bytes(K, V, chunk) <= SMEM_LIMIT)
+
+
+def smem_bytes(K: int, V: int, chunk: int, esize: int = 4) -> int:
+    """Dynamic shared memory of one block of the kernel the launch picks:
+    ``tensor_core_smem_bytes`` where ``uses_tensor_cores``; else the
+    CUDA-core kernel's (``smem_floats`` in the source), the same for both
+    dtypes since it widens every input to float32."""
+    if uses_tensor_cores(K, V, chunk, esize):
+        return tensor_core_smem_bytes(K, V, chunk)
     return 4 * (4 * chunk * (K + 1) + chunk * V + chunk * (chunk + 1)
                 + K * V + chunk + K)
 
@@ -92,10 +129,11 @@ def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"({chunk}); models.rwkv.wkv6_chunked zero-pads")
     if min(B, S, H, K, V) < 1 or B * H >= 2**31:
         raise ValueError(f"wkv6 kernel shape out of range: {(B, S, H, K, V)}")
-    if smem_bytes(K, V, chunk) > SMEM_LIMIT:
-        raise ValueError(f"wkv6 kernel needs {smem_bytes(K, V, chunk)} bytes "
-                         f"of shared memory at K={K}, V={V}, chunk={chunk}; "
-                         f"a block has {SMEM_LIMIT}")
+    need = smem_bytes(K, V, chunk, r.element_size())
+    if need > SMEM_LIMIT:
+        raise ValueError(f"wkv6 kernel needs {need} bytes of shared memory "
+                         f"at K={K}, V={V}, chunk={chunk}, {r.dtype}; a "
+                         f"block has {SMEM_LIMIT}")
     if not all(t.is_contiguous() for t in ins.values()):
         raise ValueError("wkv6 kernel needs contiguous inputs")
     uf = u.to(torch.float32)  # exact; (H, K) is small

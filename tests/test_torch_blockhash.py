@@ -95,3 +95,66 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         K.blockhash_batch(words, pows)
     assert ops.blockhash_batch(words, pows).tolist() == [0, 0]
+
+
+@pytest.mark.parametrize("nblocks", [1, 63])
+@pytest.mark.parametrize("size", [4096, 4093, 5])
+def test_joined_words_match_padded_words_and_reference(size, nblocks):
+    """The words of one commit's blocks from one join of the padded
+    blocks equal the reference's way (pad each block, then ``np.stack``),
+    and the hashes equal the reference package's batch."""
+    rng = np.random.default_rng(size + nblocks)
+    blocks = [rng.integers(0, 256, size, dtype=np.uint8).tobytes()
+              for _ in range(nblocks)]
+    words = ops._words(blocks)
+    padded = np.stack([np.frombuffer(b + b"\0" * (-len(b) % 4), np.uint32)
+                       for b in blocks])
+    assert words.dtype == padded.dtype == np.uint32
+    assert words.shape == (nblocks, -(-size // 4))
+    assert np.array_equal(words, padded)
+    got = ops.checksum_batch(blocks, device="cpu")
+    assert got == jax_ops.checksum_batch(blocks, interpret=True)
+    assert got == [blockhash_np(b) for b in blocks]
+
+
+def test_mixed_lengths_still_raise():
+    """Blocks of different word counts have no (n, wpb) array and raise,
+    as np.stack does, and so does an empty batch; lengths that pad to one
+    word count hash as before."""
+    with pytest.raises(ValueError):
+        ops.checksum_batch([b"a" * 4096, b"b" * 512], device="cpu")
+    with pytest.raises(ValueError):
+        ops.checksum_batch([b"a" * 8, b"b" * 4], device="cpu")
+    with pytest.raises(ValueError):
+        ops.checksum_batch([], device="cpu")
+    blocks = [b"c" * 4093, b"d" * 4096]
+    assert ops.checksum_batch(blocks, device="cpu") == [
+        blockhash_np(b) for b in blocks]
+
+
+def test_concurrent_callers_get_their_own_hashes():
+    """8 threads calling checksum_batch at once, each with its own blocks,
+    each get exactly the hashes of their blocks. On the CPU the call keeps
+    no state between calls; the CUDA path's shared staging buffers and
+    their lock are held to the same check by the card-only
+    ``test_checksum_batch_from_8_threads_at_once``."""
+    import threading
+
+    rng = np.random.default_rng(8)
+    batches = [[rng.integers(0, 256, 4096, dtype=np.uint8).tobytes()
+                for _ in range(1 + 9 * i)] for i in range(8)]
+    want = [[blockhash_np(b) for b in batch] for batch in batches]
+    got = [None] * 8
+    barrier = threading.Barrier(8)
+
+    def run(i):
+        barrier.wait()
+        got[i] = [ops.checksum_batch(batches[i], device="cpu")
+                  for _ in range(5)]
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert got == [[w] * 5 for w in want]
