@@ -9,9 +9,15 @@ PyTorch version on the card, then drives the Bento request path
 (``make_mount`` -> ``Mount.submit`` / ``PosixView`` -> xv6 -> journal ->
 ``KernelServices.checksum_batch`` -> the CUDA blockhash kernel) and checks
 each result against the same stream run with ``device="cpu"``, which the
-CPU tests hold byte-identical to the JAX reference package. Then it serves
-rwkv6-7b at full width and depth (``serve.step`` -> ``models/rwkv`` -> the
-CUDA WKV6 kernel for every prefill), checks the prefill against the same
+CPU tests hold byte-identical to the JAX reference package. The rest of
+the file system follows at the reference benchmarks' sizes, each path
+with the launch count set to 0 just before it: 64 CoW overlay tenants
+over one base image (``overlay``), the provenance layer swapped onto and
+off a live mount under 4 submitters (``prov_upgrade``), the same mix on
+a FUSE daemon and on a bento mount (``fuse``), and the crash simulator's
+quick sweeps, held point for point against the CPU (``crash``). Then it
+serves rwkv6-7b at full width and depth (``serve.step`` -> ``models/rwkv``
+-> the CUDA WKV6 kernel for every prefill), checks the prefill against the same
 prefill through the plain version, and traces where the time goes. Then it
 holds the SSD and flash attention kernels against their plain versions and
 serves zamba2-7b at full width and depth the same way (``models/mamba2`` ->
@@ -92,6 +98,17 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # atol = rtol, as the tests
 # SSD chunk (128) divides
 ZAMBA = {"arch": "zamba2-7b", "batch": 4, "prompt": 1024, "gen": 32,
          "odd_prompt": 1000}
+
+# The file-system phases of the reference's own benchmarks, at their
+# sizes: benchmarks/fs_coldstart.run (64 tenants over one 8192-block base
+# image, build_base_image's default), benchmarks/fs_upgrade.run_under_load
+# (a bento mount of 16384 blocks, 4 submitters, windows of 0.6 s), and the
+# quick crash sweeps of fs/crashsim.py on xv6.
+OVERLAY = {"fs_kind": "xv6", "tenants": 64, "base_blocks": 8192}
+UPGRADE = {"n_blocks": 16384, "submitters": 4, "phase_s": 0.6,
+           "pause_budget_s": 5.0}
+TORTURES = ("torture_chain", "torture_prov", "torture_dedup",
+            "torture_lazy", "torture_overlay")
 
 
 def emit(phase: str, **fields) -> None:
@@ -210,11 +227,12 @@ def submit_batches(mf, n_batches: int, *, launches=None):
             "write", (ino, (i * 512) % 65536, bytes([(b + i) % 251]) * 512),
             user_data=i) for i in range(128)]
         entries.append(SubmissionEntry("fsync", (ino,), user_data="fsync"))
-        c0 = ks.counters["checksum_batch_calls"]
+        c0 = ks.counters["checksum_batch_calls"] if ks else 0
         l0 = launches() if launches else 0
         comps = mf.mount.submit(entries)
         assert all(c.ok for c in comps), [c.errno for c in comps if not c.ok]
-        calls.append(ks.counters["checksum_batch_calls"] - c0)
+        # a fuse mount's services are in its daemon: nothing to count here
+        calls.append(ks.counters["checksum_batch_calls"] - c0 if ks else None)
         launched.append((launches() - l0) if launches else None)
     return n_batches * 129, calls, launched
 
@@ -864,6 +882,383 @@ def phase_upgrade():
     assert same, "upgraded image on cuda differs from the cpu run"
     emit("upgrade", pause_ms=stats["total_s"] * 1e3,
          launches_after_upgrade=l2 - l1, image_identical_to_cpu=same)
+
+
+# --- the sixth slice: overlay tenants, provenance, FUSE, crash sweeps --------------
+
+
+def blockhash_launches(run):
+    """Run ``run()`` with the blockhash launch count set to 0 just before;
+    returns (its result, the launches it made)."""
+    from repro_torch.kernels.blockhash import kernel as K
+
+    K.reset_launches()
+    out = run()
+    return out, K.launches()
+
+
+def overlay_run(device) -> dict:
+    """benchmarks/fs_coldstart.run in the port: ``tenants`` overlay tenants
+    over ONE base image, then, in each, a read of base content, a private
+    write over a base file (copy-up), a new file and a whiteout; then the
+    same number of whole-image copies (the benchmark's ``provision_copy``:
+    every block through read_block/write_block, then a mount)."""
+    from repro_torch.core.registry import mount as bento_mount
+    from repro_torch.core.services import kernel_binding
+    from repro_torch.fs.blockdev import MemBlockDevice
+    from repro_torch.fs.mounts import build_base_image, overlay_tenant
+    from repro_torch.fs.posix import PosixView
+    from repro_torch.fs.xv6 import Xv6FileSystem, Xv6Options
+
+    n, kind = OVERLAY["tenants"], OVERLAY["fs_kind"]
+
+    def motd(t):  # longer than the base's, which write_file does not cut
+        return b"tenant %02d motd, private to this tenant\n" % t
+
+    image = build_base_image(kind, OVERLAY["base_blocks"], device=device)
+    image0, writes0 = image._data.copy(), image.writes
+
+    def tenants_path():
+        t0 = time.perf_counter()
+        tenants = [overlay_tenant(image, kind, device=device)
+                   for _ in range(n)]
+        lazy_s = time.perf_counter() - t0
+        at_provision = [t.mount.module.opts.base_dev.provider_blocks_fetched
+                        for t in tenants]
+        for t, mf in enumerate(tenants):
+            v = mf.view
+            assert v.read_file("/etc/hostname") == b"golden\n"
+            assert v.read_file("/usr/share/words") == \
+                b"alpha beta gamma delta\n" * 64
+            v.write_file("/etc/motd", motd(t))  # copy-up over a base file
+            v.write_file("/private", b"tenant %d" % t)
+            v.unlink("/readme")  # whiteout over a base name
+            v.fsync("/private")
+        for t, mf in enumerate(tenants):  # no tenant sees another's writes
+            v = mf.view
+            assert v.read_file("/etc/motd") == motd(t)
+            assert v.read_file("/private") == b"tenant %d" % t
+            assert not v.exists("/readme")
+            assert v.read_file("/etc/hostname") == b"golden\n"
+        fetched = [t.mount.module.opts.base_dev.provider_blocks_fetched
+                   for t in tenants]
+        for mf in tenants:
+            mf.close()
+        return tenants, lazy_s, at_provision, fetched
+
+    (tenants, lazy_s, at_provision, fetched), launches = \
+        blockhash_launches(tenants_path)
+    assert image.writes == writes0 and np.array_equal(image._data, image0), \
+        "a tenant wrote to the base image"
+    counted = sum(checksum_calls(mf.services)
+                  + checksum_calls(mf.mount.module.base.ks)
+                  for mf in tenants)
+
+    t0 = time.perf_counter()
+    copies = []
+    for _ in range(n):
+        dev = MemBlockDevice(image.n_blocks)
+        for b in range(image.n_blocks):
+            dev.write_block(b, image.read_block(b))
+        ks = kernel_binding(dev, device=device)
+        m = bento_mount("copy-tenant", ks, module=Xv6FileSystem(
+            Xv6Options(group_commit=True, batched_install=True)))
+        copies.append(m)
+    copy_s = time.perf_counter() - t0
+    for m in copies:
+        assert PosixView(m).read_file("/etc/hostname") == b"golden\n"
+        m.unmount()
+    return {"image": image, "tenants": tenants, "launches": launches,
+            "counted_calls": counted, "lazy_s": lazy_s, "copy_s": copy_s,
+            "fetched_at_provision": at_provision, "fetched": fetched}
+
+
+def phase_overlay():
+    """CoW overlay tenants on the card (every upper's and base's commit
+    and recovery through the blockhash kernel), each tenant's upper image
+    held byte-identical to the same run on the CPU."""
+    n = OVERLAY["tenants"]
+    cuda = overlay_run("cuda")
+    cpu = overlay_run("cpu")
+    # each overlay_tenant binds twice (upper, base): one probe launch each
+    probes = 2 * n
+    assert cuda["launches"] > probes, cuda["launches"]
+    assert cuda["launches"] == cuda["counted_calls"] + probes, (
+        cuda["launches"], cuda["counted_calls"], probes)
+    assert cuda["counted_calls"] == cpu["counted_calls"]
+    assert np.array_equal(cuda["image"]._data, cpu["image"]._data)
+    same = all(np.array_equal(image(a.dev), image(b.dev))
+               for a, b in zip(cuda["tenants"], cpu["tenants"]))
+    assert same, "an overlay upper on cuda differs from the cpu run"
+    emit("overlay", tenants=n, base_blocks=OVERLAY["base_blocks"],
+         launches=cuda["launches"], probe_launches=probes,
+         checksum_calls=cuda["counted_calls"],
+         provision_ms_per_tenant=1e3 * cuda["lazy_s"] / n,
+         copy_ms_per_tenant=1e3 * cuda["copy_s"] / n,
+         copy_over_provision=cuda["copy_s"] / cuda["lazy_s"],
+         blocks_fetched_at_provision_max=max(cuda["fetched_at_provision"]),
+         blocks_fetched_per_tenant_max=max(cuda["fetched"]),
+         uppers_identical_to_cpu=same,
+         cpu={"provision_ms_per_tenant": 1e3 * cpu["lazy_s"] / n,
+              "copy_ms_per_tenant": 1e3 * cpu["copy_s"] / n})
+    return cuda["launches"]
+
+
+class Submitter:
+    """benchmarks/fs_upgrade._Submitter: rounds of a chained create →
+    write(PrevResult) pair plus a getattr through ``mount.submit``, each
+    round's completions checked against its submissions and bracketed by
+    the mount's generation."""
+
+    def __init__(self, mount, dino: int, t: int, payload: bytes):
+        self.m, self.dino, self.t, self.payload = mount, dino, t, payload
+        self.rounds, self.errors = [], []
+
+    def run(self, stop) -> None:
+        from repro_torch.core.interface import (PrevResult, SQE_LINK,
+                                                SubmissionEntry)
+
+        r = 0
+        while not stop.is_set():
+            name = f"t{self.t}_r{r:05d}"
+            entries = [
+                SubmissionEntry("create", (self.dino, name),
+                                user_data=(r, "c"), flags=SQE_LINK),
+                SubmissionEntry("write", (PrevResult("ino"), 0, self.payload),
+                                user_data=(r, "w")),
+                SubmissionEntry("getattr", (self.dino,), user_data=(r, "g")),
+            ]
+            gen_before = self.m.generation
+            try:
+                comps = self.m.submit(entries)
+            except Exception as e:  # noqa: BLE001 — asserted by the phase
+                self.errors.append(f"t{self.t} r{r}: {type(e).__name__}: {e}")
+                return
+            gen_after = self.m.generation
+            if [c.user_data for c in comps] != [e.user_data for e in entries]:
+                self.errors.append(f"t{self.t} r{r}: completions lost/"
+                                   f"reordered: {[c.user_data for c in comps]}")
+            elif not all(c.ok for c in comps) \
+                    or comps[1].result != len(self.payload):
+                self.errors.append(
+                    f"t{self.t} r{r}: bad completion "
+                    f"{[(c.user_data, c.errno, c.result) for c in comps]}")
+            self.rounds.append({"name": name, "t_end": time.perf_counter(),
+                                "gen_before": gen_before,
+                                "gen_after": gen_after})
+            r += 1
+
+
+def phase_prov_upgrade():
+    """benchmarks/fs_upgrade.run_under_load on the card: the provenance
+    layer swapped onto a live bento mount and off again (plain → prov →
+    plain) while 4 submitters hammer it, with its tripwires asserted."""
+    import threading
+
+    from repro_torch.core.upgrade import unwrap_layer, wrap_layer
+    from repro_torch.fs.mounts import make_mount
+    from repro_torch.fs.prov import ProvFilesystem
+    from repro_torch.kernels.blockhash import kernel as K
+
+    mf = make_mount("bento", n_blocks=UPGRADE["n_blocks"])
+    m, v, ks = mf.mount, mf.view, mf.services
+    phase_s = UPGRADE["phase_s"]
+    subs = []
+    for t in range(UPGRADE["submitters"]):
+        v.makedirs(f"/w{t}")
+        subs.append(Submitter(m, v.stat(f"/w{t}").ino, t, b"p" * 1024))
+    stop = threading.Event()
+    threads = [threading.Thread(target=s.run, args=(stop,), daemon=True)
+               for s in subs]
+
+    def swap_dance():
+        t_start = time.perf_counter()
+        for th in threads:
+            th.start()
+        time.sleep(phase_s)                          # plain window
+        t_wrap, l_wrap = time.perf_counter(), K.launches()
+        wrap = wrap_layer(m, ProvFilesystem)
+        prov_gen = m.generation
+        time.sleep(phase_s)                          # prov window
+        t_unwrap = time.perf_counter()
+        unwrap = unwrap_layer(m)
+        l_unwrap = K.launches()
+        time.sleep(phase_s)                          # plain again
+        stop.set()
+        for th in threads:
+            th.join(timeout=30)
+        return (t_start, t_wrap, t_unwrap, wrap, unwrap, prov_gen,
+                l_unwrap - l_wrap)
+
+    c0 = checksum_calls(ks)
+    (t_start, t_wrap, t_unwrap, wrap, unwrap, prov_gen, prov_launches), \
+        launches = blockhash_launches(swap_dance)
+    assert launches > 0 and launches == checksum_calls(ks) - c0, (
+        launches, checksum_calls(ks) - c0)
+    assert not any(th.is_alive() for th in threads), "submitter deadlocked"
+    errors = [e for s in subs for e in s.errors]
+    assert not errors, errors[:5]
+
+    wrap_layer(m, ProvFilesystem)  # re-wrap adopts the durable log
+    logged = {r["name"] for r in v.read_provenance() if r["op"] == "create"}
+    unwrap_layer(m)
+    n_prov = n_plain = 0
+    for s in subs:
+        in_log = [r["name"] in logged for r in s.rounds]
+        if True in in_log:
+            first = in_log.index(True)
+            last = len(in_log) - 1 - in_log[::-1].index(True)
+            assert all(in_log[first:last + 1]), \
+                f"t{s.t}: provenance window not contiguous"
+        for r, lg in zip(s.rounds, in_log):
+            if r["gen_before"] == r["gen_after"] == prov_gen:
+                n_prov += 1
+                assert lg, f"{r['name']} completed under prov, not logged"
+            elif r["gen_after"] < prov_gen or r["gen_before"] > prov_gen:
+                n_plain += 1
+                assert not lg, f"{r['name']} completed plain, yet logged"
+    assert n_prov > 0 and n_plain > 0, (n_prov, n_plain)
+    budget = UPGRADE["pause_budget_s"]
+    assert wrap["total_s"] < budget and unwrap["total_s"] < budget
+
+    def rate(t0, t1):
+        k = sum(1 for s in subs for r in s.rounds if t0 <= r["t_end"] < t1)
+        return 3 * k / max(t1 - t0, 1e-9)
+
+    gap = 0.0
+    for s in subs:
+        ts = [r["t_end"] for r in s.rounds]
+        gap = max([gap] + [b - a for a, b in zip(ts, ts[1:])])
+    plain_rate = rate(t_start, t_wrap)
+    prov_rate = rate(t_wrap + wrap["total_s"], t_unwrap)
+    rounds = sum(len(s.rounds) for s in subs)
+    for s in subs:  # every round's file intact after the last unwrap
+        assert len(v.listdir(f"/w{s.t}")) == len(s.rounds)
+        assert v.read_file(f"/w{s.t}/{s.rounds[-1]['name']}") == s.payload
+    mf.close()
+    emit("prov_upgrade", submitters=len(subs), rounds=rounds,
+         records=len(logged), prov_certain_rounds=n_prov,
+         plain_certain_rounds=n_plain, failed=0,
+         wrap_ms=1e3 * wrap["total_s"], unwrap_ms=1e3 * unwrap["total_s"],
+         wrap_quiesce_ms=1e3 * wrap["quiesce_s"],
+         wrap_transfer_ms=1e3 * wrap["transfer_s"],
+         unwrap_quiesce_ms=1e3 * unwrap["quiesce_s"],
+         unwrap_transfer_ms=1e3 * unwrap["transfer_s"],
+         max_completion_gap_ms=1e3 * gap, plain_ops_per_s=plain_rate,
+         prov_ops_per_s=prov_rate, prov_over_plain=prov_rate / plain_rate,
+         launches=launches, prov_window_launches=prov_launches)
+    return launches
+
+
+def fs_mix(mf) -> dict:
+    """The bento phase's mix: fileserver and varmail at 120 loops, then 8
+    submissions of 128 writes + fsync; every read-back checked."""
+    v = mf.view
+    t0 = time.perf_counter()
+    ops = fileserver(v, 120) + varmail(v, 120)
+    ops += submit_batches(mf, 8)[0]
+    wall = time.perf_counter() - t0
+    want = b"".join(bytes([(7 + i) % 251]) * 512 for i in range(128))
+    assert v.read_file("/batch.dat") == want
+    return {"ops": ops, "wall_s": wall, "ops_per_s": ops / wall}
+
+
+def phase_fuse():
+    """The paper's Table 2 FUSE row on this host: the same mix on a fuse
+    mount (xv6 in a daemon process behind a unix socket, userspace
+    binding: crc32 over a file-backed device, no kernel) and on a bento
+    mount on the card."""
+    from repro_torch.fs.mounts import make_mount
+
+    mf = make_mount("fuse", n_blocks=32768)
+    calls = [0]
+    real_call = mf.mount.call
+
+    def counted_call(op, *args, **kw):
+        calls[0] += 1
+        return real_call(op, *args, **kw)
+
+    mf.mount.call = counted_call  # PosixView's ops all reach it
+    try:
+        fuse = fs_mix(mf)
+        stats = mf.mount.ctl("stats")
+        assert stats["scalar_requests"] == calls[0], (stats, calls[0])
+        assert stats["batch_requests"] == mf.mount.mq_submissions == 8, stats
+    finally:
+        mf.close()
+
+    bento = make_mount("bento", n_blocks=32768)
+    c0 = checksum_calls(bento.services)
+    result, launches = blockhash_launches(lambda: fs_mix(bento))
+    assert launches > 0 and launches == checksum_calls(bento.services) - c0
+    bento.close()
+    emit("fuse", fuse=fuse, bento=result, daemon_stats=stats,
+         client_calls=calls[0],
+         fuse_over_bento=fuse["ops_per_s"] / result["ops_per_s"],
+         bento_launches=launches)
+    return launches
+
+
+def crash_sweeps(device) -> dict:
+    """Each of ``TORTURES``, quick, on xv6: crash points, and each point's
+    (crashed, recovered image digest); the launches on a CUDA device."""
+    import hashlib
+
+    from repro_torch.fs import crashsim
+
+    seen = []
+    real_run_one = crashsim.CrashSim.run_one
+
+    def run_one(self, *args, **kw):
+        rec = real_run_one(self, *args, **kw)
+        seen.append((rec.crash_point, rec.crashed,
+                     hashlib.sha256(rec.dev._data.tobytes()).hexdigest()))
+        return rec
+
+    out = {}
+    crashsim.CrashSim.run_one = run_one
+    try:
+        for name in TORTURES:
+            del seen[:]
+            t0 = time.perf_counter()
+            points, launches = blockhash_launches(
+                lambda: getattr(crashsim, name)("xv6", quick=True,
+                                                device=device))
+            out[name] = {"points": points, "verdicts": list(seen),
+                         "launches": launches,
+                         "s": time.perf_counter() - t0}
+    finally:
+        crashsim.CrashSim.run_one = real_run_one
+    return out
+
+
+def phase_crash():
+    """The crash simulator's quick sweeps with every mount, commit and
+    recovery checksummed on the card, then on the CPU: each sweep's crash
+    points, which of them crashed and each recovered image must be
+    identical. Provenance records carry ``ks.time()``, which is pinned for
+    both runs so the log's bytes repeat."""
+    from repro_torch.core.services import KernelServices
+
+    real_time = KernelServices.time
+    KernelServices.time = lambda self: 1.7e9
+    try:
+        cuda = crash_sweeps("cuda")
+        cpu = crash_sweeps("cpu")
+    finally:
+        KernelServices.time = real_time
+    for name in TORTURES:
+        a, b = cuda[name], cpu[name]
+        assert a["points"] == b["points"] == len(a["verdicts"]) > 5, name
+        assert a["verdicts"] == b["verdicts"], f"{name}: cuda != cpu"
+        assert a["launches"] > 0, name
+    emit("crash", **{name: {"points": cuda[name]["points"],
+                            "crashed": sum(c for _, c, _ in
+                                           cuda[name]["verdicts"]),
+                            "launches": cuda[name]["launches"],
+                            "s": cuda[name]["s"], "cpu_s": cpu[name]["s"]}
+                     for name in TORTURES}, verdicts_identical_to_cpu=True)
+    return sum(cuda[name]["launches"] for name in TORTURES)
 
 
 def phase_torch_device():
@@ -1790,6 +2185,9 @@ def main() -> int:
     phase_parallel_drain()
     phase_recovery()
     phase_upgrade()
+    fs_launches = {"overlay": phase_overlay(),
+                   "prov_upgrade": phase_prov_upgrade(),
+                   "fuse_vs_bento": phase_fuse(), "crash": phase_crash()}
     phase_torch_device()
     wkv_rows = phase_wkv6_kernel()
     wkv_launches, prm, tokens = phase_serve_rwkv6()
@@ -1813,6 +2211,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/blockhash.cu",
         "replaces": "src/repro/kernels/blockhash/kernel.py:26",
         "launches": main_launches,
+        "launches_by_path": {"bento": main_launches, **fs_launches},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "exact": all(r["exact"] for r in rows),
         "shape": list(HEADLINE_SHAPE),

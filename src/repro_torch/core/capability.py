@@ -15,9 +15,10 @@ may cross the boundary — matches the paper exactly.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import TYPE_CHECKING, Any, Dict, Optional
 
-import torch
+if TYPE_CHECKING:
+    import torch
 
 _MINT = object()  # private mint token — only this module can create capabilities
 
@@ -112,7 +113,9 @@ class RngCap(Capability):
     Holds a ``torch.Generator``; each ``next_key`` splits a child
     generator off the stream, seeded from the stream's next draw."""
 
-    def next_key(self) -> torch.Generator:
+    def next_key(self) -> "torch.Generator":
+        import torch
+
         self._check()
         seed = int(torch.randint(0, 2**62, (), generator=self._obj["gen"]))
         return torch.Generator().manual_seed(seed)
@@ -135,6 +138,8 @@ def mint_blockdev(dev) -> BlockDeviceCap:
 
 
 def mint_rng(seed: int) -> RngCap:
+    import torch
+
     return RngCap._mint({"gen": torch.Generator().manual_seed(seed)})
 
 

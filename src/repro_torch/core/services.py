@@ -25,8 +25,6 @@ from repro_torch.core.capability import (BlockDeviceCap, CapabilityError,
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fs.blockdev import BlockDevice
 from repro_torch.fs.buffercache import BufferCache, BufferHead
-from repro_torch.kernels.blockhash import ops as bh_ops
-from repro_torch.kernels.blockhash.ref import blockhash_np
 
 
 class _SbState:
@@ -45,9 +43,12 @@ class KernelServices:
     def __init__(self, dev: BlockDevice, *, checksum: Callable[[bytes], int],
                  checksum_batch: Optional[Callable] = None,
                  writeback: str = "delayed", cache_capacity: int = 4096,
-                 binding: str = "kernel"):
+                 binding: str = "kernel", device=None):
         self._dev = dev
         self.binding = binding
+        # the torch device a kernel binding checksums on (None for the
+        # userspace binding): an overlay binds its base image to the same
+        self.device = device
         self._cache = BufferCache(dev, capacity=cache_capacity,
                                   writeback=writeback)
         self._sb_state = _SbState(dev, self._cache)
@@ -160,7 +161,11 @@ def kernel_binding(dev: BlockDevice, *, device: DeviceLike = None,
     unset; raises if there is none). A CUDA device launches the CUDA
     kernel, ``"cpu"`` runs the plain PyTorch version. The probe at bind
     time builds and checks the kernel here rather than at the first
-    commit, and a failure raises."""
+    commit, and a failure raises. The kernel's modules load here, not
+    with this one, so the userspace binding never loads ``torch``."""
+    from repro_torch.kernels.blockhash import ops as bh_ops
+    from repro_torch.kernels.blockhash.ref import blockhash_np
+
     device = resolve_device(device)
     got = bh_ops.checksum(b"probe", device=device)  # probe at bind time
     if got != blockhash_np(b"probe"):
@@ -169,7 +174,7 @@ def kernel_binding(dev: BlockDevice, *, device: DeviceLike = None,
     return KernelServices(
         dev, checksum=functools.partial(bh_ops.checksum, device=device),
         checksum_batch=functools.partial(bh_ops.checksum_batch, device=device),
-        binding="kernel", **kw)
+        binding="kernel", device=device, **kw)
 
 
 def userspace_binding(dev: BlockDevice, **kw) -> KernelServices:

@@ -54,7 +54,6 @@ import threading
 from typing import Callable, Optional
 
 import numpy as np
-import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -376,6 +375,8 @@ class TorchBlockDevice(BlockDevice):
 
     def __init__(self, n_blocks: int, block_size: int = BLOCK_SIZE,
                  device_id: str = "torch0", *, device: DeviceLike = None):
+        import torch
+
         self.block_size = block_size
         self.n_blocks = n_blocks
         self.device_id = device_id
@@ -390,6 +391,8 @@ class TorchBlockDevice(BlockDevice):
                    device_id: str = "torch0") -> "TorchBlockDevice":
         """A device holding a copy of ``arr``, a (n_blocks, block_size)
         uint8 image such as a ``MemBlockDevice``'s ``_data``."""
+        import torch
+
         arr = _check_image(arr)
         dev = cls(arr.shape[0], arr.shape[1], device_id, device=device)
         dev._data.copy_(torch.from_numpy(arr.copy()))
@@ -402,6 +405,8 @@ class TorchBlockDevice(BlockDevice):
             return self._data[blockno].cpu().numpy().tobytes()
 
     def write_block(self, blockno: int, data: bytes) -> None:
+        import torch
+
         self._check(blockno, data)
         with self._lock:
             self._maybe_fail()

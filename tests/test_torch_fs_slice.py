@@ -416,11 +416,28 @@ def test_default_device_is_cuda_and_raises_without_one():
         T_dev.TorchBlockDevice(8)
 
 
-@pytest.mark.parametrize("kind,exc", [
-    ("fuse", NotImplementedError), ("overlay-bento", NotImplementedError),
-    ("overlay-ext4like", NotImplementedError), ("nope", KeyError)])
-def test_unported_kinds_raise(kind, exc):
-    with pytest.raises(exc):
-        T_mounts.make_mount(kind, 1024, device="cpu")
-    with pytest.raises(NotImplementedError, match="prov.py"):
-        T_mounts.make_mount("bento", 1024, device="cpu", prov=True)
+@pytest.mark.parametrize("kind", ["fuse", "overlay-bento",
+                                  "overlay-ext4like", "nope"])
+def test_every_reference_kind_mounts(kind):
+    """The port mounts every kind of ``repro.fs.mounts`` on the CPU (the
+    fuse daemon needs no device), plain and under the provenance layer;
+    an unknown kind still raises ``KeyError``."""
+    assert set(T_mounts.ALL_KINDS + T_mounts.DEDUP_KINDS
+               + T_mounts.OVERLAY_KINDS) == set(
+        R_mounts.ALL_KINDS + R_mounts.DEDUP_KINDS + R_mounts.OVERLAY_KINDS)
+    if kind == "nope":
+        with pytest.raises(KeyError):
+            T_mounts.make_mount(kind, 1024, device="cpu")
+        return
+    for prov in (False, True):
+        mf = T_mounts.make_mount(kind, 1024, device="cpu", prov=prov)
+        try:
+            module = (mf.mount.ctl("stats")["module"] if kind == "fuse"
+                      else type(mf.mount.module).__name__)
+            assert (module == "ProvFilesystem") == prov
+            mf.view.write_file("/f", b"x" * 5000)
+            assert mf.view.read_file("/f") == b"x" * 5000
+            if prov:
+                assert mf.view.read_provenance()[-1]["op"] == "write"
+        finally:
+            mf.close()
