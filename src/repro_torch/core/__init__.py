@@ -8,8 +8,8 @@
 #   upgrade.py    — online upgrade: quiesce/extract/migrate/restore (§4.8)
 
 from repro_torch.core.capability import (BlockDeviceCap, Capability,
-                                         CapabilityError, MetricsCap, RngCap,
-                                         SuperBlockCap)
+                                         CapabilityError, MeshCap, MetricsCap,
+                                         RngCap, SuperBlockCap)
 from repro_torch.core.interface import (Attr, BATCHABLE_OPS, BentoFilesystem,
                                         BentoModule, CompletionEntry, Errno,
                                         FileKind, FsError, ROOT_INO,
@@ -22,7 +22,7 @@ from repro_torch.core.upgrade import UpgradeError, transfer_state, upgrade
 __all__ = [
     "Attr", "BATCHABLE_OPS", "BentoFilesystem", "BentoModule", "BentoQueue",
     "BlockDeviceCap", "Borrow", "BorrowError", "Capability", "CapabilityError",
-    "CompletionEntry", "Errno", "FileKind", "FsError", "MetricsCap",
+    "CompletionEntry", "Errno", "FileKind", "FsError", "MeshCap", "MetricsCap",
     "Mount", "OpGate", "ROOT_INO", "RngCap", "SubmissionEntry",
     "SuperBlockCap", "UpgradeError", "mount", "register_bento",
     "transfer_state", "upgrade",

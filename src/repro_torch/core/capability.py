@@ -107,6 +107,29 @@ class BlockDeviceCap(Capability):
         return self._obj.block_size
 
 
+class MeshCap(Capability):
+    """Grant of the device mesh to distributed extensions (trainer modules).
+
+    Extensions may *read* topology and build shardings; they may not
+    re-initialize the runtime or grab raw devices.
+    """
+
+    @property
+    def axis_names(self):
+        self._check()
+        return tuple(self._obj.axis_names)
+
+    @property
+    def shape(self):
+        self._check()
+        return tuple(self._obj.devices.shape)
+
+    def sharding_ctx(self, ruleset: str = "baseline"):
+        self._check()
+        from repro_torch.distributed.sharding import ShardingCtx
+        return ShardingCtx.for_mesh(self._obj, ruleset)
+
+
 class RngCap(Capability):
     """Deterministic RNG stream grant (extensions cannot reseed globally).
 
@@ -135,6 +158,10 @@ def mint_superblock(state) -> SuperBlockCap:
 
 def mint_blockdev(dev) -> BlockDeviceCap:
     return BlockDeviceCap._mint(dev)
+
+
+def mint_mesh(mesh) -> MeshCap:
+    return MeshCap._mint(mesh)
 
 
 def mint_rng(seed: int) -> RngCap:

@@ -145,18 +145,33 @@ class BufferCache:
                 for bh in out:  # clean (never dirtied) — just unpin
                     self._release_locked(bh)
                 raise
+            # pin every hit of the suffix BEFORE the misses go in, and
+            # each miss before its own insert: an insert may then evict
+            # only blocks outside this request (a hit evicted before its
+            # turn would have no bytes to serve — the reference raises
+            # EIO there). A request larger than the cache grows past
+            # capacity, as when everything is pinned.
+            pinned = [b for b in rest if b in self._blocks]
+            for blockno in pinned:
+                self._refs[blockno] += 1
+            pinned = collections.Counter(pinned)
             for blockno in rest:
                 buf = self._blocks.get(blockno)
-                if buf is None:
+                if pinned[blockno]:
+                    pinned[blockno] -= 1
+                    self.hits += 1
+                    self._blocks.move_to_end(blockno)
+                elif buf is None:
                     self.misses += 1
                     buf = bytearray(prefetched[blockno])
+                    self._refs[blockno] += 1
                     self._insert(blockno, buf)
                     if fetched is not None:
                         fetched.append(blockno)
                 else:
                     self.hits += 1
                     self._blocks.move_to_end(blockno)
-                self._refs[blockno] += 1
+                    self._refs[blockno] += 1
                 out.append(BufferHead(blockno, buf, self))
         return out
 

@@ -444,6 +444,68 @@ def torture_rename(kind: str = "xv6", *, quick: bool = False,
     return sim.sweep(workload, invariant, setup=setup, quick=quick)
 
 
+# --- sharded-checkpoint torture: old XOR complete-new, shard files and all -------
+
+
+def torture_ckpt_shards(kind: str = "xv6", *, quick: bool = False,
+                        device: DeviceLike = None) -> int:
+    """Sweep a v2 SHARDED checkpoint re-save (shard-per-file + manifest
+    rename swap, repro_torch.checkpoint.store) over a LIVE previous
+    checkpoint: after power loss at every device write, a cold remount
+    must restore either the previous checkpoint or the COMPLETE new one —
+    every shard file present, every per-shard checksum clean, never a mix
+    of generations and never zero restorable checkpoints. Every shard is
+    hashed on ``device``, and the restores land there."""
+    import numpy as np
+
+    from repro_torch.checkpoint import store
+    from repro_torch.device import resolve_device
+    from repro_torch.distributed.resharding import ShardGrid
+
+    device = resolve_device(device)
+    grid = ShardGrid.from_spec((8, 8), ("d", "m"), {"d": 2, "m": 2})
+    old_tree = {"w": np.arange(64, dtype=np.float32).reshape(8, 8),
+                "b": np.full((6,), 3.0, np.float32)}
+    new_tree = {"w": old_tree["w"] + 100.0,
+                "b": np.full((6,), 7.0, np.float32)}
+    like = {"w": np.zeros((8, 8), np.float32),
+            "b": np.zeros((6,), np.float32)}
+    grids = {"w": grid, "b": None}
+
+    def setup(ctx: CrashCtx) -> None:
+        store.save(ctx.view, "/ckpt/step_1", old_tree, step=1,
+                   checksum=ctx.ks.checksum, shardings=grids)
+
+    def workload(ctx: CrashCtx) -> None:
+        store.save(ctx.view, "/ckpt/step_1", new_tree, step=1,
+                   checksum=ctx.ks.checksum, shardings=grids)
+
+    def invariant(rec: Recovered) -> None:
+        # a live manifest must exist at every point (the old one until the
+        # swap commits, the new one after) and load must verify EVERY
+        # shard file's checksum on the way in
+        assert store.latest_step(rec.view, "/ckpt") == 1, \
+            "no restorable checkpoint after the crash"
+        got, man = store.load(rec.view, "/ckpt/step_1", like,
+                              checksum=rec.ks.checksum, device=device)
+        wrec = [r for r in man["leaves"] if r["shape"] == [8, 8]][0]
+        assert len(wrec["shards"]) == 4, \
+            f"live manifest names {len(wrec['shards'])} shards, not 4"
+        w, b = got["w"].cpu().numpy(), got["b"].cpu().numpy()
+        if np.array_equal(w, new_tree["w"]):
+            assert np.array_equal(b, new_tree["b"]), \
+                "mixed generations restored: new w, old b"
+        else:
+            assert np.array_equal(w, old_tree["w"]), "w is neither gen"
+            assert np.array_equal(b, old_tree["b"]), \
+                "mixed generations restored: old w, new b"
+            assert rec.crashed, "no crash, yet the re-save is not live"
+        rec.view.statfs()
+
+    sim = CrashSim(_fs_factory(kind), nlog=64, device=device)
+    return sim.sweep(workload, invariant, setup=setup, quick=quick)
+
+
 # --- provenance-log torture: the log must always be explainable ------------------
 
 
@@ -1020,6 +1082,10 @@ def main() -> None:
     ap.add_argument("--overlay", action="store_true",
                     help="also torture CoW overlay tenants (whiteouts, "
                          "copy-up, rename — old-XOR-new at every point)")
+    ap.add_argument("--ckpt", action="store_true",
+                    help="also torture the v2 sharded checkpoint re-save "
+                         "(old XOR complete-new at every point, shard "
+                         "files and checksums included)")
     ap.add_argument("--device", default=None,
                     help="torch device the kernel binding checksums on "
                          "(default: cuda)")
@@ -1052,6 +1118,11 @@ def main() -> None:
             n = torture_overlay(kind, quick=args.quick, device=args.device)
             print(f"crashsim {kind}: overlay whiteout/copy-up/rename "
                   f"old-XOR-new at {n} crash points ({mode}) — OK")
+        if args.ckpt:
+            n = torture_ckpt_shards(kind, quick=args.quick,
+                                    device=args.device)
+            print(f"crashsim {kind}: sharded checkpoint re-save old-XOR-"
+                  f"complete-new at {n} crash points ({mode}) — OK")
         if args.dedup:
             n = torture_dedup(kind, quick=args.quick, device=args.device)
             print(f"crashsim {kind}: dedup index refcount-exact (+no "

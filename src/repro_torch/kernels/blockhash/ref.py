@@ -15,13 +15,15 @@ PRIME = np.uint32(0x01000193)
 
 
 def powers(n: int) -> np.ndarray:
-    """[P^(n-1), ..., P^1, P^0] mod 2^32."""
-    out = np.empty(n, dtype=np.uint32)
-    acc = np.uint32(1)
-    for i in range(n - 1, -1, -1):
-        out[i] = acc
-        acc = np.uint32((int(acc) * int(PRIME)) & 0xFFFFFFFF)
-    return out
+    """[P^(n-1), ..., P^1, P^0] mod 2^32, by doubling: the first k powers
+    times P^k are the next k (uint32 products wrap mod 2^32), so a shard
+    file of millions of words takes log2(n) vector steps."""
+    asc = np.ones(1, dtype=np.uint32)  # P^0 .. P^(k-1)
+    step = int(PRIME)  # P^k
+    while len(asc) < n:
+        asc = np.concatenate([asc, asc * np.uint32(step)])
+        step = (step * step) & 0xFFFFFFFF
+    return asc[:n][::-1].copy()
 
 
 def blockhash(words: torch.Tensor, pows: torch.Tensor) -> torch.Tensor:

@@ -158,3 +158,16 @@ def test_concurrent_callers_get_their_own_hashes():
     for th in threads:
         th.join()
     assert got == [[w] * 5 for w in want]
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 5, 1023, 1024, 1025, 70001])
+def test_powers_by_doubling_equal_the_word_by_word_loop(n):
+    """``ref.powers`` builds its table by doubling; it must equal the
+    word-by-word recurrence P^(n-1-i) mod 2^32 it replaced."""
+    want = np.empty(n, dtype=np.uint32)
+    acc = 1
+    for i in range(n - 1, -1, -1):
+        want[i] = acc
+        acc = (acc * int(ref.PRIME)) & 0xFFFFFFFF
+    got = ref.powers(n)
+    assert got.dtype == np.uint32 and np.array_equal(got, want)

@@ -35,7 +35,8 @@ def bound(monkeypatch):
     ("torture_chain", {}), ("torture_rename", {}), ("torture_prov", {}),
     ("torture_prov_chain", {}), ("torture_dedup", {}),
     ("torture_lazy", {}), ("torture_overlay", {}),
-    ("torture_parallel", {}), ("torture_parallel", {"dedup": True})])
+    ("torture_parallel", {}), ("torture_parallel", {"dedup": True}),
+    ("torture_ckpt_shards", {})])
 def test_torture_sweeps_as_many_points_as_reference(bound, name, kw):
     got = getattr(T_cs, name)("xv6", quick=True, device="cpu", **kw)
     want = getattr(R_cs, name)("xv6", quick=True, **kw)
@@ -98,3 +99,42 @@ def test_recovered_images_match_reference_at_every_point(bound, workload):
     for (p, c, img), (rp, rc, rimg) in zip(port_pts, ref_pts):
         assert (p, c) == (rp, rc)
         assert np.array_equal(img, rimg), f"crash point {p}/{port_total}"
+
+
+def _recorded_sweep(monkeypatch, cs, run):
+    """``run()`` with ``cs.CrashSim.run_one`` recording each point's
+    (crash point, crashed, recovered image); returns (points, records)."""
+    seen = []
+    real = cs.CrashSim.run_one
+
+    def run_one(self, *args, **kw):
+        rec = real(self, *args, **kw)
+        seen.append((rec.crash_point, rec.crashed, _image_of(rec.dev)))
+        return rec
+
+    monkeypatch.setattr(cs.CrashSim, "run_one", run_one)
+    points = run()
+    monkeypatch.setattr(cs.CrashSim, "run_one", real)
+    return points, seen
+
+
+def _image_of(dev) -> np.ndarray:
+    data = dev._data
+    return (data.cpu().numpy() if isinstance(data, torch.Tensor)
+            else data).copy()
+
+
+def test_ckpt_shards_recover_to_reference_images(bound, monkeypatch):
+    """The sharded-checkpoint re-save swept quick on xv6: the same crash
+    points, the same crashed/not verdicts and, at every point, the same
+    recovered image as the reference (manifests, shard files and their
+    checksums byte for byte)."""
+    got = _recorded_sweep(monkeypatch, T_cs, lambda: T_cs.torture_ckpt_shards(
+        "xv6", quick=True, device="cpu"))
+    want = _recorded_sweep(monkeypatch, R_cs, lambda: R_cs.torture_ckpt_shards(
+        "xv6", quick=True))
+    assert got[0] == want[0] == len(got[1]) == len(want[1]) > 5
+    assert any(c for _, c, _ in got[1])
+    for (p, c, img), (rp, rc, rimg) in zip(got[1], want[1]):
+        assert (p, c) == (rp, rc)
+        assert np.array_equal(img, rimg), f"crash point {p}"

@@ -157,3 +157,46 @@ def test_checksum_batch_staging_grows(cuda):
         assert got == [blockhash_np(b) for b in blocks]
         assert st.words_cap >= n * 1024 and st.blocks_cap >= n
     assert st.words_cap >= 4096 * 1024
+
+
+def test_sharded_checkpoint_round_trip_on_the_card(cuda):
+    """A tree of float32, bfloat16 and 0-d leaves on the card, saved
+    sharded (ShardGrid and MeshSharding leaves) to a bento mount on the
+    card and restored onto a doubled virtual mesh at depths 0 and 2:
+    every leaf equal and on the card, and the blockhash kernel launched
+    once per counted checksum call plus the bind-time probe."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.distributed.resharding import ShardGrid
+    from repro_torch.distributed.sharding import MeshSharding
+    from repro_torch.fs.mounts import make_mount
+    from repro_torch.launch.mesh import make_elastic_mesh
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"w": torch.randn(64, 48, generator=g, device="cuda"),
+            "b": torch.randn(96, generator=g, device="cuda").bfloat16(),
+            "s": torch.tensor(2.5, device="cuda"),
+            "e": [torch.randn(40, 8, generator=g, device="cuda")]}
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def shardings(d, m):
+        mesh = make_elastic_mesh(d, m, devices=[dev] * (d * m))
+        return {"w": MeshSharding(mesh, ("data", "model")),
+                "b": MeshSharding(mesh, ("data",)), "s": None,
+                "e": [ShardGrid.from_spec((40, 8), ("x",), {"x": 3})]}
+
+    BK.reset_launches()
+    mf = make_mount("bento", n_blocks=4096, device="cuda")
+    ks = mf.services
+    ckpt.save(mf.view, "/ck/s1", tree, step=1, checksum=ks.checksum,
+              shardings=shardings(2, 2))
+    for depth in (0, 2):
+        back, _ = ckpt.load(mf.view, "/ck/s1", tree, checksum=ks.checksum,
+                            checksum_batch=ks.checksum_batch,
+                            sharding_tree=shardings(4, 2),
+                            pipeline_depth=depth, device="cuda")
+        for k in ("w", "b", "s"):
+            assert back[k].is_cuda and torch.equal(back[k], tree[k]), k
+        assert torch.equal(back["e"][0], tree["e"][0])
+    calls = ks.counters["checksum_calls"] + ks.counters["checksum_batch_calls"]
+    assert BK.launches() == calls + 1
+    mf.close()
