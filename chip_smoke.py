@@ -31,7 +31,15 @@ time goes. Then it
 holds the SSD and flash attention kernels against their plain versions and
 serves zamba2-7b at full width and depth the same way (``models/mamba2`` ->
 the CUDA SSD kernel in each Mamba2 layer's prefill, the shared attention
-block -> the CUDA flash attention kernel). Every phase asserts and prints
+block -> the CUDA flash attention kernel). Last the dense stack and the
+trainer: smollm-135m served whole (``serve_smollm``: the flash kernel in
+every layer's prefill), trained at full width and depth with the
+bundle's RunConfig (``train_smollm``: the flash kernel in every forward
+and rematerialised forward, its backward by recompute through the plain
+version), and tests/test_system.py's story on the card (``train_ckpt``:
+checkpoints on a bento mount, a failure and its recovery, the mounted fs
+upgraded under the trainer, a restore, serving from it; every commit and
+restore chunk on the blockhash kernel). Every phase asserts and prints
 JSON lines; the last line is the device record. It
 imports nothing of JAX and exits non-zero, printing no result, when no
 CUDA device is present or when run outside a checkout.
@@ -90,8 +98,10 @@ SSD_TOL = 2e-4  # x max(1, max|ref|), for y and the state
 # (B, Sq, Skv, Hq, Hkv, D, causal, window, softcap): the five shapes of
 # tests/test_kernels.py's flash sweep, a softcap case at the serve's
 # head_dim, lengths no tile divides (Skv != Sq under a window; the serve's
-# shared block at a 1000-token prompt), then the serve's shared block
-# (zamba2-7b: 32 heads of 112).
+# shared block at a 1000-token prompt), the serve's shared block
+# (zamba2-7b: 32 heads of 112), then smollm-135m's attention (9 heads over
+# 3 kv heads of 64) at its serve, at its training step (a microbatch of 4 x
+# 2048) and at train_ckpt's step (8 x 256).
 FLASH_CASES = ((2, 256, 256, 4, 2, 64, True, 0, 0.0),
                (1, 512, 512, 8, 8, 128, True, 0, 0.0),
                (2, 256, 256, 4, 4, 64, False, 0, 0.0),
@@ -100,13 +110,27 @@ FLASH_CASES = ((2, 256, 256, 4, 2, 64, True, 0, 0.0),
                (1, 256, 256, 4, 2, 112, True, 0, 5.0),
                (2, 100, 300, 4, 2, 112, True, 64, 0.0),
                (4, 1000, 1000, 32, 32, 112, True, 0, 0.0),
-               (4, 1024, 1024, 32, 32, 112, True, 0, 0.0))
+               (4, 1024, 1024, 32, 32, 112, True, 0, 0.0),
+               (4, 1024, 1024, 9, 3, 64, True, 0, 0.0),
+               (4, 2048, 2048, 9, 3, 64, True, 0, 0.0),
+               (8, 256, 256, 9, 3, 64, True, 0, 0.0))
 FLASH_HEADLINE = ((4, 1024, 1024, 32, 32, 112, True, 0, 0.0), "bfloat16")
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # atol = rtol, as the tests
 # odd_prompt: a prefill whose length neither a flash block (128) nor the
 # SSD chunk (128) divides
 ZAMBA = {"arch": "zamba2-7b", "batch": 4, "prompt": 1024, "gen": 32,
          "odd_prompt": 1000}
+# smollm-135m, whole: served as zamba2 is, and trained at SmolLM's context
+# (2048) with the bundle's RunConfig (microbatches of 4: 2 a step). The
+# checkpoint story (tests/test_system.py's) keeps the full width but cuts
+# the depth: see phase_train_ckpt.
+SMOLLM = {"arch": "smollm-135m", "batch": 4, "prompt": 1024, "gen": 32,
+          "odd_prompt": 1000}
+TRAIN = {"arch": "smollm-135m", "global_batch": 8, "seq": 2048, "warmup": 2,
+         "steps": 10}
+TRAIN_CKPT = {"arch": "smollm-135m", "layers": 2, "global_batch": 8,
+              "seq": 256, "steps": 12, "ckpt_every": 3, "fail_at": 6,
+              "n_blocks": 1 << 19, "decode_steps": 4}
 
 # The file-system phases of the reference's own benchmarks, at their
 # sizes: benchmarks/fs_coldstart.run (64 tenants over one 8192-block base
@@ -2473,9 +2497,9 @@ def _kernel_counts():
     return {"blockhash": BH, "wkv6": WKV, "ssd": SSD, "flash_attention": FA}
 
 
-def zamba2_trace(cfg, run, prm, tokens) -> dict:
-    """Where the time goes in the zamba2 serve: one prefill, then 8 decode
-    steps, each under ``torch.profiler``; the device's busy time is the sum
+def serve_profile(cfg, run, prm, tokens) -> dict:
+    """Where the time goes in a serve (zamba2's, smollm's): one prefill,
+    then 8 decode steps, each under ``torch.profiler``; the device's busy time is the sum
     of its kernels' and copies' own times, and the ssd and flash kernels'
     time and launches are read from it."""
     import torch
@@ -2746,7 +2770,7 @@ def phase_serve_zamba2():
         assert err <= 1e-4 * scale, (slen, err, scale)
         smoke_err[slen] = err
 
-    trace = zamba2_trace(cfg, run, prm, tokens)
+    trace = serve_profile(cfg, run, prm, tokens)
     assert (trace["prefill"]["ssd_launches"],
             trace["prefill"]["flash_launches"]) == (cfg.num_layers, napp)
     assert trace["decode_8_steps"]["ssd_launches"] == 0
@@ -2779,6 +2803,570 @@ def phase_serve_zamba2():
          cache_pad_probe=pad_probe, odd_prompt=odd,
          odd_prompt_launches=list(odd_launches), trace=trace)
     return main_launches
+
+
+# --- the dense stack and the trainer (models/transformer -> kernels/flash_attention,
+# train/trainer -> checkpoint on a bento mount -> kernels/blockhash) ----------------
+
+
+def through_plain_flash(fn):
+    """``fn()`` with ``ops.flash_attention`` pointed at the plain version;
+    fails if the kernel launched."""
+    import functools
+
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    kernel_fa = fa_ops.flash_attention
+    fa_ops.flash_attention = functools.partial(kernel_fa, use_kernel=False)
+    l0 = K.launches()
+    try:
+        out = fn()
+    finally:
+        fa_ops.flash_attention = kernel_fa
+    assert K.launches() == l0, "the plain path launched the flash kernel"
+    return out
+
+
+class OneBatch:
+    """A data source that serves SyntheticLM's batch 0 at every step. On
+    fresh random tokens there is nothing to learn but the uniform
+    distribution, and 12 steps of the warm-up schedule move smollm's loss
+    less than its batch-to-batch noise (on the CPU at full width, depth 2,
+    lr 1e-3: 11.3085 -> 11.3172 over 12 steps); on one batch seen at every
+    step it must fall (11.3085 -> 9.8943 there)."""
+
+    def __init__(self, data):
+        self.b = data.batch(0)
+
+    def batch(self, step):
+        return self.b
+
+
+def _logits_err(a, b):
+    scale = max(1.0, b.float().abs().max().item())
+    return (a.float() - b.float()).abs().max().item(), scale
+
+
+def phase_serve_smollm():
+    """The dense model path: smollm-135m whole (30 layers, d_model 576, 9
+    heads over 3 kv heads of 64, vocabulary 49152) in bf16, seeded random
+    weights on the card, batch 4, a 1024-token prompt and 32 greedy tokens
+    through launch/serve.generate, with every kernel count set to 0 just
+    before and read just after: the flash kernel launches once a layer in
+    the prefill and never in a decode step. Then a 1000-token prompt, the
+    same prefill through the plain attention in bf16 and with an f32 copy
+    of the weights, and a profiled prefill and 8 decode steps."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.launch import serve
+    from repro_torch.models import lm, params as P
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+
+    kernels = _kernel_counts()
+    FA = kernels["flash_attention"]
+    bundle = registry.get(SMOLLM["arch"])
+    cfg, run = bundle.model, bundle.run
+    ctx = ShardingCtx.null()
+    dev = torch.device("cuda")
+    B, prompt, gen = SMOLLM["batch"], SMOLLM["prompt"], SMOLLM["gen"]
+    L = cfg.num_layers
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    prm = P.materialize(lm.param_specs(cfg), g, dev, dtype=run.compute_dtype)
+    tokens = torch.randint(0, cfg.vocab_size, (B, prompt), generator=g,
+                           device=dev, dtype=torch.int32)
+    n_params = sum(t.numel() for t in P.leaves(prm))
+    assert n_params == 134_515_008, n_params
+    assert (L, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+            cfg.d_ff, cfg.vocab_size) == (30, 576, 9, 3, 64, 1536, 49152)
+
+    # the main path, every count set to 0 just before and read just after
+    torch.cuda.reset_peak_memory_stats()
+    for mod in kernels.values():
+        mod.reset_launches()
+    ids, times = serve.generate(cfg, run, prm, tokens, gen)
+    main_launches = {name: mod.launches() for name, mod in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    assert main_launches == {"blockhash": 0, "wkv6": 0, "ssd": 0,
+                             "flash_attention": L}, main_launches
+    assert ids.shape == (B, gen) and ((0 <= ids) & (ids < cfg.vocab_size)).all()
+
+    # the same steps one at a time: 30 launches in the prefill, 0 in each
+    # decode step, the same greedy ids
+    prefill = make_prefill_step(cfg, run, ctx)
+    decode = make_decode_step(cfg, run, ctx)
+    l0 = FA.launches()
+    tok, cache = prefill(prm, {"tokens": tokens})
+    prefill_launches = FA.launches() - l0
+    cache = serve.pad_cache(cfg, cache, gen)
+    assert cache["k"].dtype == torch.bfloat16 and tuple(cache["k"].shape) == (
+        L, B, prompt + gen, cfg.num_kv_heads, cfg.head_dim)
+    step_ids, step_launches = [tok.cpu()], []
+    for i in range(gen - 1):
+        l0 = FA.launches()
+        tok, cache = decode(prm, cache, {"tokens": tok[:, None],
+                                         "pos": prompt + i})
+        step_ids.append(tok.cpu())
+        step_launches.append(FA.launches() - l0)
+    del cache
+    assert prefill_launches == L, prefill_launches
+    assert step_launches == [0] * (gen - 1), step_launches
+    assert (torch.stack(step_ids, dim=1).numpy() == ids).all()
+
+    # a prompt that no flash block divides
+    odd = SMOLLM["odd_prompt"]
+    l0 = FA.launches()
+    with torch.inference_mode():
+        logits_odd, cache_odd = lm.prefill_fn(
+            cfg, run, ctx, prm, {"tokens": tokens[:, :odd].contiguous()})
+    odd_launches = FA.launches() - l0
+    assert odd_launches == L, odd_launches
+    assert torch.isfinite(logits_odd).all() and cache_odd["k"].shape[2] == odd
+    del logits_odd, cache_odd
+
+    def timed_prefill(params, rn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = lm.prefill_fn(cfg, rn, ctx, params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # the same prefill through the kernel and through the plain version,
+    # in bf16 (reported) and with an f32 copy of the weights (held)
+    (logits, _), prefill_s = timed_prefill(prm, run)
+    (logits_ref, _), prefill_ref_s = through_plain_flash(
+        lambda: timed_prefill(prm, run))
+    assert torch.isfinite(logits).all() and torch.isfinite(logits_ref).all()
+    bf16_err, bf16_scale = _logits_err(logits, logits_ref)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    prm32 = P.tree_map(lambda t: t.float(), prm)
+    run32 = run.replace(compute_dtype="float32")
+    (logits32, _), prefill_f32_s = timed_prefill(prm32, run32)
+    (logits32_ref, _), _ = through_plain_flash(
+        lambda: timed_prefill(prm32, run32))
+    f32_err, f32_scale = _logits_err(logits32, logits32_ref)
+    assert f32_err <= 2e-2 * f32_scale, (f32_err, f32_scale)
+    # The kernel rounds p to bf16 for its second product, a rounding as
+    # large as bf16's own here (9 heads of 64 against zamba2's 32 of 112):
+    # its bf16 logits may lie no more than twice as far from the f32 ones
+    # as the plain version's bf16 logits do.
+    kernel_vs_f32_err, _ = _logits_err(logits, logits32_ref)
+    plain_vs_f32_err, _ = _logits_err(logits_ref, logits32_ref)
+    assert kernel_vs_f32_err <= 2 * plain_vs_f32_err, (kernel_vs_f32_err,
+                                                       plain_vs_f32_err)
+    # and the kernel's bf16 logits against the plain version's within the
+    # kernel's own bf16 tolerance at the logits' scale (phase
+    # flash_attention_kernel holds the kernel itself at this shape)
+    tol = FLASH_TOL["bfloat16"]
+    bf16_bound = tol + tol * bf16_scale
+    assert bf16_err <= bf16_bound, (bf16_err, bf16_bound)
+    del prm32, logits32, logits32_ref, logits_ref
+    torch.cuda.empty_cache()
+
+    trace = serve_profile(cfg, run, prm, tokens)
+    # the profiler can lose events: its counts are lower bounds
+    assert 0 < trace["prefill"]["flash_launches"] <= L, trace["prefill"]
+    assert trace["decode_8_steps"]["flash_launches"] == 0
+    emit("serve_smollm", arch=cfg.name, layers=L, d_model=cfg.d_model,
+         params=n_params, dtype=run.compute_dtype, batch=B, prompt=prompt,
+         gen=gen, prefill_ms=prefill_s * 1e3,
+         prefill_cold_ms=times["prefill_s"] * 1e3,
+         prefill_ref_ms=prefill_ref_s * 1e3,
+         prefill_f32_ms=prefill_f32_s * 1e3,
+         decode_ms_per_token=times["decode_s_per_token"] * 1e3,
+         tokens_per_s=B / times["decode_s_per_token"],
+         request_tokens_per_s=B * gen / (
+             times["prefill_s"] + (gen - 1) * times["decode_s_per_token"]),
+         peak_memory_bytes=peak, flash_launches_per_prefill=prefill_launches,
+         flash_launches_per_decode_step=max(step_launches),
+         main_path_launches=main_launches,
+         generated_ids_row0=ids[0].tolist(),
+         logits_bf16_max_abs_err=bf16_err, logits_bf16_scale=bf16_scale,
+         logits_f32_max_abs_err=f32_err, logits_f32_scale=f32_scale,
+         logits_f32_tolerance="2e-2 x max(1, max|plain|)",
+         logits_bf16_bound=bf16_bound,
+         logits_bf16_tolerance=f"{tol} + {tol} max|plain|",
+         logits_bf16_kernel_vs_f32_err=kernel_vs_f32_err,
+         logits_bf16_plain_vs_f32_err=plain_vs_f32_err, odd_prompt=odd,
+         odd_prompt_launches=odd_launches, trace=trace)
+    del prm, tokens
+    torch.cuda.empty_cache()
+    return main_launches["flash_attention"]
+
+
+def train_flops(cfg, n_params: int, batch: int, seq: int) -> int:
+    """Model operations of one training step: 6 N a token for the
+    parameters' products (the forward and both halves of the backward),
+    plus the attention's two products over the causal pairs, 3 times (the
+    forward and the backward). The remat's second forward is not counted:
+    it is work the model does not need."""
+    pairs = seq * (seq + 1) // 2
+    attn_fwd = (cfg.num_layers * 2 * 2 * batch * cfg.num_heads
+                * cfg.head_dim * pairs)
+    return 6 * n_params * batch * seq + 3 * attn_fwd
+
+
+def phase_train_smollm():
+    """The training path: smollm-135m at full width and depth through
+    train.trainer.Trainer on the card, with the bundle's RunConfig (f32
+    parameters and optimizer state, bf16 compute, each layer rematerialised
+    in the backward, microbatches of 4). Global batch 8 x 2048 tokens from
+    SyntheticLM, so 2 microbatches a step; 2 warm-up steps, then 10 timed
+    ones, each with the flash count read around it: 30 forward launches
+    and 30 rematerialised ones a microbatch, 120 a step. The trainer sees
+    one batch at every step (``OneBatch``), on which the loss must fall.
+    Then one microbatch in f32 through the kernel and through the plain attention
+    (the loss and every gradient leaf held), the autograd Function's bf16
+    forward at the training shape against the plain version (its dq, dk,
+    dv too, a check of the wiring), the kernel's forward and the recompute
+    backward timed alone, and one profiled step."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models import lm, params as P
+    from repro_torch.train.step import num_accum_steps
+    from repro_torch.train.trainer import Trainer
+
+    kernels = _kernel_counts()
+    bundle = registry.get(TRAIN["arch"])
+    cfg, run = bundle.model, bundle.run
+    assert (run.param_dtype, run.compute_dtype, run.remat,
+            run.microbatch_per_data_shard) == ("float32", "bfloat16", "block", 4)
+    gb, seq = TRAIN["global_batch"], TRAIN["seq"]
+    ctx = ShardingCtx.null()
+    n_accum = num_accum_steps(run, ctx, gb)
+    L = cfg.num_layers
+    per_step = n_accum * 2 * L  # the forward and the remat's, a microbatch
+    assert (n_accum, per_step) == (2, 120)
+    dev = torch.device("cuda")
+
+    t0 = time.perf_counter()
+    t = Trainer(cfg, run, global_batch=gb, seq_len=seq, seed=0,
+                data=OneBatch(SyntheticLM(cfg, gb, seq, seed=0)))
+    assert t.device.type == "cuda"
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in P.leaves(t.params))
+    assert n_params == 134_515_008, n_params
+
+    # the main path: every count set to 0 just before, read just after
+    n_steps = TRAIN["warmup"] + TRAIN["steps"]
+    torch.cuda.reset_peak_memory_stats()
+    for mod in kernels.values():
+        mod.reset_launches()
+    step_s, step_launches = [], []
+    for i in range(n_steps):
+        l0 = kernels["flash_attention"].launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.train(i + 1)  # one step; its metrics reach the host
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        step_launches.append(kernels["flash_attention"].launches() - l0)
+    main_launches = {name: mod.launches() for name, mod in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    assert step_launches == [per_step] * n_steps, step_launches
+    assert main_launches == {"blockhash": 0, "wkv6": 0, "ssd": 0,
+                             "flash_attention": per_step * n_steps}
+    losses = [m["loss"] for m in t.metrics_log]
+    assert len(losses) == n_steps and all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    timed = step_s[TRAIN["warmup"]:]
+    step_med = statistics.median(timed)
+    tokens = gb * seq
+    flops = train_flops(cfg, n_params, gb, seq)
+
+    # one microbatch in f32, through the kernel and through the plain
+    # version: the loss and every gradient leaf
+    run32 = run.replace(compute_dtype="float32")
+    mb = {k: torch.from_numpy(v[:gb // n_accum]).to(dev)
+          for k, v in t.data.batch(0).items()}
+
+    def loss_and_grads():
+        prm = P.tree_map(lambda p: p.detach().requires_grad_(), t.params)
+        loss, _ = lm.loss_fn(cfg, run32, ctx, prm, mb)
+        return loss.item(), torch.autograd.grad(loss, list(P.leaves(prm)))
+
+    l0 = K.launches()
+    loss_k, grads_k = loss_and_grads()
+    f32_launches = K.launches() - l0
+    assert f32_launches == 2 * L, f32_launches
+    loss_p, grads_p = through_plain_flash(loss_and_grads)
+    f32_loss_err = abs(loss_k - loss_p)
+    assert f32_loss_err <= 1e-4 * max(1.0, abs(loss_p)), (loss_k, loss_p)
+    grad_rel = [((a - b).abs().max() / max(1.0, b.abs().max().item())).item()
+                for a, b in zip(grads_k, grads_p)]
+    assert max(grad_rel) <= 1e-3, max(grad_rel)
+    del grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    # the Function at the training shape in bf16: its forward (the kernel)
+    # against the plain version at FLASH_TOL, and dq, dk, dv against
+    # autograd through the plain version. Both backwards differentiate
+    # ref.attention, so the gradients check the wiring (saved inputs, the
+    # mask, dtypes), not the kernel: phase flash_attention_kernel holds the
+    # kernel at this shape.
+    rng = np.random.default_rng(2029)
+    Bm, Hq, Hkv, D = gb // n_accum, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v, go = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+                   .to(dev, torch.bfloat16) for s in
+                   ((Bm, seq, Hq, D), (Bm, seq, Hkv, D), (Bm, seq, Hkv, D),
+                    (Bm, seq, Hq, D)))
+
+    def grads_of(use_kernel):
+        qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+        out = fa_ops.flash_attention(qq, kk, vv, True, 0, 0.0,
+                                     use_kernel=use_kernel)
+        return (out.detach(), *torch.autograd.grad(out, (qq, kk, vv), go))
+
+    tol = FLASH_TOL["bfloat16"]
+    fn_err = {}
+    for name, got, want in zip(("out", "dq", "dk", "dv"), grads_of(True),
+                               grads_of(False)):
+        diff = (got.float() - want.float()).abs()
+        ok = bool((diff <= tol + tol * want.float().abs()).all())
+        assert got.dtype == torch.bfloat16 and ok, (name, diff.max().item())
+        fn_err[name] = diff.max().item()
+
+    # the kernel's forward and the recompute backward alone, at the shape
+    fwd_ms = device_ms(lambda: K.flash_attention_fwd(q, k, v, causal=True),
+                       count=5, reps=10)
+    qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+
+    def recompute_bwd():
+        with torch.enable_grad():
+            out = fa_ref.attention(qq, kk, vv, causal=True)
+            return torch.autograd.grad(out, (qq, kk, vv), go)
+    bwd_ms = call_ms(recompute_bwd, count=3, reps=5)
+    del q, k, v, go, qq, kk, vv
+
+    # one profiled step; the Function's backward runs under the named range
+    # "flash_recompute_bwd"
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        t.train(t.step_idx + 1)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    by_name = _device_window(prof)
+    # the named range shows on the device too, as the span of its kernels
+    span_us, _ = by_name.pop("flash_recompute_bwd", (None, 0))
+    busy_s = sum(us for us, _ in by_name.values()) * 1e-6
+    assert busy_s > 0, "the profiler saw no device time in the step"
+    kinds = {}
+    for kname, (us, c) in by_name.items():
+        kind = kinds.setdefault(_kernel_kind(kname), {"us": 0.0, "count": 0})
+        kind["us"] += us
+        kind["count"] += c
+    bwd_range = [e for e in prof.key_averages()
+                 if e.key == "flash_recompute_bwd"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    profiled = {
+        "wall_s": prof_wall, "device_busy_s": busy_s,
+        "device_idle_share": 1 - busy_s / prof_wall,
+        "device_idle_share_of_unprofiled_step": 1 - busy_s / step_med,
+        "flash_fwd_us": kinds.get("flash", {}).get("us", 0.0),
+        "flash_fwd_events_seen": kinds.get("flash", {}).get("count", 0),
+        "recompute_bwd_device_us": (bwd_range[0].device_time_total
+                                    if bwd_range else None),
+        "recompute_bwd_span_us": span_us,
+        "recompute_bwd_calls": bwd_range[0].count if bwd_range else 0,
+        "device_by_kind": kinds,
+        "device_top": [{"name": kn[:80], "us": us, "count": c}
+                       for kn, (us, c) in top]}
+    emit("train_smollm", arch=cfg.name, layers=L, params=n_params,
+         param_dtype=run.param_dtype, compute_dtype=run.compute_dtype,
+         remat=run.remat, global_batch=gb, seq=seq, microbatches=n_accum,
+         init_s=init_s, warmup_steps=TRAIN["warmup"], timed_steps=len(timed),
+         step_ms=step_med * 1e3, step_ms_all=[x * 1e3 for x in step_s],
+         tokens_per_s=tokens / step_med, peak_memory_bytes=peak,
+         model_flops_per_step=flops,
+         model_flops_share_of_bf16_peak=flops / step_med / BF16_TENSOR_OPS_PER_S,
+         losses=losses, flash_launches_per_step=per_step, main_path_launches=main_launches,
+         f32_loss_kernel=loss_k, f32_loss_plain=loss_p,
+         f32_loss_err=f32_loss_err, f32_grad_max_rel_err=max(grad_rel),
+         f32_tolerance={"loss": "1e-4 x max(1, |plain|)",
+                        "grads": "1e-3 x max(1, max|plain|) a leaf"},
+         bf16_function_forward_max_abs_err=fn_err.pop("out"),
+         bf16_backward_wiring_max_abs_err=fn_err,
+         bf16_function_tolerance=f"{tol} + {tol} |plain|",
+         flash_fwd_ms=fwd_ms, recompute_bwd_ms=bwd_ms,
+         flash_fwd_ms_per_step=fwd_ms * per_step,
+         recompute_bwd_ms_per_step=bwd_ms * n_accum * L,
+         profiled_step=profiled)
+    del t, mb
+    torch.cuda.empty_cache()
+    return main_launches["flash_attention"]
+
+
+def phase_train_ckpt():
+    """tests/test_system.py's story on the card, at smollm-135m's full
+    width: a Trainer on the card with a bento mount of the card for its
+    checkpoints (every 3 steps), a WorkerFailure before step 6, 12 steps
+    on one batch (``OneBatch``: the loss falls), one recovery from step
+    6's checkpoint; the mounted fs upgraded from xv6 to ext4like under
+    it; a new trainer restoring step 12 with every leaf equal; 4 decode
+    steps from the restored weights. Every journal commit and every
+    restore chunk hashes on the blockhash kernel: launches must equal the
+    counted checksum calls plus the bind-time probe.
+
+    The trainers run as a user's would, with no mesh: each leaf is one
+    shard file, the three embedding-shaped ones (49152 x 576 f32) 113 MB
+    each, seven times the 16 MiB buffer cache. One cut, the depth, 30 ->
+    2 layers: a full-depth checkpoint is 1.61 GB (f32 parameters, mu and
+    nu), and four saves and two restores of it would take minutes at the
+    store's rates; the embedding (28.3 M of the 35.4 M parameters left)
+    keeps the largest leaves at full size."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.core.upgrade import upgrade
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.fs.ext4like import Ext4LikeFileSystem
+    from repro_torch.fs.mounts import make_mount
+    from repro_torch.launch import serve
+    from repro_torch.models import params as P
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+    from repro_torch.train.trainer import Trainer, WorkerFailure
+
+    FA = _kernel_counts()["flash_attention"]
+    bundle = registry.get(TRAIN_CKPT["arch"])
+    cfg = dataclasses.replace(bundle.model, num_layers=TRAIN_CKPT["layers"])
+    # tests/test_system.py's settings: no microbatches, a larger rate
+    run = bundle.run.replace(microbatch_per_data_shard=0, learning_rate=1e-3)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ctx = ShardingCtx.null()
+    gb, seq, steps = (TRAIN_CKPT["global_batch"], TRAIN_CKPT["seq"],
+                      TRAIN_CKPT["steps"])
+    L, every, fail_at = cfg.num_layers, TRAIN_CKPT["ckpt_every"], TRAIN_CKPT["fail_at"]
+    saves, restores = [], []
+
+    def timed(trainer):
+        real_save, real_restore = trainer.save_checkpoint, trainer.restore_checkpoint
+
+        def save():
+            t0 = time.perf_counter()
+            real_save()
+            saves.append(time.perf_counter() - t0)
+
+        def restore(step=None):
+            t0 = time.perf_counter()
+            ok = real_restore(step)
+            torch.cuda.synchronize()
+            restores.append(time.perf_counter() - t0)
+            return ok
+        trainer.save_checkpoint, trainer.restore_checkpoint = save, restore
+
+    armed = {"on": True}
+
+    def failure_hook(step):
+        if step == fail_at and armed["on"]:
+            armed["on"] = False
+            raise WorkerFailure("rack power glitch")
+
+    def migrate(state, _o, _n):
+        state.setdefault("dirindex", {})
+        return state
+
+    def path():
+        mf = make_mount("bento", n_blocks=TRAIN_CKPT["n_blocks"], device=dev)
+        t = Trainer(cfg, run, global_batch=gb, seq_len=seq,
+                    ckpt_view=mf.view, ckpt_every=every,
+                    failure_hook=failure_hook, seed=3, device=dev,
+                    data=OneBatch(SyntheticLM(cfg, gb, seq, 3)))
+        timed(t)
+        t0 = time.perf_counter()
+        t.train(steps)
+        train_s = time.perf_counter() - t0
+        stats = upgrade(mf.mount, Ext4LikeFileSystem(), migrate=migrate)
+        t2 = Trainer(cfg, run, global_batch=gb, seq_len=seq,
+                     ckpt_view=mf.view, seed=3, device=dev)
+        timed(t2)
+        assert t2.restore_checkpoint() and t2.step_idx == steps
+        pairs = list(P.leaves(P.tree_map(
+            lambda a, b: (a, b), {"p": t2.params, "o": t2.opt_state},
+            {"p": t.params, "o": t.opt_state})))
+        equal = all(a.device == dev and torch.equal(a, b) for a, b in pairs)
+        nbytes = sum(b.numel() * b.element_size() for _, b in pairs)
+        prefill = make_prefill_step(cfg, run, ctx)
+        decode = make_decode_step(cfg, run, ctx)
+        tok, cache = prefill(t2.params, {"tokens": torch.ones(
+            (2, 16), dtype=torch.int32, device=dev)})
+        cache = serve.pad_cache(cfg, cache, 8)
+        out = [tok.cpu()]
+        for i in range(TRAIN_CKPT["decode_steps"]):
+            tok, cache = decode(t2.params, cache,
+                                {"tokens": tok[:, None], "pos": 16 + i})
+            out.append(tok.cpu())
+        calls = checksum_calls(mf.services)
+        ckpts = sorted(mf.view.listdir(t.ckpt_root))
+        last = f"{t.ckpt_root}/{ckpts[-1]}"
+        sizes = [mf.view.stat(f"{last}/{n}").size
+                 for n in mf.view.listdir(last)]
+        mf.close()
+        return (t, train_s, stats, equal, len(pairs), nbytes,
+                torch.stack(out, dim=1), calls, ckpts, sizes,
+                t2.last_restore_stats)
+
+    FA.reset_launches()
+    (t, train_s, stats, equal, n_leaves, nbytes, ids, calls, ckpts,
+     sizes, restore_stats), launches, tally = counted(path)
+    flash_launches = FA.launches()
+    losses = [m["loss"] for m in t.metrics_log]
+    assert t.recoveries == 1 and t.step_idx == steps
+    assert [m["step"] for m in t.metrics_log] == list(range(steps))
+    assert losses[-1] < losses[0], losses
+    assert equal, "the restored leaves differ from the trainer's"
+    # no mesh: one shard file a leaf, the embedding-shaped ones whole
+    largest = max(sizes)
+    assert len(sizes) == n_leaves + 1 and largest > 113_246_208, sizes
+    assert launches == tally["calls"] + tally["probes"] == calls + 1, (
+        launches, tally, calls)
+    # saves at steps 3 and 6, the failure before step 6 runs, the recovery
+    # from step 6, saves at 9 and 12; two restores
+    assert ckpts == [f"step_{s:08d}" for s in range(every, steps + 1, every)]
+    assert len(saves) == steps // every and len(restores) == 2
+    # flash: 2 L a step (the forward and the remat's), one prefill
+    assert flash_launches == steps * 2 * L + L, flash_launches
+    assert ids.shape == (2, TRAIN_CKPT["decode_steps"] + 1)
+    pipe = restore_stats.get("pipeline", {})
+    emit("train_ckpt", arch=cfg.name, layers=L, d_model=cfg.d_model,
+         cut="depth 30 -> 2: a full-depth checkpoint is 1.61 GB (f32 params, "
+             "mu, nu); four saves and two restores of it would take minutes",
+         mesh=None, shard_files=len(sizes) - 1,
+         largest_shard_file_bytes=largest,
+         global_batch=gb, seq=seq, steps=steps, ckpt_every=every,
+         fail_at=fail_at, recoveries=t.recoveries, losses=losses,
+         train_s=train_s,
+         checkpoints=ckpts, checkpoint_bytes=nbytes, leaves=n_leaves,
+         save_s=saves, save_mb_per_s=[nbytes / x / 1e6 for x in saves],
+         restore_s=restores, restore_mb_per_s=[nbytes / x / 1e6
+                                               for x in restores],
+         recovery_restore_s=restores[0],
+         restore_fetch_s=pipe.get("fetch_s"),
+         restore_assemble_s=pipe.get("assemble_s"),
+         upgrade_pause_ms=stats["total_s"] * 1e3,
+         restored_leaves_equal=equal, decoded_ids=ids.numpy().tolist(),
+         launches=launches, checksum_calls=tally["calls"],
+         probe_launches=tally["probes"], flash_launches=flash_launches)
+    del t
+    torch.cuda.empty_cache()
+    return launches, flash_launches
 
 
 def main() -> int:
@@ -2819,6 +3407,10 @@ def main() -> int:
     ssd_rows = phase_ssd_kernel()
     flash_rows = phase_flash_attention_kernel()
     zamba_launches = phase_serve_zamba2()
+    flash_by_path = {"serve_zamba2": zamba_launches["flash_attention"],
+                     "serve_smollm": phase_serve_smollm(),
+                     "train_smollm": phase_train_smollm()}
+    fs_launches["train_ckpt"], flash_by_path["train_ckpt"] = phase_train_ckpt()
 
     head = next(r for r in rows if tuple(r["shape"]) == HEADLINE_SHAPE)
     wkv_head = next(r for r in wkv_rows
@@ -2870,6 +3462,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
         "launches": zamba_launches["flash_attention"],
+        "launches_by_path": flash_by_path,
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         "tolerance": {d: f"{t} + {t} |ref|" for d, t in FLASH_TOL.items()},
         "shape": flash_head["case"], "dtype": flash_head["dtype"],

@@ -175,15 +175,16 @@ class _WriteBehind:
 
 
 class _TreeDef:
-    """Structure of a pytree of dicts (keys sorted), lists, tuples and
+    """Structure of a pytree of dicts (keys sorted), lists, tuples,
+    NamedTuples (the optimizer's ``OptState``: fields in order) and
     ``None`` (an empty subtree); anything else is a leaf. ``str`` renders
     it exactly as the reference renders its ``PyTreeDef``, which the
     manifest stores and ``load`` compares as text."""
 
-    __slots__ = ("kind", "keys", "children")
+    __slots__ = ("kind", "keys", "children", "cls")
 
-    def __init__(self, kind: str, keys=(), children=()):
-        self.kind, self.keys, self.children = kind, keys, children
+    def __init__(self, kind: str, keys=(), children=(), cls=None):
+        self.kind, self.keys, self.children, self.cls = kind, keys, children, cls
 
     def _render(self) -> str:
         kids = [c._render() for c in self.children]
@@ -196,6 +197,9 @@ class _TreeDef:
                                    zip(self.keys, kids)) + "}"
         if self.kind == "list":
             return "[" + ", ".join(kids) + "]"
+        if self.kind == "namedtuple":
+            return (f"CustomNode(namedtuple[{self.cls.__name__}], ["
+                    + ", ".join(kids) + "])")
         return "(" + ", ".join(kids) + ("," if len(kids) == 1 else "") + ")"
 
     def __str__(self) -> str:
@@ -212,33 +216,46 @@ class _TreeDef:
             kids = [build(c) for c in td.children]
             if td.kind == "dict":
                 return dict(zip(td.keys, kids))
+            if td.kind == "namedtuple":
+                return td.cls(*kids)
             return kids if td.kind == "list" else tuple(kids)
         return build(self)
 
 
 def _flatten(tree, none_is_leaf: bool = False):
     """``(leaves, treedef)`` in the reference's leaf order: dict keys
-    sorted, lists and tuples in order."""
+    sorted, lists, tuples and NamedTuples in order. ``none_is_leaf``
+    keeps a ``None`` as a leaf, except a NamedTuple's ``None`` field,
+    which stays an empty subtree (an absent part of the state, such as
+    ``OptState.master`` without master weights)."""
     leaves: List = []
 
-    def walk(x) -> _TreeDef:
-        if x is None and not none_is_leaf:
+    def walk(x, none_leaf: bool) -> _TreeDef:
+        if x is None and not none_leaf:
             return _TreeDef("none")
         if type(x) is dict:
             keys = tuple(sorted(x))
-            return _TreeDef("dict", keys, tuple(walk(x[k]) for k in keys))
+            return _TreeDef("dict", keys,
+                            tuple(walk(x[k], none_is_leaf) for k in keys))
         if type(x) in (list, tuple):
             return _TreeDef("list" if type(x) is list else "tuple",
-                            children=tuple(walk(v) for v in x))
+                            children=tuple(walk(v, none_is_leaf) for v in x))
+        if isinstance(x, tuple) and hasattr(type(x), "_fields"):
+            return _TreeDef("namedtuple", children=tuple(
+                walk(v, False) for v in x), cls=type(x))
         leaves.append(x)
         return _TreeDef("leaf")
-    treedef = walk(tree)
+    treedef = walk(tree, none_is_leaf)
     return leaves, treedef
 
 
 def _flatten_shardings(tree) -> List:
     """Flatten a per-leaf sharding/grid tree. None entries mean "this leaf
-    is unsharded" and must stay leaves, not collapse as empty subtrees."""
+    is unsharded" and must stay leaves, not collapse as empty subtrees.
+    A NamedTuple's None field is the one exception: it mirrors an absent
+    part of the saved tree (the reference takes it as a leaf too, so a
+    trainer on a mesh without master weights cannot save there: ROADMAP
+    Queue 3)."""
     return _flatten(tree, none_is_leaf=True)[0]
 
 

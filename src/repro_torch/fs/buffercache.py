@@ -155,6 +155,7 @@ class BufferCache:
             for blockno in pinned:
                 self._refs[blockno] += 1
             pinned = collections.Counter(pinned)
+            full = False  # the cache holds only pinned and dirty blocks
             for blockno in rest:
                 buf = self._blocks.get(blockno)
                 if pinned[blockno]:
@@ -165,7 +166,7 @@ class BufferCache:
                     self.misses += 1
                     buf = bytearray(prefetched[blockno])
                     self._refs[blockno] += 1
-                    self._insert(blockno, buf)
+                    full = self._insert(blockno, buf, full)
                     if fetched is not None:
                         fetched.append(blockno)
                 else:
@@ -188,18 +189,45 @@ class BufferCache:
             self._refs[blockno] += 1
             return BufferHead(blockno, buf, self)
 
-    def _insert(self, blockno: int, buf: bytearray) -> None:
-        self._blocks[blockno] = buf
-        while len(self._blocks) > self.capacity:
-            old, obuf = next(iter(self._blocks.items()))
-            if self._refs.get(old, 0) > 0 or old in self._dirty:
-                self._blocks.move_to_end(old)  # pinned/dirty: skip
-                if all(self._refs.get(b, 0) > 0 or b in self._dirty
-                       for b in self._blocks):
-                    break  # everything pinned — grow past capacity
-                continue
-            self._blocks.popitem(last=False)
-            self._refs.pop(old, None)
+    def _insert(self, blockno: int, buf: bytearray,
+                full: bool = False) -> bool:
+        """Insert, evicting the least recent clean unpinned block while
+        past capacity; the pinned and dirty blocks before it go to the
+        end, in order. With none to evict, the front block goes to the end
+        and the cache grows past capacity; the insert then returns True.
+        ``full`` says the caller knows that and pinned ``blockno`` first
+        (``bread_many``'s misses, which pin and release nothing in
+        between): the scan is skipped.
+
+        The same moves and evictions as the reference's loop, which after
+        each skipped block rescanned the cache for an evictable one:
+        quadratic in the pinned blocks ahead of it, at every insert, and
+        a read past the cache's size never ended (a 113 MB shard file,
+        27,648 blocks). Here each insert scans once, as far as the first
+        evictable block."""
+        blocks = self._blocks
+        blocks[blockno] = buf
+        if len(blocks) <= self.capacity:
+            return False
+        if full:
+            blocks.move_to_end(next(iter(blocks)))
+            return True
+        while len(blocks) > self.capacity:
+            skipped, victim = [], None
+            for b in blocks:
+                if self._refs.get(b, 0) > 0 or b in self._dirty:
+                    skipped.append(b)
+                else:
+                    victim = b
+                    break
+            if victim is None:  # everything pinned — grow past capacity
+                blocks.move_to_end(skipped[0])
+                return True
+            for b in skipped:
+                blocks.move_to_end(b)
+            del blocks[victim]
+            self._refs.pop(victim, None)
+        return False
 
     # --- release / writeback -------------------------------------------------------
     def _release(self, bh: BufferHead) -> None:

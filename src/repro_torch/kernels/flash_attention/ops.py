@@ -2,18 +2,47 @@
 PyTorch version (``ref.py``), the counterpart of
 ``repro/kernels/flash_attention/ops.py``.
 
-The reference wraps its kernel in a ``custom_vjp`` whose backward
-recomputes through ``ref.attention``. That backward belongs to the
-training slice (ROADMAP Queue 1 item 8); until it lands, the kernel path
-refuses inputs that require grad rather than return an output that
-autograd cannot differentiate."""
+The kernel path is differentiable through ``_FlashAttention``: its forward
+is the CUDA kernel, its backward recomputes the attention through
+``ref.attention`` and differentiates that, the design of the reference's
+``custom_vjp`` (whose ``_bwd`` runs ``jax.vjp`` of ``ref.attention``). The
+recompute is that design, not a fallback: the forward never runs the plain
+version in the kernel's place. A hand-written backward kernel is ROADMAP
+Queue 2 step B."""
 
 from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ref
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the CUDA kernel on contiguous q, k, v. Backward: the
+    gradients of ``ref.attention`` at the saved inputs, under the profiler
+    range ``flash_recompute_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, softcap)
+        return K.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                     softcap=softcap)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, window, softcap = ctx.mask
+        with torch.enable_grad(), \
+                torch.profiler.record_function("flash_recompute_bwd"):
+            q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+            out = ref.attention(q, k, v, causal=causal, window=window,
+                                softcap=softcap)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, causal=True, window=0, softcap=0.0,
@@ -21,19 +50,14 @@ def flash_attention(q, k, v, causal=True, window=0, softcap=0.0,
     """q: (B,Sq,Hq,D); k,v: (B,Skv,Hkv,D). Returns (B,Sq,Hq,D) in q's dtype.
 
     ``use_kernel=None`` launches the CUDA kernel for CUDA tensors and runs
-    the plain version for CPU tensors; ``True`` asks for the kernel (and
-    raises on CPU tensors); ``False`` runs the plain version."""
+    the plain version for CPU tensors (native autograd); ``True`` asks for
+    the kernel (and raises on CPU tensors); ``False`` runs the plain
+    version."""
     if use_kernel is None:
         use_kernel = q.is_cuda
         if not use_kernel and q.device.type != "cpu":
             raise ValueError(f"no flash attention path for device {q.device}")
     if use_kernel:
-        if any(t.requires_grad for t in (q, k, v)):
-            raise NotImplementedError(
-                "the flash attention kernel has no backward yet (ROADMAP "
-                "Queue 1 item 8, training); run under torch.no_grad() or "
-                "use_kernel=False")
-        return K.flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                     softcap=softcap)
+        return _FlashAttention.apply(q, k, v, causal, window, softcap)
     return ref.attention(q, k, v, causal=causal, window=window,
                          softcap=softcap)

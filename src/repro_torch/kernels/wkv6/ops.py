@@ -5,6 +5,8 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from repro_torch.kernels.wkv6 import kernel as K
 from repro_torch.kernels.wkv6 import ref
 
@@ -15,11 +17,19 @@ def wkv6(r, k, v, w, u, state, *, chunk: int = 32,
 
     ``use_kernel=None`` launches the CUDA kernel for CUDA tensors and runs
     the plain version for CPU tensors; ``True`` asks for the kernel (and
-    raises on CPU tensors); ``False`` runs the plain version."""
+    raises on CPU tensors); ``False`` runs the plain version. The kernel
+    has no backward yet: its path refuses inputs that require grad, which
+    the plain version differentiates natively."""
     if use_kernel is None:
         use_kernel = r.is_cuda
         if not use_kernel and r.device.type != "cpu":
             raise ValueError(f"no wkv6 path for device {r.device}")
     if use_kernel:
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (r, k, v, w, u, state)):
+            raise NotImplementedError(
+                "the wkv6 kernel has no backward yet (ROADMAP Queue 1 "
+                "item 8, the ssm/hybrid training slice); run under "
+                "torch.no_grad() or use_kernel=False")
         return K.wkv6_chunked(r, k, v, w, u, state, chunk=chunk)
     return ref.wkv6(r, k, v, w, u, state, chunk=chunk)

@@ -1,6 +1,7 @@
 """Serving launcher: batched prefill + greedy decode loop.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
         --smoke --device cpu --batch 4 --prompt-len 32 --gen 16
 
@@ -32,12 +33,15 @@ def pad_cache(cfg: ModelConfig, cache, gen: int):
     axis (third from last) of every k and v grows by ``gen`` zero slots.
     A sliding-window ring buffer keeps its size, and a recurrent state
     (rwkv6's, the Mamba2 layers') has no sequence axis."""
-    if cfg.sliding_window > 0 or cfg.family != "hybrid" or "attn" not in cache:
-        return cache
-
     def pad_seq(x):  # (..., S, H, D) -> (..., S + gen, H, D)
         return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, gen))
 
+    if cfg.sliding_window > 0:
+        return cache
+    if cfg.family == "dense":
+        return {"k": pad_seq(cache["k"]), "v": pad_seq(cache["v"])}
+    if cfg.family != "hybrid" or "attn" not in cache:
+        return cache
     return {"mamba": cache["mamba"],
             "attn": {"k": pad_seq(cache["attn"]["k"]),
                      "v": pad_seq(cache["attn"]["v"])}}

@@ -1,0 +1,73 @@
+"""Training launcher CLI.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
+        --smoke --device cpu --steps 50 --batch 8 --seq 128 --ckpt-every 10
+
+``--device`` defaults to cuda and fails without a GPU. With
+``--ckpt-every`` the checkpoints go to a port ``bento`` mount whose
+journal commits hash on the same device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Optional, Sequence
+
+from repro_torch.configs import registry
+from repro_torch.device import resolve_device
+from repro_torch.fs.mounts import make_mount
+from repro_torch.launch.mesh import make_elastic_mesh
+from repro_torch.train.trainer import Trainer
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--data-mesh", type=int, default=0,
+                    help=">0: data-parallel ways of a virtual mesh on the "
+                         "device (how checkpoints are cut)")
+    ap.add_argument("--ruleset", default="baseline")
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--metrics-out", default="")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    bundle = registry.get(args.arch)
+    cfg = bundle.smoke if args.smoke else bundle.model
+    run = bundle.run.replace(microbatch_per_data_shard=0)
+    mesh = (make_elastic_mesh(args.data_mesh, 1,
+                              devices=[dev] * args.data_mesh)
+            if args.data_mesh > 1 else None)
+
+    mf = None
+    ckpt_view = None
+    if args.ckpt_every:
+        mf = make_mount("bento", n_blocks=65536, device=dev)
+        ckpt_view = mf.view
+
+    t = Trainer(cfg, run, global_batch=args.batch, seq_len=args.seq,
+                mesh=mesh, ruleset=args.ruleset, ckpt_view=ckpt_view,
+                ckpt_every=args.ckpt_every, device=dev)
+    t0 = time.time()
+    t.train(args.steps)
+    wall = time.time() - t0
+    first, last = t.metrics_log[0], t.metrics_log[-1]
+    print(f"arch={cfg.name} device={dev} steps={args.steps} wall={wall:.1f}s "
+          f"loss {first['loss']:.4f} -> {last['loss']:.4f} "
+          f"({args.steps * args.batch * args.seq / wall:.0f} tok/s)")
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            json.dump(t.metrics_log, f, indent=1)
+    if mf is not None:
+        mf.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,5 @@
-"""Shared model components: RMS norm, RoPE, MLP, embedding, logits.
-
-The cross-entropy loss waits for the training slice (ROADMAP Queue 1
-item 8)."""
+"""Shared model components: RMS norm, RoPE, MLP, embedding, logits and the
+cross-entropy loss."""
 
 from __future__ import annotations
 
@@ -79,7 +77,7 @@ def mlp_apply(w: Dict, x: torch.Tensor, ctx: ShardingCtx,
     return ctx.constrain(out, ("batch", "seq", "embed")[: out.ndim])
 
 
-# --- Embedding / logits ---------------------------------------------------------
+# --- Embedding / logits / loss ---------------------------------------------------
 
 
 def embed_specs(cfg: ModelConfig) -> Dict:
@@ -106,6 +104,20 @@ def logits_fn(w: Dict, x: torch.Tensor, ctx: ShardingCtx) -> torch.Tensor:
     else:
         logits = matmul(x, w["embedding"].T)
     return ctx.constrain(logits, ("batch", "seq", "vocab")[: logits.ndim])
+
+
+def xent_loss(logits: torch.Tensor, labels: torch.Tensor,
+              z_loss: float = 1e-4):
+    """Cross-entropy over (B, S, V) against labels (B, S), reduced in
+    float32. Returns (mean_loss, aux): aux carries the mean negative
+    log-likelihood and the z-loss (z_loss x logsumexp^2) for logging."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - label_logit
+    zl = z_loss * torch.square(lse)
+    loss = torch.mean(nll + zl)
+    return loss, {"nll": torch.mean(nll), "z_loss": torch.mean(zl)}
 
 
 def compute_dtype(run: RunConfig) -> torch.dtype:

@@ -40,19 +40,31 @@ def is_spec(x: Any) -> bool:
     return isinstance(x, TensorSpec)
 
 
-def tree_map(fn: Callable[[Any], Any], tree):
-    """``fn`` applied to every leaf of a tree of nested dicts."""
+def _is_namedtuple(x: Any) -> bool:
+    return isinstance(x, tuple) and hasattr(type(x), "_fields")
+
+
+def tree_map(fn: Callable[..., Any], tree, *rest):
+    """``fn`` applied to every leaf of a tree of nested dicts and
+    NamedTuples (the optimizer state), where ``None`` is an empty subtree,
+    as in the reference's ``jax.tree.map``: with ``rest``, ``fn`` takes the
+    leaf of ``tree`` and the subtree of each of ``rest`` at its place."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(tree_map(fn, *fields)
+                            for fields in zip(tree, *rest)))
+    return None if tree is None else fn(tree, *rest)
 
 
 def leaves(tree):
-    """The leaves of a tree of nested dicts, in key order."""
-    if isinstance(tree, dict):
-        for v in tree.values():
+    """The leaves of a tree of nested dicts and NamedTuples, in key and
+    field order; ``None`` holds none."""
+    if isinstance(tree, dict) or _is_namedtuple(tree):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
             yield from leaves(v)
-    else:
+    elif tree is not None:
         yield tree
 
 
@@ -138,8 +150,9 @@ def materialize(tree, generator: torch.Generator, device: DeviceLike = None,
 
 
 def _tensor(a, dev: torch.device, dtype: Optional[torch.dtype]) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
-    if not a.flags.writeable:  # torch tensors share memory with the array
+    a = np.asarray(a)  # ascontiguousarray would make a 0-d leaf 1-d
+    # torch tensors share memory with the array
+    if not (a.flags.c_contiguous and a.flags.writeable):
         a = a.copy()
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)

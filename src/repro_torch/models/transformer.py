@@ -1,9 +1,14 @@
-"""One transformer block (attention + MLP), the counterpart of the single
-blocks of ``repro/models/transformer.py``: specs, the teacher-forced
-forward, the prefill that also returns the block's (k, v), and one decode
-step against a KV cache. The zamba2 stack applies it as its weight-tied
-shared block. The dense, MoE and VLM stacks and the cross-attention block
-wait for their slices (ROADMAP Queue 1 item 8).
+"""Decoder-only transformer blocks and the dense stack, the counterpart of
+``repro/models/transformer.py``.
+
+A block (attention + MLP): specs, the teacher-forced forward, the prefill
+that also returns the block's (k, v), and one decode step against a KV
+cache; the zamba2 stack applies it as its weight-tied shared block. The
+dense stack keeps the reference's stacked ``(L, ...)`` parameters and
+runs its layers through ``scan_utils.grouped_scan`` (remat per layer
+under ``run.remat == "block"``). MoE blocks and the VLM family's
+cross-attention super-blocks wait for their slices (ROADMAP Queue 1
+item 8).
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.models import attention as A
+from repro_torch.models import params as P
 from repro_torch.models.common import (matmul, mlp_apply, mlp_specs, rms_norm,
                                        rms_norm_specs)
 
@@ -76,3 +82,80 @@ def block_prefill(cfg, run, ctx, w, x, positions, *, q_chunk=1024):
     """Like block_apply but also returns this layer's (k, v) for the cache."""
     x, k, v = _attend(cfg, ctx, w, x, positions, q_chunk)
     return _mlp_residual(cfg, ctx, w, x), k, v
+
+
+# --- stacks -----------------------------------------------------------------------
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    if cfg.family == "vlm":
+        raise NotImplementedError(
+            f"{cfg.name}: the VLM stack (cross-attention super-blocks) is "
+            f"not ported yet (ROADMAP Queue 1 item 8)")
+
+
+def stack_specs(cfg: ModelConfig) -> Dict:
+    _require_dense(cfg)
+    return {"layers": P.stack_tree(cfg.num_layers,
+                                   block_specs(cfg, moe=cfg.is_moe))}
+
+
+def stack_apply(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x,
+                positions, *, q_chunk=1024):
+    """Full-sequence forward. Returns (x, aux_loss)."""
+    from repro_torch.models.scan_utils import grouped_scan
+
+    _require_dense(cfg)
+
+    def one_layer(carry, wl):
+        x, aux = carry
+        x, a = block_apply(cfg, run, ctx, wl, x, positions, q_chunk=q_chunk)
+        return (x, aux + a.float()), None
+
+    aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
+    (x, aux), _ = grouped_scan(one_layer, (x, aux0), w["layers"],
+                               cfg.num_layers, run.scan_group,
+                               run.remat == "block")
+    return x, aux
+
+
+def stack_cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Dict:
+    _require_dense(cfg)
+    base = A.cache_specs(cfg, batch, A.effective_cache_len(cfg, cache_len))
+    return P.stack_tree(cfg.num_layers, base)
+
+
+def stack_decode(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, cache,
+                 x, pos: int):
+    """One-token decode at position ``pos`` (a Python int). Returns
+    (x, new_cache)."""
+    _require_dense(cfg)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        x, ck, cv = block_decode(cfg, run, ctx, P.layer(w["layers"], i), x,
+                                 cache["k"][i], cache["v"][i], pos)
+        ks.append(ck)
+        vs.append(cv)
+    return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def stack_prefill(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x,
+                  positions, *, q_chunk=1024):
+    """Full-sequence forward that also builds the KV cache, each layer's
+    (k, v) trimmed to the cache (a sliding window's ring layout) and
+    stored in bfloat16. Returns (x, cache)."""
+    _require_dense(cfg)
+    eff = A.effective_cache_len(cfg, x.shape[1])
+
+    def trim(k):
+        if cfg.sliding_window > 0:
+            return A.ring_layout(k, cfg.sliding_window)
+        return k[:, -eff:] if eff < k.shape[1] else k
+
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        x, k, v = block_prefill(cfg, run, ctx, P.layer(w["layers"], i), x,
+                                positions, q_chunk=q_chunk)
+        ks.append(trim(k).to(torch.bfloat16))
+        vs.append(trim(v).to(torch.bfloat16))
+    return x, {"k": torch.stack(ks), "v": torch.stack(vs)}

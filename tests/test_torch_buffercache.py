@@ -177,3 +177,61 @@ def test_bread_many_matches_reference_wherever_it_completes(seed, capacity,
     if capacity >= 64:
         assert len(done) == 60
         assert np.array_equal(image, ref_image)
+
+
+class _CountingRefs(dict):
+    """A refcount table that counts its ``get`` calls (the pin checks of
+    ``BufferCache._insert``)."""
+
+    def __init__(self, refs):
+        super().__init__(refs)
+        self.gets = 0
+
+    def __missing__(self, key):
+        return 0
+
+    def get(self, *args):
+        self.gets += 1
+        return super().get(*args)
+
+
+@pytest.mark.parametrize("capacity,blocks,held",
+                         [(64, 512, 0), (16, 400, 0), (256, 512, 200)])
+def test_read_past_the_cache_checks_pins_linearly(capacity, blocks, held):
+    """One ``bread_many`` of fresh blocks, ``blocks / capacity`` times
+    the cache, into a full cache whose ``held`` least recent blocks are
+    still pinned. The reference's ``_insert`` loop rescans the cache for
+    an evictable block after each pinned one it skips, and finds none at
+    every insert once the read's own pinned blocks fill the cache: pin
+    checks quadratic in the read (a 113 MB shard file, 27,648 blocks, did
+    not restore in minutes). The port's insert scans once per insert, and
+    not at all once ``bread_many`` knows nothing is evictable: its checks
+    stay linear, with the same bytes, LRU order, refs and counts as the
+    same cache on the reference's loop. The reference serves the same
+    bytes."""
+    def run(bc_mod, dev_mod, insert_of=None):
+        dev = dev_mod.MemBlockDevice(blocks + capacity, 64)
+        for b in range(blocks + capacity):
+            dev.write_block(b, (b % 251).to_bytes(1, "little") * 64)
+        cache = bc_mod.BufferCache(dev, capacity=capacity)
+        warm = cache.bread_many(list(range(blocks, blocks + capacity)))
+        cache.brelse_many(warm[held:])  # the first `held` stay pinned
+        if insert_of is not None:  # that package's loop on this cache
+            cache._insert = (lambda blockno, buf, full=False:
+                             insert_of._insert(cache, blockno, buf))
+        cache._refs = refs = _CountingRefs(cache._refs)
+        heads = cache.bread_many(list(range(blocks)))
+        out = ([bytes(h.data()) for h in heads], list(cache._blocks),
+               dict(refs), cache.hits, cache.misses, refs.gets)
+        cache.brelse_many(heads + warm[:held])
+        cache.assert_no_leaks()
+        return out
+
+    want = [(b % 251).to_bytes(1, "little") * 64 for b in range(blocks)]
+    assert run(R_bc, R_dev)[0] == want
+    *looped, loop_gets = run(T_bc, T_dev, insert_of=R_bc.BufferCache)
+    *port, gets = run(T_bc, T_dev)
+    assert port == looped and port[0] == want
+    assert len(port[1]) == blocks + held  # grown past capacity, all pinned
+    assert loop_gets > blocks * (blocks - capacity) // 2
+    assert gets <= 4 * (blocks + capacity)

@@ -87,10 +87,16 @@ def test_kernel_path_on_cpu_tensors_raises():
 
 
 def test_kernel_path_refuses_inputs_that_require_grad():
+    """Inputs that require grad now go through the kernel's autograd
+    Function (its backward recomputes through the plain version): on CPU
+    tensors the kernel path still refuses them, at the kernel, and never
+    gives way to the plain version."""
     q, k, v = (torch.from_numpy(a).requires_grad_()
                for a in inputs(1, 128, 128, 2, 2, 16))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    before = K.launches()
+    with pytest.raises(ValueError, match="CUDA"):
         ops.flash_attention(q, k, v, use_kernel=True)
+    assert K.launches() == before
 
 
 def test_kernel_shared_memory():

@@ -34,6 +34,13 @@ FS_CONSUMERS = ("repro_torch.checkpoint", "repro_torch.checkpoint.store",
                 "repro_torch.data", "repro_torch.data.pipeline",
                 "repro_torch.core.capability")
 
+# the training slice: the optimizer, the step, the trainer and its CLI, and
+# the layer loop with remat
+TRAINING = ("repro_torch.optim", "repro_torch.optim.adamw",
+            "repro_torch.train", "repro_torch.train.step",
+            "repro_torch.train.trainer", "repro_torch.launch.train",
+            "repro_torch.models.scan_utils")
+
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
     code = (
@@ -52,6 +59,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "repro_torch.fs.mounts" in MODULES
     assert set(FS_CONSUMERS) <= set(MODULES)
+    assert set(TRAINING) <= set(MODULES)
 
 
 @pytest.mark.parametrize("module", FS_CONSUMERS)
@@ -71,6 +79,32 @@ def test_fs_consumers_load_alone_without_jax_reference_or_ml_dtypes(module):
             "m.save(mf.view, '/c', t, step=0, shardings=g)\n"
             "b, _ = m.load(mf.view, '/c', t, device='cpu')\n"
             "assert torch.equal(b['w'], t['w'])\n")
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n" + use +
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes'))\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("module", TRAINING)
+def test_training_modules_load_alone_without_jax_reference_or_ml_dtypes(
+        module):
+    """Each module of the training slice, imported on its own (and used:
+    one step of the smoke trainer on the CPU for the trainer)."""
+    use = ""
+    if module == "repro_torch.train.trainer":
+        use = (
+            "from repro_torch.configs import registry\n"
+            "b = registry.get('smollm-135m')\n"
+            "m = importlib.import_module(" + repr(module) + ")\n"
+            "t = m.Trainer(b.smoke, b.run, global_batch=2, seq_len=8,\n"
+            "              device='cpu')\n"
+            "assert t.train(1)['loss'] > 0\n")
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n" + use +
