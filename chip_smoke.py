@@ -39,8 +39,16 @@ and rematerialised forward, its backward by recompute through the plain
 version), and tests/test_system.py's story on the card (``train_ckpt``:
 checkpoints on a bento mount, a failure and its recovery, the mounted fs
 upgraded under the trainer, a restore, serving from it; every commit and
-restore chunk on the blockhash kernel). Every phase asserts and prints
-JSON lines; the last line is the device record. It
+restore chunk on the blockhash kernel). Then the families beyond the
+dense one: the WKV6 and SSD kernels' autograd Functions at their models'
+training shapes (``wkv6_grad``, ``ssd_grad``: the kernel forward, the
+backward by recompute through the plain version), rwkv6-7b and
+zamba2-7b trained at full width with their depth cut through them under
+two-level remat (``train_rwkv6``, ``train_zamba2``), and olmoe-1b-7b
+served whole (``serve_olmoe``: the MoE layer's dense dispatch, the flash
+kernel in every layer's prefill) and trained at full width
+(``train_olmoe``). Every phase asserts and prints JSON lines; the last
+line is the device record. It
 imports nothing of JAX and exits non-zero, printing no result, when no
 CUDA device is present or when run outside a checkout.
 """
@@ -101,7 +109,10 @@ SSD_TOL = 2e-4  # x max(1, max|ref|), for y and the state
 # shared block at a 1000-token prompt), the serve's shared block
 # (zamba2-7b: 32 heads of 112), then smollm-135m's attention (9 heads over
 # 3 kv heads of 64) at its serve, at its training step (a microbatch of 4 x
-# 2048) and at train_ckpt's step (8 x 256).
+# 2048) and at train_ckpt's step (8 x 256), then the shapes this file's
+# other model paths launch: olmoe-1b-7b's (16 heads of 128) at its serve
+# and at its training step (one microbatch of 8 x 2048), and zamba2-7b's
+# shared block at its training step (a microbatch of 4 x 2048).
 FLASH_CASES = ((2, 256, 256, 4, 2, 64, True, 0, 0.0),
                (1, 512, 512, 8, 8, 128, True, 0, 0.0),
                (2, 256, 256, 4, 4, 64, False, 0, 0.0),
@@ -113,7 +124,10 @@ FLASH_CASES = ((2, 256, 256, 4, 2, 64, True, 0, 0.0),
                (4, 1024, 1024, 32, 32, 112, True, 0, 0.0),
                (4, 1024, 1024, 9, 3, 64, True, 0, 0.0),
                (4, 2048, 2048, 9, 3, 64, True, 0, 0.0),
-               (8, 256, 256, 9, 3, 64, True, 0, 0.0))
+               (8, 256, 256, 9, 3, 64, True, 0, 0.0),
+               (4, 1024, 1024, 16, 16, 128, True, 0, 0.0),
+               (8, 2048, 2048, 16, 16, 128, True, 0, 0.0),
+               (4, 2048, 2048, 32, 32, 112, True, 0, 0.0))
 FLASH_HEADLINE = ((4, 1024, 1024, 32, 32, 112, True, 0, 0.0), "bfloat16")
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # atol = rtol, as the tests
 # odd_prompt: a prefill whose length neither a flash block (128) nor the
@@ -2218,11 +2232,14 @@ def phase_ckpt_model(prm, tokens, logits_serve):
     return launches
 
 
-def _device_window(prof) -> dict:
+def _device_window(avgs) -> dict:
+    """(device µs, count) by kernel name, from a profile's
+    ``key_averages()`` (taken once a profile: on a training step's
+    hundreds of thousands of events each call takes tens of seconds)."""
     import torch
 
     by_name = {}
-    for e in prof.key_averages():  # device events only: no double count
+    for e in avgs:  # device events only: no double count
         us = e.self_device_time_total
         if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
             by_name[e.key] = (us, e.count)
@@ -2231,11 +2248,12 @@ def _device_window(prof) -> dict:
 
 def _kernel_kind(name: str) -> str:
     """A device kernel's kind, from its name in the profiler: the port's
-    two zamba2 kernels, cuBLAS matrix products (``nvjet``, ``gemv`` and
+    SSD, flash and WKV6 kernels, cuBLAS matrix products (``nvjet``, ``gemv`` and
     the older ``gemm``/``xmma`` names), PyTorch's elementwise and
     reduction kernels, copies, or other."""
     low = name.lower()
     for kind, keys in (("ssd", ("ssd_kernel",)), ("flash", ("flash_fwd",)),
+                       ("wkv6", ("wkv6_kernel",)),
                        ("matmul", ("gemm", "gemv", "xmma", "nvjet", "cutlass",
                                    "cublas")),
                        ("elementwise", ("elementwise",)),
@@ -2288,7 +2306,7 @@ def phase_serve_trace(prm, tokens):
     for name, prof, wall, launched in (
             ("prefill", prof_p, prefill_wall, l1 - l0),
             ("decode_8_steps", prof_d, decode_wall, l2 - l1)):
-        by_name = _device_window(prof)
+        by_name = _device_window(prof.key_averages())
         busy_s = sum(us for us, _ in by_name.values()) * 1e-6
         assert busy_s > 0, f"the profiler saw no device time in {name}"
         wkv_us = sum(us for k, (us, _) in by_name.items() if "wkv6" in k)
@@ -2497,11 +2515,12 @@ def _kernel_counts():
     return {"blockhash": BH, "wkv6": WKV, "ssd": SSD, "flash_attention": FA}
 
 
-def serve_profile(cfg, run, prm, tokens) -> dict:
-    """Where the time goes in a serve (zamba2's, smollm's): one prefill,
-    then 8 decode steps, each under ``torch.profiler``; the device's busy time is the sum
-    of its kernels' and copies' own times, and the ssd and flash kernels'
-    time and launches are read from it."""
+def serve_profile(cfg, run, prm, tokens, ranges=()) -> dict:
+    """Where the time goes in a serve (zamba2's, smollm's, olmoe's): one
+    prefill, then 8 decode steps, each under ``torch.profiler``; the
+    device's busy time is the sum of its kernels' and copies' own times,
+    and the ssd and flash kernels' time and launches are read from it, and
+    the device time of each named range in ``ranges``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2532,11 +2551,15 @@ def serve_profile(cfg, run, prm, tokens) -> dict:
     trace = {}
     for name, prof, wall in (("prefill", prof_p, prefill_wall),
                              ("decode_8_steps", prof_d, decode_wall)):
-        by_name = _device_window(prof)
+        avgs = prof.key_averages()
+        by_name = _device_window(avgs)
+        named = _ranges(avgs, by_name, ranges)
         busy_s = sum(us for us, _ in by_name.values()) * 1e-6
         assert busy_s > 0, f"the profiler saw no device time in {name}"
         part = {"wall_s": wall, "device_busy_s": busy_s,
                 "device_idle_share": 1 - busy_s / wall}
+        if ranges:
+            part["ranges"] = named
         for kname, key in (("ssd", "ssd_kernel"), ("flash", "flash_fwd")):
             us = sum(u for k, (u, _) in by_name.items() if key in k)
             part[f"{kname}_us"] = us
@@ -2809,22 +2832,29 @@ def phase_serve_zamba2():
 # train/trainer -> checkpoint on a bento mount -> kernels/blockhash) ----------------
 
 
-def through_plain_flash(fn):
-    """``fn()`` with ``ops.flash_attention`` pointed at the plain version;
-    fails if the kernel launched."""
+def through_plain(fn):
+    """``fn()`` with the model's kernel paths (``ops.flash_attention``,
+    ``ops.ssd``, ``ops.wkv6``) pointed at their plain versions; fails if a
+    kernel launched."""
     import functools
 
-    from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
 
-    kernel_fa = fa_ops.flash_attention
-    fa_ops.flash_attention = functools.partial(kernel_fa, use_kernel=False)
-    l0 = K.launches()
+    kernels = _kernel_counts()
+    paths = ((fa_ops, "flash_attention"), (ssd_ops, "ssd"), (wkv_ops, "wkv6"))
+    real = [getattr(mod, name) for mod, name in paths]
+    for (mod, name), fn_k in zip(paths, real):
+        setattr(mod, name, functools.partial(fn_k, use_kernel=False))
+    l0 = {n: m.launches() for n, m in kernels.items()}
     try:
         out = fn()
     finally:
-        fa_ops.flash_attention = kernel_fa
-    assert K.launches() == l0, "the plain path launched the flash kernel"
+        for (mod, name), fn_k in zip(paths, real):
+            setattr(mod, name, fn_k)
+    assert {n: m.launches() for n, m in kernels.items()} == l0, \
+        "the plain path launched a kernel"
     return out
 
 
@@ -2938,7 +2968,7 @@ def phase_serve_smollm():
     # the same prefill through the kernel and through the plain version,
     # in bf16 (reported) and with an f32 copy of the weights (held)
     (logits, _), prefill_s = timed_prefill(prm, run)
-    (logits_ref, _), prefill_ref_s = through_plain_flash(
+    (logits_ref, _), prefill_ref_s = through_plain(
         lambda: timed_prefill(prm, run))
     assert torch.isfinite(logits).all() and torch.isfinite(logits_ref).all()
     bf16_err, bf16_scale = _logits_err(logits, logits_ref)
@@ -2946,7 +2976,7 @@ def phase_serve_smollm():
     prm32 = P.tree_map(lambda t: t.float(), prm)
     run32 = run.replace(compute_dtype="float32")
     (logits32, _), prefill_f32_s = timed_prefill(prm32, run32)
-    (logits32_ref, _), _ = through_plain_flash(
+    (logits32_ref, _), _ = through_plain(
         lambda: timed_prefill(prm32, run32))
     f32_err, f32_scale = _logits_err(logits32, logits32_ref)
     assert f32_err <= 2e-2 * f32_scale, (f32_err, f32_scale)
@@ -2996,18 +3026,6 @@ def phase_serve_smollm():
     del prm, tokens
     torch.cuda.empty_cache()
     return main_launches["flash_attention"]
-
-
-def train_flops(cfg, n_params: int, batch: int, seq: int) -> int:
-    """Model operations of one training step: 6 N a token for the
-    parameters' products (the forward and both halves of the backward),
-    plus the attention's two products over the causal pairs, 3 times (the
-    forward and the backward). The remat's second forward is not counted:
-    it is work the model does not need."""
-    pairs = seq * (seq + 1) // 2
-    attn_fwd = (cfg.num_layers * 2 * 2 * batch * cfg.num_heads
-                * cfg.head_dim * pairs)
-    return 6 * n_params * batch * seq + 3 * attn_fwd
 
 
 def phase_train_smollm():
@@ -3102,7 +3120,7 @@ def phase_train_smollm():
     loss_k, grads_k = loss_and_grads()
     f32_launches = K.launches() - l0
     assert f32_launches == 2 * L, f32_launches
-    loss_p, grads_p = through_plain_flash(loss_and_grads)
+    loss_p, grads_p = through_plain(loss_and_grads)
     f32_loss_err = abs(loss_k - loss_p)
     assert f32_loss_err <= 1e-4 * max(1.0, abs(loss_p)), (loss_k, loss_p)
     grad_rel = [((a - b).abs().max() / max(1.0, b.abs().max().item())).item()
@@ -3160,7 +3178,8 @@ def phase_train_smollm():
         t.train(t.step_idx + 1)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
-    by_name = _device_window(prof)
+    avgs = prof.key_averages()
+    by_name = _device_window(avgs)
     # the named range shows on the device too, as the span of its kernels
     span_us, _ = by_name.pop("flash_recompute_bwd", (None, 0))
     busy_s = sum(us for us, _ in by_name.values()) * 1e-6
@@ -3170,8 +3189,7 @@ def phase_train_smollm():
         kind = kinds.setdefault(_kernel_kind(kname), {"us": 0.0, "count": 0})
         kind["us"] += us
         kind["count"] += c
-    bwd_range = [e for e in prof.key_averages()
-                 if e.key == "flash_recompute_bwd"]
+    bwd_range = [e for e in avgs if e.key == "flash_recompute_bwd"]
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     profiled = {
         "wall_s": prof_wall, "device_busy_s": busy_s,
@@ -3208,7 +3226,7 @@ def phase_train_smollm():
          profiled_step=profiled)
     del t, mb
     torch.cuda.empty_cache()
-    return main_launches["flash_attention"]
+    return main_launches["flash_attention"], bwd_ms
 
 
 def phase_train_ckpt():
@@ -3369,6 +3387,528 @@ def phase_train_ckpt():
     return launches, flash_launches
 
 
+# --- ssm/hybrid training and the MoE family (kernels/{wkv6,ssd}/ops: the
+# kernels' autograd Functions; models/moe; train/trainer) -------------------------
+
+# (shape, chunk) of each scan at its model's training microbatch (4 x 2048):
+# rwkv6-7b's 64 heads of 64 at chunk 32 (B, S, H, K, V, chunk); zamba2-7b's
+# 112 heads, P = N = 64, at chunk 128 (b, S, H, P, N, chunk).
+SCAN_GRAD = {"wkv6": (4, 2048, 64, 64, 64, 32),
+             "ssd": (4, 2048, 112, 64, 64, 128)}
+GRAD_TOL = 1e-3  # x max(1, max|plain|), each gradient (tests/test_kernels.py)
+# The training phases: each model at full width with the bundle's
+# RunConfig and its depth cut, since the whole model's f32 parameters,
+# gradients and Adam moments (16 bytes a parameter) do not fit one card:
+# rwkv6-7b 32 -> 8 layers (one scan group of 8), zamba2-7b 81 -> 18 (two
+# groups of 9, three shared-block applications), olmoe-1b-7b 16 -> 4.
+# ``check``: the depth and scan group of the f32 step held through the
+# kernels against the same step through the plain versions.
+TRAIN_MODELS = {
+    "train_rwkv6": {"arch": "rwkv6-7b", "layers": 8,
+                    "params": 2_296_811_520, "check": (2, 2)},
+    "train_zamba2": {"arch": "zamba2-7b", "layers": 18,
+                     "params": 1_838_512_800, "check": (6, 3)},
+    "train_olmoe": {"arch": "olmoe-1b-7b", "layers": 4,
+                    "params": 1_884_309_504, "check": (2, 0)},
+}
+TRAIN_SHAPE = {"global_batch": 8, "seq": 2048, "warmup": 2, "steps": 3}
+# olmoe-1b-7b whole (16 layers, 64 experts, top 8): nothing cut
+SERVE_OLMOE = {"arch": "olmoe-1b-7b", "batch": 4, "prompt": 1024, "gen": 32}
+RECOMPUTE_RANGES = ("wkv6_recompute_bwd", "ssd_recompute_bwd",
+                    "flash_recompute_bwd")
+MOE_RANGES = ("moe_route", "moe_dispatch", "moe_experts", "moe_combine")
+
+
+def remat_forwards(n_layers: int, group: int, layers) -> int:
+    """Forward runs, in one microbatch's forward and backward under block
+    remat, of a kernel that runs in each of ``layers``: the forward and
+    the layer's recompute, and, where groups of ``group`` layers divide
+    the depth, the group's recompute too, which stops after the input of
+    the group's last layer (non-reentrant checkpoints stop early).
+    tests/test_torch_ssm_train.py finds the same counts on the CPU."""
+    grouped = group > 1 and n_layers % group == 0
+    return sum(2 + (grouped and i % group != group - 1) for i in layers)
+
+
+def train_launches(cfg, run) -> dict:
+    """Each kernel's launches in one microbatch of training."""
+    L, G = cfg.num_layers, run.scan_group
+    counts = {"blockhash": 0, "wkv6": 0, "ssd": 0, "flash_attention": 0}
+    if cfg.family == "ssm":
+        counts["wkv6"] = remat_forwards(L, G, range(L))
+    elif cfg.family == "hybrid":
+        e = cfg.shared_attn_every
+        counts["ssd"] = remat_forwards(L, G, range(L))
+        counts["flash_attention"] = remat_forwards(
+            L, G, [i for i in range(L) if i % e == e - 1])
+    else:
+        counts["flash_attention"] = remat_forwards(L, G, range(L))
+    return counts
+
+
+def _ranges(avgs, by_name: dict, names) -> dict:
+    """The device time of each named ``record_function`` range, from a
+    profile's ``key_averages()``, taken out of ``by_name`` (where its span
+    would count twice): the range's device time, its calls and its
+    span."""
+    out = {}
+    for name in names:
+        span_us, _ = by_name.pop(name, (None, 0))
+        ev = [e for e in avgs if e.key == name]
+        if ev:
+            out[name] = {"device_us": ev[0].device_time_total,
+                         "calls": ev[0].count, "span_us": span_us}
+    return out
+
+
+def _scan_arrays(name, rng):
+    """The inputs of one scan at its training shape, float32 numpy, as the
+    kernel phases draw them; and which of them the model hands the kernel
+    in the compute dtype (the rest stay float32)."""
+    if name == "wkv6":
+        B, S, H, Kd, V, C = SCAN_GRAD[name]
+        return wkv6_inputs(rng, B, S, H, Kd, V, "smoke"), (0, 1, 2, 3)
+    b, S, H, P, N, C = SCAN_GRAD[name]
+    n = lambda *shape: rng.standard_normal(shape, dtype=np.float32)
+    return (n(b, S, H, P), np.logaddexp(0, n(b, S, H)).astype(np.float32),
+            n(b, S, N) * 0.5, n(b, S, N) * 0.5, n(H) * 0.3, 1 + 0.1 * n(H),
+            n(b, H, P, N) * 0.1), (0, 2, 3)
+
+
+def phase_scan_grad(name):
+    """The scan's autograd Function (``_WKV6`` or ``_SSD``) at its model's
+    training shape, in f32 and bf16: its forward (the kernel, one launch)
+    against the plain forward within the kernel's tolerance; the input
+    gradients of its backward (a recompute through the plain version, no
+    launch) against autograd through the plain version within 1e-3 x
+    max(1, max|plain|) each, in the input's dtype (both differentiate the
+    plain version: this checks the wiring); the recompute backward's time
+    a call by CUDA events and its memory peak above what was allocated."""
+    import torch
+
+    from repro_torch.kernels.ssd import kernel as SK, ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    from repro_torch.kernels.wkv6 import kernel as WK, ops as wkv_ops
+    from repro_torch.kernels.wkv6 import ref as wkv_ref
+
+    K, kernel, op, plain, tol = {
+        "wkv6": (WK, WK.wkv6_chunked, wkv_ops.wkv6, wkv_ref.wkv6, WKV6_TOL),
+        "ssd": (SK, SK.ssd_chunked, ssd_ops.ssd, ssd_ref.ssd, SSD_TOL)}[name]
+    shape = SCAN_GRAD[name]
+    C = shape[-1]
+    rng = np.random.default_rng(2030)
+    arrays, low = _scan_arrays(name, rng)
+    out_shape = arrays[2].shape if name == "wkv6" else arrays[0].shape
+    dev = torch.device("cuda")
+    gy = torch.from_numpy(rng.standard_normal(out_shape, dtype=np.float32)
+                          ).to(dev)
+    gs = torch.from_numpy(rng.standard_normal(arrays[-1].shape,
+                                              dtype=np.float32)).to(dev)
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        args = [torch.from_numpy(a).to(dev, dt if i in low else torch.float32)
+                .requires_grad_() for i, a in enumerate(arrays)]
+        l0 = K.launches()
+        y, st = op(*args, chunk=C, use_kernel=True)
+        with torch.no_grad():
+            y_ref, st_ref = plain(*args, chunk=C)
+        fwd_err, ok = [], True
+        for got, want in ((y, y_ref), (st, st_ref)):
+            err = (got - want).abs().max().item()
+            ok &= err <= tol * max(1.0, want.abs().max().item())
+            fwd_err.append(err)
+        assert y.grad_fn is not None and ok, (name, dtype, fwd_err)
+        del y_ref, st_ref
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = torch.autograd.grad((y, st), args, (gy, gs), retain_graph=True)
+        torch.cuda.synchronize()
+        bwd_peak = torch.cuda.max_memory_allocated() - base
+        launched = K.launches() - l0
+        assert launched == 1, launched  # the backward launched nothing
+        yp, sp = plain(*args, chunk=C)
+        want = torch.autograd.grad((yp, sp), args, (gy, gs))
+        del yp, sp
+        grad_rel = []
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert a.dtype == b.dtype == args[i].dtype, (i, a.dtype, b.dtype)
+            grad_rel.append(((a.float() - b.float()).abs().max() / max(
+                1.0, b.float().abs().max().item())).item())
+        assert max(grad_rel) <= GRAD_TOL, (name, dtype, grad_rel)
+        del got, want
+        bwd_ms = call_ms(lambda: torch.autograd.grad(
+            (y, st), args, (gy, gs), retain_graph=True), count=2, reps=3)
+        plain_args = [a.detach() for a in args]
+        fwd_ms = device_ms(lambda: kernel(*plain_args, chunk=C), count=5,
+                           reps=10)
+        fwd_bound = (wkv6_bound(*shape, dtype) if name == "wkv6" else
+                     bound(*ssd_work(*shape, args[0].element_size()), dtype))
+        row = {"shape": list(shape), "dtype": dtype, "forward_err": fwd_err,
+               "kernel_fwd_bound_ms": fwd_bound["bound_ms"],
+               "kernel_fwd_bound_by": fwd_bound["bound_by"],
+               "forward_tolerance": f"{tol} x max(1, max|plain|)",
+               "grad_max_rel_err": max(grad_rel),
+               "grad_rel_err_by_input": grad_rel,
+               "grad_tolerance": f"{GRAD_TOL} x max(1, max|plain|)",
+               "launches": launched, "kernel_fwd_ms": fwd_ms,
+               "recompute_bwd_ms": bwd_ms,
+               "recompute_bwd_peak_bytes": bwd_peak}
+        rows.append(row)
+        emit(f"{name}_grad", **row)
+        del y, st, args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def train_flops(cfg, n_params: int, batch: int, seq: int,
+                attn_layers=None) -> int:
+    """Model operations of one training step: 6 N a token for the
+    parameters' products (the forward and both halves of the backward; N
+    the active parameters of a MoE), plus the attention's two products
+    over the causal pairs, 3 times (the forward and the backward), in each
+    of ``attn_layers`` layers (all of them unless given). The remat's
+    forwards are not counted: they are work the model does not need; nor
+    are the WKV6 and SSD scans' own operations, under 1 % of the
+    products'."""
+    pairs = seq * (seq + 1) // 2
+    layers = cfg.num_layers if attn_layers is None else attn_layers
+    attn_fwd = layers * 2 * 2 * batch * cfg.num_heads * cfg.head_dim * pairs
+    return 6 * n_params * batch * seq + 3 * attn_fwd
+
+
+def phase_train_model(name):
+    """A training path beyond the dense one: rwkv6-7b (``train_rwkv6``),
+    zamba2-7b (``train_zamba2``) or olmoe-1b-7b (``train_olmoe``) at full
+    width through train.trainer.Trainer on the card, with the bundle's
+    RunConfig (f32 parameters and moments, bf16 compute, block remat in
+    groups of ``scan_group`` layers, microbatches of
+    ``microbatch_per_data_shard``) and the depth TRAIN_MODELS gives. 8 x
+    2048 tokens a step on one repeated batch (``OneBatch``: the loss must
+    fall); 2 warm-up steps and 3 timed ones, each kernel's count read
+    around each step and held to ``train_launches``. Then one profiled
+    step (the kernels' recompute backwards under their named ranges), and,
+    with the trainer freed, one microbatch in f32 at the check depth
+    through the kernels and through the plain versions: the loss and every
+    gradient leaf."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.models import lm, mamba2, params as P
+    from repro_torch.train.step import num_accum_steps
+    from repro_torch.train.trainer import Trainer
+
+    spec = TRAIN_MODELS[name]
+    kernels = _kernel_counts()
+    bundle = registry.get(spec["arch"])
+    cfg = dataclasses.replace(bundle.model, num_layers=spec["layers"])
+    run = bundle.run
+    assert (run.param_dtype, run.moment_dtype, run.compute_dtype,
+            run.remat) == ("float32", "float32", "bfloat16", "block")
+    gb, seq = TRAIN_SHAPE["global_batch"], TRAIN_SHAPE["seq"]
+    ctx = ShardingCtx.null()
+    n_accum = num_accum_steps(run, ctx, gb)
+    per_micro = train_launches(cfg, run)
+    per_step = {k: n_accum * v for k, v in per_micro.items()}
+    # the softmax-attention layers: none in rwkv6, the shared block's
+    # applications in zamba2, every layer in olmoe
+    attn_layers = {"ssm": 0,
+                   "hybrid": mamba2.n_shared_applications(cfg)}.get(
+                       cfg.family)
+    dev = torch.device("cuda")
+    seconds = {}  # where the phase's own time goes
+
+    t0 = time.perf_counter()
+    t = Trainer(cfg, run, global_batch=gb, seq_len=seq, seed=0,
+                data=OneBatch(SyntheticLM(cfg, gb, seq, seed=0)))
+    assert t.device.type == "cuda"
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in P.leaves(t.params))
+    assert n_params == spec["params"] == cfg.param_count(), n_params
+    active = cfg.active_param_count()
+
+    # the main path: every count set to 0 just before, read just after
+    n_steps = TRAIN_SHAPE["warmup"] + TRAIN_SHAPE["steps"]
+    torch.cuda.reset_peak_memory_stats()
+    for mod in kernels.values():
+        mod.reset_launches()
+    step_s, step_launches = [], []
+    for i in range(n_steps):
+        l0 = {k: m.launches() for k, m in kernels.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.train(i + 1)  # one step; its metrics reach the host
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        step_launches.append({k: m.launches() - l0[k]
+                              for k, m in kernels.items()})
+    main_launches = {k: m.launches() for k, m in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    assert step_launches == [per_step] * n_steps, (step_launches, per_step)
+    assert main_launches == {k: v * n_steps for k, v in per_step.items()}
+    losses = [m["loss"] for m in t.metrics_log]
+    assert len(losses) == n_steps and all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    timed = step_s[TRAIN_SHAPE["warmup"]:]
+    step_med = statistics.median(timed)
+    flops = train_flops(cfg, active, gb, seq, attn_layers)
+    seconds["steps"] = sum(step_s)
+
+    # one profiled step: the recompute backwards under their named ranges
+    torch.cuda.synchronize()
+    t_prof = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        t.train(t.step_idx + 1)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    seconds["profiled_step_with_trace"] = time.perf_counter() - t_prof
+    t_avg = time.perf_counter()
+    avgs = prof.key_averages()
+    by_name = _device_window(avgs)
+    ranges = _ranges(avgs, by_name, RECOMPUTE_RANGES + MOE_RANGES)
+    seconds["profile_tables"] = time.perf_counter() - t_avg
+    busy_us = sum(us for us, _ in by_name.values())
+    assert busy_us > 0, "the profiler saw no device time in the step"
+    kinds = {}
+    for kname, (us, c) in by_name.items():
+        kind = kinds.setdefault(_kernel_kind(kname), {"us": 0.0, "count": 0})
+        kind["us"] += us
+        kind["count"] += c
+    recompute_us = sum(ranges[r]["device_us"] for r in RECOMPUTE_RANGES
+                       if r in ranges)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    profiled = {
+        "wall_s": prof_wall, "device_busy_s": busy_us * 1e-6,
+        "device_idle_share": 1 - busy_us * 1e-6 / prof_wall,
+        "ranges": ranges, "recompute_bwd_device_us": recompute_us,
+        "recompute_bwd_share_of_device": recompute_us / busy_us,
+        "recompute_bwd_share_of_unprofiled_step":
+            recompute_us * 1e-6 / step_med,
+        "device_by_kind": kinds,
+        "device_top": [{"name": kn[:80], "us": us, "count": c}
+                       for kn, (us, c) in top]}
+    recompute_ms = {r.split("_")[0]: ranges[r]["device_us"] / ranges[r][
+        "calls"] * 1e-3 for r in RECOMPUTE_RANGES
+        if ranges.get(r, {}).get("calls")}
+    # a range counts its Function's backwards, one an application of the
+    # kernel a microbatch, and none of its forwards
+    applications = {"ssm": {"wkv6": cfg.num_layers},
+                    "hybrid": {"ssd": cfg.num_layers,
+                               "flash": mamba2.n_shared_applications(cfg)}
+                    }.get(cfg.family, {"flash": cfg.num_layers})
+    range_calls = {r.split("_")[0]: ranges[r]["calls"]
+                   for r in RECOMPUTE_RANGES if r in ranges}
+    assert range_calls == {k: n_accum * v for k, v in applications.items()}, \
+        range_calls
+    del t
+    torch.cuda.empty_cache()
+
+    # one microbatch in f32 at the check depth, through the kernels and
+    # through the plain versions: the loss and every gradient leaf
+    t_check = time.perf_counter()
+    check_layers, check_group = spec["check"]
+    ccfg = dataclasses.replace(bundle.model, num_layers=check_layers)
+    crun = run.replace(compute_dtype="float32", scan_group=check_group)
+    prm = P.materialize(lm.param_specs(ccfg),
+                        torch.Generator(device=dev).manual_seed(1), dev)
+    mb = {k: torch.from_numpy(v[:gb // n_accum]).to(dev)
+          for k, v in SyntheticLM(ccfg, gb, seq, seed=0).batch(0).items()}
+
+    def loss_and_grads():
+        p = P.tree_map(lambda x: x.detach().requires_grad_(), prm)
+        loss, _ = lm.loss_fn(ccfg, crun, ctx, p, mb)
+        return loss.item(), torch.autograd.grad(loss, list(P.leaves(p)))
+
+    l0 = {k: m.launches() for k, m in kernels.items()}
+    loss_k, grads_k = loss_and_grads()
+    check_launches = {k: m.launches() - l0[k] for k, m in kernels.items()}
+    assert check_launches == train_launches(ccfg, crun), check_launches
+    loss_p, grads_p = through_plain(loss_and_grads)
+    f32_loss_err = abs(loss_k - loss_p)
+    assert f32_loss_err <= 1e-4 * max(1.0, abs(loss_p)), (loss_k, loss_p)
+    grad_rel = [((a - b).abs().max() / max(1.0, b.abs().max().item())).item()
+                for a, b in zip(grads_k, grads_p)]
+    assert max(grad_rel) <= GRAD_TOL, max(grad_rel)
+    del prm, mb, grads_k, grads_p
+    torch.cuda.empty_cache()
+    seconds["f32_check"] = time.perf_counter() - t_check
+
+    emit(name, arch=cfg.name, layers=cfg.num_layers,
+         cut=f"depth {bundle.model.num_layers} -> {cfg.num_layers}: f32 "
+             f"parameters, gradients and Adam moments at 16 bytes a "
+             f"parameter", d_model=cfg.d_model, params=n_params,
+         active_params=active, param_dtype=run.param_dtype,
+         moment_dtype=run.moment_dtype, compute_dtype=run.compute_dtype,
+         remat=run.remat, scan_group=run.scan_group, global_batch=gb,
+         seq=seq, microbatches=n_accum, init_s=init_s,
+         warmup_steps=TRAIN_SHAPE["warmup"], timed_steps=len(timed),
+         step_ms=step_med * 1e3, step_ms_all=[x * 1e3 for x in step_s],
+         tokens_per_s=gb * seq / step_med, peak_memory_bytes=peak,
+         model_flops_per_step=flops,
+         model_flops_share_of_bf16_peak=flops / step_med / BF16_TENSOR_OPS_PER_S,
+         losses=losses, launches_per_microbatch=per_micro,
+         launches_per_step=per_step, main_path_launches=main_launches,
+         check_layers=check_layers, check_scan_group=check_group,
+         check_launches=check_launches, f32_loss_kernel=loss_k,
+         f32_loss_plain=loss_p, f32_loss_err=f32_loss_err,
+         f32_grad_max_rel_err=max(grad_rel),
+         f32_tolerance={"loss": "1e-4 x max(1, |plain|)",
+                        "grads": f"{GRAD_TOL} x max(1, max|plain|) a leaf"},
+         recompute_bwd_ms_per_call=recompute_ms, profiled_step=profiled,
+         seconds=seconds)
+    return main_launches, recompute_ms
+
+
+def phase_serve_olmoe():
+    """The MoE model path: olmoe-1b-7b whole (16 layers, d_model 2048, 16
+    heads of 128, 64 experts of d_ff 1024, top 8, vocabulary 50304) in
+    bf16, seeded random weights on the card, batch 4, a 1024-token prompt
+    and 32 greedy tokens through launch/serve.generate, every kernel count
+    set to 0 just before and read just after: flash launches once a layer
+    in the prefill and never in a decode step. The prefill through the
+    kernel and through the plain attention with an f32 copy of the
+    weights (held within 2e-2 x max(1, max|plain|)) and in bf16, where the
+    attention's rounding may flip a router's top-8 choice and move a
+    token's output by a whole expert's share: there the kernel's logits
+    are held no further from the f32 ones than twice the plain version's,
+    and within serve_smollm's absolute bound against the plain version's
+    wherever the plain version's own bf16 logits lie within it of the f32
+    ones. Then a profiled prefill and 8 decode steps, the MoE layer's four parts
+    under their named ranges."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.launch import serve
+    from repro_torch.models import lm, params as P
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+
+    kernels = _kernel_counts()
+    FA = kernels["flash_attention"]
+    bundle = registry.get(SERVE_OLMOE["arch"])
+    cfg, run = bundle.model, bundle.run
+    ctx = ShardingCtx.null()
+    dev = torch.device("cuda")
+    B, prompt, gen = (SERVE_OLMOE["batch"], SERVE_OLMOE["prompt"],
+                      SERVE_OLMOE["gen"])
+    L = cfg.num_layers
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    prm = P.materialize(lm.param_specs(cfg), g, dev, dtype=run.compute_dtype)
+    tokens = torch.randint(0, cfg.vocab_size, (B, prompt), generator=g,
+                           device=dev, dtype=torch.int32)
+    n_params = sum(t.numel() for t in P.leaves(prm))
+    assert n_params == 6_919_096_320 == cfg.param_count(), n_params
+    assert (L, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+            cfg.d_ff, cfg.vocab_size, cfg.num_experts,
+            cfg.experts_per_token) == (16, 2048, 16, 16, 128, 1024, 50304,
+                                       64, 8)
+
+    # the main path, every count set to 0 just before and read just after
+    torch.cuda.reset_peak_memory_stats()
+    for mod in kernels.values():
+        mod.reset_launches()
+    ids, times = serve.generate(cfg, run, prm, tokens, gen)
+    main_launches = {name: mod.launches() for name, mod in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    assert main_launches == {"blockhash": 0, "wkv6": 0, "ssd": 0,
+                             "flash_attention": L}, main_launches
+    assert ids.shape == (B, gen) and ((0 <= ids) & (ids < cfg.vocab_size)).all()
+
+    # one prefill and one decode step alone: L launches, then none
+    prefill = make_prefill_step(cfg, run, ctx)
+    decode = make_decode_step(cfg, run, ctx)
+    l0 = FA.launches()
+    tok, cache = prefill(prm, {"tokens": tokens})
+    prefill_launches = FA.launches() - l0
+    cache = serve.pad_cache(cfg, cache, 1)
+    l0 = FA.launches()
+    tok2, cache = decode(prm, cache, {"tokens": tok[:, None], "pos": prompt})
+    decode_launches = FA.launches() - l0
+    assert (prefill_launches, decode_launches) == (L, 0)
+    assert (tok.cpu().numpy() == ids[:, 0]).all()
+    assert (tok2.cpu().numpy() == ids[:, 1]).all()
+    del cache
+
+    def timed_prefill(params, rn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = lm.prefill_fn(cfg, rn, ctx, params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (logits, _), prefill_s = timed_prefill(prm, run)
+    (logits_ref, _), prefill_ref_s = through_plain(
+        lambda: timed_prefill(prm, run))
+    assert torch.isfinite(logits).all() and torch.isfinite(logits_ref).all()
+    bf16_err, bf16_scale = _logits_err(logits, logits_ref)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    prm32 = P.tree_map(lambda t: t.float(), prm)
+    run32 = run.replace(compute_dtype="float32")
+    (logits32, _), prefill_f32_s = timed_prefill(prm32, run32)
+    (logits32_ref, _), _ = through_plain(lambda: timed_prefill(prm32, run32))
+    f32_err, f32_scale = _logits_err(logits32, logits32_ref)
+    assert f32_err <= 2e-2 * f32_scale, (f32_err, f32_scale)
+    # in bf16 the kernel's logits may lie no further from the f32 ones
+    # than twice the plain version's bf16 logits do, as serve_smollm holds
+    kernel_vs_f32_err, _ = _logits_err(logits, logits32_ref)
+    plain_vs_f32_err, _ = _logits_err(logits_ref, logits32_ref)
+    assert kernel_vs_f32_err <= 2 * plain_vs_f32_err, (kernel_vs_f32_err,
+                                                       plain_vs_f32_err)
+    # serve_smollm's absolute bound, the kernel's bf16 tolerance at the
+    # logits' scale, holds the kernel's bf16 logits wherever bf16 itself
+    # stays within it: where the plain version's own bf16 logits lie
+    # further than that from the f32 ones, a flipped top-8 choice moves a
+    # token by more than any attention's rounding, and the bound is void
+    # for every attention (phase flash_attention_kernel holds the kernel
+    # itself at FLASH_TOL at this prefill's shape)
+    tol = FLASH_TOL["bfloat16"]
+    bf16_bound = tol + tol * bf16_scale
+    bf16_bound_applies = plain_vs_f32_err <= bf16_bound
+    assert bf16_err <= bf16_bound or not bf16_bound_applies, (bf16_err,
+                                                              bf16_bound)
+    del prm32, logits32, logits32_ref, logits_ref
+    torch.cuda.empty_cache()
+
+    trace = serve_profile(cfg, run, prm, tokens, ranges=MOE_RANGES)
+    assert 0 < trace["prefill"]["flash_launches"] <= L, trace["prefill"]
+    assert trace["decode_8_steps"]["flash_launches"] == 0
+    emit("serve_olmoe", arch=cfg.name, layers=L, d_model=cfg.d_model,
+         experts=cfg.num_experts, experts_per_token=cfg.experts_per_token,
+         params=n_params, active_params=cfg.active_param_count(),
+         dtype=run.compute_dtype, batch=B, prompt=prompt, gen=gen,
+         prefill_ms=prefill_s * 1e3, prefill_cold_ms=times["prefill_s"] * 1e3,
+         prefill_ref_ms=prefill_ref_s * 1e3,
+         prefill_f32_ms=prefill_f32_s * 1e3,
+         decode_ms_per_token=times["decode_s_per_token"] * 1e3,
+         tokens_per_s=B / times["decode_s_per_token"],
+         peak_memory_bytes=peak, flash_launches_per_prefill=prefill_launches,
+         flash_launches_per_decode_step=decode_launches,
+         main_path_launches=main_launches,
+         generated_ids_row0=ids[0].tolist(),
+         logits_bf16_max_abs_err=bf16_err, logits_bf16_scale=bf16_scale,
+         logits_f32_max_abs_err=f32_err, logits_f32_scale=f32_scale,
+         logits_f32_tolerance="2e-2 x max(1, max|plain|)",
+         logits_bf16_bound=bf16_bound,
+         logits_bf16_tolerance=f"{tol} + {tol} max|plain|",
+         logits_bf16_bound_applies=bf16_bound_applies,
+         logits_bf16_kernel_vs_f32_err=kernel_vs_f32_err,
+         logits_bf16_plain_vs_f32_err=plain_vs_f32_err, trace=trace)
+    del prm, tokens
+    torch.cuda.empty_cache()
+    return main_launches["flash_attention"]
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py runs from the root of a checkout: "
@@ -3408,9 +3948,23 @@ def main() -> int:
     flash_rows = phase_flash_attention_kernel()
     zamba_launches = phase_serve_zamba2()
     flash_by_path = {"serve_zamba2": zamba_launches["flash_attention"],
-                     "serve_smollm": phase_serve_smollm(),
-                     "train_smollm": phase_train_smollm()}
+                     "serve_smollm": phase_serve_smollm()}
+    flash_by_path["train_smollm"], smollm_bwd_ms = phase_train_smollm()
     fs_launches["train_ckpt"], flash_by_path["train_ckpt"] = phase_train_ckpt()
+    grad_rows = {name: phase_scan_grad(name) for name in ("wkv6", "ssd")}
+    rwkv_train, rwkv_bwd = phase_train_model("train_rwkv6")
+    zamba_train, zamba_bwd = phase_train_model("train_zamba2")
+    flash_by_path["serve_olmoe"] = phase_serve_olmoe()
+    olmoe_train, olmoe_bwd = phase_train_model("train_olmoe")
+    flash_by_path["train_zamba2"] = zamba_train["flash_attention"]
+    flash_by_path["train_olmoe"] = olmoe_train["flash_attention"]
+
+    def recompute(name):  # the recompute backward at the training shape
+        return {"shape": list(SCAN_GRAD[name]),
+                "ms": {r["dtype"]: r["recompute_bwd_ms"]
+                       for r in grad_rows[name]},
+                "peak_bytes": {r["dtype"]: r["recompute_bwd_peak_bytes"]
+                               for r in grad_rows[name]}}
 
     head = next(r for r in rows if tuple(r["shape"]) == HEADLINE_SHAPE)
     wkv_head = next(r for r in wkv_rows
@@ -3439,6 +3993,10 @@ def main() -> int:
         "source": "src/repro_torch/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/wkv6/kernel.py:72",
         "launches": wkv_launches,
+        "launches_by_path": {"serve_rwkv6": wkv_launches,
+                             "train_rwkv6": rwkv_train["wkv6"]},
+        "recompute_bwd": recompute("wkv6"),
+        "recompute_bwd_ms_in_train_rwkv6": rwkv_bwd["wkv6"],
         "max_abs_err": max(r["max_abs_err"] for r in wkv_rows),
         "tolerance": f"{WKV6_TOL} x max(1, max|ref|)",
         "shape": wkv_head["shape"], "dtype": wkv_head["dtype"],
@@ -3451,6 +4009,10 @@ def main() -> int:
         "source": "src/repro_torch/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:69",
         "launches": zamba_launches["ssd"],
+        "launches_by_path": {"serve_zamba2": zamba_launches["ssd"],
+                             "train_zamba2": zamba_train["ssd"]},
+        "recompute_bwd": recompute("ssd"),
+        "recompute_bwd_ms_in_train_zamba2": zamba_bwd["ssd"],
         "max_abs_err": max(r["max_abs_err"] for r in ssd_rows),
         "tolerance": f"{SSD_TOL} x max(1, max|ref|)",
         "shape": ssd_head["shape"], "dtype": ssd_head["dtype"],
@@ -3463,6 +4025,9 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
         "launches": zamba_launches["flash_attention"],
         "launches_by_path": flash_by_path,
+        "recompute_bwd_ms": {"train_smollm": smollm_bwd_ms,
+                             "train_zamba2": zamba_bwd["flash"],
+                             "train_olmoe": olmoe_bwd["flash"]},
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         "tolerance": {d: f"{t} + {t} |ref|" for d, t in FLASH_TOL.items()},
         "shape": flash_head["case"], "dtype": flash_head["dtype"],

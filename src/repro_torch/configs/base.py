@@ -102,9 +102,15 @@ class ModelConfig:
     def param_count(self) -> int:
         """Exact parameter count from the declarative specs (families the
         port's ``models.lm`` does not build yet raise there)."""
-        from repro_torch.models import lm, params
+        from repro_torch.models import registry as model_registry
 
-        return params.count_params(lm.param_specs(self))
+        return model_registry.param_count(self)
+
+    def active_param_count(self) -> int:
+        """Parameters a token runs through: MoE experts scaled by k/E."""
+        from repro_torch.models import registry as model_registry
+
+        return model_registry.param_count(self, active_only=True)
 
 
 # ---------------------------------------------------------------------------

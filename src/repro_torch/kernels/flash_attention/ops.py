@@ -14,35 +14,17 @@ from __future__ import annotations
 
 from typing import Optional
 
-import torch
-
+from repro_torch.kernels import _autograd
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ref
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Forward: the CUDA kernel on contiguous q, k, v. Backward: the
-    gradients of ``ref.attention`` at the saved inputs, under the profiler
-    range ``flash_recompute_bwd``."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap):
-        q, k, v = (t.contiguous() for t in (q, k, v))
-        ctx.save_for_backward(q, k, v)
-        ctx.mask = (causal, window, softcap)
-        return K.flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                     softcap=softcap)
-
-    @staticmethod
-    def backward(ctx, g):
-        causal, window, softcap = ctx.mask
-        with torch.enable_grad(), \
-                torch.profiler.record_function("flash_recompute_bwd"):
-            q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
-            out = ref.attention(q, k, v, causal=causal, window=window,
-                                softcap=softcap)
-            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
-        return dq, dk, dv, None, None, None
+# Forward: the CUDA kernel on contiguous q, k, v. Backward: the gradients of
+# ``ref.attention`` at the saved inputs, under the profiler range
+# ``flash_recompute_bwd``.
+_FlashAttention = _autograd.recompute_function(
+    "_FlashAttention", "flash_recompute_bwd",
+    lambda *a, **kw: K.flash_attention_fwd(*a, **kw), ref.attention)
 
 
 def flash_attention(q, k, v, causal=True, window=0, softcap=0.0,
@@ -58,6 +40,8 @@ def flash_attention(q, k, v, causal=True, window=0, softcap=0.0,
         if not use_kernel and q.device.type != "cpu":
             raise ValueError(f"no flash attention path for device {q.device}")
     if use_kernel:
-        return _FlashAttention.apply(q, k, v, causal, window, softcap)
+        return _FlashAttention.apply(
+            {"causal": causal, "window": window, "softcap": softcap},
+            q, k, v)
     return ref.attention(q, k, v, causal=causal, window=window,
                          softcap=softcap)

@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
         --smoke --device cpu --batch 4 --prompt-len 32 --gen 16
 
@@ -38,7 +39,7 @@ def pad_cache(cfg: ModelConfig, cache, gen: int):
 
     if cfg.sliding_window > 0:
         return cache
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return {"k": pad_seq(cache["k"]), "v": pad_seq(cache["v"])}
     if cfg.family != "hybrid" or "attn" not in cache:
         return cache

@@ -1,8 +1,9 @@
 """Model API over the families the port builds so far.
 
 The reference's entry points for ``family == "dense"`` (smollm,
-h2o-danube), ``"ssm"`` (rwkv6) and ``"hybrid"`` (zamba2). Every other
-family raises ``NotImplementedError``: its port is ROADMAP Queue 1 item 8.
+h2o-danube), ``"moe"`` (olmoe), ``"ssm"`` (rwkv6) and ``"hybrid"``
+(zamba2). The VLM and audio families raise ``NotImplementedError``: their
+port is ROADMAP Queue 1 item 8.
 
   param_specs(cfg)                   declarative parameter tree
   input_specs(cfg, shape)            batch stand-ins per ShapeSpec
@@ -28,7 +29,7 @@ from repro_torch.models.common import (compute_dtype, embed_specs, embed_tokens,
                                        xent_loss)
 
 Q_CHUNK = 1024
-PORTED = ("dense", "ssm", "hybrid")
+PORTED = ("dense", "moe", "ssm", "hybrid")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -36,12 +37,13 @@ def _require_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
             f"(ROADMAP Queue 1 item 8); the port builds families 'dense' "
-            f"(smollm, h2o-danube), 'ssm' (rwkv6) and 'hybrid' (zamba2)")
+            f"(smollm, h2o-danube), 'moe' (olmoe), 'ssm' (rwkv6) and "
+            f"'hybrid' (zamba2)")
 
 
 def param_specs(cfg: ModelConfig) -> Dict:
     _require_ported(cfg)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         stack = T.stack_specs(cfg)
     elif cfg.family == "ssm":
         stack = RW.stack_specs(cfg)
@@ -78,7 +80,7 @@ def _backbone(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, batch,
     dt = compute_dtype(run)
     x = embed_tokens(params["embed"], tokens, ctx, dt)
     w = params["stack"]
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         x, aux = T.stack_apply(cfg, run, ctx, w, x, _positions(tokens),
                                q_chunk=Q_CHUNK)
     elif cfg.family == "ssm":
@@ -105,7 +107,7 @@ def loss_fn(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, batch):
 def cache_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict:
     _require_ported(cfg)
     B, S = shape.global_batch, shape.seq_len
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return T.stack_cache_specs(cfg, B, S)
     if cfg.family == "ssm":
         return RW.state_specs(cfg, B)
@@ -119,7 +121,7 @@ def prefill_fn(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, batch
     tokens = batch["tokens"]
     x = embed_tokens(params["embed"], tokens, ctx, dt)
     w = params["stack"]
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         x, cache = T.stack_prefill(cfg, run, ctx, w, x, _positions(tokens),
                                    q_chunk=Q_CHUNK)
     elif cfg.family == "ssm":
@@ -140,7 +142,7 @@ def decode_fn(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, cache,
     dt = compute_dtype(run)
     x = embed_tokens(params["embed"], batch["tokens"], ctx, dt)
     w = params["stack"]
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         x, cache = T.stack_decode(cfg, run, ctx, w, cache, x, batch["pos"])
     elif cfg.family == "ssm":
         x, cache = RW.stack_decode(cfg, run, ctx, w, cache, x)

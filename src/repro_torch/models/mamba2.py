@@ -10,9 +10,11 @@ for tensors on the card, its plain version for tensors on the CPU. Decode
 runs the single-token recurrence ``ssd_step`` in plain PyTorch, as the
 reference does. Zamba2 = Mamba2 backbone + one weight-tied transformer
 block applied after every ``shared_attn_every``-th layer. The layers keep
-the reference's stacked ``(L, ...)`` parameter layout; its ``lax.scan``
-over layers is a loop over the layer index, and its ``lax.cond`` around
-the shared block a Python ``if`` on that index.
+the reference's stacked ``(L, ...)`` parameter layout. The
+teacher-forced stack runs through ``scan_utils.grouped_scan`` (the run's
+remat and scan group); prefill and decode loop over the layer index, as
+the reference scans them without remat. The reference's ``lax.cond``
+around the shared block is a Python ``if`` on that index.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import params as P
 from repro_torch.models import transformer as T
 from repro_torch.models.common import rms_norm, rms_norm_specs
+from repro_torch.models.scan_utils import grouped_scan
 
 
 def dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -212,11 +215,23 @@ def _is_attn_layer(cfg: ModelConfig, i: int) -> bool:
 
 
 def stack_apply(cfg, run: RunConfig, ctx, w, x, positions, *, chunk):
+    """Full-sequence forward through ``scan_utils.grouped_scan``, as the
+    reference's: the layer index is scanned beside the layers' weights,
+    and the weight-tied shared block, which the body captures and does not
+    scan, runs after each layer where ``_is_attn_layer`` holds; under
+    remat it is rematerialised with its layer. Returns (x, aux_loss 0)."""
     shared = w.get("shared")
-    for i in range(cfg.num_layers):
-        x = x + mamba_apply(cfg, ctx, P.layer(w["layers"], i), x, chunk=chunk)
-        if shared is not None and _is_attn_layer(cfg, i):
+
+    def body(x, inp):
+        x = x + mamba_apply(cfg, ctx, inp["layer"], x, chunk=chunk)
+        if shared is not None and _is_attn_layer(cfg, int(inp["index"])):
             x, _ = T.block_apply(cfg, run, ctx, shared, x, positions)
+        return x, None
+
+    # the index on the host: reading it back costs no device sync
+    xs = {"index": torch.arange(cfg.num_layers), "layer": w["layers"]}
+    x, _ = grouped_scan(body, x, xs, cfg.num_layers, run.scan_group,
+                        run.remat == "block")
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -8,8 +8,10 @@ Prefill uses the exact chunked scan of ``kernels.wkv6``: the CUDA kernel
 for tensors on the card, its plain version for tensors on the CPU. Decode
 runs the single-token recurrence ``wkv6_step`` in plain PyTorch, as the
 reference does. The layers keep the reference's stacked ``(L, ...)``
-parameter layout; its ``lax.scan`` over layers is a loop over the layer
-index here.
+parameter layout; the teacher-forced stack runs through
+``scan_utils.grouped_scan`` (the run's remat and scan group), prefill and
+decode loop over the layer index, as the reference scans them without
+remat.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.models import params as P
 from repro_torch.models.common import rms_norm, rms_norm_specs
+from repro_torch.models.scan_utils import grouped_scan
 
 LORA_MIX = 32
 LORA_DECAY = 64
@@ -243,8 +246,14 @@ def state_specs(cfg: ModelConfig, batch: int) -> Dict:
 
 
 def stack_apply(cfg, run, ctx, w, x, *, chunk):
-    for i in range(cfg.num_layers):
-        x = layer_apply(cfg, run, ctx, P.layer(w["layers"], i), x, chunk=chunk)
+    """Full-sequence forward through ``scan_utils.grouped_scan``: groups
+    of ``run.scan_group`` layers, each layer and each group rematerialised
+    under ``run.remat == "block"``. Returns (x, aux_loss 0)."""
+    def body(x, wl):
+        return layer_apply(cfg, run, ctx, wl, x, chunk=chunk), None
+
+    x, _ = grouped_scan(body, x, w["layers"], cfg.num_layers, run.scan_group,
+                        run.remat == "block")
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

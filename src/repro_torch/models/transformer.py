@@ -1,14 +1,14 @@
 """Decoder-only transformer blocks and the dense stack, the counterpart of
 ``repro/models/transformer.py``.
 
-A block (attention + MLP): specs, the teacher-forced forward, the prefill
-that also returns the block's (k, v), and one decode step against a KV
-cache; the zamba2 stack applies it as its weight-tied shared block. The
-dense stack keeps the reference's stacked ``(L, ...)`` parameters and
-runs its layers through ``scan_utils.grouped_scan`` (remat per layer
-under ``run.remat == "block"``). MoE blocks and the VLM family's
-cross-attention super-blocks wait for their slices (ROADMAP Queue 1
-item 8).
+A block (attention + MLP, or attention + MoE layer): specs, the
+teacher-forced forward, the prefill that also returns the block's (k, v),
+and one decode step against a KV cache; the zamba2 stack applies it as its
+weight-tied shared block. The dense and MoE stacks keep the reference's
+stacked ``(L, ...)`` parameters and run their layers through
+``scan_utils.grouped_scan`` (remat per layer under ``run.remat ==
+"block"``). The VLM family's cross-attention super-blocks wait for their
+slice (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -20,22 +20,23 @@ import torch
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.models import attention as A
+from repro_torch.models import moe as M
 from repro_torch.models import params as P
 from repro_torch.models.common import (matmul, mlp_apply, mlp_specs, rms_norm,
                                        rms_norm_specs)
 
 
 def block_specs(cfg: ModelConfig, *, moe: bool) -> Dict:
-    if moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks are not ported yet (ROADMAP Queue 1 "
-            f"item 8)")
-    return {
+    s = {
         "ln1": rms_norm_specs(cfg.d_model),
         "attn": A.attn_specs(cfg),
         "ln2": rms_norm_specs(cfg.d_model),
-        "mlp": mlp_specs(cfg),
     }
+    if moe:
+        s["moe"] = M.moe_specs(cfg)
+    else:
+        s["mlp"] = mlp_specs(cfg)
+    return s
 
 
 def _attend(cfg: ModelConfig, ctx: ShardingCtx, w, x, positions, q_chunk):
@@ -50,16 +51,24 @@ def _attend(cfg: ModelConfig, ctx: ShardingCtx, w, x, positions, q_chunk):
     return x + ctx.constrain(o, ("batch", "seq", "embed")), k, v
 
 
-def _mlp_residual(cfg: ModelConfig, ctx: ShardingCtx, w, x):
+def _mlp_residual(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x):
+    """The second half: (x + mlp(x) or x + moe(x), the MoE aux loss or
+    None)."""
     h2 = rms_norm(x, w["ln2"], cfg.norm_eps)
-    return x + mlp_apply(w["mlp"], h2, ctx, cfg.act)
+    if "moe" in w:
+        y, aux = M.moe_apply(cfg, ctx, w["moe"], h2, impl=run.moe_impl)
+        return x + y, aux
+    return x + mlp_apply(w["mlp"], h2, ctx, cfg.act), None
 
 
 def block_apply(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x,
                 positions, *, q_chunk: int = 1024):
+    """Returns (x, aux_loss): the MoE layer's, or 0."""
     x, _, _ = _attend(cfg, ctx, w, x, positions, q_chunk)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _mlp_residual(cfg, ctx, w, x), aux
+    x, aux = _mlp_residual(cfg, run, ctx, w, x)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def block_decode(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x, ck,
@@ -75,13 +84,15 @@ def block_decode(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x, ck,
     o = A.decode_attention(q, ck, cv, pos, window=cfg.sliding_window,
                            softcap=cfg.attn_logit_softcap)
     o = matmul(o.reshape(B, 1, cfg.q_dim), w["attn"]["wo"])
-    return _mlp_residual(cfg, ctx, w, x + o), ck, cv
+    x, _ = _mlp_residual(cfg, run, ctx, w, x + o)
+    return x, ck, cv
 
 
 def block_prefill(cfg, run, ctx, w, x, positions, *, q_chunk=1024):
     """Like block_apply but also returns this layer's (k, v) for the cache."""
     x, k, v = _attend(cfg, ctx, w, x, positions, q_chunk)
-    return _mlp_residual(cfg, ctx, w, x), k, v
+    x, _ = _mlp_residual(cfg, run, ctx, w, x)
+    return x, k, v
 
 
 # --- stacks -----------------------------------------------------------------------

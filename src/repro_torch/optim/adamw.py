@@ -81,9 +81,14 @@ def _is_factored(nu_leaf) -> bool:
     return isinstance(nu_leaf, dict) and "_factored_row" in nu_leaf
 
 
-def _update_leaf(g, p, mu, nu, lr, wd, step):
-    g32 = g.float()
-    mu_new = B1 * mu.float() + (1 - B1) * g32
+def _update_leaf(g, p, mu, nu, lr, wd, step, scale):
+    """One leaf's update; ``scale`` is the clip factor. The arithmetic is
+    the reference's, op for op; temporaries the leaf owns are updated in
+    place, so the largest leaf's update holds a few copies of it at once,
+    not a dozen (a (8, 4096, 14336) f32 leaf is 1.9 GB)."""
+    g32 = (g * scale.to(g.dtype)).float()
+    mu_new = mu.float() * B1
+    mu_new += (1 - B1) * g32
     if _is_factored(nu):
         row = nu["_factored_row"].float()
         col = nu["_factored_col"].float()
@@ -95,16 +100,20 @@ def _update_leaf(g, p, mu, nu, lr, wd, step):
         v_hat = r[..., None] * col_new[..., None, :]
         nu_new = {"_factored_row": row_new, "_factored_col": col_new}
     else:
-        v_hat = B2 * nu.float() + (1 - B2) * torch.square(g32)
+        v_hat = nu.float() * B2
+        v_hat += (1 - B2) * torch.square(g32)
         nu_new = v_hat.to(nu.dtype)
+    del g32
     # bias correction
     t = step.float() + 1.0
-    mu_hat = mu_new / (1 - B1 ** t)
-    v_corr = v_hat / (1 - B2 ** t)
-    upd = mu_hat / (torch.sqrt(v_corr) + EPS)
+    upd = mu_new / (1 - B1 ** t)
+    denom = v_hat / (1 - B2 ** t)
+    del v_hat
+    upd /= denom.sqrt_().add_(EPS)
+    del denom
     p32 = p.float()
     if p.dim() >= 2:  # decoupled weight decay on matrices only
-        upd = upd + wd * p32
+        upd += wd * p32
     p_new = (p32 - lr * upd).to(p.dtype)
     return p_new, mu_new.to(mu.dtype), nu_new
 
@@ -124,14 +133,14 @@ def adamw_update(grads, params, state: OptState, run: RunConfig):
                                 max=1.0)
         else:
             scale = torch.ones((), dtype=torch.float32, device=gnorm.device)
-        grads = P.tree_map(lambda g: g * scale.to(g.dtype), grads)
         lr = cosine_schedule(state.step, run.learning_rate)
         # master_weights: the optimizer math runs on the fp32 master; the
         # params are re-derived by casting
         src = state.master if state.master is not None else params
         out = P.tree_map(
             lambda g, p, mu, nu: _update_leaf(g, p, mu, nu, lr,
-                                              run.weight_decay, state.step),
+                                              run.weight_decay, state.step,
+                                              scale),
             grads, src, state.mu, state.nu)
         new_src, mu, nu = (P.tree_map(lambda o: o[i], out) for i in range(3))
         if state.master is not None:

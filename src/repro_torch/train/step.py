@@ -78,12 +78,15 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx,
                                                      device=p.device), params)
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=batch["tokens"].device)
+            # the step's own accumulator is summed into in place: one
+            # accum-dtype copy of the gradients, not two at each add
             for i in range(n_accum):
                 (loss, _), g = grad_fn(params_c, {k: v[i]
                                                   for k, v in micro.items()})
-                grads = P.tree_map(lambda a, b: a + b.to(accum_dt), grads, g)
+                P.tree_map(lambda a, b: a.add_(b.to(accum_dt)), grads, g)
+                del g
                 loss_sum = loss_sum + loss.float()
-            grads = P.tree_map(lambda g: g / n_accum, grads)
+            P.tree_map(lambda g: g.div_(n_accum), grads)
             loss = loss_sum / n_accum
             metrics = {"loss": loss}
         del params_c

@@ -41,6 +41,11 @@ TRAINING = ("repro_torch.optim", "repro_torch.optim.adamw",
             "repro_torch.train.trainer", "repro_torch.launch.train",
             "repro_torch.models.scan_utils")
 
+# the ssm/hybrid training and MoE slice: the scans' backward by recompute,
+# the MoE layer and the parameter counts
+MOE_AND_SCAN_GRADS = ("repro_torch.kernels._autograd",
+                      "repro_torch.models.moe", "repro_torch.models.registry")
+
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
     code = (
@@ -60,6 +65,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert "repro_torch.fs.mounts" in MODULES
     assert set(FS_CONSUMERS) <= set(MODULES)
     assert set(TRAINING) <= set(MODULES)
+    assert set(MOE_AND_SCAN_GRADS) <= set(MODULES)
 
 
 @pytest.mark.parametrize("module", FS_CONSUMERS)
@@ -105,6 +111,44 @@ def test_training_modules_load_alone_without_jax_reference_or_ml_dtypes(
             "t = m.Trainer(b.smoke, b.run, global_batch=2, seq_len=8,\n"
             "              device='cpu')\n"
             "assert t.train(1)['loss'] > 0\n")
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n" + use +
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes'))\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("module", MOE_AND_SCAN_GRADS)
+def test_moe_and_scan_grad_modules_load_alone_without_jax_or_reference(
+        module):
+    """Each new module of the slice, imported on its own (and used: the
+    olmoe smoke config's counts for the registry, a MoE layer's forward
+    and backward for the layer)."""
+    use = ""
+    if module == "repro_torch.models.registry":
+        use = (
+            "from repro_torch.configs import registry\n"
+            "m = importlib.import_module(" + repr(module) + ")\n"
+            "cfg = registry.get('olmoe-1b-7b').model\n"
+            "assert m.param_count(cfg, active_only=True) == 1_281_951_744\n")
+    elif module == "repro_torch.models.moe":
+        use = (
+            "import torch\n"
+            "from repro_torch.configs import registry\n"
+            "from repro_torch.distributed.sharding import ShardingCtx\n"
+            "from repro_torch.models import params as P\n"
+            "m = importlib.import_module(" + repr(module) + ")\n"
+            "cfg = registry.get('olmoe-1b-7b').smoke\n"
+            "w = P.materialize(m.moe_specs(cfg), torch.Generator(), 'cpu')\n"
+            "x = torch.randn(2, 8, cfg.d_model, requires_grad=True)\n"
+            "y, aux = m.moe_apply(cfg, ShardingCtx.null(), w, x)\n"
+            "(y.sum() + aux).backward()\n"
+            "assert x.grad is not None\n")
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n" + use +
