@@ -100,8 +100,7 @@ class ModelConfig:
         return self.num_kv_heads * self.head_dim
 
     def param_count(self) -> int:
-        """Exact parameter count from the declarative specs (families the
-        port's ``models.lm`` does not build yet raise there)."""
+        """Exact parameter count from the declarative specs."""
         from repro_torch.models import registry as model_registry
 
         return model_registry.param_count(self)

@@ -9,6 +9,8 @@ binding launches no kernel, starts without loading it."""
 
 from __future__ import annotations
 
+import os
+import sys
 from typing import TYPE_CHECKING, Optional, Union
 
 if TYPE_CHECKING:
@@ -34,3 +36,26 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+ALLOC_CONF = "expandable_segments:True"
+
+
+def configure_allocator() -> str:
+    """Lets PyTorch's CUDA caching allocator grow its segments in place
+    (``expandable_segments``) unless the caller has set
+    ``PYTORCH_CUDA_ALLOC_CONF``, and returns the setting in force. A
+    training step frees and takes tensors of many sizes (the recompute
+    backwards): with fixed segments llama-3.2-vision-11b's step at depth
+    5 ran out of an 80 GB card with 8.5 GiB reserved but unusable. The
+    allocator reads the setting when CUDA starts, so this raises if CUDA
+    has started with no setting."""
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    if conf is not None:
+        return conf
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_initialized():
+        raise RuntimeError("configure_allocator() must run before CUDA "
+                           "starts in the process")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = ALLOC_CONF
+    return ALLOC_CONF

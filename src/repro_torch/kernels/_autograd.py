@@ -2,11 +2,13 @@
 ``wkv6.ops._WKV6``, ``ssd.ops._SSD``), one design: the forward is the CUDA
 kernel, the backward runs the plain version again at the saved inputs and
 differentiates it against the outputs' incoming gradients, under a named
-profiler range."""
+range (``repro_torch.ranges``)."""
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch import ranges
 
 
 def recompute_grads(name, plain, saved, needs, out_grads):
@@ -18,7 +20,7 @@ def recompute_grads(name, plain, saved, needs, out_grads):
     pairs = [(i, g) for i, g in enumerate(out_grads) if g is not None]
     if not any(needs) or not pairs:
         return [None] * len(saved)
-    with torch.enable_grad(), torch.profiler.record_function(name):
+    with torch.enable_grad(), ranges.named(name):
         inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
         outs = plain(*inputs)
         if isinstance(outs, torch.Tensor):

@@ -3,12 +3,16 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-3.2-vision-11b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
         --smoke --device cpu --batch 4 --prompt-len 32 --gen 16
 
 Parameters and prompt tokens are drawn on the device from a generator
 seeded with 0, as the reference draws them from ``PRNGKey(0)`` (the numbers
-differ). ``--device`` defaults to cuda and fails without a GPU.
+differ); the VLM's image embeddings and whisper's frame embeddings are the
+reference's stub, 0.02 everywhere, in bfloat16. ``--device`` defaults to
+cuda and fails without a GPU.
 """
 
 from __future__ import annotations
@@ -31,9 +35,11 @@ from repro_torch.serve.step import make_decode_step, make_prefill_step
 def pad_cache(cfg: ModelConfig, cache, gen: int):
     """Room for ``gen`` generated tokens in the prompt-sized KV cache that
     prefill returns, as ``repro/launch/serve.py`` pads it: the sequence
-    axis (third from last) of every k and v grows by ``gen`` zero slots.
-    A sliding-window ring buffer keeps its size, and a recurrent state
-    (rwkv6's, the Mamba2 layers') has no sequence axis."""
+    axis (third from last) of every self-attention k and v grows by ``gen``
+    zero slots. A sliding-window ring buffer keeps its size, the cross
+    attention's KV (the VLM's image KV, whisper's encoder KV) its length,
+    and a recurrent state (rwkv6's, the Mamba2 layers') has no sequence
+    axis."""
     def pad_seq(x):  # (..., S, H, D) -> (..., S + gen, H, D)
         return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, gen))
 
@@ -41,6 +47,13 @@ def pad_cache(cfg: ModelConfig, cache, gen: int):
         return cache
     if cfg.family in ("dense", "moe"):
         return {"k": pad_seq(cache["k"]), "v": pad_seq(cache["v"])}
+    if cfg.family == "vlm":
+        return {"self": {"k": pad_seq(cache["self"]["k"]),
+                         "v": pad_seq(cache["self"]["v"])},
+                "cross": cache["cross"]}
+    if cfg.family == "audio":
+        return {"k": pad_seq(cache["k"]), "v": pad_seq(cache["v"]),
+                "ck": cache["ck"], "cv": cache["cv"]}
     if cfg.family != "hybrid" or "attn" not in cache:
         return cache
     return {"mamba": cache["mamba"],
@@ -48,18 +61,34 @@ def pad_cache(cfg: ModelConfig, cache, gen: int):
                      "v": pad_seq(cache["attn"]["v"])}}
 
 
-def generate(cfg: ModelConfig, run: RunConfig, prm, tokens: torch.Tensor,
+def stub_embeds(cfg: ModelConfig, batch: int,
+                device: torch.device) -> Dict[str, torch.Tensor]:
+    """The reference serve's stub frontend: image embeddings (VLM) or
+    frame embeddings (audio), 0.02 everywhere, in bfloat16; none for the
+    other families."""
+    shapes = {"vlm": ("image_embeds", cfg.num_image_tokens),
+              "audio": ("frame_embeds", cfg.encoder_seq)}
+    if cfg.family not in shapes:
+        return {}
+    name, n = shapes[cfg.family]
+    return {name: torch.full((batch, n, cfg.d_model), 0.02,
+                             dtype=torch.bfloat16, device=device)}
+
+
+def generate(cfg: ModelConfig, run: RunConfig, prm,
+             batch: Dict[str, torch.Tensor],
              gen: int) -> Tuple[np.ndarray, Dict[str, float]]:
-    """Prefill ``tokens`` (B, S), then decode greedily until ``gen`` tokens
-    are out. Returns the generated ids (B, gen) and the host-clock times:
-    each step ends when its tokens are on the host."""
+    """Prefill ``batch`` (its ``tokens`` (B, S), and the VLM's
+    ``image_embeds`` or whisper's ``frame_embeds``), then decode greedily
+    until ``gen`` tokens are out. Returns the generated ids (B, gen) and
+    the host-clock times: each step ends when its tokens are on the host."""
     ctx = ShardingCtx.null()
     prefill = make_prefill_step(cfg, run, ctx)
     decode = make_decode_step(cfg, run, ctx)
-    prompt_len = tokens.shape[1]
+    prompt_len = batch["tokens"].shape[1]
 
     t0 = time.perf_counter()
-    tok, cache = prefill(prm, {"tokens": tokens})
+    tok, cache = prefill(prm, batch)
     cache = pad_cache(cfg, cache, gen)
     out_tokens = [tok.cpu().numpy()]
     t_prefill = time.perf_counter() - t0
@@ -95,7 +124,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     prm = P.materialize(lm.param_specs(cfg), g, dev, dtype=run.compute_dtype)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=g, device=dev, dtype=torch.int32)
-    gen, times = generate(cfg, run, prm, tokens, args.gen)
+    batch = {"tokens": tokens, **stub_embeds(cfg, args.batch, dev)}
+    gen, times = generate(cfg, run, prm, batch, args.gen)
     print(f"arch={cfg.name} batch={args.batch} device={dev} "
           f"prefill={times['prefill_s']*1e3:.0f}ms "
           f"decode={times['decode_s_per_token']*1e3:.1f}ms/tok")

@@ -5,7 +5,9 @@
 
 ``--device`` defaults to cuda and fails without a GPU. With
 ``--ckpt-every`` the checkpoints go to a port ``bento`` mount whose
-journal commits hash on the same device.
+journal commits hash on the same device. The CUDA allocator grows its
+segments in place (``device.configure_allocator``) unless
+``PYTORCH_CUDA_ALLOC_CONF`` says otherwise.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import time
 from typing import Optional, Sequence
 
 from repro_torch.configs import registry
-from repro_torch.device import resolve_device
+from repro_torch.device import configure_allocator, resolve_device
 from repro_torch.fs.mounts import make_mount
 from repro_torch.launch.mesh import make_elastic_mesh
 from repro_torch.train.trainer import Trainer
@@ -38,6 +40,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
+    configure_allocator()
     dev = resolve_device(args.device)
     bundle = registry.get(args.arch)
     cfg = bundle.smoke if args.smoke else bundle.model

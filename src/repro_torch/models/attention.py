@@ -5,8 +5,12 @@ The counterpart of ``repro/models/attention.py``. ``attention_auto`` sends
 every CUDA tensor to the CUDA flash kernel (``kernels/flash_attention``),
 which masks the tails of both lengths and so takes any length; CPU tensors
 take the reference's paths off the TPU (chunked from 2048 query tokens,
-dense below). Sequence-sharded decode (``flash_decode``) and
-cross-attention wait for their own slices (ROADMAP Queue 1 items 8-9).
+dense below). Cross-attention (the VLM's image layers, whisper's
+decoder) takes q from the stream and k, v from the encoder states, with no
+rope and no mask: CUDA tensors go through the flash kernel, CPU tensors
+through ``attention_dense``, as the reference computes it; its decode step
+against the cached encoder KV stays plain on every device.
+Sequence-sharded decode (``flash_decode``) waits for ROADMAP Queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -233,3 +237,37 @@ def decode_attention(q, cache_k, cache_v, pos: int, *, window=0, softcap=0.0):
     p = torch.softmax(s, dim=-1).to(q.dtype)
     out = torch.einsum("bhgk,bkhd->bhgd", p, cache_v.to(q.dtype))
     return out.reshape(B, 1, Hq, D)
+
+
+# --- cross attention ------------------------------------------------------------
+
+
+def attention_full(q, k, v):
+    """Non-causal attention with no window or softcap, Skv free: the flash
+    kernel for CUDA tensors, ``attention_dense`` (the reference's path) for
+    CPU tensors, whatever their length."""
+    if q.is_cuda:
+        return fa.flash_attention(q, k, v, causal=False)
+    return attention_dense(q, k, v, causal=False)
+
+
+def cross_attention(cfg: ModelConfig, w, x, enc, ctx: ShardingCtx):
+    """q from x (B,S,d); kv from enc (B,T,d). No causal mask, no rope."""
+    B, S = x.shape[:2]
+    T = enc.shape[1]
+    q = matmul(x, w["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = matmul(enc, w["wk"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    v = matmul(enc, w["wv"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    q = ctx.constrain(q, ("batch", "seq", "heads", "head_dim"))
+    out = attention_full(q, k, v)
+    return matmul(out.reshape(B, S, cfg.q_dim), w["wo"])
+
+
+def cross_decode(cfg: ModelConfig, w, x, ck, cv):
+    """Decode-time cross attention against the precomputed encoder KV
+    (stored in bfloat16, cast back to the activations' dtype)."""
+    dt = x.dtype
+    B = x.shape[0]
+    q = matmul(x, w["wq"]).reshape(B, 1, cfg.num_heads, cfg.head_dim)
+    out = attention_dense(q, ck.to(dt), cv.to(dt), causal=False)
+    return matmul(out.reshape(B, 1, cfg.q_dim), w["wo"])

@@ -1,9 +1,11 @@
-"""Model API over the families the port builds so far.
+"""Unified model API over all families, the counterpart of
+``repro/models/lm.py``.
 
-The reference's entry points for ``family == "dense"`` (smollm,
-h2o-danube), ``"moe"`` (olmoe), ``"ssm"`` (rwkv6) and ``"hybrid"``
-(zamba2). The VLM and audio families raise ``NotImplementedError``: their
-port is ROADMAP Queue 1 item 8.
+Every architecture exposes the same entry points, the reference's, for
+``family == "dense"`` (smollm, h2o-danube, llama3, qwen1.5), ``"moe"``
+(olmoe, llama4-scout), ``"vlm"`` (llama-3.2-vision: the batch carries
+``image_embeds``), ``"ssm"`` (rwkv6), ``"hybrid"`` (zamba2) and
+``"audio"`` (whisper: the batch carries ``frame_embeds``):
 
   param_specs(cfg)                   declarative parameter tree
   input_specs(cfg, shape)            batch stand-ins per ShapeSpec
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeSpec
 from repro_torch.distributed.sharding import ShardingCtx
+from repro_torch.models import audio as AU
 from repro_torch.models import mamba2 as MB
 from repro_torch.models import params as P
 from repro_torch.models import rwkv as RW
@@ -29,32 +32,24 @@ from repro_torch.models.common import (compute_dtype, embed_specs, embed_tokens,
                                        xent_loss)
 
 Q_CHUNK = 1024
-PORTED = ("dense", "moe", "ssm", "hybrid")
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP Queue 1 item 8); the port builds families 'dense' "
-            f"(smollm, h2o-danube), 'moe' (olmoe), 'ssm' (rwkv6) and "
-            f"'hybrid' (zamba2)")
 
 
 def param_specs(cfg: ModelConfig) -> Dict:
-    _require_ported(cfg)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         stack = T.stack_specs(cfg)
     elif cfg.family == "ssm":
         stack = RW.stack_specs(cfg)
-    else:
+    elif cfg.family == "hybrid":
         stack = MB.stack_specs(cfg)
+    elif cfg.family == "audio":
+        stack = AU.stack_specs(cfg)
+    else:
+        raise ValueError(cfg.family)
     return {"embed": embed_specs(cfg), "stack": stack,
             "final_ln": rms_norm_specs(cfg.d_model)}
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, P.TensorSpec]:
-    _require_ported(cfg)
     B, S = shape.global_batch, shape.seq_len
 
     def tok(s):
@@ -62,11 +57,21 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, P.TensorSpec]:
                        dtype="int32")
 
     if shape.kind == "train":
-        return {"tokens": tok((B, S)), "labels": tok((B, S))}
-    if shape.kind == "prefill":
-        return {"tokens": tok((B, S))}
-    return {"tokens": tok((B, 1)),
-            "pos": P.dense((), (), init="zeros", dtype="int32")}
+        batch = {"tokens": tok((B, S)), "labels": tok((B, S))}
+    elif shape.kind == "prefill":
+        batch = {"tokens": tok((B, S))}
+    else:  # decode
+        batch = {"tokens": tok((B, 1)),
+                 "pos": P.dense((), (), init="zeros", dtype="int32")}
+    if cfg.family == "vlm" and shape.kind != "decode":
+        batch["image_embeds"] = P.dense(
+            (B, cfg.num_image_tokens, cfg.d_model),
+            ("batch", "img_seq", "embed"), dtype="bfloat16")
+    if cfg.family == "audio" and shape.kind != "decode":
+        batch["frame_embeds"] = P.dense(
+            (B, cfg.encoder_seq, cfg.d_model),
+            ("batch", "img_seq", "embed"), dtype="bfloat16")
+    return batch
 
 
 def _positions(tokens: torch.Tensor) -> torch.Tensor:
@@ -76,18 +81,29 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
 
 def _backbone(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, batch,
               tokens):
-    _require_ported(cfg)
     dt = compute_dtype(run)
     x = embed_tokens(params["embed"], tokens, ctx, dt)
+    positions = _positions(tokens)
     w = params["stack"]
     if cfg.family in ("dense", "moe"):
-        x, aux = T.stack_apply(cfg, run, ctx, w, x, _positions(tokens),
+        x, aux = T.stack_apply(cfg, run, ctx, w, x, positions,
+                               q_chunk=Q_CHUNK)
+    elif cfg.family == "vlm":
+        img = batch["image_embeds"].to(dt)
+        x, aux = T.stack_apply(cfg, run, ctx, w, x, positions, img=img,
                                q_chunk=Q_CHUNK)
     elif cfg.family == "ssm":
         x, aux = RW.stack_apply(cfg, run, ctx, w, x, chunk=cfg.scan_chunk)
-    else:
-        x, aux = MB.stack_apply(cfg, run, ctx, w, x, _positions(tokens),
+    elif cfg.family == "hybrid":
+        x, aux = MB.stack_apply(cfg, run, ctx, w, x, positions,
                                 chunk=cfg.scan_chunk)
+    elif cfg.family == "audio":
+        enc = AU.encode(cfg, run, ctx, w, batch["frame_embeds"].to(dt))
+        x = AU.decode_train(cfg, run, ctx, w, x, enc, positions,
+                            q_chunk=Q_CHUNK)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        raise ValueError(cfg.family)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     return x, aux
 
@@ -105,30 +121,43 @@ def loss_fn(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, batch):
 
 
 def cache_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict:
-    _require_ported(cfg)
     B, S = shape.global_batch, shape.seq_len
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return T.stack_cache_specs(cfg, B, S)
     if cfg.family == "ssm":
         return RW.state_specs(cfg, B)
-    return MB.hybrid_cache_specs(cfg, B, S)
+    if cfg.family == "hybrid":
+        return MB.hybrid_cache_specs(cfg, B, S)
+    if cfg.family == "audio":
+        return AU.cache_specs(cfg, B, S)
+    raise ValueError(cfg.family)
 
 
 def prefill_fn(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, batch):
     """Full-sequence prefill. Returns (last_token_logits (B, V), cache)."""
-    _require_ported(cfg)
     dt = compute_dtype(run)
     tokens = batch["tokens"]
     x = embed_tokens(params["embed"], tokens, ctx, dt)
+    positions = _positions(tokens)
     w = params["stack"]
     if cfg.family in ("dense", "moe"):
-        x, cache = T.stack_prefill(cfg, run, ctx, w, x, _positions(tokens),
+        x, cache = T.stack_prefill(cfg, run, ctx, w, x, positions,
+                                   q_chunk=Q_CHUNK)
+    elif cfg.family == "vlm":
+        img = batch["image_embeds"].to(dt)
+        x, cache = T.stack_prefill(cfg, run, ctx, w, x, positions, img=img,
                                    q_chunk=Q_CHUNK)
     elif cfg.family == "ssm":
         x, cache = RW.stack_prefill(cfg, run, ctx, w, x, chunk=cfg.scan_chunk)
-    else:
-        x, cache = MB.stack_prefill(cfg, run, ctx, w, x, _positions(tokens),
+    elif cfg.family == "hybrid":
+        x, cache = MB.stack_prefill(cfg, run, ctx, w, x, positions,
                                     chunk=cfg.scan_chunk)
+    elif cfg.family == "audio":
+        x, cache = AU.prefill(cfg, run, ctx, w, x,
+                              batch["frame_embeds"].to(dt), positions,
+                              q_chunk=Q_CHUNK)
+    else:
+        raise ValueError(cfg.family)
     x = rms_norm(x[:, -1:], params["final_ln"], cfg.norm_eps)
     logits = logits_fn(params["embed"], x, ctx)[:, 0]
     return logits, cache
@@ -137,17 +166,31 @@ def prefill_fn(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, batch
 def decode_fn(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, cache,
               batch):
     """One decode step. batch: {tokens (B,1), pos}: ``pos`` a Python int.
-    Returns (logits, cache)."""
-    _require_ported(cfg)
+    Returns (logits, cache).
+
+    The ``decode_flash`` ruleset on a mesh asks for the sequence-sharded
+    ``flash_decode``, which the port does not have yet: it raises rather
+    than take the dense decode in its place. Without a mesh the reference
+    takes the dense decode too."""
+    if run.sharding_rules == "decode_flash" and ctx.mesh is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: decode under the 'decode_flash' ruleset on a mesh "
+            f"runs the sequence-sharded flash_decode, not ported yet "
+            f"(ROADMAP Queue 1 item 9)")
     dt = compute_dtype(run)
     x = embed_tokens(params["embed"], batch["tokens"], ctx, dt)
+    pos = batch["pos"]
     w = params["stack"]
-    if cfg.family in ("dense", "moe"):
-        x, cache = T.stack_decode(cfg, run, ctx, w, cache, x, batch["pos"])
+    if cfg.family in ("dense", "moe", "vlm"):
+        x, cache = T.stack_decode(cfg, run, ctx, w, cache, x, pos)
     elif cfg.family == "ssm":
         x, cache = RW.stack_decode(cfg, run, ctx, w, cache, x)
+    elif cfg.family == "hybrid":
+        x, cache = MB.stack_decode(cfg, run, ctx, w, cache, x, pos)
+    elif cfg.family == "audio":
+        x, cache = AU.decode_step(cfg, run, ctx, w, cache, x, pos)
     else:
-        x, cache = MB.stack_decode(cfg, run, ctx, w, cache, x, batch["pos"])
+        raise ValueError(cfg.family)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = logits_fn(params["embed"], x, ctx)[:, 0]
     return logits, cache

@@ -17,8 +17,8 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
+from repro_torch import ranges
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.models import params as P
@@ -83,27 +83,28 @@ def _combine_tensor(cfg: ModelConfig, w, ids, C: int):
 
 def _moe_group_apply(cfg: ModelConfig, ctx: ShardingCtx, wts, xg):
     """xg: (g, d) one token group -> (y (g, d), aux). Its four parts run
-    under the profiler ranges ``moe_route``, ``moe_dispatch``,
-    ``moe_experts`` and ``moe_combine``, which a trace reads."""
+    under the ranges (``repro_torch.ranges``) ``moe_route``,
+    ``moe_dispatch``, ``moe_experts`` and ``moe_combine``, which a trace
+    reads."""
     dt = xg.dtype
     g = xg.shape[0]
     C = capacity(g, cfg)
-    with record_function("moe_route"):
+    with ranges.named("moe_route"):
         logits = xg @ wts["router"].to(dt)  # (g, E)
         w, ids, probs = _route(cfg, logits)
         combine = _combine_tensor(cfg, w, ids, C)  # (g, E, C) f32
         combine = ctx.constrain(combine, ("batch", "experts", "capacity"))
         kept = combine > 0
-    with record_function("moe_dispatch"):
+    with ranges.named("moe_dispatch"):
         xe = torch.einsum("gec,gd->ecd", kept.to(dt), xg)
         xe = ctx.constrain(xe, ("experts", "capacity", "embed"))
-    with record_function("moe_experts"):
+    with ranges.named("moe_experts"):
         h = F.silu(torch.einsum("ecd,edf->ecf", xe, wts["w_gate"].to(dt)))
         h = h * torch.einsum("ecd,edf->ecf", xe, wts["w_up"].to(dt))
         h = ctx.constrain(h, ("experts", "capacity", "expert_mlp"))
         ye = torch.einsum("ecf,efd->ecd", h, wts["w_down"].to(dt))
         ye = ctx.constrain(ye, ("experts", "capacity", "embed"))
-    with record_function("moe_combine"):
+    with ranges.named("moe_combine"):
         y = torch.einsum("gec,ecd->gd", combine.to(dt), ye)
         # load-balancing aux loss (Switch): E * sum_e(frac_tokens_e *
         # mean_prob_e)

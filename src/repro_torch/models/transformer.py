@@ -1,5 +1,5 @@
-"""Decoder-only transformer blocks and the dense stack, the counterpart of
-``repro/models/transformer.py``.
+"""Decoder-only transformer blocks and stacks (dense / MoE / VLM families),
+the counterpart of ``repro/models/transformer.py``.
 
 A block (attention + MLP, or attention + MoE layer): specs, the
 teacher-forced forward, the prefill that also returns the block's (k, v),
@@ -7,15 +7,19 @@ and one decode step against a KV cache; the zamba2 stack applies it as its
 weight-tied shared block. The dense and MoE stacks keep the reference's
 stacked ``(L, ...)`` parameters and run their layers through
 ``scan_utils.grouped_scan`` (remat per layer under ``run.remat ==
-"block"``). The VLM family's cross-attention super-blocks wait for their
-slice (ROADMAP Queue 1 item 8).
+"block"``). The VLM family stacks super-blocks of ``cross_attn_every``
+layers ([p-1 self layers, 1 gated cross-attention layer] x groups,
+llama-3.2 style): its self leaves are stacked twice, ``(groups, p-1,
+...)``, and under block remat each self layer is checkpointed inside a
+checkpoint of its group, as the reference nests them.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.distributed.sharding import ShardingCtx
@@ -95,28 +99,69 @@ def block_prefill(cfg, run, ctx, w, x, positions, *, q_chunk=1024):
     return x, k, v
 
 
+# --- cross-attention block (VLM) ---------------------------------------------------
+
+
+def cross_block_specs(cfg: ModelConfig) -> Dict:
+    return {
+        "ln1": rms_norm_specs(cfg.d_model),
+        "xattn": A.attn_specs(cfg, cross=True),
+        "gate_attn": P.dense((), (), init="zeros"),
+        "ln2": rms_norm_specs(cfg.d_model),
+        "mlp": mlp_specs(cfg),
+        "gate_mlp": P.dense((), (), init="zeros"),
+    }
+
+
+def _gated_mlp(cfg: ModelConfig, ctx: ShardingCtx, w, x, o):
+    """x + tanh(gate_attn) o, then its gated MLP residual."""
+    x = x + torch.tanh(w["gate_attn"]).to(x.dtype) * o
+    h2 = rms_norm(x, w["ln2"], cfg.norm_eps)
+    return x + torch.tanh(w["gate_mlp"]).to(x.dtype) * mlp_apply(
+        w["mlp"], h2, ctx, cfg.act)
+
+
+def cross_block_apply(cfg: ModelConfig, ctx: ShardingCtx, w, x, img):
+    h = rms_norm(x, w["ln1"], cfg.norm_eps)
+    return _gated_mlp(cfg, ctx, w, x, A.cross_attention(cfg, w["xattn"], h,
+                                                        img, ctx))
+
+
+def cross_block_decode(cfg: ModelConfig, ctx: ShardingCtx, w, x, img_k, img_v):
+    h = rms_norm(x, w["ln1"], cfg.norm_eps)
+    return _gated_mlp(cfg, ctx, w, x, A.cross_decode(cfg, w["xattn"], h,
+                                                     img_k, img_v))
+
+
 # --- stacks -----------------------------------------------------------------------
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: the VLM stack (cross-attention super-blocks) is "
-            f"not ported yet (ROADMAP Queue 1 item 8)")
+def _vlm_groups(cfg: ModelConfig) -> Tuple[int, int]:
+    """(groups, self layers a group)."""
+    p = cfg.cross_attn_every
+    if not (p > 1 and cfg.num_layers % p == 0):
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not split "
+                         f"into super-blocks of {p}")
+    return cfg.num_layers // p, p - 1
 
 
 def stack_specs(cfg: ModelConfig) -> Dict:
-    _require_dense(cfg)
+    if cfg.family == "vlm":
+        g, s = _vlm_groups(cfg)
+        self_specs = P.stack_tree(s, block_specs(cfg, moe=False))
+        return {"self": P.stack_tree(g, self_specs),
+                "cross": P.stack_tree(g, cross_block_specs(cfg))}
     return {"layers": P.stack_tree(cfg.num_layers,
                                    block_specs(cfg, moe=cfg.is_moe))}
 
 
 def stack_apply(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x,
-                positions, *, q_chunk=1024):
+                positions, *, img: Optional[torch.Tensor] = None,
+                q_chunk=1024):
     """Full-sequence forward. Returns (x, aux_loss)."""
     from repro_torch.models.scan_utils import grouped_scan
 
-    _require_dense(cfg)
+    remat = run.remat == "block"
 
     def one_layer(carry, wl):
         x, aux = carry
@@ -124,38 +169,81 @@ def stack_apply(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x,
         return (x, aux + a.float()), None
 
     aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "vlm":
+        g, s = _vlm_groups(cfg)
+
+        def one_group(carry, wg):
+            for i in range(s):
+                wl = P.layer(wg["self"], i)
+                carry, _ = (checkpoint(one_layer, carry, wl,
+                                       use_reentrant=False)
+                            if remat else one_layer(carry, wl))
+            x, aux = carry
+            return cross_block_apply(cfg, ctx, wg["cross"], x, img), aux
+
+        carry = (x, aux0)
+        for j in range(g):
+            wg = P.layer(w, j)
+            carry = (checkpoint(one_group, carry, wg, use_reentrant=False)
+                     if remat else one_group(carry, wg))
+        return carry
+
     (x, aux), _ = grouped_scan(one_layer, (x, aux0), w["layers"],
-                               cfg.num_layers, run.scan_group,
-                               run.remat == "block")
+                               cfg.num_layers, run.scan_group, remat)
     return x, aux
 
 
 def stack_cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Dict:
-    _require_dense(cfg)
     base = A.cache_specs(cfg, batch, A.effective_cache_len(cfg, cache_len))
+    if cfg.family == "vlm":
+        g, s = _vlm_groups(cfg)
+        img_kv = (batch, cfg.num_image_tokens, cfg.num_kv_heads, cfg.head_dim)
+        logical = ("batch", "img_seq", "cache_heads", "head_dim")
+        cross = {name: P.dense(img_kv, logical, init="zeros",
+                               dtype="bfloat16")
+                 for name in ("img_k", "img_v")}
+        return {"self": P.stack_tree(g, P.stack_tree(s, base)),
+                "cross": P.stack_tree(g, cross)}
     return P.stack_tree(cfg.num_layers, base)
 
 
-def stack_decode(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, cache,
-                 x, pos: int):
-    """One-token decode at position ``pos`` (a Python int). Returns
-    (x, new_cache)."""
-    _require_dense(cfg)
+def _decode_layers(cfg, run, ctx, w, cache, x, pos: int, n: int):
+    """``n`` stacked self layers' decode step; their new (k, v) stacked."""
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, ck, cv = block_decode(cfg, run, ctx, P.layer(w["layers"], i), x,
+    for i in range(n):
+        x, ck, cv = block_decode(cfg, run, ctx, P.layer(w, i), x,
                                  cache["k"][i], cache["v"][i], pos)
         ks.append(ck)
         vs.append(cv)
     return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
+def stack_decode(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, cache,
+                 x, pos: int):
+    """One-token decode at position ``pos`` (a Python int). Returns
+    (x, new_cache); the VLM's image KV is kept as it is."""
+    if cfg.family == "vlm":
+        g, s = _vlm_groups(cfg)
+        new_self = []
+        for j in range(g):
+            wg, cg = P.layer(w, j), P.layer(cache["self"], j)
+            x, kv = _decode_layers(cfg, run, ctx, wg["self"], cg, x, pos, s)
+            new_self.append(kv)
+            cx = P.layer(cache["cross"], j)
+            x = cross_block_decode(cfg, ctx, wg["cross"], x, cx["img_k"],
+                                   cx["img_v"])
+        return x, {"self": P.stack_layers(new_self), "cross": cache["cross"]}
+    return _decode_layers(cfg, run, ctx, w["layers"], cache, x, pos,
+                          cfg.num_layers)
+
+
 def stack_prefill(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x,
-                  positions, *, q_chunk=1024):
+                  positions, *, img: Optional[torch.Tensor] = None,
+                  q_chunk=1024):
     """Full-sequence forward that also builds the KV cache, each layer's
     (k, v) trimmed to the cache (a sliding window's ring layout) and
-    stored in bfloat16. Returns (x, cache)."""
-    _require_dense(cfg)
+    stored in bfloat16; the VLM's image KV of each cross layer is the
+    image embeddings' projection, stored in bfloat16. Returns (x, cache)."""
     eff = A.effective_cache_len(cfg, x.shape[1])
 
     def trim(k):
@@ -163,10 +251,29 @@ def stack_prefill(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x,
             return A.ring_layout(k, cfg.sliding_window)
         return k[:, -eff:] if eff < k.shape[1] else k
 
-    ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, k, v = block_prefill(cfg, run, ctx, P.layer(w["layers"], i), x,
-                                positions, q_chunk=q_chunk)
-        ks.append(trim(k).to(torch.bfloat16))
-        vs.append(trim(v).to(torch.bfloat16))
-    return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    def prefill_layers(x, wl_tree, n):
+        ks, vs = [], []
+        for i in range(n):
+            x, k, v = block_prefill(cfg, run, ctx, P.layer(wl_tree, i), x,
+                                    positions, q_chunk=q_chunk)
+            ks.append(trim(k).to(torch.bfloat16))
+            vs.append(trim(v).to(torch.bfloat16))
+        return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+    if cfg.family == "vlm":
+        g, s = _vlm_groups(cfg)
+        B, T = img.shape[:2]
+        self_c, cross_c = [], []
+        for j in range(g):
+            wg = P.layer(w, j)
+            x, kv = prefill_layers(x, wg["self"], s)
+            self_c.append(kv)
+            x = cross_block_apply(cfg, ctx, wg["cross"], x, img)
+            xw = wg["cross"]["xattn"]
+            cross_c.append({
+                name: matmul(img, xw[wn]).reshape(
+                    B, T, cfg.num_kv_heads, cfg.head_dim).to(torch.bfloat16)
+                for name, wn in (("img_k", "wk"), ("img_v", "wv"))})
+        return x, {"self": P.stack_layers(self_c),
+                   "cross": P.stack_layers(cross_c)}
+    return prefill_layers(x, w["layers"], cfg.num_layers)

@@ -168,7 +168,8 @@ def test_generate_is_the_reference_greedy_decode():
     prompt, gen = 13, 4
     toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (B, prompt),
                                              dtype=np.int32)
-    ids, _ = serve.generate(pb.smoke, prun, pprm, torch.from_numpy(toks), gen)
+    ids, _ = serve.generate(pb.smoke, prun, pprm,
+                          {"tokens": torch.from_numpy(toks)}, gen)
     jl, jcache = jax_lm.prefill_fn(cfg, jrun, JCTX, jprm,
                                    {"tokens": jnp.asarray(toks)})
     jcache = jax_pad_cache(cfg, jcache, gen)
@@ -217,11 +218,15 @@ def test_full_smollm_135m_param_count():
 
 
 def test_moe_and_vlm_stacks_raise_naming_their_item():
-    """The families still unported: VLM and audio (the MoE family builds
-    since its slice: tests/test_torch_moe.py)."""
+    """The VLM and audio families, the last to raise, build since their
+    slice (tests/test_torch_vlm.py, tests/test_torch_audio.py): their
+    parameter specs count what the reference's count, smoke and whole."""
     for arch in ("llama-3.2-vision-11b", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            lm.param_specs(registry.get(arch).smoke)
+        for which in ("smoke", "model"):
+            cfg = getattr(registry.get(arch), which)
+            jcfg = getattr(jax_registry.get(arch), which)
+            n = P.count_params(lm.param_specs(cfg))
+            assert n == cfg.param_count() == jcfg.param_count() > 0
 
 
 def test_serve_cli_runs_smollm_on_the_cpu():

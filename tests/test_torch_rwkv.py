@@ -219,16 +219,13 @@ def test_bundle_equals_reference(arch):
 @pytest.mark.parametrize("arch", ["smollm-135m", "zamba2-7b", "whisper-small",
                                   "olmoe-1b-7b", "llama-3.2-vision-11b"])
 def test_unported_families_raise(arch):
-    """The VLM and audio families raise, naming their ROADMAP item; the
-    dense (smollm), MoE (olmoe) and hybrid (zamba2) families are ported
-    and build."""
+    """No family raises any more: the dense (smollm), MoE (olmoe), hybrid
+    (zamba2), VLM (llama-3.2-vision) and audio (whisper) families build,
+    their parameter specs counting what the reference's count."""
     cfg = registry.get(arch).smoke
-    if cfg.family in lm.PORTED:
-        assert cfg.family in ("dense", "moe", "hybrid")
-        assert P.count_params(lm.param_specs(cfg)) == cfg.param_count() > 0
-        return
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        lm.param_specs(cfg)
+    n = P.count_params(lm.param_specs(cfg))
+    assert n == cfg.param_count() == jax_registry.get(arch).smoke.param_count()
+    assert n > 0
 
 
 def test_materialize_init_rules():
@@ -290,7 +287,7 @@ def test_generate_greedy_is_argmax_of_prefill():
     prm = P.from_reference(random_reference_params(cfg, seed=6), device="cpu")
     toks = torch.from_numpy(np.random.default_rng(7).integers(
         0, cfg.vocab_size, (B, S_PROMPT), dtype=np.int32))
-    ids, times = serve.generate(cfg, run, prm, toks, 3)
+    ids, times = serve.generate(cfg, run, prm, {"tokens": toks}, 3)
     logits, _ = lm.prefill_fn(cfg, run, CTX, prm, {"tokens": toks})
     assert ids.shape == (B, 3) and ids.dtype == np.int32
     assert (ids[:, 0] == logits.argmax(-1).numpy()).all()

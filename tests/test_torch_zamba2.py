@@ -194,8 +194,8 @@ def test_generate_is_the_reference_greedy_decode():
     prompt, gen = 2 * CHUNK - 3, 4
     toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (B, prompt),
                                              dtype=np.int32)
-    ids, times = serve.generate(pb.smoke, prun, pprm, torch.from_numpy(toks),
-                                gen)
+    ids, times = serve.generate(pb.smoke, prun, pprm,
+                                {"tokens": torch.from_numpy(toks)}, gen)
     jl, jcache = jax_lm.prefill_fn(cfg, jrun, JCTX, jprm,
                                    {"tokens": jnp.asarray(toks)})
     jcache = jax_pad_cache(jcache, gen)
