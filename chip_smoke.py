@@ -53,8 +53,17 @@ cross layer's prefill, over 6404 stub image tokens) and trained at full
 width with its depth cut to one super-block (``train_vlm``), and
 whisper-small served and trained whole (``serve_whisper``,
 ``train_whisper``: the flash kernel in the encoder, the decoder and its
-cross attention). The training phases' profiled steps trace the device
-alone, as the serves' profiles do, and time their named ranges
+cross attention). The mesh-parallel paths run on virtual meshes of the
+card (one card in every cell; ``distributed.spmd.shard_map`` runs the
+cells as threads, so their times are one card's): each collective
+against its definition (``spmd``), olmoe-1b-7b served with the
+expert-parallel MoE on serve_olmoe's weights (``serve_olmoe_a2a``), the
+sequence-sharded decode against the dense one in the smollm, zamba2, VLM
+and whisper serves (``decode_flash``), smollm's blocks as a 3-stage
+GPipe pipeline against the sequential stack (``pipeline``) and its
+gradients through the int8 compressors (``compression``), both on
+train_smollm's trainer. The training phases' profiled steps trace the
+device alone, as the serves' profiles do, and time their named ranges
 (``repro_torch.ranges``) with CUDA events. Every phase asserts
 and prints JSON lines, and a line with its seconds; the last line is the
 device record. It
@@ -197,8 +206,12 @@ TORTURES = ("torture_chain", "torture_prov", "torture_dedup",
             "torture_lazy", "torture_overlay", "torture_ckpt_shards")
 
 
+CARD = {}  # {"card": nvidia-smi's name and power limit}, once known
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """A phase's JSON line, with the card's name and power limit."""
+    print(json.dumps({"phase": phase, **fields, **CARD}), flush=True)
 
 
 PHASE_SECONDS = {}  # each phase's seconds, in the order they ran
@@ -377,6 +390,7 @@ def phase_device():
     assert smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}"
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
+    CARD["card"] = card
     emit("device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=card,
          torch=torch.__version__, cuda=torch.version.cuda)
@@ -2886,6 +2900,7 @@ def phase_serve_zamba2():
         assert err <= 1e-4 * scale, (slen, err, scale)
         smoke_err[slen] = err
 
+    decode_flash_check(cfg, run, prm)  # the shared attention
     trace = serve_profile(cfg, run, prm, tokens)
     assert (trace["prefill"]["ssd_launches"],
             trace["prefill"]["flash_launches"]) == (cfg.num_layers, napp)
@@ -3112,6 +3127,7 @@ def phase_serve_smollm():
     del prm32, logits32, logits32_ref, logits_ref
     torch.cuda.empty_cache()
 
+    decode_flash_check(cfg, run, prm)
     trace = serve_profile(cfg, run, prm, tokens)
     # the profiler can lose events: its counts are lower bounds
     assert 0 < trace["prefill"]["flash_launches"] <= L, trace["prefill"]
@@ -3328,9 +3344,9 @@ def phase_train_smollm():
          flash_fwd_ms_per_step=fwd_ms * per_step,
          recompute_bwd_ms_per_step=bwd_ms * n_accum * L,
          profiled_step=profiled)
-    del t, mb
+    del mb
     torch.cuda.empty_cache()
-    return main_launches["flash_attention"], bwd_ms
+    return main_launches["flash_attention"], bwd_ms, t
 
 
 def phase_train_ckpt():
@@ -4126,9 +4142,7 @@ def phase_serve_olmoe():
          flash_launches_per_decode_step=decode_launches,
          main_path_launches=main_launches,
          generated_ids_row0=ids[0].tolist(), **chk, trace=trace)
-    del prm, tokens
-    torch.cuda.empty_cache()
-    return main_launches["flash_attention"]
+    return main_launches["flash_attention"], prm, tokens
 
 
 # The cross-attention families served whole in bf16, seed 0: the VLM
@@ -4249,6 +4263,7 @@ def phase_serve_cross(name):
         assert moved > chk["logits_bf16_bound"], (moved, chk)
         del gated, ungated
 
+    decode_flash_check(cfg, run, prm, extra={spec["embeds"]: embeds})
     t0 = time.perf_counter()
     trace = serve_profile(cfg, run, prm, tokens,
                           extra={spec["embeds"]: embeds})
@@ -4272,6 +4287,725 @@ def phase_serve_cross(name):
     del prm, tokens, embeds, batch
     torch.cuda.empty_cache()
     return main_launches["flash_attention"]
+
+
+# --- the mesh-parallel paths, on virtual meshes of the card -----------------------
+#
+# spmd.shard_map runs one thread per mesh cell; on a virtual mesh every cell
+# is this one card, so the times below are those of one card doing every
+# cell's work in turn, not of several cards.
+
+SPMD_SHAPE = (4, 512, 1024)  # the whole tensor: one (512, 1024) slice a cell
+# olmoe-1b-7b's prefill and decode under moe_impl="a2a" on a (data, model) =
+# (1, 4) mesh: 16 of its 64 experts a cell
+A2A = {"mesh": (1, 4), "decode_steps": 4}
+# decode_flash: a prompt whose first decode positions lie in the first of 4
+# cache shards (the 3 others fully masked), the cache padded to 4 shards
+DECODE_FLASH = {"mesh": (1, 4), "steps": 2,
+                "smollm-135m": (240, 1024), "zamba2-7b": (240, 1024),
+                "llama-3.2-vision-11b": (240, 1024),
+                "whisper-small": (96, 448)}
+DECODE_FLASH_RESULTS = {}  # filled by the serve phases that hold the weights
+# 10 of smollm-135m's 30 blocks a stage on a ("pod",) mesh of 3 cells, 6
+# microbatches of 2 x 2048; each stage runs its blocks at each of M + S - 1
+# ticks, and the flash kernel once a block (the backward recomputes through
+# the plain version)
+PIPELINE = {"stages": 3, "microbatches": 6, "mb": 2, "seq": 2048}
+COMPRESSION = {"cells": 4, "steps": 3}
+
+
+def phase_spmd():
+    """Each collective of ``repro_torch.distributed.spmd`` on a virtual
+    4-cell mesh of the card, inside ``shard_map``, held against its
+    definition on the whole (4, 512, 1024) tensor: forward, and the
+    gradient of its inner product with a random cotangent (the
+    transposes); the
+    joint axes on a (2, 2) mesh. Sums in cell order: 1e-6 x max(1,
+    max|definition|)."""
+    import torch
+
+    from repro_torch.distributed import spmd
+    from repro_torch.launch.mesh import make_mesh
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    X = torch.randn(SPMD_SHAPE, generator=g, device=dev)
+    line = make_mesh((4,), ("model",), [dev] * 4)
+    square = make_mesh((2, 2), ("data", "model"), [dev] * 4)
+    ring = [(i, (i + 1) % 4) for i in range(4)]
+    n = SPMD_SHAPE[0]
+
+    def a2a_def(x):  # chunk i of every source's rows, in source order
+        return torch.stack([torch.cat([x[j].chunk(n, 0)[i] for j in range(n)])
+                            for i in range(n)])
+
+    cases = {
+        "psum": (line, lambda x: spmd.psum(x, "model"),
+                 lambda x: x.sum(0, keepdim=True).expand_as(x)),
+        "pmax": (line, lambda x: spmd.pmax(x, "model"),
+                 lambda x: x.amax(0, keepdim=True).expand_as(x)),
+        "pmean": (line, lambda x: spmd.pmean(x, "model"),
+                  lambda x: x.mean(0, keepdim=True).expand_as(x)),
+        "all_gather": (line, lambda x: spmd.all_gather(x, "model", axis=1),
+                       lambda x: torch.cat(list(x), 0)[None].expand(n, -1, -1)),
+        # as moe_a2a sends: split dim 0 of the group's size, stacked at 0
+        "all_to_all": (line, lambda x: spmd.all_to_all(
+            x.reshape(n, -1, x.shape[-1]), "model", 0, 0).reshape(x.shape),
+            a2a_def),
+        "ppermute": (line, lambda x: spmd.ppermute(x, "model", ring),
+                     lambda x: torch.roll(x, 1, dims=0)),
+        "psum_joint": (square, lambda x: spmd.psum(x, ("data", "model")),
+                       lambda x: x.sum(0, keepdim=True).expand_as(x)),
+    }
+    rows = {}
+    for name, (mesh, fn, definition) in cases.items():
+        axes = tuple(mesh.axis_names)
+        spec = (axes,) if len(axes) > 1 else axes
+        x = X.clone().requires_grad_()
+        t0 = time.perf_counter()
+        got = spmd.shard_map(fn, mesh, in_specs=(spec,), out_specs=spec)(x)
+        G = torch.randn(got.shape, generator=g, device=dev)
+        (got * G).sum().backward()
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        xd = X.clone().requires_grad_()
+        want = definition(xd)
+        (want * G).sum().backward()
+        err = (got - want).abs().max().item()
+        grad_err = (x.grad - xd.grad).abs().max().item()
+        scale = max(1.0, want.abs().max().item())
+        gscale = max(1.0, xd.grad.abs().max().item())
+        assert got.device.type == "cuda" and got.shape == want.shape, name
+        assert err <= 1e-6 * scale and grad_err <= 1e-6 * gscale, (
+            name, err, grad_err)
+        rows[name] = {"max_abs_err": err, "grad_max_abs_err": grad_err,
+                      "forward_backward_ms": call_s * 1e3}
+
+    # a failing cell re-raises in the caller; the others do not hang
+    def failing(x):
+        if spmd.axis_index("model") == 2:
+            raise KeyError("cell 2")
+        return spmd.psum(x, "model")
+    try:
+        spmd.shard_map(failing, line, in_specs=(("model",),),
+                       out_specs=("model",))(X)
+        raise AssertionError("a failing cell was not re-raised")
+    except KeyError:
+        pass
+    emit("spmd", mesh_cells=4, shape=list(SPMD_SHAPE), device="virtual",
+         tolerance="1e-6 x max(1, max|definition|)", collectives=rows)
+    return rows
+
+
+def a2a_dropped_tokens(cfg, router, x, n_ranks: int):
+    """The tokens of ``x`` (T, d), as a (T,) bool tensor on the host, at
+    least one of whose top-k assignments moe_a2a's packing drops: each
+    rank routes its slice of T / n_ranks tokens (the same product on the
+    same rows as moe_a2a's), and an expert keeps its first C
+    (``_pair_capacity``) in token order."""
+    import torch
+
+    from repro_torch.models.moe_a2a import _pair_capacity
+
+    t_m = x.shape[0] // n_ranks
+    C = _pair_capacity(t_m, cfg)
+    out = []
+    for r in range(n_ranks):
+        logits = (x[r * t_m:(r + 1) * t_m] @ router.to(x.dtype)).float()
+        ids = torch.topk(torch.softmax(logits, dim=-1),
+                         cfg.experts_per_token, dim=-1)[1]
+        picked = torch.zeros(t_m, cfg.num_experts, device=x.device)
+        picked.scatter_(1, ids, 1.0)
+        nth = picked.cumsum(dim=0) * picked  # 1-based, per expert
+        out.append((nth > C).any(dim=1).cpu())
+    return torch.cat(out)
+
+
+def plain_a2a_moe(n_ranks: int, dropped: list):
+    """``moe_a2a_apply``'s function written plainly, for ``n_ranks``
+    model ranks: each rank's slice of the tokens routed on its own (the
+    same product on the same rows), every expert keeping its first C
+    (``_pair_capacity``) assignments of a rank in token order, each
+    expert's kept tokens gathered and run through its FFN, the
+    contributions added in f32 in expert order; no packing, no
+    collectives. Appends each call's count of dropped assignments to
+    ``dropped``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models.common import mlp_apply
+    from repro_torch.models.moe_a2a import _pair_capacity
+
+    def apply(cfg, ctx, w, x):
+        dt = x.dtype
+        B, S, d = x.shape
+        xt = x.reshape(-1, d)
+        t_m = xt.shape[0] // n_ranks
+        C = _pair_capacity(t_m, cfg)
+        E = cfg.num_experts
+        y = torch.zeros(xt.shape, dtype=torch.float32, device=x.device)
+        aux, n_dropped = 0.0, 0
+        for r in range(n_ranks):
+            x_m = xt[r * t_m:(r + 1) * t_m]
+            probs = torch.softmax((x_m @ w["router"].to(dt)).float(), dim=-1)
+            wk, ids = torch.topk(probs, cfg.experts_per_token, dim=-1)
+            wk = wk / torch.clamp(wk.sum(dim=-1, keepdim=True), min=1e-9)
+            for e in range(E):
+                tok, j = (ids == e).nonzero(as_tuple=True)  # token order
+                n_dropped += max(0, tok.numel() - C)
+                tok, j = tok[:C], j[:C]
+                xe = x_m[tok]
+                h = F.silu(xe @ w["w_gate"][e].to(dt)) * (
+                    xe @ w["w_up"][e].to(dt))
+                y.index_add_(0, r * t_m + tok, (h @ w["w_down"][e].to(dt))
+                             .float() * wk[tok, j][:, None])
+            counts = torch.bincount(ids.reshape(-1), minlength=E).float()
+            aux = aux + E * torch.sum(counts / counts.sum().clamp(min=1)
+                                      * probs.mean(dim=0))
+        dropped.append(n_dropped)
+        y = y.to(dt).reshape(B, S, d)
+        if cfg.shared_expert:
+            y = y + mlp_apply(w["shared"], x, ctx, cfg.act)
+        return y, aux / n_ranks * cfg.router_aux_loss
+
+    return apply
+
+
+def a2a_logits_against_plain(cfg, run, a2a_ctx, prm, tokens, steps) -> dict:
+    """The a2a serve's logits, in bf16 and with an f32 copy of the
+    weights, held with logits_against_plain's bounds: f32 within 2e-2 x
+    max(1, max|plain|); bf16 no further from the f32 plain logits than
+    twice the bf16 plain logits are, and within FLASH_TOL's bf16
+    tolerance at the logits' scale of the bf16 plain logits wherever
+    those stay within it of the f32 ones. The prefill is held against
+    the same model with every MoE layer through ``plain_a2a_moe`` (the
+    a2a path drops assignments where a rank's expert overflows its C
+    slots, the dense dispatch's group capacity does not: the dense
+    prefill computes another function). Each of ``steps`` decode steps
+    is held against the dense serve's step from the same cache: one
+    token a row, each rank routes 1 token, C = 8, nothing is dropped,
+    and the two compute the same function. Both dtypes are fed the f32
+    dense serve's greedy tokens."""
+    import torch
+
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.launch import serve
+    from repro_torch.models import lm, moe_a2a, params as P
+
+    null = ShardingCtx.null()
+    B, prompt = tokens.shape
+    prm32 = P.tree_map(lambda t: t.float(), prm)
+    runs = {"bf16": (run, prm),
+            "f32": (run.replace(compute_dtype="float32"), prm32)}
+    real_a2a = moe_a2a.moe_a2a_apply
+    dropped = {}
+    out, caches = {}, {}
+    with torch.inference_mode():
+        for name, (rn, params) in runs.items():
+            a2a_run = rn.replace(moe_impl="a2a")
+            out["a2a_" + name], _ = lm.prefill_fn(cfg, a2a_run, a2a_ctx,
+                                                  params, {"tokens": tokens})
+            dropped[name] = []
+            moe_a2a.moe_a2a_apply = plain_a2a_moe(
+                a2a_ctx.mesh.devices.size, dropped[name])
+            try:
+                out["plain_" + name], _ = lm.prefill_fn(
+                    cfg, a2a_run, a2a_ctx, params, {"tokens": tokens})
+            finally:
+                moe_a2a.moe_a2a_apply = real_a2a
+            assert len(dropped[name]) == cfg.num_layers, dropped
+            out["dense_" + name], caches[name] = lm.prefill_fn(
+                cfg, rn, null, params, {"tokens": tokens})
+            caches[name] = serve.pad_cache(cfg, caches[name], steps)
+        rows = [_held_row(out, "a2a", "plain")]
+        tok = out["dense_f32"].argmax(-1).to(torch.int32)  # both dtypes'
+        for i in range(steps):
+            batch = {"tokens": tok[:, None], "pos": prompt + i}
+            for name, (rn, params) in runs.items():
+                out["a2a_" + name], _ = lm.decode_fn(
+                    cfg, rn.replace(moe_impl="a2a"), a2a_ctx, params,
+                    caches[name], batch)
+                out["dense_" + name], caches[name] = lm.decode_fn(
+                    cfg, rn, null, params, caches[name], batch)
+            tok = out["dense_f32"].argmax(-1).to(torch.int32)
+            rows.append(_held_row(out, "a2a", "dense"))
+    del prm32, caches, out
+    torch.cuda.empty_cache()
+    for r in rows:
+        assert r["f32_err"] <= r["f32_bound"], rows
+        assert r["bf16_vs_f32_err"] <= 2 * r["plain_bf16_vs_f32_err"], rows
+        assert r["bf16_err"] <= r["bf16_bound"] or \
+            not r["bf16_bound_applies"], rows
+    return {"prefill_against_plain_a2a": rows[0],
+            "prefill_assignments_dropped_per_layer": dropped,
+            "decode_steps_against_dense": rows[1:],
+            "tolerance": {"f32": "2e-2 x max(1, max|plain|)",
+                          "bf16": "2 x max|plain bf16 - plain f32|, against "
+                                  "plain f32; FLASH_TOL bf16 at the scale "
+                                  "where it applies"}}
+
+
+def _held_row(out, got: str, plain: str) -> dict:
+    """One a2a_logits_against_plain comparison of ``got`` with ``plain``."""
+    f32_err, f32_scale = _logits_err(out[got + "_f32"], out[plain + "_f32"])
+    bf16_err, bf16_scale = _logits_err(out[got + "_bf16"],
+                                       out[plain + "_bf16"])
+    plain_vs_f32, _ = _logits_err(out[plain + "_bf16"], out[plain + "_f32"])
+    tol = FLASH_TOL["bfloat16"]
+    bound = tol + tol * bf16_scale
+    return {"f32_err": f32_err, "f32_bound": 2e-2 * f32_scale,
+            "bf16_err": bf16_err, "bf16_bound": bound,
+            "bf16_bound_applies": plain_vs_f32 <= bound,
+            "bf16_vs_f32_err": _logits_err(out[got + "_bf16"],
+                                           out[plain + "_f32"])[0],
+            "plain_bf16_vs_f32_err": plain_vs_f32}
+
+
+def phase_serve_olmoe_a2a(prm, tokens):
+    """olmoe-1b-7b, on serve_olmoe's bf16 weights, served with
+    ``moe_impl="a2a"`` on a virtual (data, model) = (1, 4) mesh of the
+    card (16 experts a cell) through serve/step's prefill and decode
+    steps: every kernel count set to 0 just before the prefill and 4
+    decode steps and read just after (flash: 16 a prefill, 0 a decode
+    step), each timed on the host clock warm, beside the dense dispatch's
+    (``ShardingCtx.null()``) on the same card. Then layer 0's MoE layer,
+    on the normed embeddings of the prompt with an f32 copy of its
+    weights, through ``impl="a2a"`` on the mesh and ``impl="dense"``:
+    the reference's 2e-2 on y at every token neither path drops (the
+    dense path's capacity of a 4096-token group, 640, is not reached
+    here; the a2a path's, 160 a rank's 1024 tokens, may be: those tokens
+    are counted), and 1e-3 on aux. Then the served logits of the prefill
+    and of each decode step from the same cache
+    (``a2a_logits_against_plain``)."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_elastic_mesh
+    from repro_torch.models import moe, params as P
+    from repro_torch.models.common import embed_tokens, rms_norm
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+
+    kernels = _kernel_counts()
+    bundle = registry.get(SERVE_OLMOE["arch"])
+    cfg = bundle.model
+    dev = torch.device("cuda")
+    d, m = A2A["mesh"]
+    mesh = make_elastic_mesh(d, m, devices=[dev] * (d * m))
+    a2a_ctx = ShardingCtx.for_mesh(mesh)
+    runs = {"a2a": (bundle.run.replace(moe_impl="a2a"), a2a_ctx),
+            "dense": (bundle.run, ShardingCtx.null())}
+    B, prompt = tokens.shape
+    L, steps = cfg.num_layers, A2A["decode_steps"]
+
+    FA = kernels["flash_attention"]
+
+    def serve_once(run, ctx):
+        """Greedy ids, prefill s, decode s a step, flash launches of the
+        prefill and of the decode steps."""
+        prefill = make_prefill_step(cfg, run, ctx)
+        decode = make_decode_step(cfg, run, ctx)
+        torch.cuda.synchronize()
+        l0, t0 = FA.launches(), time.perf_counter()
+        tok, cache = prefill(prm, {"tokens": tokens})
+        ids = [tok.cpu()]
+        prefill_s, l1 = time.perf_counter() - t0, FA.launches()
+        cache = serve.pad_cache(cfg, cache, steps)
+        t0 = time.perf_counter()
+        for i in range(steps):
+            tok, cache = decode(prm, cache, {"tokens": tok[:, None],
+                                             "pos": prompt + i})
+            ids.append(tok.cpu())
+        decode_s = (time.perf_counter() - t0) / steps
+        return (torch.stack(ids, dim=1), prefill_s, decode_s,
+                (l1 - l0, FA.launches() - l1))
+
+    serve_once(*runs["a2a"])  # warm
+    for mod in kernels.values():
+        mod.reset_launches()
+    ids_a2a, prefill_s, decode_s, launches = serve_once(*runs["a2a"])
+    main_launches = {k: mod.launches() for k, mod in kernels.items()}
+    assert main_launches == {"blockhash": 0, "wkv6": 0, "ssd": 0,
+                             "flash_attention": L}, main_launches
+    assert launches == (L, 0), launches
+    assert ids_a2a.shape == (B, steps + 1)
+    assert ((0 <= ids_a2a) & (ids_a2a < cfg.vocab_size)).all()
+    ids_dense, dense_prefill_s, dense_decode_s, _ = serve_once(
+        *runs["dense"])
+
+    # layer 0's MoE layer, f32, a2a against dense
+    w0 = P.tree_map(lambda t: t.float(), P.layer(
+        prm["stack"]["layers"], 0)["moe"])
+    with torch.no_grad():
+        x = rms_norm(embed_tokens(prm["embed"], tokens, ShardingCtx.null(),
+                                  torch.float32),
+                     P.layer(prm["stack"]["layers"], 0)["ln2"].float(),
+                     cfg.norm_eps)
+        y_a2a, aux_a2a = moe.moe_apply(cfg, a2a_ctx, w0, x, impl="a2a")
+        y_dense, aux_dense = moe.moe_apply(cfg, ShardingCtx.null(), w0, x)
+        err = (y_a2a - y_dense).abs().amax(dim=-1).reshape(-1).cpu()
+        dropped = a2a_dropped_tokens(cfg, w0["router"],
+                                     x.reshape(-1, cfg.d_model), d * m)
+    kept_err = err[~dropped].max().item()
+    n_dropped = int(dropped.sum())
+    aux_err = abs(aux_a2a.item() - aux_dense.item())
+    assert kept_err <= 2e-2 and aux_err <= 1e-3, (kept_err, aux_err)
+    assert n_dropped <= 0.01 * err.shape[0], n_dropped
+    del w0, x, y_a2a, y_dense
+    logits = a2a_logits_against_plain(cfg, bundle.run, a2a_ctx, prm, tokens,
+                                      steps)
+    emit("serve_olmoe_a2a", arch=cfg.name, mesh=list(A2A["mesh"]),
+         device="virtual", experts_per_cell=cfg.num_experts // (d * m),
+         batch=B, prompt=prompt, decode_steps=steps,
+         prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_s * 1e3,
+         dense_prefill_ms=dense_prefill_s * 1e3,
+         dense_decode_ms_per_token=dense_decode_s * 1e3,
+         main_path_launches=main_launches,
+         flash_launches_per_prefill=launches[0],
+         flash_launches_in_decode_steps=launches[1],
+         greedy_ids_equal_to_dense=float(
+             (ids_a2a == ids_dense).float().mean()),
+         layer0_y_max_abs_err_kept_tokens=kept_err,
+         layer0_y_max_abs_err_all_tokens=err.max().item(),
+         layer0_tokens_dropped_by_a2a=n_dropped,
+         layer0_aux_a2a=aux_a2a.item(), layer0_aux_dense=aux_dense.item(),
+         layer0_aux_abs_err=aux_err,
+         tolerance="y 2e-2 at every kept token, aux 1e-3 (f32)",
+         logits=logits)
+    return main_launches["flash_attention"]
+
+
+def decode_flash_check(cfg, run, prm, extra=None) -> dict:
+    """Decode steps under the ``decode_flash`` ruleset on a virtual (1, 4)
+    mesh of the card, each against the baseline decode (``null()``
+    context) from the same bf16 cache, at the model's full width: a
+    prompt whose decode positions lie in the first of the 4 cache shards,
+    so the 3 others are fully masked. Every self attention must go
+    through flash_decode, never the dense decode. With an f32 copy of the
+    weights the logits are held within 1e-4 x max(1, max|baseline|) (the
+    CPU tests' bound); in bf16 they may lie no further from the f32
+    baseline's than twice the bf16 baseline's own logits do (the bf16
+    bound: flash_decode rounds its unnormalised partial and its scale to
+    bf16 where the dense decode rounds p once). The negative control: the
+    combine with the first shard's partial zeroed (its ``psum`` input
+    multiplied by 0 there) must fail the f32 check with the f32 weights
+    and the bf16 bound with the bf16 ones. Kept in
+    DECODE_FLASH_RESULTS."""
+    import torch
+
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_elastic_mesh
+    from repro_torch.models import attention as A, lm, params as P
+    from repro_torch.ranges import count_calls
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    prompt, cache_len = DECODE_FLASH[cfg.name]
+    d, m = DECODE_FLASH["mesh"]
+    assert cache_len % m == 0 and prompt + DECODE_FLASH["steps"] <= \
+        cache_len // m
+    mesh = make_elastic_mesh(d, m, devices=[dev] * (d * m))
+    flash_ctx = ShardingCtx.for_mesh(mesh, "decode_flash")
+    null = ShardingCtx.null()
+    run32 = run.replace(compute_dtype="float32")
+    prm32 = P.tree_map(lambda t: t.float(), prm)
+    runs = {"bf16": (run, prm), "f32": (run32, prm32)}
+    g = torch.Generator(device=dev).manual_seed(1)
+    B = 4
+    tokens = torch.randint(0, cfg.vocab_size, (B, prompt), generator=g,
+                           device=dev, dtype=torch.int32)
+    with torch.inference_mode():
+        _, cache = lm.prefill_fn(cfg, run, null, prm,
+                                 {"tokens": tokens, **(extra or {})})
+    cache = serve.pad_cache(cfg, cache, cache_len - prompt)
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    real_psum = spmd.psum
+
+    def zero_first_partial(x, axis_name):
+        # the first psum of flash_decode's combine is the partial outputs
+        # (float32, 4-d); the shard at index 0 holds every valid key
+        if isinstance(x, torch.Tensor) and x.dim() == 4 and \
+                spmd.axis_index(axis_name) == 0:
+            x = x * 0
+        return real_psum(x, axis_name)
+
+    steps, rows = DECODE_FLASH["steps"], []
+    with count_calls(A, ("flash_decode", "decode_attention")) as calls:
+        for i in range(steps):
+            t_step = time.perf_counter()
+            batch = {"tokens": tokens[:, i:i + 1], "pos": prompt + i}
+            out = {}
+            with torch.inference_mode():
+                for name, (rn, params) in runs.items():
+                    calls.update(flash_decode=0, decode_attention=0)
+                    out[name], new_cache = lm.decode_fn(cfg, rn, null, params,
+                                                        cache, batch)
+                    n_attn = calls["decode_attention"]
+                    if name == "bf16":
+                        next_cache = new_cache
+                    calls.update(flash_decode=0, decode_attention=0)
+                    out["flash_" + name], _ = lm.decode_fn(
+                        cfg, rn.replace(sharding_rules="decode_flash"),
+                        flash_ctx, params, cache, batch)
+                    assert calls == {"flash_decode": n_attn,
+                                     "decode_attention": 0}, (calls, n_attn)
+                if i == 0:
+                    spmd.psum = zero_first_partial
+                    try:
+                        bad = {name: lm.decode_fn(
+                            cfg, rn.replace(sharding_rules="decode_flash"),
+                            flash_ctx, params, cache, batch)[0]
+                            for name, (rn, params) in runs.items()}
+                    finally:
+                        spmd.psum = real_psum
+            scale = max(1.0, out["f32"].abs().max().item())
+            row = {"f32_err": err(out["flash_f32"], out["f32"]),
+                   "f32_bound": 1e-4 * scale,
+                   "bf16_vs_f32_err": err(out["flash_bf16"], out["f32"]),
+                   "bf16_baseline_vs_f32_err": err(out["bf16"], out["f32"]),
+                   "bf16_vs_bf16_baseline_err": err(out["flash_bf16"],
+                                                    out["bf16"])}
+            row["bf16_bound"] = 2 * row["bf16_baseline_vs_f32_err"]
+            if i == 0:
+                row["zeroed_partial_f32_err"] = err(bad["f32"], out["f32"])
+                row["zeroed_partial_bf16_vs_f32_err"] = err(bad["bf16"],
+                                                            out["f32"])
+            row["seconds"] = time.perf_counter() - t_step
+            rows.append(row)
+            cache = next_cache
+    for r in rows:
+        assert r["f32_err"] <= r["f32_bound"], rows
+        assert r["bf16_vs_f32_err"] <= r["bf16_bound"], rows
+    assert rows[0]["zeroed_partial_f32_err"] > rows[0]["f32_bound"], \
+        ("the zeroed partial passed in f32", rows[0])
+    assert rows[0]["zeroed_partial_bf16_vs_f32_err"] > rows[0]["bf16_bound"], \
+        ("the zeroed partial passed in bf16", rows[0])
+    DECODE_FLASH_RESULTS[cfg.name] = {
+        "mesh": [d, m], "device": "virtual", "batch": B, "prompt": prompt,
+        "cache_len": cache_len, "positions": [prompt, prompt + steps - 1],
+        "shard_len": cache_len // m, "flash_decode_calls_per_step": n_attn,
+        "steps": rows, "zeroed_partial_refused": True,
+        "tolerance": {"f32": "1e-4 x max(1, max|baseline|)",
+                      "bf16": "2 x max|bf16 baseline - f32 baseline|, "
+                              "against the f32 baseline"},
+        "seconds": time.perf_counter() - t_start}
+    del cache, prm32
+    torch.cuda.empty_cache()
+    return DECODE_FLASH_RESULTS[cfg.name]
+
+
+def phase_pipeline(t):
+    """GPipe through ``distributed/pipeline.pipeline_apply`` on a virtual
+    ("pod",) mesh of 3 cells of the card: train_smollm's f32 smollm-135m
+    parameters, its 30 blocks cut into 3 stages of 10 at full width (d
+    576), bf16 compute as its RunConfig has it, 6 microbatches of 2 x 2048
+    of SyntheticLM's tokens, embedded. The flash count set to 0 just before the
+    pipelined forward and backward and read just after: 3 stages x 8
+    ticks x 10 blocks = 240 (counted on the CPU first; the backward
+    recomputes through the plain version). The outputs and every gradient
+    (each block leaf, and the inputs) against the sequential 30-block
+    stack on the card, microbatch by microbatch: 1e-3 x max(1,
+    max|sequential|) (GRAD_TOL)."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.pipeline import bubble_fraction, pipeline_apply
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import params as P, transformer as T
+    from repro_torch.models.common import compute_dtype, embed_tokens
+
+    kernels = _kernel_counts()
+    cfg, run = t.cfg, t.run
+    ctx = ShardingCtx.null()
+    dev = torch.device("cuda")
+    S, M = PIPELINE["stages"], PIPELINE["microbatches"]
+    mb, seq = PIPELINE["mb"], PIPELINE["seq"]
+    L = cfg.num_layers
+    per = L // S
+    dt = compute_dtype(run)
+    mesh = make_mesh((S,), ("pod",), [dev] * S)
+    toks = torch.from_numpy(SyntheticLM(cfg, M * mb, seq, seed=0).batch(0)[
+        "tokens"]).to(dev)
+    with torch.no_grad():
+        xs = embed_tokens(t.params["embed"], toks, ctx, dt).reshape(
+            M, mb, seq, cfg.d_model)
+    positions = torch.arange(seq, dtype=torch.int32, device=dev).expand(
+        mb, seq)
+    g = torch.Generator(device=dev).manual_seed(3)
+    cot = torch.randn(xs.shape, generator=g, device=dev)
+
+    def blocks(w, x, n):
+        for i in range(n):
+            x, _ = T.block_apply(cfg, run, ctx, P.layer(w, i), x, positions)
+        return x
+
+    def leaves():
+        w = P.tree_map(lambda a: a.detach().clone().requires_grad_(),
+                       t.params["stack"]["layers"])
+        return w, xs.detach().clone().requires_grad_()
+
+    def grads_of(out, w, x):
+        (out.float() * cot).sum().backward()
+        return [x.grad] + [a.grad for a in P.leaves(w)]
+
+    # the sequential stack, microbatch by microbatch (first: it warms the
+    # kernels both run)
+    w, x = leaves()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = torch.stack([blocks(w, x[i], L) for i in range(M)])
+    want_grads = grads_of(want, w, x)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    want = want.detach()
+    del w, x
+
+    # the pipeline: the main path
+    w, x = leaves()
+    stages = P.tree_map(lambda a: a.reshape(S, per, *a.shape[1:]), w)
+    torch.cuda.synchronize()
+    for mod in kernels.values():
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    out = pipeline_apply(lambda p, xx: blocks(p, xx, per), stages, x, mesh,
+                         axis="pod")
+    got_grads = grads_of(out, w, x)
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t0
+    main_launches = {k: mod.launches() for k, mod in kernels.items()}
+    want_launches = S * (M + S - 1) * per
+    assert main_launches == {"blockhash": 0, "wkv6": 0, "ssd": 0,
+                             "flash_attention": want_launches}, main_launches
+    out = out.detach()
+    del w, x, stages
+
+    scale = max(1.0, want.float().abs().max().item())
+    out_err = (out.float() - want.float()).abs().max().item()
+    grad_rel = [((a - b).abs().max() / max(1.0, b.abs().max().item())).item()
+                for a, b in zip(got_grads, want_grads)]
+    assert out.shape == want.shape and out_err <= GRAD_TOL * scale, (
+        out_err, scale)
+    assert max(grad_rel) <= GRAD_TOL, max(grad_rel)
+    emit("pipeline", arch=cfg.name, stages=S, blocks_per_stage=per,
+         microbatches=M, microbatch=[mb, seq], d_model=cfg.d_model,
+         param_dtype=run.param_dtype, compute_dtype=run.compute_dtype,
+         mesh=[S], device="virtual", ticks=M + S - 1,
+         bubble_fraction=bubble_fraction(S, M),
+         main_path_launches=main_launches,
+         pipelined_forward_backward_ms=pipe_s * 1e3,
+         sequential_forward_backward_ms=seq_s * 1e3,
+         out_max_abs_err=out_err, out_scale=scale,
+         grad_max_rel_err=max(grad_rel), grad_leaves=len(grad_rel),
+         tolerance=f"{GRAD_TOL} x max(1, max|sequential|)")
+    del out, want, got_grads, want_grads
+    torch.cuda.empty_cache()
+    return main_launches["flash_attention"]
+
+
+def phase_compression(t):
+    """Gradient compression on train_smollm's trainer: at each of 3
+    training steps, the gradient tree of each of 4 data cells (a
+    microbatch of 2 x 2048 of the step's batch each) through
+    ``compress_tree_int8`` with its own error-feedback residual (int8
+    codes; dequantised plus the new residual equal to the gradient plus
+    the old one within 1e-6 x max(1, max|.|); each residual within half a
+    quantisation step), the embedding leaf's codes and scale at step 0
+    held exactly against the same function on the CPU; and the 4 cells'
+    gradients through ``compressed_psum_int8`` inside ``shard_map`` on a
+    virtual ("data",) mesh of 4 cells of the card, against the plain mean
+    within one quantisation step of each leaf; then the trainer's next
+    step."""
+    import torch
+
+    from repro_torch.distributed import compression as C
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm, params as P
+
+    cfg, run = t.cfg, t.run
+    ctx = ShardingCtx.null()
+    dev = torch.device("cuda")
+    n, steps = COMPRESSION["cells"], COMPRESSION["steps"]
+    mesh = make_mesh((n,), ("data",), [dev] * n)
+    batch = t.data.batch(0)
+    mb = batch["tokens"].shape[0] // n
+    cells = [{k: torch.from_numpy(v[c * mb:(c + 1) * mb]).to(dev)
+              for k, v in batch.items()} for c in range(n)]
+    residuals = [C.init_residuals(t.params) for _ in range(n)]
+    psum = spmd.shard_map(
+        lambda tree: P.tree_map(
+            lambda a: C.compressed_psum_int8(a[0], "data"), tree),
+        mesh, in_specs=(("data",),), out_specs=())
+
+    def rel(a, b):
+        return ((a - b).abs().max() / max(1.0, b.abs().max().item())).item()
+
+    rows = []
+    for _ in range(steps):
+        grads = []
+        for c in range(n):
+            prm = P.tree_map(lambda p: p.detach().requires_grad_(), t.params)
+            loss, _ = lm.loss_fn(cfg, run, ctx, prm, cells[c])
+            loss.backward()
+            grads.append(P.tree_map(lambda p: p.grad, prm))
+        ef_err, res_over, compress_s = 0.0, -0.5, 0.0
+        for c in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            qs, scales, new = C.compress_tree_int8(grads[c], residuals[c])
+            torch.cuda.synchronize()
+            compress_s += time.perf_counter() - t0
+            deq = C.decompress_tree_int8(qs, scales)
+            for q, d_, r_new, g_, r_old, sc in zip(*map(P.leaves, (
+                    qs, deq, new, grads[c], residuals[c], scales))):
+                assert q.dtype == torch.int8
+                ef_err = max(ef_err, rel(d_ + r_new, g_.float() + r_old))
+                res_over = max(res_over, (r_new.abs().max() / sc).item()
+                               - 0.5)
+            residuals[c] = new
+        if not rows:  # the embedding leaf, against the CPU
+            g0 = grads[0]["embed"]["embedding"].float()
+            q_dev, s_dev = C.quantize_int8(g0)
+            q_cpu, s_cpu = C.quantize_int8(g0.cpu())
+            assert torch.equal(q_dev.cpu(), q_cpu) and \
+                s_dev.item() == s_cpu.item()
+        assert ef_err <= 1e-6 and res_over <= 1e-5, (ef_err, res_over)
+        stacked = P.tree_map(lambda *gs: torch.stack(gs), *grads)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean_q = psum(stacked)
+        torch.cuda.synchronize()
+        psum_s = time.perf_counter() - t0
+        steps_off = max(
+            ((got - st.mean(0)).abs().max() / max(
+                st.abs().max().item() / 127.0, 1e-30)).item()
+            for got, st in zip(P.leaves(mean_q), P.leaves(stacked)))
+        assert steps_off <= 1.0, steps_off
+        rows.append({"step": t.step_idx, "ef_max_rel_err": ef_err,
+                     "residual_over_half_step": res_over,
+                     "compress_tree_ms_per_cell": compress_s / n * 1e3,
+                     "compressed_psum_ms": psum_s * 1e3,
+                     "psum_err_in_quantisation_steps": steps_off})
+        del grads, stacked, mean_q
+        t.train(t.step_idx + 1)
+    emit("compression", arch=cfg.name, cells=n, mesh=[n], device="virtual",
+         microbatch=[mb, batch["tokens"].shape[1]],
+         leaves=len(list(P.leaves(t.params))),
+         params=sum(p.numel() for p in P.leaves(t.params)), steps=rows,
+         tolerance={"error_feedback": "1e-6 x max(1, max|.|)",
+                    "residual": "half a quantisation step",
+                    "compressed_psum": "one quantisation step"})
+    del residuals
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
@@ -4310,6 +5044,7 @@ def main() -> int:
         "crash", phase_crash)
     fs_launches["ckpt_reshard"] = timed("ckpt_reshard", phase_ckpt_reshard)
     timed("torch_device", phase_torch_device)
+    timed("spmd", phase_spmd)
     wkv_rows = timed("wkv6_kernel", phase_wkv6_kernel)
     wkv_launches, prm, tokens, logits = timed("serve_rwkv6",
                                               phase_serve_rwkv6)
@@ -4323,15 +5058,24 @@ def main() -> int:
     zamba_launches = timed("serve_zamba2", phase_serve_zamba2)
     flash_by_path = {"serve_zamba2": zamba_launches["flash_attention"],
                      "serve_smollm": timed("serve_smollm", phase_serve_smollm)}
-    flash_by_path["train_smollm"], smollm_bwd_ms = timed(
+    flash_by_path["train_smollm"], smollm_bwd_ms, trainer = timed(
         "train_smollm", phase_train_smollm)
+    flash_by_path["pipeline"] = timed("pipeline", phase_pipeline, trainer)
+    timed("compression", phase_compression, trainer)
+    del trainer
+    torch.cuda.empty_cache()
     fs_launches["train_ckpt"], flash_by_path["train_ckpt"] = timed(
         "train_ckpt", phase_train_ckpt)
     grad_rows = {name: timed(f"{name}_grad", phase_scan_grad, name)
                  for name in ("wkv6", "ssd")}
     trained = {name: timed(name, phase_train_model, name)
                for name in ("train_rwkv6", "train_zamba2")}
-    flash_by_path["serve_olmoe"] = timed("serve_olmoe", phase_serve_olmoe)
+    flash_by_path["serve_olmoe"], prm, tokens = timed("serve_olmoe",
+                                                      phase_serve_olmoe)
+    flash_by_path["serve_olmoe_a2a"] = timed(
+        "serve_olmoe_a2a", phase_serve_olmoe_a2a, prm, tokens)
+    del prm, tokens  # the olmoe weights
+    torch.cuda.empty_cache()
     trained["train_olmoe"] = timed("train_olmoe", phase_train_model,
                                    "train_olmoe")
     for name in SERVE_CROSS:  # the VLM, then whisper: each served, trained
@@ -4342,6 +5086,15 @@ def main() -> int:
         trained["train_rwkv6"], trained["train_zamba2"])
     for name in ("train_zamba2", "train_olmoe", "train_vlm", "train_whisper"):
         flash_by_path[name] = trained[name][0]["flash_attention"]
+    # decode_flash ran inside the serves that held each model's weights
+    PHASE_SECONDS["decode_flash"] = sum(
+        r["seconds"] for r in DECODE_FLASH_RESULTS.values())
+    assert set(DECODE_FLASH_RESULTS) == set(DECODE_FLASH) - {"mesh", "steps"}
+    emit("decode_flash", models=DECODE_FLASH_RESULTS)
+    emit("phase_seconds", of="decode_flash",
+         seconds=PHASE_SECONDS["decode_flash"],
+         within=["serve_zamba2", "serve_smollm", "serve_vlm",
+                 "serve_whisper"])
     emit("phase_seconds", seconds=PHASE_SECONDS,
          total=time.perf_counter() - t_start)
 

@@ -31,8 +31,9 @@ maps follow the same tiling. Logical axes used across the codebase:
   img_seq      image/encoder token axis         -> None
 
 On one card ``constrain`` returns its tensor unchanged: a mesh there is a
-virtual one (``launch.mesh.make_elastic_mesh`` over copies of the card),
-which decides how checkpoints are cut and restored, not where tensors live.
+virtual one (``launch.mesh.make_mesh`` over copies of the card), which
+decides how checkpoints are cut and restored and how ``spmd.shard_map``
+cuts its arguments, not where tensors live.
 """
 
 from __future__ import annotations

@@ -12,7 +12,7 @@ explicitly, the same card several times: one card then stands in for the
 several devices of an elastic restore (halved, same, doubled), as the
 reference stands up its meshes over ``--xla_force_host_platform_device_count=8``
 fake host devices. The store reads a virtual mesh's cells one by one onto
-that one card.
+that one card, and ``distributed.spmd.shard_map`` runs them in turn on it.
 """
 
 from __future__ import annotations
@@ -41,29 +41,35 @@ def _cuda_devices():
     return [torch.device("cuda", i) for i in range(n)]
 
 
-def _make_mesh(shape: Sequence[int], axes: Sequence[str], devices) -> Mesh:
-    arr = np.empty(len(devices), dtype=object)
-    arr[:] = list(devices)
-    return Mesh(arr.reshape(tuple(shape)), tuple(axes))
-
-
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    n = int(np.prod(shape))
-    devices = _cuda_devices()
-    if len(devices) < n:
-        raise RuntimeError(f"need {n} devices, have {len(devices)}")
-    return _make_mesh(shape, axes, devices[:n])
+    return make_mesh(shape, axes)
 
 
 def make_host_mesh(data: int = 1, model: int = 1) -> Mesh:
     """Small mesh over this host's CUDA devices (tests/examples)."""
-    n = data * model
-    devices = _cuda_devices()
+    return make_mesh((data, model), ("data", "model"))
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str], devices=None
+              ) -> Mesh:
+    """A mesh of ``shape`` with any axes, such as ``("pod",)`` or
+    ``("data", "model")``, over ``devices`` (the first cells' worth of
+    CUDA devices when unset; raises when there are fewer). Passing the
+    same device several times builds a virtual mesh, as
+    ``make_elastic_mesh`` does: ``shard_map`` then runs every cell on
+    that one device (``distributed.spmd``)."""
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {tuple(shape)} and axes {tuple(axes)} "
+                         f"differ in rank")
+    n = int(np.prod(shape))
+    devices = _cuda_devices() if devices is None else list(devices)
     if len(devices) < n:
         raise RuntimeError(f"need {n} devices, have {len(devices)}")
-    return _make_mesh((data, model), ("data", "model"), devices[:n])
+    arr = np.empty(n, dtype=object)
+    arr[:] = devices[:n]
+    return Mesh(arr.reshape(tuple(shape)), tuple(axes))
 
 
 def make_elastic_mesh(data: int = 1, model: int = 1, *, devices=None) -> Mesh:
@@ -75,13 +81,7 @@ def make_elastic_mesh(data: int = 1, model: int = 1, *, devices=None) -> Mesh:
     virtual mesh on one device (``dev`` may be the CPU): the source and
     target meshes of an elastic restore then stand side by side on one
     card."""
-    n = data * model
-    if devices is None:
-        devices = _cuda_devices()
-    devices = list(devices)
-    if len(devices) < n:
-        raise RuntimeError(f"need {n} devices, have {len(devices)}")
-    return _make_mesh((data, model), ("data", "model"), devices[:n])
+    return make_mesh((data, model), ("data", "model"), devices)
 
 
 def mesh_axis_sizes(mesh) -> dict:

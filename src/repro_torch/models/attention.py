@@ -10,7 +10,9 @@ decoder) takes q from the stream and k, v from the encoder states, with no
 rope and no mask: CUDA tensors go through the flash kernel, CPU tensors
 through ``attention_dense``, as the reference computes it; its decode step
 against the cached encoder KV stays plain on every device.
-Sequence-sharded decode (``flash_decode``) waits for ROADMAP Queue 1 item 9.
+``flash_decode`` is the sequence-sharded decode of the ``decode_flash``
+ruleset: torch ops inside ``distributed.spmd.shard_map``, as the
+reference writes it in ``jnp`` inside ``shard_map``.
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import spmd
 from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.models import params as P
 from repro_torch.models.common import apply_rope, matmul
 
@@ -237,6 +241,76 @@ def decode_attention(q, cache_k, cache_v, pos: int, *, window=0, softcap=0.0):
     p = torch.softmax(s, dim=-1).to(q.dtype)
     out = torch.einsum("bhgk,bkhd->bhgd", p, cache_v.to(q.dtype))
     return out.reshape(B, 1, Hq, D)
+
+
+def flash_decode(q, cache_k, cache_v, pos: int, mesh, *, axis="model",
+                 softcap=0.0, window=0, q_replicated=True):
+    """Sequence-sharded decode attention (flash-decoding), the reference's
+    line for line. ``pos`` is a Python int.
+
+    The KV cache is batch-sharded over the batch axes ("pod", "data") and
+    seq-sharded over ``axis``; each shard computes a partial (out, lse)
+    and the results combine by the log-sum-exp trick through ``pmax`` and
+    ``psum``, one small collective instead of gathering the cache.
+
+    ``q_replicated=True`` (the decode_flash ruleset): single-token
+    activations are replicated over the batch axes, so each shard slices
+    the batch rows of its cache shard, attends locally, and an
+    ``all_gather`` replicates the output again.
+    """
+    B, _, Hq, D = q.shape
+    S = cache_k.shape[1]
+    sizes = mesh_axis_sizes(mesh)
+    shard_len = S // sizes[axis]
+    Hkv = cache_k.shape[2]
+    batch_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+    def per_shard(q_, ck_, cv_):
+        if q_replicated and batch_axes:
+            b_loc = ck_.shape[0]
+            bidx = spmd.axis_index(batch_axes[0])
+            for a in batch_axes[1:]:  # row-major over the joint batch axes
+                bidx = bidx * sizes[a] + spmd.axis_index(a)
+            q_ = q_[bidx * b_loc:(bidx + 1) * b_loc]
+        B_loc, _, Hq_, D_ = q_.shape  # per-shard shapes (batch is sharded)
+        base = spmd.axis_index(axis) * shard_len
+        qg = _split_groups(q_, Hkv)[:, 0]
+        s = torch.einsum("bhgd,bkhd->bhgk", qg, ck_.to(q_.dtype)).float()
+        s = s / math.sqrt(D)
+        if softcap > 0:
+            s = softcap * torch.tanh(s / softcap)
+        kpos = torch.arange(shard_len, device=q_.device) + base
+        if window > 0:
+            valid = kpos < min(pos + 1, S)
+        else:
+            valid = kpos <= pos
+        s = torch.where(valid[None, None, None], s, NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        # guard all-masked shards
+        m_safe = torch.clamp(m, min=NEG_INF / 2)
+        e = torch.exp(s - m_safe)
+        denom = e.sum(dim=-1, keepdim=True)
+        o = torch.einsum("bhgk,bkhd->bhgd", e.to(q_.dtype), cv_.to(q_.dtype))
+        # LSE-combine across shards
+        lse = m_safe[..., 0] + torch.log(torch.clamp(denom[..., 0], min=1e-30))
+        g_max = spmd.pmax(lse, axis)
+        w = torch.exp(lse - g_max)  # (B,Hkv,G)
+        o = o * (w / torch.clamp(denom[..., 0], min=1e-30))[..., None].to(
+            q_.dtype)
+        o = spmd.psum(o.float(), axis)
+        z = spmd.psum(w, axis)
+        o = (o / z[..., None]).to(q_.dtype)
+        o = o.reshape(B_loc, 1, Hq_, D_)
+        if q_replicated and batch_axes:
+            for a in reversed(batch_axes):  # tiny: (B,1,Hq,D)
+                o = spmd.all_gather(o, a, axis=0)
+        return o
+
+    spec_q = (None,) if q_replicated or not batch_axes else (batch_axes,)
+    spec_kv = (batch_axes if batch_axes else None, axis)
+    fn = spmd.shard_map(per_shard, mesh, in_specs=(spec_q, spec_kv, spec_kv),
+                        out_specs=spec_q)
+    return fn(q, cache_k, cache_v)
 
 
 # --- cross attention ------------------------------------------------------------

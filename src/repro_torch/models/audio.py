@@ -145,9 +145,11 @@ def prefill(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, tokens_x,
 
 
 def decode_step(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, cache,
-                x, pos: int):
+                x, pos: int, *, use_flash: bool = False):
     """One-token decode at position ``pos`` (a Python int). Returns
-    (x, new_cache); the cross KV is kept as it is."""
+    (x, new_cache); the cross KV is kept as it is. ``use_flash``: the self
+    attention through ``flash_decode`` on a mesh, with no softcap or
+    window, as in the reference."""
     B = x.shape[0]
     posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     ks, vs = [], []
@@ -157,7 +159,10 @@ def decode_step(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, cache,
         q = A.project_q(cfg, wl["attn"], h, posv, ctx)
         k, v = A.project_kv(cfg, wl["attn"], h, posv, ctx)
         ck, cv = A.cache_update(cache["k"][i], cache["v"][i], k, v, pos)
-        o = A.decode_attention(q, ck, cv, pos)
+        if use_flash and ctx.mesh is not None:
+            o = A.flash_decode(q, ck, cv, pos, ctx.mesh)
+        else:
+            o = A.decode_attention(q, ck, cv, pos)
         x = x + matmul(o.reshape(B, 1, cfg.q_dim), wl["attn"]["wo"])
         hx = rms_norm(x, wl["lnx"], cfg.norm_eps)
         x = x + A.cross_decode(cfg, wl["xattn"], hx, cache["ck"][i],

@@ -168,27 +168,25 @@ def decode_fn(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, cache,
     """One decode step. batch: {tokens (B,1), pos}: ``pos`` a Python int.
     Returns (logits, cache).
 
-    The ``decode_flash`` ruleset on a mesh asks for the sequence-sharded
-    ``flash_decode``, which the port does not have yet: it raises rather
-    than take the dense decode in its place. Without a mesh the reference
-    takes the dense decode too."""
-    if run.sharding_rules == "decode_flash" and ctx.mesh is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: decode under the 'decode_flash' ruleset on a mesh "
-            f"runs the sequence-sharded flash_decode, not ported yet "
-            f"(ROADMAP Queue 1 item 9)")
+    The ``decode_flash`` ruleset on a mesh takes the sequence-sharded
+    ``flash_decode`` in every self attention (rwkv6 has none); without a
+    mesh the dense decode, as in the reference."""
     dt = compute_dtype(run)
     x = embed_tokens(params["embed"], batch["tokens"], ctx, dt)
     pos = batch["pos"]
+    use_flash = run.sharding_rules == "decode_flash"
     w = params["stack"]
     if cfg.family in ("dense", "moe", "vlm"):
-        x, cache = T.stack_decode(cfg, run, ctx, w, cache, x, pos)
+        x, cache = T.stack_decode(cfg, run, ctx, w, cache, x, pos,
+                                  use_flash=use_flash)
     elif cfg.family == "ssm":
         x, cache = RW.stack_decode(cfg, run, ctx, w, cache, x)
     elif cfg.family == "hybrid":
-        x, cache = MB.stack_decode(cfg, run, ctx, w, cache, x, pos)
+        x, cache = MB.stack_decode(cfg, run, ctx, w, cache, x, pos,
+                                   use_flash=use_flash)
     elif cfg.family == "audio":
-        x, cache = AU.decode_step(cfg, run, ctx, w, cache, x, pos)
+        x, cache = AU.decode_step(cfg, run, ctx, w, cache, x, pos,
+                                  use_flash=use_flash)
     else:
         raise ValueError(cfg.family)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)

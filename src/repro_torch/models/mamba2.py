@@ -265,9 +265,11 @@ def stack_prefill(cfg, run: RunConfig, ctx, w, x, positions, *, chunk):
     return x, cache
 
 
-def stack_decode(cfg, run: RunConfig, ctx, w, cache, x, pos: int):
+def stack_decode(cfg, run: RunConfig, ctx, w, cache, x, pos: int, *,
+                 use_flash: bool = False):
     """One token through the stack; ``pos`` is its position, a Python int.
-    Returns (x, the new cache)."""
+    Returns (x, the new cache). ``use_flash``: the shared attention through
+    ``flash_decode`` on a mesh."""
     shared = w.get("shared")
     states, ks, vs = [], [], []
     for i in range(cfg.num_layers):
@@ -279,7 +281,8 @@ def stack_decode(cfg, run: RunConfig, ctx, w, cache, x, pos: int):
             app = i // cfg.shared_attn_every
             x, ck, cv = T.block_decode(cfg, run, ctx, shared, x,
                                        cache["attn"]["k"][app],
-                                       cache["attn"]["v"][app], pos)
+                                       cache["attn"]["v"][app], pos,
+                                       use_flash=use_flash)
             ks.append(ck)
             vs.append(cv)
     out = {"mamba": P.stack_layers(states)}

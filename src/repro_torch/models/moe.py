@@ -5,9 +5,10 @@ The dense dispatch/combine einsums stay products (``torch.einsum``), as
 the reference leaves them to XLA outside any Pallas kernel. Tokens are
 routed in groups of ``MOE_GROUP`` so the (g, E, C) combine tensor stays
 bounded whatever the sequence length: at olmoe-1b-7b's 64 experts and a
-full group it is (4096, 64, 640) float32, 671 MB. The reference's
-expert-parallel ``impl="a2a"`` (``shard_map`` all-to-all over the mesh's
-``model`` axis) is ROADMAP Queue 1 item 9.
+full group it is (4096, 64, 640) float32, 671 MB. ``impl="a2a"`` on a
+mesh with a ``model`` axis takes the expert-parallel path of
+``models/moe_a2a`` (``spmd.shard_map`` and ``all_to_all`` over that
+axis), as the reference does.
 """
 
 from __future__ import annotations
@@ -116,13 +117,12 @@ def _moe_group_apply(cfg: ModelConfig, ctx: ShardingCtx, wts, xg):
 def moe_apply(cfg: ModelConfig, ctx: ShardingCtx, wts, x,
               impl: str = "dense"):
     """x: (B, S, d) -> (y, aux_loss). ``impl="a2a"`` on a mesh with a
-    ``model`` axis (the reference's expert-parallel path) raises; otherwise
+    ``model`` axis takes the expert-parallel ``moe_a2a_apply``; otherwise
     the dense path runs, as in the reference."""
     if impl == "a2a" and ctx.mesh is not None and \
             "model" in ctx.mesh.axis_names:
-        raise NotImplementedError(
-            "moe impl='a2a' (moe_a2a, the expert-parallel all-to-all over "
-            "several cards) is not ported yet (ROADMAP Queue 1 item 9)")
+        from repro_torch.models.moe_a2a import moe_a2a_apply
+        return moe_a2a_apply(cfg, ctx, wts, x)
     B, S, d = x.shape
     T = B * S
     xf = x.reshape(T, d)

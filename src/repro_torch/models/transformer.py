@@ -76,17 +76,23 @@ def block_apply(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x,
 
 
 def block_decode(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x, ck,
-                 cv, pos: int):
+                 cv, pos: int, *, use_flash: bool = False):
     """One-token decode through one block. x: (B,1,d); ck/cv: (B,Sc,Hkv,D);
-    ``pos`` the token's position, a Python int."""
+    ``pos`` the token's position, a Python int. ``use_flash`` on a mesh:
+    the sequence-sharded ``flash_decode`` over the cache."""
     B = x.shape[0]
     posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     h = rms_norm(x, w["ln1"], cfg.norm_eps)
     q = A.project_q(cfg, w["attn"], h, posv, ctx)
     k, v = A.project_kv(cfg, w["attn"], h, posv, ctx)
     ck, cv = A.cache_update(ck, cv, k, v, pos, window=cfg.sliding_window)
-    o = A.decode_attention(q, ck, cv, pos, window=cfg.sliding_window,
-                           softcap=cfg.attn_logit_softcap)
+    if use_flash and ctx.mesh is not None:
+        o = A.flash_decode(q, ck, cv, pos, ctx.mesh,
+                           softcap=cfg.attn_logit_softcap,
+                           window=cfg.sliding_window)
+    else:
+        o = A.decode_attention(q, ck, cv, pos, window=cfg.sliding_window,
+                               softcap=cfg.attn_logit_softcap)
     o = matmul(o.reshape(B, 1, cfg.q_dim), w["attn"]["wo"])
     x, _ = _mlp_residual(cfg, run, ctx, w, x + o)
     return x, ck, cv
@@ -207,34 +213,37 @@ def stack_cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Dict:
     return P.stack_tree(cfg.num_layers, base)
 
 
-def _decode_layers(cfg, run, ctx, w, cache, x, pos: int, n: int):
+def _decode_layers(cfg, run, ctx, w, cache, x, pos: int, n: int, use_flash):
     """``n`` stacked self layers' decode step; their new (k, v) stacked."""
     ks, vs = [], []
     for i in range(n):
         x, ck, cv = block_decode(cfg, run, ctx, P.layer(w, i), x,
-                                 cache["k"][i], cache["v"][i], pos)
+                                 cache["k"][i], cache["v"][i], pos,
+                                 use_flash=use_flash)
         ks.append(ck)
         vs.append(cv)
     return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
 def stack_decode(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, cache,
-                 x, pos: int):
+                 x, pos: int, *, use_flash: bool = False):
     """One-token decode at position ``pos`` (a Python int). Returns
-    (x, new_cache); the VLM's image KV is kept as it is."""
+    (x, new_cache); the VLM's image KV is kept as it is. ``use_flash``:
+    the self layers' attention through ``flash_decode`` on a mesh."""
     if cfg.family == "vlm":
         g, s = _vlm_groups(cfg)
         new_self = []
         for j in range(g):
             wg, cg = P.layer(w, j), P.layer(cache["self"], j)
-            x, kv = _decode_layers(cfg, run, ctx, wg["self"], cg, x, pos, s)
+            x, kv = _decode_layers(cfg, run, ctx, wg["self"], cg, x, pos, s,
+                                   use_flash)
             new_self.append(kv)
             cx = P.layer(cache["cross"], j)
             x = cross_block_decode(cfg, ctx, wg["cross"], x, cx["img_k"],
                                    cx["img_v"])
         return x, {"self": P.stack_layers(new_self), "cross": cache["cross"]}
     return _decode_layers(cfg, run, ctx, w["layers"], cache, x, pos,
-                          cfg.num_layers)
+                          cfg.num_layers, use_flash)
 
 
 def stack_prefill(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x,

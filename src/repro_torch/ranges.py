@@ -8,6 +8,9 @@ recorded on the current stream (so a range reads its span on the stream,
 idle included, not the sum of its kernels' times), on the CPU the host
 clock. With no ``timed`` block open a range records nothing more than the
 profiler's.
+
+``count_calls`` counts the calls of functions by their module attribute,
+which shows what path a call took (``flash_decode`` or the dense decode).
 """
 
 from __future__ import annotations
@@ -42,6 +45,29 @@ def named(name: str):
         finally:
             for (dev, marks), start in zip(blocks, starts):
                 marks.setdefault(name, []).append((start, _mark(dev)))
+
+
+@contextlib.contextmanager
+def count_calls(module, names: Iterable[str]) -> Dict[str, int]:
+    """Counts the calls of ``module.<name>`` for each of ``names`` while
+    open: each attribute is wrapped in place and put back on exit. Yields
+    the counts, a dict the caller may reset."""
+    real = {n: getattr(module, n) for n in names}
+    calls = {n: 0 for n in real}
+
+    def wrap(n):
+        def counted(*args, **kwargs):
+            calls[n] += 1
+            return real[n](*args, **kwargs)
+        return counted
+
+    for n in real:
+        setattr(module, n, wrap(n))
+    try:
+        yield calls
+    finally:
+        for n, fn in real.items():
+            setattr(module, n, fn)
 
 
 @contextlib.contextmanager

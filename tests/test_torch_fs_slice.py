@@ -207,6 +207,34 @@ def test_op_stream_matches_reference(mounts, kind):
     assert np.array_equal(_image(port.dev), _image(ref.dev))
 
 
+@pytest.mark.parametrize("kind", KINDS)
+def test_shrink_then_grow_matches_reference(mounts, kind):
+    """A truncate that shrinks a file, then a grow by truncate and by a
+    write past the end: the port gives the reference's bytes, free
+    counts and device image (the reference keeps a shrunk file's blocks,
+    ROADMAP Queue 3, and the port keeps them alike)."""
+    bs = R_xv6.L.BSIZE
+    ref, port = mounts(kind)
+    got = []
+    for mf in (ref, port):
+        v = mf.view
+        v.write_file("/f", b"A" * bs + b"B" * bs + b"C" * bs)
+        full = v.statfs()["free_blocks_est"]
+        v.truncate("/f", 6)
+        freed = v.statfs()["free_blocks_est"] - full
+        v.truncate("/f", 2 * bs + 100)
+        grown = v.read_file("/f")
+        v.truncate("/f", 3)
+        v.write_file("/f", b"z", off=bs + 7, create=False)
+        written = v.read_file("/f")
+        got.append((freed, grown, written))
+    assert got[1] == got[0]
+    assert len(got[0][1]) == 2 * bs + 100 and got[0][2][:3] == b"AAA"
+    ref.close()
+    port.close()
+    assert np.array_equal(_image(port.dev), _image(ref.dev))
+
+
 # --- crash recovery across the packages ------------------------------------------------
 
 _OPTS = dict(group_commit=True, batched_install=True)

@@ -1,6 +1,7 @@
 """Cross-path consistency for every architecture in the port, the
 counterpart of tests/test_models_consistency.py, each case held against
-the reference at the same parameters; and the ``decode_flash`` refusal.
+the reference at the same parameters; and the ``decode_flash`` decode on
+virtual meshes against the reference's on fake host devices.
 
 For each of the ten arch ids the smoke config's parameters are drawn with
 numpy by the reference's init rules (zeros, ones, normal leaves at
@@ -36,10 +37,12 @@ from repro.models import common as jax_common  # noqa: E402
 from repro.models import lm as jax_lm  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.distributed.sharding import ShardingCtx  # noqa: E402
+from repro_torch import ranges  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.mesh import make_elastic_mesh  # noqa: E402
 from repro_torch.models import attention, common, lm, params as P  # noqa: E402
 from test_torch_rwkv import assert_close  # noqa: E402
+from test_torch_spmd import run_reference  # noqa: E402
 from test_torch_vlm import with_gates  # noqa: E402
 
 ARCHS = jax_registry.arch_ids()
@@ -186,28 +189,87 @@ def test_chunked_attention_equals_dense():
         torch.testing.assert_close(chunked, dense, atol=2e-5, rtol=0)
 
 
+FLASH_MESHES = ((2, 1), (1, 2))
+FLASH_PROMPT, FLASH_PAD = 8, 8  # a 16-slot cache: 2 shards of 8
+
+REF_DECODE_FLASH = """
+from repro.configs import registry
+from repro.distributed.sharding import ShardingCtx
+from repro.launch.mesh import make_elastic_mesh
+from repro.models import lm
+for arch, (params, cache, tokens, pos) in inp["archs"].items():
+    bundle = registry.get(arch)
+    cfg = bundle.smoke
+    run = bundle.run.replace(compute_dtype="float32",
+                             sharding_rules="decode_flash")
+    for d, m in inp["meshes"]:
+        ctx = ShardingCtx.for_mesh(make_elastic_mesh(d, m), "decode_flash")
+        step = jax.jit(lambda p, c, t, s, ctx=ctx: lm.decode_fn(
+            cfg, run, ctx, p, c, {"tokens": t, "pos": s})[0])
+        out[f"{arch}/{d}x{m}"] = step(params, cache, tokens, jnp.int32(pos))
+"""
+
+
+def flash_inputs(arch):
+    """The parameters, the reference's prefill cache of FLASH_PROMPT
+    tokens padded by FLASH_PAD (numpy), and the first decode step."""
+    jcfg, cfg, jrun, run, jprm, prm = both(arch)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size,
+                                             (B, FLASH_PROMPT), dtype=np.int32)
+    extra = {k: jnp.asarray(v) for k, v in stub_inputs(cfg, 3).items()}
+    _, jcache = jax_lm.prefill_fn(jcfg, jrun, JCTX, jprm,
+                                  {"tokens": jnp.asarray(toks), **extra})
+    cache = serve.pad_cache(cfg, carry(jcache), FLASH_PAD)
+    np_cache = P.tree_map(lambda t: np.asarray(
+        jnp.asarray(t.float().numpy()).astype(jnp.bfloat16))
+        if t.dtype == torch.bfloat16 else t.numpy(), cache)
+    np_params = P.tree_map(np.asarray, jprm)
+    return (cfg, run, prm, cache), (np_params, np_cache, toks[:, :1],
+                                    FLASH_PROMPT)
+
+
+@pytest.fixture(scope="module")
+def decode_flash_cases():
+    """Each arch's port inputs, and the reference's decode step under
+    ``decode_flash`` on each mesh of FLASH_MESHES, every arch, on 2 fake
+    host devices in one subprocess."""
+    cases = {arch: flash_inputs(arch) for arch in ARCHS}
+    inp = {"archs": {arch: c[1] for arch, c in cases.items()},
+           "meshes": FLASH_MESHES}
+    return cases, run_reference(REF_DECODE_FLASH, inp, 2)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
-def test_decode_flash_on_a_mesh_refuses(arch):
-    """The ``decode_flash`` ruleset on a mesh asks for the sequence-sharded
-    flash_decode, which the port does not have: decode_fn raises, naming
-    its ROADMAP item, for every family. The ``baseline`` ruleset on the same
-    (virtual) mesh decodes, and so does ``decode_flash`` with no mesh, as
-    the reference takes the dense decode there too; both give the null
-    context's logits."""
-    _, cfg, _, run, _, prm = both(arch)
-    toks = torch.from_numpy(np.random.default_rng(3).integers(
-        0, cfg.vocab_size, (B, 8), dtype=np.int32))
-    extra = {k: torch.from_numpy(v) for k, v in stub_inputs(cfg, 3).items()}
-    _, cache = lm.prefill_fn(cfg, run, CTX, prm, {"tokens": toks, **extra})
-    cache = serve.pad_cache(cfg, cache, 1)
-    step = {"tokens": toks[:, :1], "pos": 8}
-    mesh = make_elastic_mesh(2, 1, devices=[CPU] * 2)
-    flash_run = run.replace(sharding_rules="decode_flash")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        lm.decode_fn(cfg, flash_run, ShardingCtx.for_mesh(mesh, "decode_flash"),
-                     prm, cache, step)
-    want, _ = lm.decode_fn(cfg, run, CTX, prm, cache, step)
-    for rn, ctx in ((run, ShardingCtx.for_mesh(mesh, "baseline")),
-                    (flash_run, CTX)):
-        got, _ = lm.decode_fn(cfg, rn, ctx, prm, cache, step)
-        assert torch.equal(got, want)
+def test_decode_flash_on_a_mesh_matches_reference(arch, decode_flash_cases):
+    """The ``decode_flash`` ruleset on a virtual (2, 1) and (1, 2) mesh
+    takes the sequence-sharded flash_decode in every self attention (as
+    many calls as the dense decode makes to ``decode_attention``, and
+    none to it; rwkv6 has none): the logits of the reference's step on
+    the same meshes, within 1e-4, from the same cache. The ``baseline``
+    ruleset on the same mesh decodes densely, and so does
+    ``decode_flash`` with no mesh: both give the null context's
+    logits."""
+    cases, ref = decode_flash_cases
+    (cfg, run, prm, cache), (_, _, tok, pos) = cases[arch]
+    with ranges.count_calls(attention, ("decode_attention",
+                                        "flash_decode")) as calls:
+        step = {"tokens": torch.from_numpy(tok), "pos": pos}
+        flash_run = run.replace(sharding_rules="decode_flash")
+        want, _ = lm.decode_fn(cfg, run, CTX, prm, cache, step)
+        n_attn = calls["decode_attention"]
+        assert (n_attn == 0) == (cfg.family == "ssm"), (arch, n_attn)
+        for d, m in FLASH_MESHES:
+            mesh = make_elastic_mesh(d, m, devices=[CPU] * (d * m))
+            calls.update(decode_attention=0, flash_decode=0)
+            got, _ = lm.decode_fn(cfg, flash_run,
+                                  ShardingCtx.for_mesh(mesh, "decode_flash"),
+                                  prm, cache, step)
+            assert calls == {"decode_attention": 0, "flash_decode": n_attn}
+            assert_close(got, ref[f"{arch}/{d}x{m}"], 1e-4,
+                         f"{arch} decode_flash on ({d}, {m})")
+            base, _ = lm.decode_fn(cfg, run,
+                                   ShardingCtx.for_mesh(mesh, "baseline"),
+                                   prm, cache, step)
+            assert torch.equal(base, want)
+        dense, _ = lm.decode_fn(cfg, flash_run, CTX, prm, cache, step)
+        assert torch.equal(dense, want)

@@ -1,7 +1,7 @@
 """The port's MoE family (olmoe-1b-7b) against the reference on the CPU:
 the MoE layer (router, GShard capacity dispatch, aux loss), the smoke
 model's prefill, decode, loss and gradients, its parameter counts, the
-a2a refusal and trainer checkpoints across the two packages.
+a2a dispatch and trainer checkpoints across the two packages.
 
 Inputs and parameters are drawn with numpy from fixed seeds and handed to
 both packages. ``torch.topk`` and ``lax.top_k`` may order ties apart, so
@@ -165,16 +165,33 @@ def test_moe_layer_gradients_match_reference():
         assert_close(pw[k].grad, jgw[k], 1e-4, f"d{k}")
 
 
-def test_a2a_refuses_on_a_model_axis_and_is_dense_elsewhere():
+def test_a2a_on_a_model_axis_matches_reference_and_is_dense_elsewhere():
+    """``impl="a2a"`` on a mesh with a ``model`` axis takes the
+    expert-parallel path: the reference's ``moe_a2a_apply`` on its (1, 1)
+    mesh, y and aux within 2e-5 (tests/test_torch_moe_a2a.py holds it on
+    several cells). With no mesh, or a mesh without a ``model`` axis, the
+    dense path runs, exactly."""
+    from repro.launch.mesh import make_elastic_mesh as jax_mesh
+    from repro.models.moe_a2a import moe_a2a_apply as jax_a2a
+    from repro_torch.launch.mesh import make_mesh
+
     jcfg, pcfg = configs()
     w, x = layer_inputs(jcfg, 32)
     pw = P.tree_map(torch.from_numpy, w)
-    mesh_ctx = ShardingCtx.for_mesh(make_elastic_mesh(1, 2, devices=[CPU] * 2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        moe.moe_apply(pcfg, mesh_ctx, pw, torch.from_numpy(x), impl="a2a")
-    y_a2a, _ = moe.moe_apply(pcfg, CTX, pw, torch.from_numpy(x), impl="a2a")
+    mesh_ctx = ShardingCtx.for_mesh(make_elastic_mesh(1, 1, devices=[CPU]))
+    jctx = JaxCtx.for_mesh(jax_mesh(1, 1))
+    jy, jaux = jax.jit(lambda w, x: jax_a2a(jcfg, jctx, w, x))(
+        P.tree_map(jnp.asarray, w), jnp.asarray(x))
+    y_a2a, aux_a2a = moe.moe_apply(pcfg, mesh_ctx, pw, torch.from_numpy(x),
+                                   impl="a2a")
+    assert_close(y_a2a, jy, 2e-5, "a2a y")
+    assert_close(aux_a2a, jaux, 2e-5, "a2a aux")
     y, _ = moe.moe_apply(pcfg, CTX, pw, torch.from_numpy(x))
-    assert torch.equal(y_a2a, y)
+    data_only = ShardingCtx.for_mesh(make_mesh((2,), ("data",), [CPU] * 2))
+    for ctx in (CTX, data_only):
+        y_dense, _ = moe.moe_apply(pcfg, ctx, pw, torch.from_numpy(x),
+                                   impl="a2a")
+        assert torch.equal(y_dense, y)
 
 
 # --- the model -----------------------------------------------------------------

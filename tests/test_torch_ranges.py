@@ -51,6 +51,25 @@ def test_a_range_is_a_profiler_range_timed_only_inside_timed():
     assert got["a"]["span_us"] > 0
 
 
+def test_count_calls_counts_while_open_and_puts_the_functions_back():
+    import types
+    mod = types.SimpleNamespace(f=lambda x: x + 1, g=lambda x: 2 * x)
+    real_f = mod.f
+    with ranges.count_calls(mod, ("f", "g")) as calls:
+        assert (mod.f(1), mod.f(2), mod.g(3)) == (2, 3, 6)
+        assert calls == {"f": 2, "g": 1}
+        calls.update(f=0)
+        mod.f(0)
+        assert calls == {"f": 1, "g": 1}
+    assert mod.f is real_f
+    mod.f(0)
+    assert calls == {"f": 1, "g": 1}
+    with pytest.raises(KeyError):
+        with ranges.count_calls(mod, ("f",)):
+            raise KeyError("inside")
+    assert mod.f is real_f
+
+
 def test_nested_timed_blocks_each_see_their_own_names():
     with ranges.timed(["a", "b"], "cpu") as outer:
         with ranges.named("a"):
