@@ -64,7 +64,13 @@ GPipe pipeline against the sequential stack (``pipeline``) and its
 gradients through the int8 compressors (``compression``), both on
 train_smollm's trainer. The training phases' profiled steps trace the
 device alone, as the serves' profiles do, and time their named ranges
-(``repro_torch.ranges``) with CUDA events. Every phase asserts
+(``repro_torch.ranges``) with CUDA events. Last the launch half and
+the examples: the dry-run (``launch.dryrun``: programs traced on meta
+tensors in two worker processes while the card runs the phases above)
+held to five of those phases, its traced kernel calls to their launches
+exactly and its traced peaks to their measured peaks (``dryrun``), and
+``examples/quickstart_torch.py`` and ``train_small_lm_torch.py`` on the
+card (``examples``). Every phase asserts
 and prints JSON lines, and a line with its seconds; the last line is the
 device record. It
 imports nothing of JAX and exits non-zero, printing no result, when no
@@ -209,8 +215,12 @@ TORTURES = ("torture_chain", "torture_prov", "torture_dedup",
 CARD = {}  # {"card": nvidia-smi's name and power limit}, once known
 
 
+EMITTED = {}  # each phase's last line, for the phases that check others
+
+
 def emit(phase: str, **fields) -> None:
     """A phase's JSON line, with the card's name and power limit."""
+    EMITTED[phase] = fields
     print(json.dumps({"phase": phase, **fields, **CARD}), flush=True)
 
 
@@ -1987,6 +1997,7 @@ def phase_serve_rwkv6():
     from repro_torch.serve.step import make_decode_step, make_prefill_step
 
     bundle = registry.get(SERVE["arch"])
+    base = torch.cuda.memory_allocated()  # what the card holds already
     cfg, run = bundle.model, bundle.run
     ctx = ShardingCtx.null()
     dev = torch.device("cuda")
@@ -2125,6 +2136,7 @@ def phase_serve_rwkv6():
          tokens_per_s=B * (gen - 1) / decode_s,
          request_tokens_per_s=B * gen / (prefill_cold_s + decode_s),
          peak_memory_bytes=peak,
+         base_memory_bytes=base,
          wkv6_launches_per_prefill=prefill_launches,
          wkv6_launches_per_decode_step=max(step_launches),
          generated_ids_row0=ids[0].tolist(),
@@ -2710,6 +2722,7 @@ def phase_serve_zamba2():
     from repro_torch.serve.step import make_decode_step, make_prefill_step
 
     kernels = _kernel_counts()
+    base = torch.cuda.memory_allocated()  # what the card holds already
     SSD, FA = kernels["ssd"], kernels["flash_attention"]
     bundle = registry.get(ZAMBA["arch"])
     cfg, run = bundle.model, bundle.run
@@ -2919,6 +2932,7 @@ def phase_serve_zamba2():
          request_tokens_per_s=B * gen / (
              times["prefill_s"] + (gen - 1) * times["decode_s_per_token"]),
          peak_memory_bytes=peak,
+         base_memory_bytes=base,
          ssd_launches_per_prefill=prefill_launches[0],
          flash_launches_per_prefill=prefill_launches[1],
          launches_per_decode_step=[max(n for n, _ in step_launches),
@@ -3026,6 +3040,7 @@ def phase_serve_smollm():
     from repro_torch.serve.step import make_decode_step, make_prefill_step
 
     kernels = _kernel_counts()
+    base = torch.cuda.memory_allocated()  # what the card holds already
     FA = kernels["flash_attention"]
     bundle = registry.get(SMOLLM["arch"])
     cfg, run = bundle.model, bundle.run
@@ -3142,7 +3157,8 @@ def phase_serve_smollm():
          tokens_per_s=B / times["decode_s_per_token"],
          request_tokens_per_s=B * gen / (
              times["prefill_s"] + (gen - 1) * times["decode_s_per_token"]),
-         peak_memory_bytes=peak, flash_launches_per_prefill=prefill_launches,
+         peak_memory_bytes=peak,
+         base_memory_bytes=base, flash_launches_per_prefill=prefill_launches,
          flash_launches_per_decode_step=max(step_launches),
          main_path_launches=main_launches,
          generated_ids_row0=ids[0].tolist(),
@@ -3187,6 +3203,7 @@ def phase_train_smollm():
     from repro_torch.train.trainer import Trainer
 
     kernels = _kernel_counts()
+    base = torch.cuda.memory_allocated()  # what the card holds already
     bundle = registry.get(TRAIN["arch"])
     cfg, run = bundle.model, bundle.run
     assert (run.param_dtype, run.compute_dtype, run.remat,
@@ -3330,6 +3347,7 @@ def phase_train_smollm():
          init_s=init_s, warmup_steps=TRAIN["warmup"], timed_steps=len(timed),
          step_ms=step_med * 1e3, step_ms_all=[x * 1e3 for x in step_s],
          tokens_per_s=tokens / step_med, peak_memory_bytes=peak,
+         base_memory_bytes=base,
          model_flops_per_step=flops,
          model_flops_share_of_bf16_peak=flops / step_med / BF16_TENSOR_OPS_PER_S,
          losses=losses, flash_launches_per_step=per_step, main_path_launches=main_launches,
@@ -3838,6 +3856,7 @@ def phase_train_model(name):
 
     spec = TRAIN_MODELS[name]
     kernels = _kernel_counts()
+    base = torch.cuda.memory_allocated()  # what the card holds already
     bundle = registry.get(spec["arch"])
     cfg = dataclasses.replace(bundle.model, num_layers=spec["layers"])
     run = bundle.run
@@ -3972,6 +3991,7 @@ def phase_train_model(name):
          warmup_steps=TRAIN_SHAPE["warmup"], timed_steps=len(timed),
          step_ms=step_med * 1e3, step_ms_all=[x * 1e3 for x in step_s],
          tokens_per_s=gb * seq / step_med, peak_memory_bytes=peak,
+         base_memory_bytes=base,
          model_flops_per_step=flops,
          model_flops_share_of_bf16_peak=flops / step_med / BF16_TENSOR_OPS_PER_S,
          losses=losses, launches_per_microbatch=per_micro,
@@ -4077,6 +4097,7 @@ def phase_serve_olmoe():
     from repro_torch.serve.step import make_decode_step, make_prefill_step
 
     kernels = _kernel_counts()
+    base = torch.cuda.memory_allocated()  # what the card holds already
     FA = kernels["flash_attention"]
     bundle = registry.get(SERVE_OLMOE["arch"])
     cfg, run = bundle.model, bundle.run
@@ -4138,7 +4159,8 @@ def phase_serve_olmoe():
          prefill_cold_ms=times["prefill_s"] * 1e3,
          decode_ms_per_token=times["decode_s_per_token"] * 1e3,
          tokens_per_s=B / times["decode_s_per_token"],
-         peak_memory_bytes=peak, flash_launches_per_prefill=prefill_launches,
+         peak_memory_bytes=peak,
+         base_memory_bytes=base, flash_launches_per_prefill=prefill_launches,
          flash_launches_per_decode_step=decode_launches,
          main_path_launches=main_launches,
          generated_ids_row0=ids[0].tolist(), **chk, trace=trace)
@@ -4185,6 +4207,7 @@ def phase_serve_cross(name):
 
     spec = SERVE_CROSS[name]
     kernels = _kernel_counts()
+    base = torch.cuda.memory_allocated()  # what the card holds already
     FA = kernels["flash_attention"]
     bundle = registry.get(spec["arch"])
     cfg, run = bundle.model, bundle.run
@@ -4278,7 +4301,8 @@ def phase_serve_cross(name):
          gates=gates, prefill_cold_ms=times["prefill_s"] * 1e3,
          decode_ms_per_token=times["decode_s_per_token"] * 1e3,
          tokens_per_s=B / times["decode_s_per_token"],
-         peak_memory_bytes=peak, flash_launches_per_prefill=prefill_launches,
+         peak_memory_bytes=peak,
+         base_memory_bytes=base, flash_launches_per_prefill=prefill_launches,
          flash_launches_per_decode_step=max(step_launches),
          main_path_launches=main_launches,
          generated_ids_row0=ids[0].tolist(),
@@ -5008,6 +5032,190 @@ def phase_compression(t):
     return rows
 
 
+# --- the twelfth slice: the dry-run held against the card, the examples ------------
+
+# The dry-run's programs (launch.programs over meta tensors, traced by
+# launch.op_analysis), one for each serve and training phase that
+# launches a model kernel, each at the shapes of the phase it is held
+# against: that phase's prefill, its cache padded for its tokens and two
+# decode steps (launch.dryrun.generate_program), or one training step at
+# its depth. The traced kernel calls must equal the phase's launches and
+# the traced peak must lie within DRYRUN_PEAK_TOL of the phase's measured
+# peak less what the card held when the phase began.
+DRYRUN = {"serve_smollm": ("smollm-135m", "generate", None),
+          "train_smollm": ("smollm-135m", "train", None),
+          "serve_zamba2": ("zamba2-7b", "generate", None),
+          "serve_rwkv6": ("rwkv6-7b", "generate", None),
+          "serve_olmoe": ("olmoe-1b-7b", "generate", None),
+          "serve_vlm": ("llama-3.2-vision-11b", "generate", None),
+          "serve_whisper": ("whisper-small", "generate", None),
+          **{name: (spec["arch"], "train", spec["layers"])
+             for name, spec in TRAIN_MODELS.items()}}
+DRYRUN_PEAK_TOL = 0.10
+# the kernels' operator names, by their modules' names
+KERNEL_OPS = {"flash_attention": "flash_attention_fwd", "wkv6": "wkv6_chunked",
+              "ssd": "ssd_chunked", "blockhash": None}
+# the serve phases' launch counts: flash the one kernel but in these two
+SERVE_LAUNCHES = {
+    "serve_zamba2": {"ssd_chunked": "ssd_launches_per_prefill",
+                     "flash_attention_fwd": "flash_launches_per_prefill"},
+    "serve_rwkv6": {"wkv6_chunked": "wkv6_launches_per_prefill"}}
+# the examples on the card: quickstart (checkpoints through a bento mount,
+# the fs upgraded under the trainer, a greedy serve), and train_small_lm
+# with a failure at step 7 over 17 steps (step 16 sees the first shard
+# again: its loss must be below step 0's)
+EXAMPLES = {"quickstart_torch": [],
+            "train_small_lm_torch": ["--steps", "17", "--fail-at", "7"]}
+
+
+def dryrun_trace(name: str) -> dict:
+    """One DRYRUN program traced on meta tensors (no device is touched):
+    its kernel calls, peak bytes, FLOPs and roofline terms. Runs in a
+    worker process while the card runs the other phases."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.launch import dryrun, op_analysis
+    from repro_torch.launch.programs import build_program
+
+    t0 = time.perf_counter()
+    arch, kind, layers = DRYRUN[name]
+    bundle = registry.get(arch)
+    cfg = bundle.model if layers is None else dataclasses.replace(
+        bundle.model, num_layers=layers)
+    if kind == "generate":
+        shape = {"serve_smollm": SMOLLM, "serve_zamba2": ZAMBA,
+                 "serve_rwkv6": SERVE, "serve_olmoe": SERVE_OLMOE,
+                 **SERVE_CROSS}[name]
+        prog = dryrun.generate_program(cfg, bundle.run, shape["batch"],
+                                       shape["prompt"], shape["gen"])
+    else:
+        gb, seq = ((TRAIN["global_batch"], TRAIN["seq"])
+                   if name == "train_smollm" else
+                   (TRAIN_SHAPE["global_batch"],
+                    TRAIN_MODELS[name].get("seq", TRAIN_SHAPE["seq"])))
+        prog = build_program(cfg, bundle.run, ShapeSpec(name, "train", seq,
+                                                        gb),
+                             ShardingCtx.null())
+        # the trainer puts SyntheticLM's batch on the card as it comes:
+        # the VLM's and whisper's embeddings in float32, where the
+        # program's spec says bfloat16
+        params, opt, batch = prog.args
+        batch = {k: v.float() if v.is_floating_point() else v
+                 for k, v in batch.items()}
+        prog = dataclasses.replace(prog, args=(params, opt, batch))
+    summary = op_analysis.analyze(prog.fn, *prog.args)
+    return {"program": prog.name, "meta": prog.meta,
+            "kernel_calls": summary.kernel_calls,
+            "peak_bytes": summary.peak_bytes,
+            "dot_flops": summary.dot_flops, "dot_bytes": summary.dot_bytes,
+            "roofline_terms_s": dryrun.roofline(summary),
+            "trace_s": time.perf_counter() - t0}
+
+
+def start_dryrun_traces():
+    """The DRYRUN traces in two worker processes (the CPU's work of a few
+    minutes, which would otherwise hold up the card): the training steps
+    first, the longest of them first."""
+    import multiprocessing as mp
+
+    pool = mp.get_context("spawn").Pool(2)
+    order = sorted(DRYRUN, key=lambda n: (n != "train_rwkv6",
+                                          not n.startswith("train")))
+    return pool, {n: pool.apply_async(dryrun_trace, (n,)) for n in order}
+
+
+def phase_dryrun(traces):
+    """Each DRYRUN program's trace against the phase it models: the traced
+    kernel calls equal the phase's launches exactly, and the traced peak
+    lies within DRYRUN_PEAK_TOL of the phase's max_memory_allocated less
+    the bytes the card held when the phase began. Also the traced
+    compute term beside the phase's measured time (information)."""
+    t0 = time.perf_counter()
+    rows = {}
+    for name, res in traces.items():
+        got = res.get(timeout=900)
+        measured = EMITTED[name]
+        if name in TRAIN_MODELS:
+            want = {KERNEL_OPS[k]: n
+                    for k, n in measured["launches_per_step"].items() if n}
+        elif name == "train_smollm":
+            want = {"flash_attention_fwd": measured["flash_launches_per_step"]}
+        else:
+            want = {op: measured[field] for op, field in SERVE_LAUNCHES.get(
+                name, {"flash_attention_fwd":
+                       "flash_launches_per_prefill"}).items()}
+        assert got["kernel_calls"] == want, (name, got["kernel_calls"], want)
+        peak = measured["peak_memory_bytes"] - measured["base_memory_bytes"]
+        ratio = got["peak_bytes"] / peak
+        ms = measured.get("prefill_ms", measured.get("step_ms"))
+        rows[name] = {
+            "program": got["program"], "shape": got["meta"]["shape"],
+            "kernel_calls": got["kernel_calls"], "launches": want,
+            "predicted_peak_bytes": got["peak_bytes"],
+            "measured_peak_bytes": measured["peak_memory_bytes"],
+            "base_memory_bytes": measured["base_memory_bytes"],
+            "peak_ratio": ratio,
+            "compute_ms": got["roofline_terms_s"]["compute_s"] * 1e3,
+            "memory_ms": got["roofline_terms_s"]["memory_s"] * 1e3,
+            "measured_ms": ms, "measured_ms_of": (
+                "prefill_ms" if "prefill_ms" in measured else "step_ms"),
+            "dot_flops": got["dot_flops"], "trace_s": got["trace_s"]}
+        print(f"dryrun {name}: predicted peak {got['peak_bytes']} B, "
+              f"measured {peak} B (ratio {ratio:.4f}); kernel calls "
+              f"{got['kernel_calls']} = launches {want}; compute "
+              f"{rows[name]['compute_ms']:.2f} ms beside {ms:.2f} ms",
+              flush=True)
+    bad = {n: r["peak_ratio"] for n, r in rows.items()
+           if abs(r["peak_ratio"] - 1) > DRYRUN_PEAK_TOL}
+    emit("dryrun", programs=rows, peak_tolerance=DRYRUN_PEAK_TOL,
+         wait_s=time.perf_counter() - t0,
+         trace_cpu_s=sum(r["trace_s"] for r in rows.values()))
+    assert not bad, f"predicted peaks off by more than {DRYRUN_PEAK_TOL}: {bad}"
+
+
+def phase_examples():
+    """examples/quickstart_torch.py and train_small_lm_torch.py on the
+    card, each with every kernel count set to 0 just before and read just
+    after: quickstart's checkpoint commits launch the blockhash kernel and
+    its training and prefill the flash kernel, its fs upgrade moves the
+    mount's generation; train_small_lm recovers from its failure and its
+    loss falls."""
+    import importlib.util
+
+    kernels = _kernel_counts()
+    out = {}
+    for name, argv in EXAMPLES.items():
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        for k in kernels.values():
+            k.reset_launches()
+        t0 = time.perf_counter()
+        res = mod.main(["--device", "cuda", *argv])
+        launches = {k: m.launches() for k, m in kernels.items()}
+        out[name] = {"seconds": time.perf_counter() - t0,
+                     "launches": launches, "argv": argv,
+                     "losses": [res["losses"][0], res["losses"][-1]]}
+        if name == "quickstart_torch":
+            gen0, gen1 = res["generations"]
+            assert launches["blockhash"] > 0 and \
+                launches["flash_attention"] > 0, launches
+            assert gen1 == gen0 + 1, res["generations"]
+            assert res["checkpoints"] == ["step_00000005", "step_00000010",
+                                          "step_00000015"]
+            out[name].update(generations=[gen0, gen1],
+                             generated=res["generated"])
+        else:
+            assert res["losses"][-1] < res["losses"][0], res["losses"]
+            assert res["recoveries"] == 1 and launches["blockhash"] > 0
+            out[name].update(recoveries=res["recoveries"])
+    emit("examples", examples=out)
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py runs from the root of a checkout: "
@@ -5029,6 +5237,19 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()
     timed("build", phase_build)
+    pool, traces = start_dryrun_traces()
+    try:
+        return run_phases(t_start, card, traces)
+    finally:
+        pool.terminate()  # the trace workers: idle or, on a failure, cut
+        pool.join()
+
+
+def run_phases(t_start, card, traces) -> int:
+    """Every phase after the build, and the kernels' line and the device
+    record last."""
+    import torch
+
     rows = timed("kernel", phase_kernel)
     main_launches, _rates = timed("bento", phase_bento)
     timed("trace", phase_trace)
@@ -5082,6 +5303,8 @@ def main() -> int:
         flash_by_path[name] = timed(name, phase_serve_cross, name)
         train = name.replace("serve", "train")
         trained[train] = timed(train, phase_train_model, train)
+    timed("dryrun", phase_dryrun, traces)
+    timed("examples", phase_examples)
     (rwkv_train, rwkv_bwd), (zamba_train, zamba_bwd) = (
         trained["train_rwkv6"], trained["train_zamba2"])
     for name in ("train_zamba2", "train_olmoe", "train_vlm", "train_whisper"):

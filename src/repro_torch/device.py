@@ -38,6 +38,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def takes_kernels(t: "torch.Tensor") -> bool:
+    """Whether ``t`` goes down the card's path of the model code (the CUDA
+    kernels in place of their plain versions): a CUDA tensor, or a meta
+    tensor, on which ``launch.dryrun`` traces the card's programs without
+    data or a device (each kernel's operator then allocates its outputs
+    and launches nothing). CPU tensors take the plain path."""
+    return t.is_cuda or t.is_meta
+
+
 ALLOC_CONF = "expandable_segments:True"
 
 

@@ -29,7 +29,11 @@ wait in one, makes every cell raise. A cell that raises breaks the
 barrier, and the caller re-raises its exception.
 
 Each cell thread runs under the caller's thread-local state: grad mode,
-inference mode, autocast, and the current CUDA device and stream.
+inference mode, autocast, the current CUDA device and stream, the
+caller's ``TorchDispatchMode`` stack (a ``FakeTensorMode``, and the
+FLOP counter and the operator counter of ``launch.op_analysis``, which
+would otherwise see none of the cells' work) and its collective observer
+(``observe``).
 """
 
 from __future__ import annotations
@@ -40,6 +44,8 @@ import threading
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
+from torch.utils._python_dispatch import (_get_current_dispatch_mode_stack,
+                                          _pop_mode, _push_mode)
 
 from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.models import params as P
@@ -153,6 +159,29 @@ def _members(name: str, x, axis_name) -> Tuple[List[Any], int]:
     return [_to(vals[p], dev) for p in group], group.index(cell.pos)
 
 
+@contextlib.contextmanager
+def observe(fn: Callable[[str, torch.Tensor, int, int], None]):
+    """Within the block, each collective that a ``shard_map`` cell issues
+    calls ``fn(op, result, group_size, cell)``: ``op`` the reference HLO's
+    name of it (``all-reduce``, ``all-gather``, ``all-to-all``,
+    ``collective-permute``), ``result`` the cell's result, ``cell`` its
+    flat position in the mesh. The cells of a call issue the same
+    collectives in the same order."""
+    prev = getattr(_local, "observer", None)
+    _local.observer = fn
+    try:
+        yield
+    finally:
+        _local.observer = prev
+
+
+def _noted(op: str, out, n: int):
+    fn = getattr(_local, "observer", None)
+    if fn is not None and isinstance(out, torch.Tensor):
+        fn(op, out, n, _cell().pos)
+    return out
+
+
 def axis_index(axis_name) -> int:
     """This cell's index along ``axis_name`` (a name or a tuple of names:
     their row-major joint index)."""
@@ -171,26 +200,27 @@ def _sum(vals):
 def psum(x, axis_name):
     """The sum over the group (a tensor or a Python number: ``psum(1,
     axis)`` is the group's size)."""
-    return _sum(_members("psum", x, axis_name)[0])
+    vals, _ = _members("psum", x, axis_name)
+    return _noted("all-reduce", _sum(vals), len(vals))
 
 
 def pmax(x, axis_name):
     vals, _ = _members("pmax", x, axis_name)
     if not isinstance(x, torch.Tensor):
         return max(vals)
-    return torch.stack(vals).amax(dim=0)
+    return _noted("all-reduce", torch.stack(vals).amax(dim=0), len(vals))
 
 
 def pmean(x, axis_name):
     vals, _ = _members("pmean", x, axis_name)
-    return _sum(vals) / len(vals)
+    return _noted("all-reduce", _sum(vals) / len(vals), len(vals))
 
 
 def all_gather(x: torch.Tensor, axis_name, *, axis: int = 0) -> torch.Tensor:
     """Every group member's ``x``, in group order, concatenated along dim
     ``axis`` (``jax.lax.all_gather``'s ``tiled=True``)."""
     vals, _ = _members("all_gather", x, axis_name)
-    return torch.cat(vals, dim=axis)
+    return _noted("all-gather", torch.cat(vals, dim=axis), len(vals))
 
 
 def all_to_all(x: torch.Tensor, axis_name, split_axis: int,
@@ -204,8 +234,8 @@ def all_to_all(x: torch.Tensor, axis_name, split_axis: int,
     if x.shape[split_axis] != n:
         raise ValueError(f"all_to_all needs dim {split_axis} of "
                          f"{tuple(x.shape)} to be the group's {n}")
-    return torch.stack([v.select(split_axis, me) for v in vals],
-                       dim=concat_axis)
+    return _noted("all-to-all", torch.stack(
+        [v.select(split_axis, me) for v in vals], dim=concat_axis), n)
 
 
 def ppermute(x: torch.Tensor, axis_name, perm: Sequence[Tuple[int, int]]
@@ -216,16 +246,19 @@ def ppermute(x: torch.Tensor, axis_name, perm: Sequence[Tuple[int, int]]
     src = [s for s, d in perm if d == me]
     if len(src) > 1 or len({d for _, d in perm}) != len(perm):
         raise ValueError(f"ppermute's pairs send twice to one cell: {perm}")
-    return vals[src[0]] if src else torch.zeros_like(x)
+    return _noted("collective-permute",
+                  vals[src[0]] if src else torch.zeros_like(x), len(vals))
 
 
 # --- the caller's thread-local state ---------------------------------------------
 
 
 def _caller_state() -> Callable[[], contextlib.ExitStack]:
-    """The caller's grad mode, inference mode, autocast and current CUDA
-    device and stream, as a factory of a context that sets them in
-    another thread."""
+    """The caller's grad mode, inference mode, autocast, current CUDA
+    device and stream, dispatch modes and collective observer, as a
+    factory of a context that sets them in another thread."""
+    modes = _get_current_dispatch_mode_stack()
+    observer = getattr(_local, "observer", None)
     inference = torch.is_inference_mode_enabled()
     grad = torch.is_grad_enabled()
     autocast = [(d, torch.get_autocast_dtype(d)) for d in ("cuda", "cpu")
@@ -243,6 +276,10 @@ def _caller_state() -> Callable[[], contextlib.ExitStack]:
         if stream is not None:
             stack.enter_context(torch.cuda.device(stream.device))
             stack.enter_context(torch.cuda.stream(stream))
+        for mode in modes:  # the same objects, bottom first
+            _push_mode(mode)
+            stack.callback(_pop_mode)
+        stack.enter_context(observe(observer))
         return stack
 
     return enter

@@ -23,6 +23,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import takes_kernels
 from repro_torch.distributed import spmd
 from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.kernels.flash_attention import ops as fa
@@ -162,12 +163,13 @@ def attention_chunked(q, k, v, *, causal=True, window=0, softcap=0.0,
 
 def attention_auto(q, k, v, *, causal=True, window=0, softcap=0.0, q_chunk=1024,
                    ctx: Optional[ShardingCtx] = None):
-    """Backend dispatch: the CUDA flash kernel for CUDA tensors, at any
+    """Backend dispatch: the CUDA flash kernel for CUDA tensors (its
+    operator for the dry-run's meta tensors: ``device.takes_kernels``), at any
     length (the reference's TPU kernel needs a block of 128, 256 or 512 to
     divide both; this one masks the tails). CPU tensors take the plain paths,
     chunked at and beyond 2048 query tokens (bounds the scores temp at
     q_chunk x Skv), dense below."""
-    if q.is_cuda:
+    if takes_kernels(q):
         return fa.flash_attention(q, k, v, causal, window, softcap)
     if q.shape[1] >= 2048 and q.shape[1] % q_chunk == 0:
         return attention_chunked(q, k, v, causal=causal, window=window,
@@ -320,7 +322,7 @@ def attention_full(q, k, v):
     """Non-causal attention with no window or softcap, Skv free: the flash
     kernel for CUDA tensors, ``attention_dense`` (the reference's path) for
     CPU tensors, whatever their length."""
-    if q.is_cuda:
+    if takes_kernels(q):
         return fa.flash_attention(q, k, v, causal=False)
     return attention_dense(q, k, v, causal=False)
 

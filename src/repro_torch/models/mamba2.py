@@ -228,8 +228,9 @@ def stack_apply(cfg, run: RunConfig, ctx, w, x, positions, *, chunk):
             x, _ = T.block_apply(cfg, run, ctx, shared, x, positions)
         return x, None
 
-    # the index on the host: reading it back costs no device sync
-    xs = {"index": torch.arange(cfg.num_layers), "layer": w["layers"]}
+    # the index as Python ints (a range, sliced as the layers are): no
+    # tensor is read back, so a trace on fake tensors can take the branch
+    xs = {"index": range(cfg.num_layers), "layer": w["layers"]}
     x, _ = grouped_scan(body, x, xs, cfg.num_layers, run.scan_group,
                         run.remat == "block")
     return x, torch.zeros((), dtype=torch.float32, device=x.device)

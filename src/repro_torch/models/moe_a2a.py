@@ -77,7 +77,11 @@ def moe_a2a_apply(cfg: ModelConfig, ctx: ShardingCtx, w, x: torch.Tensor):
         order = torch.argsort(flat_e, stable=True)
         se, st_, sw = flat_e[order], flat_t[order], flat_w[order]
         # position within expert = index - start offset of that expert
-        counts = torch.bincount(se, minlength=E)
+        # bincount by an index_add (the same integers): its output's size
+        # does not hang on the data, so the dry-run can trace it on meta
+        # tensors
+        counts = torch.zeros(E, dtype=se.dtype, device=dev).index_add_(
+            0, se, torch.ones_like(se))
         starts = torch.cumsum(counts, dim=0) - counts
         pos = torch.arange(t_m * k, device=dev) - starts[se]
         keep = pos < C

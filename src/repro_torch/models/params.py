@@ -7,11 +7,14 @@ initialisers. From it the port derives:
   * parameters drawn on the target device (``materialize``);
   * the reference's parameters or decode state carried across
     (``from_reference``), key path for key path;
+  * fake tensors of the right shapes and dtypes for the dry-run
+    (``fake_tree``);
   * exact parameter counts (``count_params``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
@@ -147,6 +150,34 @@ def materialize(tree, generator: torch.Generator, device: DeviceLike = None,
         return x.mul_(std).to(dt)
 
     return map_specs(draw, tree)
+
+
+def fake_tree(tree, ctx, dtype="float32", *, device="meta", mode=None):
+    """Stand-ins of the specs that hold no data (the counterpart of the
+    reference's ``shape_dtype_tree``): each leaf with the shape and dtype
+    ``materialize`` gives it (``spec.dtype or dtype``). On the meta device
+    (the default) they are meta tensors, on which the model code takes the
+    card's path (``device.takes_kernels``); on another device they are
+    fake tensors of ``mode`` (a ``FakeTensorMode``), on which it takes
+    that device's path. A 0-d integer leaf (the decode position, which the
+    port's programs read as a Python int) is a host scalar of its init
+    value. Returns ``(tensors, shardings)``: each leaf's ``MeshSharding``
+    under ``ctx``, or None without a mesh."""
+    dev = torch.device(device)
+    if dev.type != "meta" and mode is None:
+        raise ValueError(f"stand-ins on {dev} are fake tensors: pass their "
+                         f"FakeTensorMode")
+
+    def fake(spec: TensorSpec) -> torch.Tensor:
+        dt = torch_dtype(spec.dtype or dtype)
+        with contextlib.nullcontext() if mode is None else mode:
+            if spec.shape == () and not dt.is_floating_point:
+                return torch.tensor(1 if spec.init == "ones" else 0, dtype=dt)
+            return torch.empty(spec.shape, dtype=dt, device=dev)
+
+    shardings = None if ctx.mesh is None else map_specs(
+        lambda s: ctx.sharding(s.logical, s.shape), tree)
+    return map_specs(fake, tree), shardings
 
 
 def _tensor(a, dev: torch.device, dtype: Optional[torch.dtype]) -> torch.Tensor:

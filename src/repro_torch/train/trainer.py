@@ -31,6 +31,7 @@ from repro_torch.data.pipeline import Prefetcher, SyntheticLM
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.launch.mesh import mesh_axis_sizes
+from repro_torch.launch.programs import _ns_tree
 from repro_torch.models import lm, params as P
 from repro_torch.optim.adamw import adamw_init_specs
 from repro_torch.train.step import make_train_step
@@ -38,14 +39,6 @@ from repro_torch.train.step import make_train_step
 
 class WorkerFailure(Exception):
     """Simulated node loss (tests inject it via failure_hook)."""
-
-
-def _sharding_tree(spec_tree, ctx: ShardingCtx):
-    """Each spec's ``MeshSharding`` under ``ctx``'s rules (the reference's
-    ``launch.programs._ns_tree``); None without a mesh."""
-    if ctx.mesh is None:
-        return None
-    return P.map_specs(lambda s: ctx.sharding(s.logical, s.shape), spec_tree)
 
 
 def _to(tree, device: torch.device):
@@ -91,8 +84,8 @@ class Trainer(BentoModule):
         self.ospecs = adamw_init_specs(self.pspecs, self.run)
         self._step_fn = make_train_step(self.cfg, self.run, self.ctx,
                                         self.global_batch)
-        self.param_shardings = _sharding_tree(self.pspecs, self.ctx)
-        self.opt_shardings = _sharding_tree(self.ospecs, self.ctx)
+        self.param_shardings = _ns_tree(self.pspecs, self.ctx)
+        self.opt_shardings = _ns_tree(self.ospecs, self.ctx)
 
     def _init_state(self) -> None:
         # one seed for both trees, as the reference draws both from one key

@@ -14,8 +14,13 @@ import pytest
 
 pytest.importorskip("torch")
 
-SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
 PORT = SRC / "repro_torch"
+# the port's files outside its package: the card's smoke, its allocator
+# probe and the examples
+PORT_SCRIPTS = ["chip_smoke.py", "peak_blocks.py"] + sorted(
+    str(p.relative_to(ROOT)) for p in (ROOT / "examples").glob("*_torch.py"))
 MODULES = sorted(
     ".".join(p.relative_to(SRC).with_suffix("").parts).replace(
         ".__init__", "")
@@ -167,6 +172,23 @@ def test_no_source_imports_jax_or_the_reference(path):
     hits = [m.group(0).strip()
             for m in _FORBIDDEN.finditer((PORT / path).read_text())]
     assert hits == []
+
+
+@pytest.mark.parametrize("path", PORT_SCRIPTS)
+def test_port_scripts_import_neither_jax_nor_the_reference(path):
+    """``chip_smoke.py``, ``peak_blocks.py`` and the
+    ``examples/*_torch.py`` hold to the package's rule."""
+    hits = [m.group(0).strip()
+            for m in _FORBIDDEN.finditer((ROOT / path).read_text())]
+    assert hits == []
+
+
+def test_port_scripts_are_the_smoke_the_probe_and_five_examples():
+    assert PORT_SCRIPTS == [
+        "chip_smoke.py", "peak_blocks.py", "examples/batched_io_demo_torch.py",
+        "examples/online_upgrade_demo_torch.py",
+        "examples/quickstart_torch.py", "examples/serve_batched_torch.py",
+        "examples/train_small_lm_torch.py"]
 
 
 def test_forbidden_pattern_spares_the_port_itself():
