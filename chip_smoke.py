@@ -62,7 +62,10 @@ sequence-sharded decode against the dense one in the smollm, zamba2, VLM
 and whisper serves (``decode_flash``), smollm's blocks as a 3-stage
 GPipe pipeline against the sequential stack (``pipeline``) and its
 gradients through the int8 compressors (``compression``), both on
-train_smollm's trainer. The training phases' profiled steps trace the
+train_smollm's trainer, and the trainer partitioned over a (2, 2) mesh
+(``train_mesh``: smollm-135m whole, each cell holding its FSDP x model
+shards, held against train_smollm's steps, and an elastic round through
+a bento mount). The training phases' profiled steps trace the
 device alone, as the serves' profiles do, and time their named ranges
 (``repro_torch.ranges``) with CUDA events. Last the launch half and
 the examples: the dry-run (``launch.dryrun``: programs traced on meta
@@ -107,6 +110,10 @@ HOST_LINK_BYTES_PER_S = 64e9
 # fs_macro fileserver mount.
 KERNEL_SHAPES = ((1, 2), (1, 4), (1, 1024), (63, 1024), (4096, 1024),
                  (32768, 1024))
+# each of the blockhash kernel's timings: the median of 10 runs of 10
+# calls (fewer than the 20 of 20 of device_ms's default: the smoke's
+# seconds are budgeted)
+KERNEL_TIMING = {"count": 10, "reps": 10}
 HEADLINE_SHAPE = (63, 1024)
 
 SOURCES = ("blockhash", "wkv6", "ssd", "flash_attention")  # csrc/<name>.cu
@@ -182,7 +189,8 @@ FLASH_DROP_MIN_KEYS = 1024
 FLASH_CROSS_HEADLINE = ((4, 1024, 6404, 32, 8, 128, False, 0, 0.0),
                         "bfloat16")
 # a case whose forward does more operations than this is timed in fewer
-# calls: (count, reps) of the kernel and of the plain version
+# calls: (count, reps) of the kernel and of the plain version; the others
+# in 10 replays of 5 calls each (the smoke's seconds are budgeted)
 FLASH_BIG_OPS = 2e11
 # odd_prompt: a prefill whose length neither a flash block (128) nor the
 # SSD chunk (128) divides
@@ -195,9 +203,30 @@ ZAMBA = {"arch": "zamba2-7b", "batch": 4, "prompt": 1024, "gen": 32,
 SMOLLM = {"arch": "smollm-135m", "batch": 4, "prompt": 1024, "gen": 32,
           "odd_prompt": 1000}
 TRAIN = {"arch": "smollm-135m", "global_batch": 8, "seq": 2048, "warmup": 2,
-         "steps": 10}
+         "steps": 6}
+# The trainer partitioned over a virtual (2, 2) ("data", "model") mesh of
+# the card (train_mesh): smollm-135m at full width and depth with
+# train_smollm's RunConfig, batch, data and seed, every leaf a MeshArray
+# whose cells hold their FSDP x model shards; held against train_smollm's
+# first warmup + steps steps. Its elastic round keeps the width and cuts
+# the depth to train_ckpt's 2 layers at its 8 x 256 (a full-depth
+# checkpoint is 1.61 GB: a save and two restores would take a minute at
+# the store's rates): saved at (2, 2), restored onto (4, 1) and (1, 1).
+TRAIN_MESH = {"mesh": (2, 2), "warmup": 2, "steps": 3,
+              "elastic": ((4, 1), (1, 1)), "elastic_layers": 2,
+              "elastic_seq": 256, "real_mesh": (2, 1)}
+# The partitioned step against the unpartitioned one from the same seed:
+# each step's loss within MESH_LOSS_TOL x max(1, |loss|), each parameter
+# leaf after the last step within MESH_PARAM_TOL x max(1, max|p|). On the
+# CPU at the smoke config with this RunConfig (8 x 64 and 8 x 256, 5
+# steps) the two are bit-identical (max difference 0: the cells' gradient
+# sum adds the two data cells' microbatches as the accumulation does);
+# the bounds leave room for the card's kernels that add in an order of
+# their own (the embedding's backward).
+MESH_LOSS_TOL, MESH_PARAM_TOL = 1e-3, 1e-4
+SMOLLM_PARAMS_AT = {}  # train_smollm's parameters (host copies) by step
 TRAIN_CKPT = {"arch": "smollm-135m", "layers": 2, "global_batch": 8,
-              "seq": 256, "steps": 12, "ckpt_every": 3, "fail_at": 6,
+              "seq": 256, "steps": 9, "ckpt_every": 3, "fail_at": 6,
               "n_blocks": 1 << 19, "decode_steps": 4}
 
 # The file-system phases of the reference's own benchmarks, at their
@@ -495,14 +524,19 @@ def phase_kernel():
             K.hash_pinned(st.host_words.data_ptr(), ops._pows(wpb, dev)
                           .data_ptr(), st.host_out.data_ptr(), n, wpb,
                           torch.cuda.current_stream().cuda_stream, wait)
-        ms = device_ms(launch_pinned)
-        pinned_call = call_ms(lambda: launch_pinned(wait=True))
+        ms = device_ms(launch_pinned, **KERNEL_TIMING)
+        pinned_call = call_ms(lambda: launch_pinned(wait=True),
+                              **KERNEL_TIMING)
         assert st.out_u32[:n].tolist() == want.tolist()
-        resident_ms = device_ms(lambda: K.blockhash_batch(words, pows))
-        eager_ms = call_ms(lambda: K.blockhash_batch(words, pows))
+        resident_ms = device_ms(lambda: K.blockhash_batch(words, pows),
+                                **KERNEL_TIMING)
+        eager_ms = call_ms(lambda: K.blockhash_batch(words, pows),
+                           **KERNEL_TIMING)
         ms_with_copies = call_ms(
-            lambda: K.blockhash_batch(words_cpu.to(dev), pows).cpu())
-        plain_ms = device_ms(lambda: ref.blockhash(words, pows))
+            lambda: K.blockhash_batch(words_cpu.to(dev), pows).cpu(),
+            **KERNEL_TIMING)
+        plain_ms = device_ms(lambda: ref.blockhash(words, pows),
+                             **KERNEL_TIMING)
         nbytes = n * wpb * 4 + wpb * 4 + n * 4
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = 2 * n * wpb / CUDA_CORE_OPS_PER_S * 1e3
@@ -1477,10 +1511,23 @@ def reshard_host(scale: int) -> dict:
     }
 
 
+def _whole(t, device="cpu"):
+    """A restored leaf whole on ``device``: a MeshArray (a MeshSharding
+    target's) gathered from its positions."""
+    from repro_torch.distributed.sharding import MeshArray
+
+    return t.gather(device) if isinstance(t, MeshArray) else t.to(device)
+
+
+def _on(t, dev) -> bool:
+    """Whether a restored leaf lies on ``dev``, every position of it."""
+    return all(s.device == dev for s in getattr(t, "shards", [t]))
+
+
 def _same(tree, host) -> bool:
     import torch
 
-    return all(torch.equal(tree[k].cpu(), torch.from_numpy(np.array(v)))
+    return all(torch.equal(_whole(tree[k]), torch.from_numpy(np.array(v)))
                for k, v in host.items())
 
 
@@ -1564,7 +1611,7 @@ def reshard_elastic(device) -> dict:
                             sharding_tree=_mesh_shardings(shape, dev),
                             stats=stats, device=dev)
         restore_s = time.perf_counter() - t0
-        assert all(t.device == dev for t in back.values())
+        assert all(_on(t, dev) for t in back.values())
         assert _same(back, host), f"elastic/{name}: a leaf differs"
         strict = _strict(stats)
         assert len(strict) >= 2, (name, stats["leaves"])
@@ -1610,9 +1657,8 @@ def reshard_overlap(device) -> dict:
                "leaf_bytes_total": sum(v.nbytes for v in host.values())}
         serial_total = piped_total = 0.0
         for name in ("halved", "doubled"):
-            sh_b = _mesh_shardings(RESHARD_TOPOS[name], dev)
-
             def restore(dep, stats=None, on=dev):
+                sh_b = _mesh_shardings(RESHARD_TOPOS[name], on)
                 return ckpt.load(mf.view, "/ck/step_1", like, checksum=cks,
                                  checksum_batch=cks_b, sharding_tree=sh_b,
                                  stats=stats, pipeline_depth=dep,
@@ -1948,7 +1994,8 @@ def phase_wkv6_kernel():
                 errs.append(err)
             assert finite and ok, (f"wkv6 disagrees at {(B, S, H, Kd, V, C)} "
                                    f"{dtype} {regime}: {errs}")
-            ms = device_ms(lambda: K.wkv6_chunked(r, k, v, w, u, s0, chunk=C))
+            ms = device_ms(lambda: K.wkv6_chunked(r, k, v, w, u, s0, chunk=C),
+                           **KERNEL_TIMING)
             plain_ms = device_ms(lambda: ref.wkv6(r, k, v, w, u, s0, chunk=C),
                                  count=5 if big else 20,
                                  reps=10 if big else 20)
@@ -2227,7 +2274,7 @@ def phase_ckpt_model(prm, tokens, logits_serve):
             restore_s = time.perf_counter() - t0
             pairs = list(_paired(back, layer))
             assert len(pairs) == len(leaves)
-            assert all(g.device == dev and torch.equal(g, w)
+            assert all(_on(g, dev) and torch.equal(_whole(g, dev), w)
                        for g, w in pairs), name
             restores[name] = {
                 "mesh": list(shape), "restore_s": restore_s,
@@ -2286,7 +2333,7 @@ def phase_ckpt_model(prm, tokens, logits_serve):
     for w in leaves:
         w.zero_()
     for r, w in _paired(restored, layer):
-        w.copy_(r)
+        w.copy_(_whole(r, dev))
     del restored
     with torch.inference_mode():
         logits, _ = lm.prefill_fn(cfg, run, ShardingCtx.null(), prm,
@@ -2584,7 +2631,7 @@ def phase_flash_attention_kernel():
         # tens of ms a call in f32 at the largest cases: fewer calls there
         big = flash_work(*case, 4)[1] > FLASH_BIG_OPS
         timing = ({"count": 3, "reps": 5}, {"count": 2, "reps": 3}) if big \
-            else ({}, {"count": 5, "reps": 10})
+            else ({"count": 5, "reps": 10}, {"count": 5, "reps": 10})
         for dtype in ("float32", "bfloat16"):
             q, k, v = (torch.from_numpy(a).to(dev, getattr(torch, dtype))
                        for a in arrays)
@@ -3180,7 +3227,7 @@ def phase_train_smollm():
     train.trainer.Trainer on the card, with the bundle's RunConfig (f32
     parameters and optimizer state, bf16 compute, each layer rematerialised
     in the backward, microbatches of 4). Global batch 8 x 2048 tokens from
-    SyntheticLM, so 2 microbatches a step; 2 warm-up steps, then 10 timed
+    SyntheticLM, so 2 microbatches a step; 2 warm-up steps, then 6 timed
     ones, each with the flash count read around it: 30 forward launches
     and 30 rematerialised ones a microbatch, 120 a step. The trainer sees
     one batch at every step (``OneBatch``), on which the loss must fall.
@@ -3239,6 +3286,10 @@ def phase_train_smollm():
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         step_launches.append(kernels["flash_attention"].launches() - l0)
+        if i + 1 == TRAIN_MESH["warmup"] + TRAIN_MESH["steps"]:
+            # what train_mesh's partitioned trainer holds after its steps
+            SMOLLM_PARAMS_AT[i + 1] = P.tree_map(
+                lambda p: p.detach().to("cpu", copy=True), t.params)
     main_launches = {name: mod.launches() for name, mod in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
     assert step_launches == [per_step] * n_steps, step_launches
@@ -3370,10 +3421,10 @@ def phase_train_smollm():
 def phase_train_ckpt():
     """tests/test_system.py's story on the card, at smollm-135m's full
     width: a Trainer on the card with a bento mount of the card for its
-    checkpoints (every 3 steps), a WorkerFailure before step 6, 12 steps
+    checkpoints (every 3 steps), a WorkerFailure before step 6, 9 steps
     on one batch (``OneBatch``: the loss falls), one recovery from step
     6's checkpoint; the mounted fs upgraded from xv6 to ext4like under
-    it; a new trainer restoring step 12 with every leaf equal; 4 decode
+    it; a new trainer restoring step 9 with every leaf equal; 4 decode
     steps from the restored weights. Every journal commit and every
     restore chunk hashes on the blockhash kernel: launches must equal the
     counted checksum calls plus the bind-time probe.
@@ -3494,7 +3545,7 @@ def phase_train_ckpt():
     assert launches == tally["calls"] + tally["probes"] == calls + 1, (
         launches, tally, calls)
     # saves at steps 3 and 6, the failure before step 6 runs, the recovery
-    # from step 6, saves at 9 and 12; two restores
+    # from step 6, a save at 9; two restores
     assert ckpts == [f"step_{s:08d}" for s in range(every, steps + 1, every)]
     assert len(saves) == steps // every and len(restores) == 2
     # flash: 2 L a step (the forward and the remat's), one prefill
@@ -3503,7 +3554,7 @@ def phase_train_ckpt():
     pipe = restore_stats.get("pipeline", {})
     emit("train_ckpt", arch=cfg.name, layers=L, d_model=cfg.d_model,
          cut="depth 30 -> 2: a full-depth checkpoint is 1.61 GB (f32 params, "
-             "mu, nu); four saves and two restores of it would take minutes",
+             "mu, nu); three saves and two restores of it would take minutes",
          mesh=None, shard_files=len(sizes) - 1,
          largest_shard_file_bytes=largest,
          global_batch=gb, seq=seq, steps=steps, ckpt_every=every,
@@ -3558,7 +3609,7 @@ TRAIN_MODELS = {
     "train_whisper": {"arch": "whisper-small", "layers": 12,
                       "params": 334_516_224, "check": (12, 0), "seq": 448},
 }
-TRAIN_SHAPE = {"global_batch": 8, "seq": 2048, "warmup": 2, "steps": 3}
+TRAIN_SHAPE = {"global_batch": 8, "seq": 2048, "warmup": 2, "steps": 2}
 # olmoe-1b-7b whole (16 layers, 64 experts, top 8): nothing cut
 SERVE_OLMOE = {"arch": "olmoe-1b-7b", "batch": 4, "prompt": 1024, "gen": 32}
 RECOMPUTE_RANGES = ("wkv6_recompute_bwd", "ssd_recompute_bwd",
@@ -5032,6 +5083,228 @@ def phase_compression(t):
     return rows
 
 
+def mesh_flash_launches(cfg, run, mesh, global_batch: int) -> int:
+    """Flash launches of one partitioned step: every cell runs each
+    layer's forward and its recompute in each of its microbatches
+    (tests/test_torch_mesh_train.py counts the same on the CPU)."""
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.train.step import num_accum_steps
+
+    n_accum = num_accum_steps(run, ShardingCtx.for_mesh(mesh), global_batch)
+    return mesh.devices.size * n_accum * 2 * cfg.num_layers
+
+
+def phase_train_mesh():
+    """The trainer partitioned over a virtual (2, 2) mesh of the card
+    (TRAIN_MESH): smollm-135m at full width and depth, every parameter
+    and optimizer leaf a MeshArray whose four cells hold their FSDP x
+    model shards, each step one shard_map whose cells gather their bf16
+    parameters, run the model on their data cell's 4 rows through the
+    flash kernel and reduce-scatter their gradients. Held: each cell's
+    bytes at rest equal to the dry-run's argument bytes for the mesh
+    (exact); the flash launches of each step (the CPU's count); the
+    losses step by step and the gathered parameters after the last one
+    against train_smollm's unpartitioned trainer from the same seed
+    (MESH_LOSS_TOL, MESH_PARAM_TOL). The last warm-up step is profiled
+    (the idle share). Then the elastic round through a bento mount at depth 2: saved
+    at (2, 2), rescaled to (4, 1) and to (1, 1), restored onto each, the
+    gathered state bit for bit the saved one, the blockhash launches
+    equal to the checksum calls and bind probes. Over real cards where
+    there are two; otherwise a line says it was not run."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.sharding import MeshArray, ShardingCtx
+    from repro_torch.fs.mounts import make_mount
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import (make_elastic_mesh, make_host_mesh,
+                                         make_mesh)
+    from repro_torch.launch.programs import build_program
+    from repro_torch.models import params as P
+    from repro_torch.train.trainer import Trainer
+
+    kernels = _kernel_counts()
+    FA = kernels["flash_attention"]
+    bundle = registry.get(TRAIN["arch"])
+    cfg, run = bundle.model, bundle.run
+    gb, seq = TRAIN["global_batch"], TRAIN["seq"]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    d, m = TRAIN_MESH["mesh"]
+    mesh = make_elastic_mesh(d, m, devices=[dev] * (d * m))
+    per_step = mesh_flash_launches(cfg, run, mesh, gb)
+    assert per_step == 4 * 1 * 2 * cfg.num_layers, per_step
+
+    def state(t):
+        return store._flatten({"params": t.params, "opt": t.opt_state})[0]
+
+    def data(c, s):
+        return OneBatch(SyntheticLM(c, gb, s, seed=0))
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    t = Trainer(cfg, run, global_batch=gb, seq_len=seq, seed=0, mesh=mesh,
+                data=data(cfg, seq), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = state(t)
+    assert all(isinstance(x, MeshArray) and len(x.shards) == d * m
+               and all(sh.device == dev for sh in x.shards) for x in leaves)
+
+    # each cell's parameter and optimizer bytes at rest, against the
+    # dry-run's argument bytes for the same mesh and ruleset
+    cell_bytes = [sum(x.shards[p].numel() * x.shards[p].element_size()
+                      for x in leaves) for p in range(d * m)]
+    meta = make_mesh((d, m), ("data", "model"), [torch.device("meta")] * (d * m))
+    prog = build_program(cfg, run, ShapeSpec("train_mesh", "train", seq, gb),
+                         ShardingCtx.for_mesh(meta, t.ruleset))
+    dry_bytes = dryrun.argument_bytes(dataclasses.replace(
+        prog, args=prog.args[:2], arg_shardings=prog.arg_shardings[:2]))
+    assert cell_bytes == [dry_bytes] * (d * m), (cell_bytes, dry_bytes)
+    whole_bytes = sum(x.nbytes for x in leaves)
+    del leaves, prog
+
+    # the main path: every count set to 0 just before, read just after
+    n_steps = TRAIN_MESH["warmup"] + TRAIN_MESH["steps"]
+    for mod in kernels.values():
+        mod.reset_launches()
+    step_s, step_launches, prof = [], [], None
+    for i in range(n_steps):
+        l0 = FA.launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i + 1 == TRAIN_MESH["warmup"]:
+            # the card's busy time against the step's wall
+            prof = profile_device(lambda: t.train(i + 1))
+        else:
+            t.train(i + 1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        step_launches.append(FA.launches() - l0)
+    main_launches = {name: mod.launches() for name, mod in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    assert step_launches == [per_step] * n_steps, step_launches
+    busy_s = sum(us for us, _ in prof["by_name"].values()) * 1e-6
+    assert busy_s > 0, "the profiler saw no device time in the step"
+    assert main_launches == {"blockhash": 0, "wkv6": 0, "ssd": 0,
+                             "flash_attention": per_step * n_steps}
+    losses = [x["loss"] for x in t.metrics_log]
+    plain_losses = EMITTED["train_smollm"]["losses"][:n_steps]
+    loss_err = max(abs(a - b) / max(1.0, abs(b))
+                   for a, b in zip(losses, plain_losses))
+    assert all(np.isfinite(losses)) and loss_err <= MESH_LOSS_TOL, (
+        losses, plain_losses)
+    param_err = 0.0
+    for got, want in zip(P.leaves(t.params),
+                         P.leaves(SMOLLM_PARAMS_AT[n_steps])):
+        want = want.to(dev)
+        param_err = max(param_err, ((got.gather() - want).abs().max() / max(
+            1.0, want.abs().max().item())).item())
+    assert param_err <= MESH_PARAM_TOL, param_err
+    timed_s = step_s[TRAIN_MESH["warmup"]:]
+    step_med = statistics.median(timed_s)
+    del t
+    torch.cuda.empty_cache()
+
+    # the elastic round through a bento mount, at depth 2
+    ecfg = dataclasses.replace(cfg, num_layers=TRAIN_MESH["elastic_layers"])
+    eseq = TRAIN_MESH["elastic_seq"]
+
+    def elastic():
+        mf = make_mount("bento", n_blocks=TRAIN_CKPT["n_blocks"], device=dev)
+        et = Trainer(ecfg, run, global_batch=gb, seq_len=eseq, seed=0,
+                     mesh=mesh, ckpt_view=mf.view, data=data(ecfg, eseq),
+                     device=dev)
+        et.train(1)
+        saved = [x.gather() for x in state(et)]
+        t0 = time.perf_counter()
+        et.save_checkpoint()
+        save_s = time.perf_counter() - t0
+        rounds = []
+        for shape in TRAIN_MESH["elastic"]:
+            n = shape[0] * shape[1]
+            et.elastic_rescale(make_elastic_mesh(*shape, devices=[dev] * n))
+            rescaled = all(torch.equal(x.gather(), w)
+                           for x, w in zip(state(et), saved))
+            t0 = time.perf_counter()
+            assert et.restore_checkpoint() and et.step_idx == 1
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            got = state(et)
+            assert all(len(x.shards) == n for x in got)
+            restored = all(torch.equal(x.gather(), w)
+                           for x, w in zip(got, saved))
+            assert rescaled and restored, (shape, rescaled, restored)
+            rounds.append({"mesh": list(shape), "restore_s": restore_s,
+                           "rescaled_equal": rescaled,
+                           "restored_equal": restored,
+                           "overlap_ratio":
+                               et.last_restore_stats["overlap_ratio"]})
+        nbytes = sum(w.numel() * w.element_size() for w in saved)
+        mf.close()
+        return save_s, rounds, nbytes
+
+    (save_s, rounds, ckpt_bytes), launches, tally = counted(elastic)
+    assert launches == tally["calls"] + tally["probes"] and launches > 0, (
+        launches, tally)
+    for r in rounds:
+        r["restore_mb_per_s"] = ckpt_bytes / r["restore_s"] / 1e6
+
+    # the same path over real cards, where the machine has them
+    real = None
+    n_cards = torch.cuda.device_count()
+    rd, rm = TRAIN_MESH["real_mesh"]
+    if n_cards >= rd * rm:
+        rt = Trainer(cfg, run, global_batch=gb, seq_len=seq, seed=0,
+                     mesh=make_host_mesh(rd, rm), data=data(cfg, seq),
+                     device=dev)
+        assert {sh.device for x in state(rt) for sh in x.shards} == {
+            torch.device("cuda", i) for i in range(rd * rm)}
+        rt.train(2)
+        real_losses = [x["loss"] for x in rt.metrics_log]
+        assert all(abs(a - b) <= MESH_LOSS_TOL * max(1.0, abs(b))
+                   for a, b in zip(real_losses, plain_losses)), real_losses
+        real = {"mesh": [rd, rm], "losses": real_losses}
+        del rt
+    else:
+        print(f"train_mesh: the path over real cards was not run: the "
+              f"machine has {n_cards} CUDA device(s) and a ({rd}, {rm}) mesh "
+              f"of real cards needs {rd * rm}", flush=True)
+    torch.cuda.empty_cache()
+    emit("train_mesh", arch=cfg.name, layers=cfg.num_layers,
+         mesh=[d, m], device="virtual", ruleset="baseline",
+         global_batch=gb, seq=seq, cell_rows=gb // d, init_s=init_s,
+         warmup_steps=TRAIN_MESH["warmup"], timed_steps=len(timed_s),
+         step_ms=step_med * 1e3, step_ms_all=[x * 1e3 for x in step_s],
+         step_ms_of_train_smollm=EMITTED["train_smollm"]["step_ms"],
+         tokens_per_s=gb * seq / step_med,
+         device_idle_share=1 - busy_s / prof["wall_s"],
+         profiled_step_wall_s=prof["wall_s"], device_busy_s=busy_s,
+         profile_tables_s=prof["tables_s"],
+         peak_memory_bytes=peak, base_memory_bytes=base,
+         flash_launches_per_step=per_step, main_path_launches=main_launches,
+         losses=losses, plain_losses=plain_losses, loss_max_rel_err=loss_err,
+         param_max_rel_err=param_err,
+         tolerance={"loss": f"{MESH_LOSS_TOL} x max(1, |plain|)",
+                    "params": f"{MESH_PARAM_TOL} x max(1, max|plain|) a leaf"},
+         cell_bytes=cell_bytes, dryrun_argument_bytes=dry_bytes,
+         whole_state_bytes=whole_bytes,
+         elastic={"layers": ecfg.num_layers, "seq": eseq,
+                  "checkpoint_bytes": ckpt_bytes, "save_s": save_s,
+                  "save_mb_per_s": ckpt_bytes / save_s / 1e6,
+                  "rounds": rounds, "blockhash_launches": launches,
+                  "checksum_calls": tally["calls"],
+                  "probe_launches": tally["probes"]},
+         real_cards=real, cuda_devices=n_cards)
+    return main_launches["flash_attention"]
+
+
 # --- the twelfth slice: the dry-run held against the card, the examples ------------
 
 # The dry-run's programs (launch.programs over meta tensors, traced by
@@ -5285,6 +5558,7 @@ def run_phases(t_start, card, traces) -> int:
     timed("compression", phase_compression, trainer)
     del trainer
     torch.cuda.empty_cache()
+    flash_by_path["train_mesh"] = timed("train_mesh", phase_train_mesh)
     fs_launches["train_ckpt"], flash_by_path["train_ckpt"] = timed(
         "train_ckpt", phase_train_ckpt)
     grad_rows = {name: timed(f"{name}_grad", phase_scan_grad, name)

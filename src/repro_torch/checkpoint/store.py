@@ -16,10 +16,13 @@ executes them as streamed offset reads over ``read_many``, re-slicing in
 flight — a full leaf is never materialized on the restoring host.
 
 A tensor on the card is sliced on the card and each shard copied to the
-host on its own. A restore fills one tensor per leaf on ``device`` (CUDA
-when unset), one target cell at a time, each host buffer dropped after its
-copy; a virtual mesh (one card several times, ``launch.mesh``) places all
-its cells in that one tensor.
+host on its own; a ``MeshArray`` leaf (``distributed.sharding``) writes
+each block of the grid from the first mesh position that holds it. A
+restore fills, one target cell at a time, each host buffer dropped after
+its copy, either one tensor per leaf on ``device`` (CUDA when unset), or,
+for a ``MeshSharding`` target, a ``MeshArray``: each mesh position's own
+tensor on its own device (on a virtual mesh, one card several times,
+``launch.mesh``, copies on that card).
 
 v1 manifests (whole-leaf files, no shard records) keep loading through
 the same machinery as a 1-shard grid.
@@ -84,7 +87,7 @@ from repro_torch.distributed.resharding import (
     Index, ShardGrid, chunk_ops, index_volume, normalize_index,
     plan_target_shard, plan_volume, shift_ops,
 )
-from repro_torch.distributed.sharding import MeshSharding
+from repro_torch.distributed.sharding import MeshArray, MeshSharding
 from repro_torch.fs.posix import PosixView
 
 MANIFEST = "manifest.json"
@@ -314,30 +317,52 @@ def _host_tensor(buf: np.ndarray, dtype_s: str):
 
 
 class _Placed:
-    """One restored leaf: a tensor of the manifest's dtype on ``device``,
-    allocated at the first cell and filled one target cell at a time from
-    host buffers, each copied once (a virtual mesh's replicas of a cell
-    are one slice of this one tensor)."""
+    """One restored leaf, allocated at the first cell and filled one
+    target cell at a time from host buffers: a tensor of the manifest's
+    dtype on ``device``, or, for a ``MeshSharding`` ``target``, a
+    ``MeshArray`` whose positions each hold their own tensor on their
+    own device (each buffer copied once to every position whose block it
+    covers)."""
 
-    def __init__(self, shape, dtype_s: str, device):
+    def __init__(self, shape, dtype_s: str, device, target=None):
         self.shape, self.dtype_s, self.device = tuple(shape), dtype_s, device
+        self.target = target if isinstance(target, MeshSharding) else None
+        if self.target is not None:  # each position's block
+            dmap = self.target.devices_indices_map(self.shape)
+            self.blocks = [normalize_index(dmap[p], self.shape)
+                           for p in range(len(dmap))]
         self.t = None
 
     def result(self):
-        """The leaf's tensor, allocated at the first use."""
+        """The leaf, allocated at the first use."""
         if self.t is None:
             import torch
 
-            self.t = torch.empty(self.shape, dtype=getattr(torch, self.dtype_s),
-                                 device=self.device)
+            dt = getattr(torch, self.dtype_s)
+            if self.target is None:
+                self.t = torch.empty(self.shape, dtype=dt, device=self.device)
+            else:
+                self.t = MeshArray(self.shape, dt, self.target, [
+                    torch.empty(tuple(hi - lo for lo, hi in b), dtype=dt,
+                                device=d)
+                    for b, d in zip(self.blocks,
+                                    self.target.mesh.devices.flat)])
         return self.t
 
     def put(self, index: Index, buf: np.ndarray) -> None:
         t, src = self.result(), _host_tensor(buf, self.dtype_s)
-        if index:
-            t[tuple(slice(lo, hi) for lo, hi in index)].copy_(src)
-        else:
-            t.copy_(src)
+        if self.target is None:
+            if index:
+                t[tuple(slice(lo, hi) for lo, hi in index)].copy_(src)
+            else:
+                t.copy_(src)
+            return
+        for block, shard in zip(self.blocks, t.shards):
+            if all(lo <= blo and bhi <= hi for (lo, hi), (blo, bhi)
+                   in zip(index, block)):
+                shard.copy_(src[tuple(slice(blo - lo, bhi - lo) for
+                                      (lo, _), (blo, bhi)
+                                      in zip(index, block))])
 
     def whole(self, buf: np.ndarray):
         self.put(tuple((0, d) for d in self.shape), buf)
@@ -360,15 +385,36 @@ def _resolve_grid(shape, leaf, sharding) -> ShardGrid:
     return grid if grid.n_shards > 1 else ShardGrid.trivial(shape)
 
 
+def _held_by(leaf: MeshArray, block: Index):
+    """The part of ``leaf`` at ``block`` from the first mesh position
+    whose shard holds all of it, or None."""
+    for _pos, index, t in leaf.addressable_shards:
+        have = normalize_index(index, leaf.shape)
+        if all(lo <= blo and bhi <= hi for (lo, hi), (blo, bhi)
+               in zip(have, block)):
+            return t[tuple(slice(blo - lo, bhi - lo) for (lo, _), (blo, bhi)
+                           in zip(have, block))]
+    return None
+
+
 def _shard_arrays(leaf, grid: ShardGrid):
     """Yield ``(j, shard ndarray)``. A tensor is sliced where it lies (on
     the card) and each shard made contiguous there, then copied to the
-    host on its own: a sharded leaf never crosses whole."""
+    host on its own: a sharded leaf never crosses whole. A ``MeshArray``
+    gives each block from the first position that holds it (gathered
+    once, where no position holds a whole block)."""
     import torch
 
+    whole = None
     for j in range(grid.n_shards):
         sl = tuple(slice(lo, hi) for lo, hi in grid.index(j))
-        if isinstance(leaf, torch.Tensor):
+        if isinstance(leaf, MeshArray):
+            piece = _held_by(leaf, grid.index(j))
+            if piece is None:
+                whole = leaf.gather() if whole is None else whole
+                piece = whole[sl] if sl else whole
+            yield j, _host_wire(piece.detach().contiguous().cpu())
+        elif isinstance(leaf, torch.Tensor):
             piece = leaf.detach()[sl] if sl else leaf.detach()
             yield j, _host_wire(piece.contiguous().cpu())
         else:
@@ -826,7 +872,7 @@ def _restore_streamed(view: PosixView, rec: Dict, target, checksum,
                       peak: _Peak, info: Dict, device):
     """Multi-shard leaf restore: plan per target shard, stream slices."""
     shape = tuple(rec["shape"])
-    placed = _Placed(shape, rec["dtype"], device)
+    placed = _Placed(shape, rec["dtype"], device, target)
     dtype = _np_dtype(rec["dtype"])
     srecs = rec["shards"]
     src_idx = [tuple((int(lo), int(hi)) for lo, hi in s["index"])
@@ -898,8 +944,7 @@ def _restore_streamed(view: PosixView, rec: Dict, target, checksum,
         buf = np.empty(tuple(hi - lo for lo, hi in di), dtype)
         peak.add(buf.nbytes)
         _fill_buffer(view, buf, ops, srecs, src_idx, dtype, peak)
-        # one copy per cell: every mesh position of a group holds the
-        # same slice of the one tensor
+        # one copy per mesh position of the group
         placed.put(di, buf)
         del buf
         peak.sub(index_volume(di) * dtype.itemsize)
@@ -1354,7 +1399,7 @@ def _leaf_tasks(view: PosixView, rec: Dict, target, checksum,
         m["drop"] = drop
         return m
 
-    placed = _Placed(shape, rec["dtype"], device)
+    placed = _Placed(shape, rec["dtype"], device, target)
     if isinstance(target, MeshSharding):
         dmap = target.addressable_devices_indices_map(shape)
         groups: Dict[Index, list] = {}
@@ -1373,8 +1418,7 @@ def _leaf_tasks(view: PosixView, rec: Dict, target, checksum,
         for u_i, di in enumerate(dis):
 
             def finalize(b, di=di, last=(u_i == len(dis) - 1)):
-                # one copy per cell: every mesh position of the group
-                # holds the same slice of the one tensor
+                # one copy per mesh position of the group
                 placed.put(di, b)
                 if last:
                     done(placed.result())
@@ -1457,9 +1501,10 @@ def _build_tasks(view: PosixView, recs, shardings, checksum,
                 if list(arr.shape) != list(rec["shape"]):
                     raise IOError(f"shape mismatch in {s['path']}")
                 peak.add(arr.nbytes)
-                # a 1-shard source lands whole: every mesh position of
-                # any target holds a slice of the one tensor
-                out[i] = _Placed(arr.shape, rec["dtype"], device).whole(arr)
+                # a 1-shard source lands whole, or in every mesh
+                # position's slice of it
+                out[i] = _Placed(arr.shape, rec["dtype"], device,
+                                 shardings[i]).whole(arr)
                 peak.sub(len(raw) + arr.nbytes)
                 note(i, rec, peak, streamed=False)
 
@@ -1506,7 +1551,8 @@ def load(view: PosixView, root: str, like_tree, *, checksum=None,
     mesh — multi-shard leaves restore via the streamed reshard plan, one
     target cell at a time, never materializing the full tensor on the
     host; an uneven ShardGrid target assembles one full host array per
-    leaf).
+    leaf). A leaf with a MeshSharding target comes back a ``MeshArray``,
+    each mesh position's tensor on that position's device.
     ``stats`` (a dict, mutated) collects per-leaf peak/full byte counts
     plus a ``pipeline`` record (depth, fetch/assemble seconds, overlap
     ratio). ``pipeline_depth`` selects the engine (see the module
@@ -1594,9 +1640,10 @@ def _load_serial(view: PosixView, recs, shardings, checksum, out,
             if list(arr.shape) != list(rec["shape"]):
                 raise IOError(f"shape mismatch in {s['path']}")
             peak.add(arr.nbytes)
-            # a 1-shard source lands whole: every mesh position of any
-            # target holds a slice of the one tensor
-            out[i] = _Placed(arr.shape, rec["dtype"], device).whole(arr)
+            # a 1-shard source lands whole, or in every mesh position's
+            # slice of it
+            out[i] = _Placed(arr.shape, rec["dtype"], device,
+                             shardings[i]).whole(arr)
             peak.sub(len(raw) + arr.nbytes)
             note(i, rec, peak, streamed=False)
         pend.clear()

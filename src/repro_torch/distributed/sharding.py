@@ -30,10 +30,20 @@ maps follow the same tiling. Logical axes used across the codebase:
   state        SSM state                        -> None
   img_seq      image/encoder token axis         -> None
 
-On one card ``constrain`` returns its tensor unchanged: a mesh there is a
-virtual one (``launch.mesh.make_mesh`` over copies of the card), which
-decides how checkpoints are cut and restored and how ``spmd.shard_map``
-cuts its arguments, not where tensors live.
+A tensor laid out over a mesh is a :class:`MeshArray`, the counterpart
+of a ``jax.Array`` under a ``NamedSharding``: one tensor for each mesh
+position, on that position's device, holding the slice its
+``MeshSharding`` gives it (positions that replicate a block hold copies,
+as devices do). ``place`` lays a whole tensor out (``jax.device_put``),
+``MeshArray.gather`` assembles it again (``np.asarray`` of a sharded
+array). A mesh over real devices puts each shard on its own card; a
+virtual one (``launch.mesh.make_mesh`` over copies of one card) keeps
+every shard on that card.
+
+``constrain`` returns its tensor unchanged: the partitioned training step
+(``train.step``) runs the model once in each mesh cell on that cell's
+share of the batch, so an activation inside a cell is already the cell's
+own.
 """
 
 from __future__ import annotations
@@ -41,7 +51,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Sequence, Tuple
 
-from repro_torch.distributed.resharding import _chunk
+from repro_torch.distributed.resharding import _chunk, normalize_index
 from repro_torch.launch.mesh import mesh_axis_sizes
 
 Candidates = Tuple[Tuple[str, ...], ...]  # ordered preference: each entry is a
@@ -212,5 +222,92 @@ class ShardingCtx:
         return MeshSharding(self.mesh, self.spec(logical, shape))
 
     def constrain(self, x, logical: Sequence[Optional[str]]):
-        """The identity: one process drives one card."""
+        """The identity: inside a cell of the partitioned step the
+        activations are already local (see the module's docstring)."""
         return x
+
+
+# --- tensors laid out over a mesh ---------------------------------------------------
+
+
+class MeshArray:
+    """A tensor of ``shape`` and ``dtype`` laid out over a mesh by
+    ``sharding``: ``shards[pos]`` is the tensor of flat mesh position
+    ``pos``, on that position's device, and holds the slice
+    ``sharding.devices_indices_map(shape)[pos]`` of the whole."""
+
+    def __init__(self, shape, dtype, sharding: MeshSharding, shards):
+        self.shape = tuple(int(d) for d in shape)
+        self.dtype = dtype
+        self.sharding = sharding
+        self.shards = list(shards)
+        if len(self.shards) != sharding.mesh.devices.size:
+            raise ValueError(f"{len(self.shards)} shards for a mesh of "
+                             f"{sharding.mesh.devices.size} positions")
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def nbytes(self) -> int:
+        """The bytes of the whole tensor."""
+        n = self.shards[0].element_size()
+        for d in self.shape:
+            n *= d
+        return n
+
+    @property
+    def addressable_shards(self):
+        """``(position, index, tensor)`` for every mesh position."""
+        dmap = self.sharding.devices_indices_map(self.shape)
+        return [(pos, dmap[pos], t) for pos, t in enumerate(self.shards)]
+
+    def gather(self, device=None):
+        """The whole tensor on ``device`` (the first shard's when unset),
+        each block copied from the first position that holds it."""
+        import torch
+
+        dev = self.shards[0].device if device is None else torch.device(device)
+        out = torch.empty(self.shape, dtype=self.dtype, device=dev)
+        done = set()
+        for _pos, index, t in self.addressable_shards:
+            key = normalize_index(index, self.shape)
+            if key not in done:
+                done.add(key)
+                out[index].copy_(t)
+        return out
+
+    def __repr__(self) -> str:
+        return (f"MeshArray(shape={self.shape}, dtype={self.dtype}, "
+                f"spec={self.sharding.spec}, "
+                f"mesh={tuple(self.sharding.mesh.devices.shape)})")
+
+
+def place(x, sharding: MeshSharding) -> MeshArray:
+    """``x`` (a whole tensor or ndarray) laid out by ``sharding``: each
+    mesh position gets a contiguous copy of its slice on its own device."""
+    import torch
+
+    if not isinstance(x, torch.Tensor):
+        from repro_torch.models import params as P
+
+        x = P.from_reference(x, "cpu")
+    x = x.detach()
+    dmap = sharding.devices_indices_map(x.shape)
+    shards = []
+    for pos, dev in enumerate(sharding.mesh.devices.flat):
+        part = x[dmap[pos]]
+        shards.append(torch.empty(part.shape, dtype=x.dtype,
+                                  device=dev).copy_(part))
+    return MeshArray(x.shape, x.dtype, sharding, shards)
+
+
+def gathered(tree, device=None):
+    """``tree`` with every ``MeshArray`` leaf gathered whole on ``device``
+    (other leaves as they are): what a serve takes from a trainer that
+    trained on a mesh."""
+    from repro_torch.models import params as P
+
+    return P.tree_map(lambda t: t.gather(device)
+                      if isinstance(t, MeshArray) else t, tree)

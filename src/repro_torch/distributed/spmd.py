@@ -5,15 +5,20 @@ collectives its callers use (``axis_index``, ``psum``, ``pmax``,
 
 ``shard_map(fn, mesh, in_specs, out_specs)(*args)`` cuts each argument by
 its spec (``distributed.sharding``'s tuple ``Spec``, applied to every
-leaf of the argument's tree) into one shard per mesh cell, runs ``fn``
-once per cell, each cell on a thread of its own, and reassembles the
-outputs by ``out_specs``: one spec an output, or, where ``fn`` returns a
-tuple, a sequence of them. A replicated dim of an output is taken from
-the first cell that holds it, as ``check_rep=False`` takes it. A shard
-is a view of its argument when the cell's device is the argument's (the
-cells of a virtual mesh share one card) and a copy on the cell's device
-otherwise. A mesh axis that does not divide the dim it cuts raises, as
-``shard_map`` does.
+leaf of the argument's tree, or a tree of specs shaped like the
+argument) into one shard per mesh cell, runs ``fn`` once per cell, each
+cell on a thread of its own, and reassembles the outputs by
+``out_specs``: one spec (or spec tree) an output, or, where ``fn``
+returns a tuple, a sequence of them. A replicated dim of an output is
+taken from the first cell that holds it, as ``check_rep=False`` takes
+it. A shard is a view of its argument when the cell's device is the
+argument's (the cells of a virtual mesh share one card) and a copy on
+the cell's device otherwise. A ``sharding.MeshArray`` argument laid out
+as its in-spec says hands each cell its own tensor, uncut and uncopied;
+with ``keep`` an output is returned as a ``MeshArray`` whose shards are
+the cells' own tensors, not reassembled. A mesh axis that does not
+divide the dim it cuts raises, as ``shard_map`` does. ``one_cell``
+runs ``fn`` as one cell alone, for a trace of one device's program.
 
 Inside ``fn`` the collectives take a mesh axis name, or a tuple of names
 used jointly (row-major, the first name major), as ``jax.lax``'s do. A
@@ -26,14 +31,20 @@ gradient through ``ppermute`` is the reverse hand-off, through ``psum``
 the sum of the cotangents. Every cell calls the same collectives in the
 same order; a cell that calls another one, or returns while the others
 wait in one, makes every cell raise. A cell that raises breaks the
-barrier, and the caller re-raises its exception.
+barrier, and the caller re-raises its exception. The cells of a virtual
+mesh (one device in every cell) take turns: one cell runs at a time, from
+one collective to the next, since their work meets on the one device's
+stream anyway, and threads that run Python side by side contend for the
+interpreter lock at every operator.
 
 Each cell thread runs under the caller's thread-local state: grad mode,
-inference mode, autocast, the current CUDA device and stream, the
-caller's ``TorchDispatchMode`` stack (a ``FakeTensorMode``, and the
-FLOP counter and the operator counter of ``launch.op_analysis``, which
-would otherwise see none of the cells' work) and its collective observer
-(``observe``).
+inference mode, autocast, the caller's ``TorchDispatchMode`` stack (a
+``FakeTensorMode``, and the FLOP counter and the operator counter of
+``launch.op_analysis``, which would otherwise see none of the cells'
+work) and its collective observer (``observe``). A cell on a CUDA device enters that device and the
+stream the caller has current on it (on a virtual mesh of the card, the
+caller's own); a cell on another device enters the caller's current
+CUDA device and stream, if any.
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ import torch
 from torch.utils._python_dispatch import (_get_current_dispatch_mode_stack,
                                           _pop_mode, _push_mode)
 
+from repro_torch.distributed.sharding import MeshArray, MeshSharding
 from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.models import params as P
 
@@ -65,6 +77,8 @@ class _Run:
     coords: List[Dict[str, int]]  # each cell's mesh coordinates, row-major
     barrier: threading.Barrier
     slots: List[Any]
+    solo: bool = False  # one cell traced alone (one_cell)
+    turn: Any = None  # a lock the cells of a virtual mesh run under
 
 
 @dataclasses.dataclass
@@ -118,17 +132,25 @@ def _group(cell: _Cell, axes: Tuple[str, ...]) -> List[int]:
 
 
 def _wait(run: _Run) -> None:
+    if run.turn is not None:
+        run.turn.release()  # the next cell's turn, while this one waits
     try:
         run.barrier.wait()
     except threading.BrokenBarrierError:
         raise threading.BrokenBarrierError(
             "another cell of the shard_map call failed") from None
+    finally:
+        if run.turn is not None:
+            run.turn.acquire()
 
 
 def _exchange(tag, value) -> List[Any]:
-    """Deposits ``value``; returns every cell's deposit, by position."""
+    """Deposits ``value``; returns every cell's deposit, by position (a
+    cell traced alone stands in for every cell)."""
     cell = _cell()
     run = cell.run
+    if run.solo:
+        return [value] * len(run.coords)
     run.slots[cell.pos] = (tag, value)
     _wait(run)
     got = list(run.slots)
@@ -148,15 +170,17 @@ def _device(x):
     return x.device if isinstance(x, torch.Tensor) else None
 
 
-def _members(name: str, x, axis_name) -> Tuple[List[Any], int]:
-    """The group's deposits over ``axis_name``, on ``x``'s device, and
-    this cell's index in the group."""
+def _members(name: str, x, axis_name, take=None) -> Tuple[List[Any], int]:
+    """The group's deposits over ``axis_name`` (each passed through
+    ``take`` first, where given), on ``x``'s device, and this cell's
+    index in the group."""
     axes = _axes(axis_name)
     vals = _exchange((name, axes), x)
     cell = _cell()
     group = _group(cell, axes)
     dev = _device(x)
-    return [_to(vals[p], dev) for p in group], group.index(cell.pos)
+    return ([_to(vals[p] if take is None else take(vals[p]), dev)
+             for p in group], group.index(cell.pos))
 
 
 @contextlib.contextmanager
@@ -180,6 +204,11 @@ def _noted(op: str, out, n: int):
     if fn is not None and isinstance(out, torch.Tensor):
         fn(op, out, n, _cell().pos)
     return out
+
+
+def position() -> int:
+    """This cell's flat, row-major position in ``mesh.devices``."""
+    return _cell().pos
 
 
 def axis_index(axis_name) -> int:
@@ -214,6 +243,19 @@ def pmax(x, axis_name):
 def pmean(x, axis_name):
     vals, _ = _members("pmean", x, axis_name)
     return _noted("all-reduce", _sum(vals) / len(vals), len(vals))
+
+
+def psum_block(x: torch.Tensor, axis_name, index) -> torch.Tensor:
+    """The sum over the group of every member's ``x[index]``, ``index``
+    (a tuple of slices) this cell's own block: a reduce-scatter where the
+    block is a part of ``x`` (each member gets the sum of its own block,
+    as ``jax.lax.psum_scatter`` leaves it), an all-reduce where it is the
+    whole. Each member's block is cut before it moves."""
+    index = tuple(index)
+    vals, _ = _members("psum_block", x, axis_name, take=lambda v: v[index])
+    out = _sum(vals)
+    op = "reduce-scatter" if out.numel() < x.numel() else "all-reduce"
+    return _noted(op, out, len(vals))
 
 
 def all_gather(x: torch.Tensor, axis_name, *, axis: int = 0) -> torch.Tensor:
@@ -253,10 +295,17 @@ def ppermute(x: torch.Tensor, axis_name, perm: Sequence[Tuple[int, int]]
 # --- the caller's thread-local state ---------------------------------------------
 
 
-def _caller_state() -> Callable[[], contextlib.ExitStack]:
-    """The caller's grad mode, inference mode, autocast, current CUDA
-    device and stream, dispatch modes and collective observer, as a
-    factory of a context that sets them in another thread."""
+def _cuda_index(dev: torch.device) -> torch.device:
+    return dev if dev.index is not None else torch.device(
+        "cuda", torch.cuda.current_device())
+
+
+def _caller_state(mesh) -> Callable[[int], contextlib.ExitStack]:
+    """The caller's grad mode, inference mode, autocast, current stream on
+    each CUDA device of ``mesh`` (and its current CUDA device and stream,
+    for cells elsewhere), dispatch modes and collective observer, as a
+    factory of a context that sets them in the thread of the cell at a
+    position."""
     modes = _get_current_dispatch_mode_stack()
     observer = getattr(_local, "observer", None)
     inference = torch.is_inference_mode_enabled()
@@ -266,16 +315,21 @@ def _caller_state() -> Callable[[], contextlib.ExitStack]:
     stream = (torch.cuda.current_stream()
               if torch.cuda.is_available() and torch.cuda.is_initialized()
               else None)
+    devices = [torch.device(d) for d in mesh.devices.flat]
+    streams = {d: torch.cuda.current_stream(d) for d in
+               {_cuda_index(d) for d in devices if d.type == "cuda"}}
 
-    def enter() -> contextlib.ExitStack:
+    def enter(pos: int) -> contextlib.ExitStack:
         stack = contextlib.ExitStack()
         stack.enter_context(torch.inference_mode(inference))
         stack.enter_context(torch.set_grad_enabled(grad))
         for d, dtype in autocast:
             stack.enter_context(torch.autocast(d, dtype=dtype))
-        if stream is not None:
-            stack.enter_context(torch.cuda.device(stream.device))
-            stack.enter_context(torch.cuda.stream(stream))
+        cell_stream = (streams[_cuda_index(devices[pos])]
+                       if devices[pos].type == "cuda" else stream)
+        if cell_stream is not None:
+            stack.enter_context(torch.cuda.device(cell_stream.device))
+            stack.enter_context(torch.cuda.stream(cell_stream))
         for mode in modes:  # the same objects, bottom first
             _push_mode(mode)
             stack.callback(_pop_mode)
@@ -312,7 +366,35 @@ def _cuts(names, sizes) -> int:
     return n
 
 
+def _is_tree(spec) -> bool:
+    """A tree of specs (a dict or a NamedTuple of them), not one spec."""
+    return isinstance(spec, dict) or P._is_namedtuple(spec)
+
+
+def _over(fn, tree, spec):
+    """``fn(leaf, its spec)`` over ``tree``: ``spec`` one spec for every
+    leaf or a tree of specs shaped like ``tree``."""
+    if _is_tree(spec):
+        return P.tree_map(fn, tree, spec)
+    return P.tree_map(lambda t: fn(t, spec), tree)
+
+
+def _own(t: MeshArray, spec, mesh, pos: int):
+    """A MeshArray argument's tensor at ``pos``, if it is laid out over
+    ``mesh`` as ``spec`` says."""
+    sizes = mesh_axis_sizes(mesh)
+    if t.sharding.mesh is not mesh or _entries(
+            t.sharding.spec, t.ndim, sizes) != _entries(spec, t.ndim, sizes):
+        raise ValueError(f"a MeshArray laid out as {t.sharding.spec} over a "
+                         f"mesh of {tuple(t.sharding.mesh.devices.shape)} "
+                         f"where the in-spec is {spec} over "
+                         f"{tuple(mesh.devices.shape)}")
+    return t.shards[pos]
+
+
 def _shard(t, spec, mesh, coords, pos: int):
+    if isinstance(t, MeshArray):
+        return _own(t, spec, mesh, pos)
     if not isinstance(t, torch.Tensor):
         return t
     sizes = mesh_axis_sizes(mesh)
@@ -351,32 +433,60 @@ def _assemble(outs: List[Any], spec, mesh, coords):
     return build(())
 
 
-def _assemble_tree(outs: List[Any], spec, mesh, coords):
-    return P.tree_map(lambda *leaves: _assemble(list(leaves), spec, mesh,
-                                                coords), *outs)
+def _kept(outs: List[Any], spec, mesh):
+    """One output's cells' tensors as a ``MeshArray`` (a non-tensor: the
+    first cell's)."""
+    first = outs[0]
+    if not isinstance(first, torch.Tensor):
+        return first
+    sizes = mesh_axis_sizes(mesh)
+    shape = [d * _cuts(names, sizes) for d, names in
+             zip(first.shape, _entries(spec, first.dim(), sizes))]
+    return MeshArray(shape, first.dtype, MeshSharding(mesh, tuple(spec)),
+                     outs)
 
 
-def shard_map(fn: Callable, mesh, in_specs: Sequence, out_specs):
+def _output(outs: List[Any], spec, mesh, coords, keep: bool):
+    """One output's tree from the cells' trees: each leaf reassembled, or
+    kept in its cells as a ``MeshArray``."""
+    spec_tree = spec if _is_tree(spec) else P.tree_map(lambda _: spec,
+                                                       outs[0])
+
+    def merge(first, s, *others):
+        cells = [first, *others]
+        return (_kept(cells, s, mesh) if keep
+                else _assemble(cells, s, mesh, coords))
+
+    return P.tree_map(merge, outs[0], spec_tree, *outs[1:])
+
+
+def shard_map(fn: Callable, mesh, in_specs: Sequence, out_specs, *,
+              keep: bool = False):
     """``fn`` run once per cell of ``mesh`` on its shards of the
-    arguments; see the module's docstring."""
+    arguments; see the module's docstring. ``keep`` returns the outputs
+    as ``MeshArray``s."""
     n = mesh.devices.size
 
     def call(*args):
         if len(args) != len(in_specs):
             raise ValueError(f"{len(args)} arguments, {len(in_specs)} specs")
         coords = _coords(mesh)
-        shards = [[P.tree_map(lambda t, s=spec: _shard(t, s, mesh, coords, p),
-                              arg) for arg, spec in zip(args, in_specs)]
+        shards = [[_over(lambda t, s: _shard(t, s, mesh, coords, p), arg,
+                         spec) for arg, spec in zip(args, in_specs)]
                   for p in range(n)]
-        run = _Run(mesh, coords, threading.Barrier(n), [None] * n)
-        enter = _caller_state()
+        shared = len({torch.device(d) for d in mesh.devices.flat}) == 1
+        run = _Run(mesh, coords, threading.Barrier(n), [None] * n,
+                   turn=threading.Lock() if shared and n > 1 else None)
+        enter = _caller_state(mesh)
         results: List[Any] = [None] * n
         errors: List[BaseException] = [None] * n
 
         def body(pos):
             _local.cell = _Cell(run, pos)
+            if run.turn is not None:
+                run.turn.acquire()
             try:
-                with enter():
+                with enter(pos):
                     results[pos] = fn(*shards[pos])
                     _exchange(("return",), None)
             except BaseException as e:  # re-raised in the caller below
@@ -384,6 +494,8 @@ def shard_map(fn: Callable, mesh, in_specs: Sequence, out_specs):
                 run.barrier.abort()
             finally:
                 _local.cell = None
+                if run.turn is not None:
+                    run.turn.release()
 
         threads = [threading.Thread(target=body, args=(p,),
                                     name=f"shard_map cell {p}")
@@ -402,8 +514,27 @@ def shard_map(fn: Callable, mesh, in_specs: Sequence, out_specs):
                 raise ValueError(f"{len(results[0])} outputs, "
                                  f"{len(out_specs)} out_specs")
             return type(results[0])(
-                _assemble_tree([r[i] for r in results], spec, mesh, coords)
+                _output([r[i] for r in results], spec, mesh, coords, keep)
                 for i, spec in enumerate(out_specs))
-        return _assemble_tree(results, out_specs, mesh, coords)
+        return _output(results, out_specs, mesh, coords, keep)
+
+    return call
+
+
+def one_cell(fn: Callable, mesh, pos: int = 0):
+    """``fn`` run in the calling thread as the cell at ``pos`` of
+    ``mesh``, alone, on arguments that are that cell's shards already: a
+    collective takes this cell's deposit for every member's, so shapes
+    and group sizes are the mesh's and the values are not (a trace of one
+    device's program on tensors that hold no data, ``launch.dryrun``)."""
+    def call(*args):
+        coords = _coords(mesh)
+        run = _Run(mesh, coords, None, [None] * len(coords), solo=True)
+        prev = getattr(_local, "cell", None)
+        _local.cell = _Cell(run, pos)
+        try:
+            return fn(*args)
+        finally:
+            _local.cell = prev
 
     return call

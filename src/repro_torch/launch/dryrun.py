@@ -17,17 +17,21 @@ Mesh kinds:
   * ``single`` (16 x 16 ``data``, ``model``) and ``multi`` (2 x 16 x 16
     ``pod``, ``data``, ``model``), the reference's meshes. Per-device
     argument bytes are the largest shard of each leaf under the ruleset
-    (``MeshSharding.devices_indices_map``). Activations and temporaries
-    are the traced peak of one data cell's share of the batch at full
-    model width, on a mesh of that cell's ``model`` axis: the port does
-    not partition activations over ``model``, so the term is an upper
-    bound. The collectives are the ones the port issues over ``model`` (the
-    a2a MoE's all-to-alls, ``flash_decode``'s reductions); a program that
-    issues one over the data axes (``flash_decode``'s gather of its output
-    under ``decode_flash``) is refused, since one data cell's trace cannot
-    count it. The gathers and reduce-scatters that GSPMD inserts into the
-    reference's programs have no counterpart, because the port does not
-    partition its programs.
+    (``MeshSharding.devices_indices_map``). A training step is the
+    partitioned step (``train.step``): its first cell is traced alone
+    (``spmd.one_cell``) on stand-ins of that cell's shards, so its
+    collectives are the step's own parameter all-gathers, gradient
+    reduce-scatters and optimizer all-reduces, each over its group as the
+    mesh sizes it, counted with the reference's ring factors. A serve
+    step is traced for one data cell's share of the batch at full model
+    width, on a mesh of that cell's ``model`` axis; its collectives are
+    the ones it issues over ``model`` (the a2a MoE's all-to-alls,
+    ``flash_decode``'s reductions), and one over the data axes
+    (``flash_decode``'s gather of its output under ``decode_flash``),
+    which that trace runs over one cell and cannot count, is refused.
+    Either way the port does not partition activations over ``model``:
+    each cell runs the model at full width, so the activation term is an
+    upper bound.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-135m \\
@@ -50,6 +54,7 @@ import torch
 
 from repro_torch.configs import SHAPES_BY_NAME, registry
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeSpec
+from repro_torch.distributed import spmd
 from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.launch import op_analysis
 from repro_torch.launch.mesh import make_mesh
@@ -67,10 +72,9 @@ NVLINK_BW = 450e9  # bytes/s each way
 
 MESHES = {"single": ((16, 16), ("data", "model")),
           "multi": ((2, 16, 16), ("pod", "data", "model"))}
-NOT_ISSUED = ("the all-gathers and reduce-scatters that GSPMD inserts into "
-              "the reference's partitioned programs: the port does not "
-              "partition its programs (ShardingCtx.constrain is the "
-              "identity)")
+NOT_ISSUED = ("the collectives that GSPMD inserts into the reference's "
+              "partitioned serve programs: the port partitions its training "
+              "step only (ShardingCtx.constrain is the identity)")
 
 
 def _meta_mesh(shape, axes):
@@ -173,13 +177,20 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, ruleset: str,
             n_chips = math.prod(grid)
             ctx = ShardingCtx.for_mesh(_meta_mesh(grid, axes), ruleset)
             prog = build_program(cfg, run, shape, ctx)
-            # one data cell: the model axis alone, at its share of the batch
-            cell_grid = tuple(n if a == "model" else 1
-                              for n, a in zip(grid, axes))
-            cell_ctx = ShardingCtx.for_mesh(_meta_mesh(cell_grid, axes),
-                                            ruleset)
             cell_shape = local_shape(cfg, shape, ctx)
-            trace_prog = build_program(cfg, run, cell_shape, cell_ctx)
+            if prog.cell is not None:  # the partitioned step: one cell
+                cell_fn, cell_args = prog.cell
+                trace_prog = dataclasses.replace(
+                    prog, fn=spmd.one_cell(cell_fn, ctx.mesh),
+                    args=cell_args)
+            else:
+                # one data cell: the model axis alone, at its share of
+                # the batch
+                cell_grid = tuple(n if a == "model" else 1
+                                  for n, a in zip(grid, axes))
+                cell_ctx = ShardingCtx.for_mesh(_meta_mesh(cell_grid, axes),
+                                                ruleset)
+                trace_prog = build_program(cfg, run, cell_shape, cell_ctx)
         summary = op_analysis.analyze(trace_prog.fn, *trace_prog.args)
         if mesh_kind != "card" and any(
                 d["one_cell_groups"] for d in summary.per_op.values()):
@@ -210,7 +221,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, ruleset: str,
                  "collective_op_bytes": summary.collective_op_bytes,
                  "per_op": summary.per_op,
                  "kernel_calls": summary.kernel_calls},
-            collectives_not_issued=None if mesh_kind == "card" else NOT_ISSUED,
+            collectives_not_issued=(None if mesh_kind == "card"
+                                    or prog.cell is not None
+                                    else NOT_ISSUED),
             hardware={"card": "H100 SXM, 700 W", "peak_bf16_flops": PEAK_FLOPS,
                       "hbm_bytes_per_s": HBM_BW, "hbm_bytes": HBM_BYTES,
                       "nvlink_bytes_per_s": NVLINK_BW},

@@ -11,8 +11,9 @@ raises when there are fewer. A *virtual* mesh passes ``devices``
 explicitly, the same card several times: one card then stands in for the
 several devices of an elastic restore (halved, same, doubled), as the
 reference stands up its meshes over ``--xla_force_host_platform_device_count=8``
-fake host devices. The store reads a virtual mesh's cells one by one onto
-that one card, and ``distributed.spmd.shard_map`` runs them in turn on it.
+fake host devices. A ``MeshArray`` over a virtual mesh holds each cell's
+shard on that one card, the store restores each cell's shard there, and
+``distributed.spmd.shard_map`` runs the cells in turn on it.
 """
 
 from __future__ import annotations

@@ -13,6 +13,12 @@ their outputs and launch nothing) on any host, which is what
 traces the plain path. A real run materialises tensors of the same
 shapes and dtypes.
 
+On a mesh the train program is the partitioned step (``train.step``):
+``fn`` takes the whole stand-ins and runs every mesh cell, and ``cell``
+holds what one device runs, the step's per-cell function and stand-ins
+of the first cell's shards, which ``launch.dryrun`` traces alone
+(``spmd.one_cell``).
+
 A fake CUDA tensor would name the card itself, but PyTorch built without
 CUDA cannot trace one through indexing or autograd (both ask for the CUDA
 device guard, which such a build lacks), so the card's path is traced on
@@ -21,14 +27,15 @@ meta tensors on every host.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeSpec
-from repro_torch.distributed.sharding import ShardingCtx
+from repro_torch.distributed.sharding import MeshSharding, ShardingCtx
 from repro_torch.models import lm, params as P
 from repro_torch.optim.adamw import adamw_init_specs
 from repro_torch.serve.step import make_decode_step, make_prefill_step
@@ -46,6 +53,9 @@ class Program:
     meta: Dict[str, Any]
     # each argument's MeshSharding tree (None without a mesh)
     arg_shardings: Tuple[Any, ...] = ()
+    # a partitioned program: (one cell's function, stand-ins of the first
+    # cell's shards of the arguments); None otherwise
+    cell: Optional[Tuple[Callable, Tuple[Any, ...]]] = None
 
 
 def _ns_tree(spec_tree, ctx: ShardingCtx):
@@ -54,6 +64,21 @@ def _ns_tree(spec_tree, ctx: ShardingCtx):
     if ctx.mesh is None:
         return None
     return P.map_specs(lambda s: ctx.sharding(s.logical, s.shape), spec_tree)
+
+
+def _first_cell(args, specs, mesh, mode):
+    """Stand-ins of mesh position 0's shards of ``args`` (trees of
+    stand-ins) laid out by ``specs`` (the step's spec trees): new tensors
+    of the shards' shapes, so that a trace counts a shard's bytes, not
+    the whole's."""
+    def shard(t, spec):
+        index = MeshSharding(mesh, spec).devices_indices_map(t.shape)[0]
+        shape = [len(range(*sl.indices(d))) for sl, d in zip(index, t.shape)]
+        with contextlib.nullcontext() if mode is None else mode:
+            return torch.empty(shape, dtype=t.dtype, device=t.device)
+
+    return tuple(P.tree_map(shard, arg, spec)
+                 for arg, spec in zip(args, specs))
 
 
 def _decode_at_host_pos(step):
@@ -93,8 +118,11 @@ def build_program(cfg: ModelConfig, run: RunConfig, shape: ShapeSpec,
             fake(batch_specs, "int32"))
         fn = make_train_step(cfg, run, ctx, shape.global_batch)
         out_shardings = (_ns_tree(pspecs, ctx), _ns_tree(ospecs, ctx), None)
-        return Program("train_step", fn, (params, opt, batch), out_shardings,
-                       (0, 1), meta, (ps, os_, bs))
+        args = (params, opt, batch)
+        cell = None if ctx.mesh is None else (
+            fn.cell, _first_cell(args, fn.in_specs(batch), ctx.mesh, mode))
+        return Program("train_step", fn, args, out_shardings, (0, 1), meta,
+                       (ps, os_, bs), cell)
 
     # Serving: bf16 weights.
     params, ps = fake(pspecs, run.compute_dtype)

@@ -124,7 +124,7 @@ def torch_dtype(name) -> torch.dtype:
 
 
 def materialize(tree, generator: torch.Generator, device: DeviceLike = None,
-                dtype="float32") -> Dict:
+                dtype="float32", shardings=None) -> Dict:
     """Draw real parameters from the specs, leaf by leaf, on ``device``.
 
     The reference's init rules (``repro/models/params.py:46-63``): zeros,
@@ -133,7 +133,10 @@ def materialize(tree, generator: torch.Generator, device: DeviceLike = None,
     drawn in float32 on the device from ``generator`` (which must live on
     that device) and cast to its dtype there, so a 15 GB model never passes
     through the host. Leaves are drawn in key order, so one seed gives one
-    tree; the numbers differ from ``jax.random``'s."""
+    tree; the numbers differ from ``jax.random``'s. With ``shardings`` (a
+    tree of ``MeshSharding`` like ``tree``) each leaf is laid out over the
+    mesh (``sharding.place``) before the next is drawn: the same numbers,
+    and one leaf whole on ``device`` at a time."""
     dev = resolve_device(device)
 
     def draw(spec: TensorSpec) -> torch.Tensor:
@@ -149,7 +152,11 @@ def materialize(tree, generator: torch.Generator, device: DeviceLike = None,
                         device=dev)
         return x.mul_(std).to(dt)
 
-    return map_specs(draw, tree)
+    if shardings is None:
+        return map_specs(draw, tree)
+    from repro_torch.distributed.sharding import place
+
+    return tree_map(lambda spec, sh: place(draw(spec), sh), tree, shardings)
 
 
 def fake_tree(tree, ctx, dtype="float32", *, device="meta", mode=None):

@@ -6,7 +6,10 @@ logical-axis rules) and is declared through ``TensorSpec`` like the
 parameters. ``OptState`` has the reference's name and fields, so a
 checkpoint of the trainer's state has the reference's tree structure and
 restores in either package. The update runs under ``torch.no_grad()`` on
-float32 copies of each leaf, as the reference computes it.
+float32 copies of each leaf, as the reference computes it. Inside a cell
+of the partitioned step (``train.step``) it runs on the cell's shards:
+``cells`` then gives the whole tree's clip norm and each leaf's means
+over whole dims, as GSPMD computes them.
 """
 
 from __future__ import annotations
@@ -81,8 +84,15 @@ def _is_factored(nu_leaf) -> bool:
     return isinstance(nu_leaf, dict) and "_factored_row" in nu_leaf
 
 
-def _update_leaf(g, p, mu, nu, lr, wd, step, scale):
-    """One leaf's update; ``scale`` is the clip factor. The arithmetic is
+def _mean(t, dim: int, of: int, keepdim: bool = False):
+    """The mean of ``t`` over ``dim``, which runs over the leaf's dim
+    ``of`` (a cell's shard needs it to find the mesh axes that cut it)."""
+    return torch.mean(t, dim=dim, keepdim=keepdim)
+
+
+def _update_leaf(g, p, mu, nu, lr, wd, step, scale, mean=_mean):
+    """One leaf's update; ``scale`` is the clip factor, ``mean`` the mean
+    over a dim of the leaf (``_mean``'s signature). The arithmetic is
     the reference's, op for op; temporaries the leaf owns are updated in
     place, so the largest leaf's update holds a few copies of it at once,
     not a dozen (a (8, 4096, 14336) f32 leaf is 1.9 GB)."""
@@ -93,9 +103,9 @@ def _update_leaf(g, p, mu, nu, lr, wd, step, scale):
         row = nu["_factored_row"].float()
         col = nu["_factored_col"].float()
         g2 = torch.square(g32) + 1e-30
-        row_new = B2 * row + (1 - B2) * torch.mean(g2, dim=-1)
-        col_new = B2 * col + (1 - B2) * torch.mean(g2, dim=-2)
-        r = row_new / torch.clamp(torch.mean(row_new, dim=-1, keepdim=True),
+        row_new = B2 * row + (1 - B2) * mean(g2, -1, -1)
+        col_new = B2 * col + (1 - B2) * mean(g2, -2, -2)
+        r = row_new / torch.clamp(mean(row_new, -1, -2, keepdim=True),
                                   min=1e-30)
         v_hat = r[..., None] * col_new[..., None, :]
         nu_new = {"_factored_row": row_new, "_factored_col": col_new}
@@ -123,11 +133,18 @@ def global_norm(tree) -> torch.Tensor:
                           for l in P.leaves(tree)))
 
 
-def adamw_update(grads, params, state: OptState, run: RunConfig):
+def adamw_update(grads, params, state: OptState, run: RunConfig, cells=None):
     """One AdamW step with global-norm clipping. Returns (params, state,
-    stats); every tree is new, nothing is updated in place."""
+    stats); every tree is new, nothing is updated in place. ``cells``:
+    the trees hold one cell's shards, and ``cells.global_norm(grads)``
+    and ``cells.means`` (a tree of ``_mean``-like functions, one a
+    parameter) give what the whole leaves would."""
     with torch.no_grad():
-        gnorm = global_norm(grads)
+        if cells is None:
+            gnorm = global_norm(grads)
+            means = P.tree_map(lambda _: _mean, grads)
+        else:
+            gnorm, means = cells.global_norm(grads), cells.means
         if run.grad_clip > 0:
             scale = torch.clamp(run.grad_clip / torch.clamp(gnorm, min=1e-12),
                                 max=1.0)
@@ -138,10 +155,9 @@ def adamw_update(grads, params, state: OptState, run: RunConfig):
         # params are re-derived by casting
         src = state.master if state.master is not None else params
         out = P.tree_map(
-            lambda g, p, mu, nu: _update_leaf(g, p, mu, nu, lr,
-                                              run.weight_decay, state.step,
-                                              scale),
-            grads, src, state.mu, state.nu)
+            lambda g, p, mu, nu, mean: _update_leaf(
+                g, p, mu, nu, lr, run.weight_decay, state.step, scale, mean),
+            grads, src, state.mu, state.nu, means)
         new_src, mu, nu = (P.tree_map(lambda o: o[i], out) for i in range(3))
         if state.master is not None:
             master = new_src

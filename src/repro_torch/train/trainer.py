@@ -11,10 +11,13 @@ restore protocol (``core.upgrade``) gives four fault-tolerance features:
   * online upgrade      — swap the model/optimizer module version mid-run
                           with state migration (``core.upgrade.transfer_state``).
 
-Parameters and optimizer state live on ``device`` (CUDA unless the caller
-asks for the CPU). A mesh decides how checkpoints are cut and restored:
-on one card it is a virtual one (``launch.mesh.make_elastic_mesh`` over
-copies of the card), as the checkpoint store reads it.
+Without a mesh, parameters and optimizer state live whole on ``device``
+(CUDA unless the caller asks for the CPU). With one, every leaf is a
+``distributed.sharding.MeshArray``: each mesh cell holds its FSDP x model
+shard of it on the cell's device (its own card on a mesh of real cards;
+the one card on a virtual mesh, ``launch.mesh.make_elastic_mesh`` over
+copies of it), the step is partitioned over the mesh (``train.step``),
+and checkpoints are cut and restored by the same shardings.
 """
 
 from __future__ import annotations
@@ -29,12 +32,12 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.interface import BentoModule
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.sharding import ShardingCtx
+from repro_torch.distributed.sharding import MeshArray, ShardingCtx, place
 from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.launch.programs import _ns_tree
 from repro_torch.models import lm, params as P
 from repro_torch.optim.adamw import adamw_init_specs
-from repro_torch.train.step import make_train_step
+from repro_torch.train.step import A2A_NOT_PORTED, make_train_step
 
 
 class WorkerFailure(Exception):
@@ -42,8 +45,15 @@ class WorkerFailure(Exception):
 
 
 def _to(tree, device: torch.device):
-    """A copy of every tensor of ``tree`` on ``device``."""
-    return P.tree_map(lambda t: t.detach().to(device, copy=True), tree)
+    """A copy of every tensor of ``tree`` on ``device``, a ``MeshArray``
+    gathered whole."""
+    return P.tree_map(lambda t: t.gather(device) if isinstance(t, MeshArray)
+                      else t.detach().to(device, copy=True), tree)
+
+
+def _placed(tree, shardings):
+    """Each leaf of ``tree`` laid out by its sharding (``place``)."""
+    return P.tree_map(place, tree, shardings)
 
 
 class Trainer(BentoModule):
@@ -76,6 +86,8 @@ class Trainer(BentoModule):
 
     # --- build / init -----------------------------------------------------------
     def _build(self, mesh, ruleset: str) -> None:
+        if mesh is not None and ruleset == "moe_a2a":
+            raise NotImplementedError(A2A_NOT_PORTED)
         self.mesh = mesh
         self.ruleset = ruleset
         self.ctx = (ShardingCtx.for_mesh(mesh, ruleset) if mesh is not None
@@ -88,13 +100,16 @@ class Trainer(BentoModule):
         self.opt_shardings = _ns_tree(self.ospecs, self.ctx)
 
     def _init_state(self) -> None:
-        # one seed for both trees, as the reference draws both from one key
+        # one seed for both trees, as the reference draws both from one
+        # key; on a mesh each leaf is laid out before the next is drawn
         def gen():
             return torch.Generator(device=self.device).manual_seed(self.seed)
         self.params = P.materialize(self.pspecs, gen(), self.device,
-                                    dtype=self.run.param_dtype)
+                                    dtype=self.run.param_dtype,
+                                    shardings=self.param_shardings)
         self.opt_state = P.materialize(self.ospecs, gen(), self.device,
-                                       dtype="float32")
+                                       dtype="float32",
+                                       shardings=self.opt_shardings)
 
     # --- stepping ------------------------------------------------------------------
     def _fetch(self, step: int) -> Dict[str, np.ndarray]:
@@ -138,7 +153,8 @@ class Trainer(BentoModule):
 
     # --- §4.8 state transfer ------------------------------------------------------------
     def extract_state(self) -> Dict[str, Any]:
-        """The trainer's state with every tensor copied to the host."""
+        """The trainer's state with every tensor copied to the host (a
+        ``MeshArray`` gathered whole)."""
         cpu = torch.device("cpu")
         return {
             "params": _to(self.params, cpu),
@@ -148,8 +164,12 @@ class Trainer(BentoModule):
         }
 
     def restore_state(self, state: Dict[str, Any], from_version: int = 1) -> None:
-        self.params = _to(state["params"], self.device)
-        self.opt_state = _to(state["opt_state"], self.device)
+        if self.mesh is None:
+            self.params = _to(state["params"], self.device)
+            self.opt_state = _to(state["opt_state"], self.device)
+        else:
+            self.params = _placed(state["params"], self.param_shardings)
+            self.opt_state = _placed(state["opt_state"], self.opt_shardings)
         self.step_idx = state["step"]
         new_seed = state.get("seed", self.seed)
         if new_seed != self.seed and isinstance(self.data, SyntheticLM):
@@ -217,7 +237,8 @@ class Trainer(BentoModule):
 
     # --- elastic rescale ----------------------------------------------------------------------
     def elastic_rescale(self, new_mesh, ruleset: str = "baseline") -> None:
-        """Quiesce -> extract -> rebuild for the new mesh -> restore."""
+        """Quiesce -> extract -> rebuild for the new mesh -> restore onto
+        its cells."""
         state = self.extract_state()
         if self._prefetch:
             self._prefetch.close()

@@ -527,3 +527,45 @@ def test_load_defaults_to_cuda_and_raises_without_one():
     T_ck.save(port.view, "/ck/s", {"a": torch.zeros(3)}, step=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         T_ck.load(port.view, "/ck/s", {"a": torch.zeros(3)})
+
+
+# --- MeshArray leaves (a trainer partitioned over its mesh) -----------------------------
+
+
+def test_mesh_array_leaves_save_and_restore_as_whole_leaves():
+    """A tree of ``MeshArray``s over a virtual (2, 2) CPU mesh saves the
+    same files as its whole tensors at the same grids (a MeshSharding,
+    the leaf's own; a ShardGrid no position holds whole; one shard), and
+    a restore onto a (4, 1) mesh fills each position's own tensor with
+    its slice, from multi-shard and single-shard sources alike."""
+    from repro_torch.distributed.sharding import MeshArray, MeshSharding, place
+    from repro_torch.launch.mesh import make_elastic_mesh
+
+    cpu = torch.device("cpu")
+    src = _source()
+    whole = {"w": torch.from_numpy(src["w"]),
+             "b": torch.from_numpy(src["b"].view(np.int16)).view(torch.bfloat16),
+             "s": torch.tensor(2.5)}
+    mesh = make_elastic_mesh(2, 2, devices=[cpu] * 4)
+    own = {"w": MeshSharding(mesh, ("data", "model")),
+           "b": MeshSharding(mesh, ("model",)), "s": MeshSharding(mesh, ())}
+    cells = {k: place(v, own[k]) for k, v in whole.items()}
+    for grids in (own, {"w": T_Grid.from_spec(tuple(whole["w"].shape),
+                                              ("x", "y"), {"x": 4, "y": 1}),
+                        "b": own["b"], "s": None}):
+        mfs = [T_mounts.make_mount("bento", N_BLOCKS, device="cpu")
+               for _ in range(2)]
+        for mf, tree in zip(mfs, (cells, whole)):
+            T_ck.save(mf.view, "/ck/s1", tree, step=1, shardings=grids)
+        a, b = (_image(mf.dev) for mf in mfs)
+        assert np.array_equal(a, b)
+    target = make_elastic_mesh(4, 1, devices=[cpu] * 4)
+    sh = {"w": MeshSharding(target, ("data", "model")),
+          "b": MeshSharding(target, ("data",)), "s": MeshSharding(target, ())}
+    back, _ = T_ck.load(mfs[1].view, "/ck/s1", whole, sharding_tree=sh,
+                        device="cpu")
+    for k, v in whole.items():
+        assert isinstance(back[k], MeshArray) and back[k].sharding == sh[k]
+        for _pos, idx, t in back[k].addressable_shards:
+            assert torch.equal(t, v[idx]), k
+        assert torch.equal(back[k].gather(), v)

@@ -194,8 +194,10 @@ def test_sharded_checkpoint_round_trip_on_the_card(cuda):
                             checksum_batch=ks.checksum_batch,
                             sharding_tree=shardings(4, 2),
                             pipeline_depth=depth, device="cuda")
-        for k in ("w", "b", "s"):
-            assert back[k].is_cuda and torch.equal(back[k], tree[k]), k
+        for k in ("w", "b"):  # MeshArrays: every position's shard on the card
+            assert all(t.is_cuda for t in back[k].shards), k
+            assert torch.equal(back[k].gather(), tree[k]), k
+        assert back["s"].is_cuda and torch.equal(back["s"], tree["s"])
         assert torch.equal(back["e"][0], tree["e"][0])
     calls = ks.counters["checksum_calls"] + ks.counters["checksum_batch_calls"]
     assert BK.launches() == calls + 1

@@ -324,8 +324,11 @@ def test_elastic_restore_matches_reference(reference_run, topo, depth):
                         pipeline_depth=depth, device="cpu")
     want = reference_run["topos"][f"{topo}/{depth}"]
     for k, v in host.items():
-        assert np.array_equal(back[k].numpy(), v)
+        # each mesh position holds its own slice (MeshArray)
+        assert np.array_equal(back[k].gather().numpy(), v)
         dmap = sh_b[k].devices_indices_map(v.shape)
+        assert all(np.array_equal(t.numpy(), v[dmap[p]])
+                   for p, _idx, t in back[k].addressable_shards), k
         assert [_slices(dmap[p]) for p in range(mesh_b.devices.size)] == \
             want["dmap"][k], k
     # the tree is below the store's inline threshold, so both packages

@@ -273,3 +273,96 @@ def test_make_mesh_takes_any_axes():
         make_mesh((2, 2), ("pod",), [CPU] * 4)
     with pytest.raises(RuntimeError, match="need 4 devices"):
         make_mesh((4,), ("pod",), [CPU] * 3)
+
+
+# --- MeshArray arguments and outputs, psum_block, one_cell ---------------------------------
+
+
+def test_mesh_array_arguments_pass_uncopied_and_outputs_stay_in_cells():
+    """A MeshArray laid out as the in-spec says gives each cell its own
+    tensor (the same storage); with ``keep`` each cell's result is the
+    output's shard at its position, not reassembled."""
+    from repro_torch.distributed.sharding import MeshSharding, place
+
+    x = place(WHOLE, MeshSharding(MESH, ("data", "model")))
+    seen, made = [None] * 4, [None] * 4
+
+    def body(xs):
+        pos = spmd.position()
+        seen[pos] = xs.data_ptr()
+        made[pos] = xs * 2
+        return made[pos]
+
+    out = spmd.shard_map(body, MESH, in_specs=(("data", "model"),),
+                         out_specs=("data", "model"), keep=True)(x)
+    assert seen == [t.data_ptr() for t in x.shards]
+    assert all(a is b for a, b in zip(out.shards, made))
+    assert out.shape == tuple(WHOLE.shape)
+    assert out.sharding == MeshSharding(MESH, ("data", "model"))
+    assert torch.equal(out.gather(), WHOLE * 2)
+
+
+def test_mesh_array_laid_out_otherwise_raises():
+    from repro_torch.distributed.sharding import MeshSharding, place
+
+    x = place(WHOLE, MeshSharding(MESH, ("model", "data")))
+    with pytest.raises(ValueError, match="in-spec"):
+        spmd.shard_map(lambda t: t, MESH, in_specs=(("data", "model"),),
+                       out_specs=("data", "model"))(x)
+
+
+def test_place_and_gather_round_trip_with_replicated_copies():
+    """Positions that replicate a block hold copies of their own."""
+    from repro_torch.distributed.sharding import MeshSharding, place
+
+    x = place(WHOLE, MeshSharding(MESH, (None, "model")))
+    assert [tuple(t.shape) for t in x.shards] == [(2, 1, 3, 4)] * 4
+    assert torch.equal(x.shards[0], x.shards[2])
+    assert x.shards[0].data_ptr() != x.shards[2].data_ptr()
+    assert torch.equal(x.gather(), WHOLE)
+    assert [(p, idx) for p, idx, _ in x.addressable_shards][1] == (
+        1, (slice(None), slice(1, 2), slice(None), slice(None)))
+
+
+def test_psum_block_is_each_cells_block_of_the_sum():
+    """Over "data", each cell sums the members' blocks at its own index:
+    a reduce-scatter where the index cuts, an all-reduce where it does
+    not; the observer names each."""
+    seen = []
+
+    def body(x, cut):
+        blk = (slice(spmd.axis_index("data") * 2,
+                     spmd.axis_index("data") * 2 + 2),) if cut else ()
+        return spmd.psum_block(x[0, 0], "data", blk)[None, None]
+
+    for cut, out_spec in ((True, ("data", "model")),
+                          (False, ("data", "model"))):
+        whole = torch.arange(2 * 2 * 4 * 3, dtype=torch.float32).reshape(
+            2, 2, 4, 3)
+        with spmd.observe(lambda op, out, n, cell: seen.append((op, n))):
+            got = spmd.shard_map(lambda x: body(x, cut), MESH,
+                                 in_specs=(("data", "model"),),
+                                 out_specs=out_spec)(whole)
+        total = whole.sum(dim=0)  # (2, 4, 3): by model
+        for d in range(2):
+            for m in range(2):
+                want = total[m, 2 * d:2 * d + 2] if cut else total[m]
+                assert torch.equal(got[d, m], want)
+    assert set(seen) == {("reduce-scatter", 2), ("all-reduce", 2)}
+
+
+def test_one_cell_runs_one_cell_with_the_mesh_group_sizes():
+    """``one_cell``: the function runs in the caller's thread as the cell
+    at ``pos``; collectives see the mesh's group sizes and this cell's
+    deposit for every member."""
+    mesh = virtual((4, 2), ("data", "model"))
+    seen = []
+
+    def cell(x):
+        assert spmd.position() == 3 and spmd.axis_index("data") == 1
+        return spmd.all_gather(x, "data"), spmd.psum(x, "model")
+
+    with spmd.observe(lambda op, out, n, c: seen.append((op, n, c))):
+        g, s = spmd.one_cell(cell, mesh, pos=3)(torch.ones(2))
+    assert tuple(g.shape) == (8,) and torch.equal(s, torch.full((2,), 2.0))
+    assert seen == [("all-gather", 4, 3), ("all-reduce", 2, 3)]

@@ -42,7 +42,7 @@ from repro_torch.checkpoint import store as T_store  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.base import RunConfig  # noqa: E402
 from repro_torch.core.upgrade import transfer_state, upgrade  # noqa: E402
-from repro_torch.distributed.sharding import ShardingCtx  # noqa: E402
+from repro_torch.distributed.sharding import ShardingCtx, gathered  # noqa: E402
 from repro_torch.fs.ext4like import Ext4LikeFileSystem  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.mesh import make_elastic_mesh  # noqa: E402
@@ -363,7 +363,7 @@ def test_train_cli_runs_on_the_cpu(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
          "--smoke", "--device", "cpu", "--steps", "4", "--batch", "4",
-         "--seq", "32", "--ckpt-every", "2", "--data-mesh", "2",
+         "--seq", "32", "--ckpt-every", "2", "--virtual-mesh", "2",
          "--metrics-out", str(out)], env=env, capture_output=True, text=True,
         timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -489,7 +489,8 @@ def test_optstate_treedef_text_matches_reference(master, factored):
 
 def test_mesh_trainer_checkpoint_saves_where_the_reference_raises():
     """A trainer on a mesh saves its state cut by the mesh's shardings and
-    restores it. Without master weights the reference's sharding tree has
+    restores it onto another mesh's cells (compared gathered whole).
+    Without master weights the reference's sharding tree has
     one leaf more than its state (OptState.master = None taken as a leaf)
     and its save raises; the port's repair (ROADMAP Queue 3)."""
     from repro.launch.mesh import make_host_mesh
@@ -517,9 +518,10 @@ def test_mesh_trainer_checkpoint_saves_where_the_reference_raises():
                  mesh=make_elastic_mesh(1, 2, devices=[CPU] * 2),
                  ckpt_view=mf.view, device="cpu")
     assert t2.restore_checkpoint() and t2.step_idx == 2
-    for path, got, want in paired(t2.params, t.params):
+    for path, got, want in paired(gathered(t2.params), gathered(t.params)):
         assert torch.equal(got, want), path
-    for path, got, want in paired(t2.opt_state, t.opt_state):
+    for path, got, want in paired(gathered(t2.opt_state),
+                                  gathered(t.opt_state)):
         assert torch.equal(got, want), path
     mf.close()
 
