@@ -64,13 +64,18 @@ GPipe pipeline against the sequential stack (``pipeline``) and its
 gradients through the int8 compressors (``compression``), both on
 train_smollm's trainer, and the trainer partitioned over a (2, 2) mesh
 (``train_mesh``: smollm-135m whole, each cell holding its FSDP x model
-shards, held against train_smollm's steps, and an elastic round through
-a bento mount). The training phases' profiled steps trace the
+shards and computing with its own half of the MLP and the vocabulary,
+tensor-parallel over ``model``, held against train_smollm's steps, and
+an elastic round through a bento mount; ``train_mesh_olmoe``, after
+``train_olmoe``: olmoe-1b-7b at its depth, each cell's own heads,
+experts and vocabulary, with the dense dispatch and the expert-parallel
+a2a, held against train_olmoe's steps and the plain a2a's). The training phases' profiled steps trace the
 device alone, as the serves' profiles do, and time their named ranges
 (``repro_torch.ranges``) with CUDA events. Last the launch half and
 the examples: the dry-run (``launch.dryrun``: programs traced on meta
 tensors in two worker processes while the card runs the phases above)
-held to five of those phases, its traced kernel calls to their launches
+held to those phases (train_mesh_olmoe's two runs traced over the
+whole virtual mesh), its traced kernel calls to their launches
 exactly and its traced peaks to their measured peaks (``dryrun``), and
 ``examples/quickstart_torch.py`` and ``train_small_lm_torch.py`` on the
 card (``examples``). Every phase asserts
@@ -82,6 +87,8 @@ CUDA device is present or when run outside a checkout.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -142,7 +149,8 @@ SSD_TOL = 2e-4  # x max(1, max|ref|), for y and the state
 # 3 kv heads of 64) at its serve, at its training step (a microbatch of 4 x
 # 2048) and at train_ckpt's step (8 x 256), then the shapes this file's
 # other model paths launch: olmoe-1b-7b's (16 heads of 128) at its serve
-# and at its training step (one microbatch of 8 x 2048), and zamba2-7b's
+# and at its training step (one microbatch of 8 x 2048) and a cell's own
+# (8 of the heads, 4 rows) in train_mesh_olmoe, and zamba2-7b's
 # shared block at its training step (a microbatch of 4 x 2048); then the
 # cross-attention families: llama-3.2-vision-11b (32 heads over 8 of 128)
 # at its serve (a 1024-token prompt, its self layers causal, its cross
@@ -164,6 +172,7 @@ FLASH_CASES = ((2, 256, 256, 4, 2, 64, True, 0, 0.0),
                (8, 256, 256, 9, 3, 64, True, 0, 0.0),
                (4, 1024, 1024, 16, 16, 128, True, 0, 0.0),
                (8, 2048, 2048, 16, 16, 128, True, 0, 0.0),
+               (4, 2048, 2048, 8, 8, 128, True, 0, 0.0),
                (4, 2048, 2048, 32, 32, 112, True, 0, 0.0),
                (4, 1024, 1024, 32, 8, 128, True, 0, 0.0),
                (4, 1024, 6404, 32, 8, 128, False, 0, 0.0),
@@ -223,8 +232,44 @@ TRAIN_MESH = {"mesh": (2, 2), "warmup": 2, "steps": 3,
 # sum adds the two data cells' microbatches as the accumulation does);
 # the bounds leave room for the card's kernels that add in an order of
 # their own (the embedding's backward).
-MESH_LOSS_TOL, MESH_PARAM_TOL = 1e-3, 1e-4
-SMOLLM_PARAMS_AT = {}  # train_smollm's parameters (host copies) by step
+# Since the step is tensor-parallel over ``model`` (its MLP's and the
+# vocabulary's partial sums added over the cells), the bf16 step's
+# parameters may stray from train_smollm's past MESH_PARAM_TOL (partial
+# sums added in another order flip Adam's sign on a gradient near 0): its
+# gap is printed, and where it exceeds the bound the parameters are held
+# on the same steps in f32 compute, partitioned and not (mesh_f32_hold).
+# The parameters after 5 steps of the warm-up (learning rates 0 to 6e-6)
+# move by about 1e-5 whatever the gradients, so a fault that sits only in
+# the backward cannot reach MESH_PARAM_TOL: each leaf of the first moment,
+# which is linear in the gradients, is held too, its gap's norm within
+# MESH_MOMENT_TOL of the leaf's norm (a missing psum at an entry, or a
+# norm's scale summed over model, moves a leaf by half its norm or more;
+# moment_probe.py plants one on the card). Not its largest element: the
+# MoE's routing flips a token to another expert at a near-tie, in f32 too,
+# and that one token's share of an expert's gradient sets the largest
+# element's gap (0.098 of olmoe's largest first moment in f32).
+MESH_LOSS_TOL, MESH_PARAM_TOL, MESH_MOMENT_TOL = 1e-3, 1e-4, 5e-2
+SMOLLM_STATE_AT = {}  # train_smollm's state_copy (on the host) by step
+# The partitioned step tensor-parallel over ``model`` on the MoE family
+# (train_mesh_olmoe): olmoe-1b-7b at full width and train_olmoe's depth (4
+# layers), its batch (8 x 2048), RunConfig, data and seed, on a virtual (2,
+# 2) mesh whose cells compute with their own 8 heads, 32 experts and half
+# of the vocabulary; the dense dispatch and the expert-parallel a2a
+# (ruleset moe_a2a), 2 + 2 steps each. The dense run's losses and gathered
+# parameters are held against train_olmoe's; the a2a's against the same
+# steps unpartitioned with the MoE layer through plain_a2a_moe over the
+# mesh's 4 slices of the tokens (at full width the a2a drops other
+# assignments than the dense dispatch: serve_olmoe_a2a); MESH_LOSS_TOL,
+# MESH_PARAM_TOL and MESH_MOMENT_TOL as train_mesh. Its f32 hold, where a
+# bf16 run strays (routing flips make olmoe's first moments stray 0.1 or
+# more in bf16), is cut to 2 layers, 8 x 1024 and 2 steps: at the run's
+# size the a2a's f32 mesh step ran out of the card's 80 GB; 1024 keeps a
+# token group of 4096 inside a data cell, the bf16 run's path.
+TRAIN_MESH_OLMOE = {"arch": "olmoe-1b-7b", "layers": 4, "mesh": (2, 2),
+                    "warmup": 2, "steps": 2,
+                    "runs": (("dense", "dense", "baseline"),
+                             ("a2a", "a2a", "moe_a2a")),
+                    "f32_hold": {"layers": 2, "seq": 1024, "steps": 2}}
 TRAIN_CKPT = {"arch": "smollm-135m", "layers": 2, "global_batch": 8,
               "seq": 256, "steps": 9, "ckpt_every": 3, "fail_at": 6,
               "n_blocks": 1 << 19, "decode_steps": 4}
@@ -3288,8 +3333,7 @@ def phase_train_smollm():
         step_launches.append(kernels["flash_attention"].launches() - l0)
         if i + 1 == TRAIN_MESH["warmup"] + TRAIN_MESH["steps"]:
             # what train_mesh's partitioned trainer holds after its steps
-            SMOLLM_PARAMS_AT[i + 1] = P.tree_map(
-                lambda p: p.detach().to("cpu", copy=True), t.params)
+            SMOLLM_STATE_AT[i + 1] = state_copy(t, "cpu")
     main_launches = {name: mod.launches() for name, mod in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
     assert step_launches == [per_step] * n_steps, step_launches
@@ -5083,6 +5127,109 @@ def phase_compression(t):
     return rows
 
 
+class FlashShapes:
+    """Within the block, the q shape of every launch of the flash kernel
+    (``kernel.flash_attention_fwd`` wrapped: looked up at each call)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import kernel as K
+
+        self.K, self.orig, self.shapes = K, K.flash_attention_fwd, []
+
+        def launch(q, *a, **kw):
+            self.shapes.append(tuple(q.shape))
+            return self.orig(q, *a, **kw)
+
+        K.flash_attention_fwd = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.K.flash_attention_fwd = self.orig
+
+
+def state_copy(t, device=None) -> dict:
+    """An unpartitioned trainer's parameters and first moments: copies of
+    the leaves, in order, on ``device`` (default: where they are; the
+    card's copy takes milliseconds, the host's seconds)."""
+    from repro_torch.models import params as P
+
+    return {k: [x.detach().to(device or x.device, copy=True)
+                for x in P.leaves(tree)]
+            for k, tree in (("params", t.params), ("mu", t.opt_state.mu))}
+
+
+def mesh_state_gaps(t, want) -> dict:
+    """A partitioned trainer's gathered leaves against ``want``
+    (``state_copy``'s): the largest gap of a parameter leaf's elements
+    relative to max(1, max|want|) (``params``); of a first-moment leaf,
+    the gap's norm relative to the leaf's (``mu``), and for information
+    its largest element relative to max|want| (``mu_max``)."""
+    from repro_torch.models import params as P
+
+    gaps = {"params": 0.0, "mu": 0.0, "mu_max": 0.0}
+    for got, w in zip(P.leaves(t.params), want["params"], strict=True):
+        d = got.gather() - w.to(got.shards[0].device)
+        gaps["params"] = max(gaps["params"], (d.abs().max() / max(
+            1.0, w.abs().max().item())).item())
+    for got, w in zip(P.leaves(t.opt_state.mu), want["mu"], strict=True):
+        w = w.to(got.shards[0].device)
+        d = got.gather() - w
+        gaps["mu"] = max(gaps["mu"], (d.norm() / w.norm().clamp(
+            min=1e-30)).item())
+        gaps["mu_max"] = max(gaps["mu_max"], (d.abs().max() / w.abs().max(
+            ).clamp(min=1e-30)).item())
+    return gaps
+
+
+def state_held(gaps) -> bool:
+    return gaps["params"] <= MESH_PARAM_TOL and gaps["mu"] <= MESH_MOMENT_TOL
+
+
+def mesh_f32_hold(cfg, run, mesh, gb: int, seq: int, n_steps: int, *,
+                  ruleset: str = "baseline", plain=contextlib.nullcontext
+                  ) -> dict:
+    """The partitioned trainer's parameters and first moments after
+    ``n_steps`` against the unpartitioned one's (run inside the context
+    ``plain()``, its state copied on the card), both in f32 compute from
+    one seed on one batch (``mesh_state_gaps``), and the largest
+    relative gap of a loss."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train.trainer import Trainer
+
+    run32 = run.replace(compute_dtype="float32")
+    dev = mesh.devices.flat[0]
+
+    def trained(m, **kw):
+        t = Trainer(cfg, run32, global_batch=gb, seq_len=seq, seed=0, mesh=m,
+                    data=OneBatch(SyntheticLM(cfg, gb, seq, seed=0)),
+                    device=dev, **kw)
+        t.train(n_steps)
+        return t
+
+    with plain():
+        t = trained(None)
+    want = state_copy(t)
+    want_losses = [x["loss"] for x in t.metrics_log]
+    del t
+    gc.collect()  # the unpartitioned trainer holds reference cycles
+    torch.cuda.empty_cache()
+    t = trained(mesh, ruleset=ruleset)
+    gaps = mesh_state_gaps(t, want)
+    losses = [x["loss"] for x in t.metrics_log]
+    del t, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "seq": seq, "steps": n_steps,
+            "param_max_rel_err": gaps["params"],
+            "moment_rel_err": gaps["mu"],
+            "moment_max_rel_err": gaps["mu_max"],
+            "loss_max_rel_err": max(abs(a - b) / max(1.0, abs(b))
+                                    for a, b in zip(losses, want_losses)),
+            "losses": losses, "plain_losses": want_losses}
+
+
 def mesh_flash_launches(cfg, run, mesh, global_batch: int) -> int:
     """Flash launches of one partitioned step: every cell runs each
     layer's forward and its recompute in each of its microbatches
@@ -5099,13 +5246,17 @@ def phase_train_mesh():
     (TRAIN_MESH): smollm-135m at full width and depth, every parameter
     and optimizer leaf a MeshArray whose four cells hold their FSDP x
     model shards, each step one shard_map whose cells gather their bf16
-    parameters, run the model on their data cell's 4 rows through the
-    flash kernel and reduce-scatter their gradients. Held: each cell's
-    bytes at rest equal to the dry-run's argument bytes for the mesh
-    (exact); the flash launches of each step (the CPU's count); the
-    losses step by step and the gathered parameters after the last one
-    against train_smollm's unpartitioned trainer from the same seed
-    (MESH_LOSS_TOL, MESH_PARAM_TOL). The last warm-up step is profiled
+    parameters (the MLP's and the vocabulary's over the data axis only:
+    each cell computes with its own half of them, tensor-parallel over
+    ``model``; the attention whole, its 9 heads not splitting), run the
+    model on their data cell's 4 rows through the flash kernel and
+    reduce-scatter their gradients. Held: each cell's bytes at rest
+    equal to the dry-run's argument bytes for the mesh (exact); the flash
+    launches of each step (the CPU's count) and their shape; the losses
+    step by step and the gathered parameters and first moments after the
+    last one against train_smollm's unpartitioned trainer from the same
+    seed (MESH_LOSS_TOL, MESH_PARAM_TOL, MESH_MOMENT_TOL; both in f32
+    compute where the bf16 step's gap exceeds a bound). The last warm-up step is profiled
     (the idle share). Then the elastic round through a bento mount at depth 2: saved
     at (2, 2), rescaled to (4, 1) and to (1, 1), restored onto each, the
     gathered state bit for bit the saved one, the blockhash launches
@@ -5175,21 +5326,29 @@ def phase_train_mesh():
     for mod in kernels.values():
         mod.reset_launches()
     step_s, step_launches, prof = [], [], None
-    for i in range(n_steps):
-        l0 = FA.launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if i + 1 == TRAIN_MESH["warmup"]:
-            # the card's busy time against the step's wall
-            prof = profile_device(lambda: t.train(i + 1))
-        else:
-            t.train(i + 1)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        step_launches.append(FA.launches() - l0)
+    with FlashShapes() as flash:
+        for i in range(n_steps):
+            l0 = FA.launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i + 1 == TRAIN_MESH["warmup"]:
+                # the card's busy time against the step's wall
+                prof = profile_device(lambda: t.train(i + 1))
+            else:
+                t.train(i + 1)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            step_launches.append(FA.launches() - l0)
     main_launches = {name: mod.launches() for name, mod in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
     assert step_launches == [per_step] * n_steps, step_launches
+    # every cell's attention on its data cell's rows with all 9 heads:
+    # they do not split over the 2 model cells, so the attention repeats
+    flash_shapes = sorted(set(flash.shapes))
+    assert flash_shapes == [(gb // d, seq, cfg.num_heads, cfg.head_dim)], \
+        flash_shapes
+    plan = t._step_fn.plan
+    assert (plan.attn, plan.mlp, plan.vocab) == (False, True, True), plan
     busy_s = sum(us for us, _ in prof["by_name"].values()) * 1e-6
     assert busy_s > 0, "the profiler saw no device time in the step"
     assert main_launches == {"blockhash": 0, "wkv6": 0, "ssd": 0,
@@ -5200,17 +5359,22 @@ def phase_train_mesh():
                    for a, b in zip(losses, plain_losses))
     assert all(np.isfinite(losses)) and loss_err <= MESH_LOSS_TOL, (
         losses, plain_losses)
-    param_err = 0.0
-    for got, want in zip(P.leaves(t.params),
-                         P.leaves(SMOLLM_PARAMS_AT[n_steps])):
-        want = want.to(dev)
-        param_err = max(param_err, ((got.gather() - want).abs().max() / max(
-            1.0, want.abs().max().item())).item())
-    assert param_err <= MESH_PARAM_TOL, param_err
+    gaps = mesh_state_gaps(t, SMOLLM_STATE_AT.pop(n_steps))
+    print(f"train_mesh: the bf16 step's parameters after {n_steps} steps "
+          f"within {gaps['params']:.3e} of train_smollm's (bound "
+          f"{MESH_PARAM_TOL}), its first moments within {gaps['mu']:.3e} "
+          f"(bound {MESH_MOMENT_TOL}; largest element {gaps['mu_max']:.3e})",
+          flush=True)
     timed_s = step_s[TRAIN_MESH["warmup"]:]
     step_med = statistics.median(timed_s)
     del t
     torch.cuda.empty_cache()
+    f32 = None
+    if not state_held(gaps):
+        f32 = mesh_f32_hold(cfg, run, mesh, gb, seq, n_steps)
+        assert f32["param_max_rel_err"] <= MESH_PARAM_TOL, f32
+        assert f32["moment_rel_err"] <= MESH_MOMENT_TOL, f32
+        assert f32["loss_max_rel_err"] <= MESH_LOSS_TOL, f32
 
     # the elastic round through a bento mount, at depth 2
     ecfg = dataclasses.replace(cfg, num_layers=TRAIN_MESH["elastic_layers"])
@@ -5289,10 +5453,20 @@ def phase_train_mesh():
          profile_tables_s=prof["tables_s"],
          peak_memory_bytes=peak, base_memory_bytes=base,
          flash_launches_per_step=per_step, main_path_launches=main_launches,
+         flash_shapes=flash_shapes,
+         tensor_parallel={"model_local": ["mlp", "vocab"],
+                          "repeated": plan.repeated(cfg)},
          losses=losses, plain_losses=plain_losses, loss_max_rel_err=loss_err,
-         param_max_rel_err=param_err,
+         param_max_rel_err=gaps["params"], moment_rel_err=gaps["mu"],
+         moment_max_rel_err=gaps["mu_max"],
+         f32_hold=f32,
          tolerance={"loss": f"{MESH_LOSS_TOL} x max(1, |plain|)",
-                    "params": f"{MESH_PARAM_TOL} x max(1, max|plain|) a leaf"},
+                    "params": f"{MESH_PARAM_TOL} x max(1, max|plain|) a "
+                              f"leaf",
+                    "first_moment": f"|gap| <= {MESH_MOMENT_TOL} x "
+                                    f"|plain| a leaf (norms)",
+                    "f32_hold": "both, in f32 compute, where the bf16 "
+                                "step exceeds either"},
          cell_bytes=cell_bytes, dryrun_argument_bytes=dry_bytes,
          whole_state_bytes=whole_bytes,
          elastic={"layers": ecfg.num_layers, "seq": eseq,
@@ -5303,6 +5477,227 @@ def phase_train_mesh():
                   "probe_launches": tally["probes"]},
          real_cards=real, cuda_devices=n_cards)
     return main_launches["flash_attention"]
+
+
+def phase_train_mesh_olmoe():
+    """The partitioned step tensor-parallel over ``model`` on the MoE
+    family (TRAIN_MESH_OLMOE): olmoe-1b-7b at full width, 4 layers, on a
+    virtual (2, 2) mesh of the card, with the dense dispatch and with the
+    expert-parallel a2a, each run on its own trainer (freed before the
+    next: 1.88 G parameters at 16 bytes each). Each cell computes with
+    its own attention heads, experts and vocabulary rows (the plan's),
+    gathering over ``model`` only the router. Held, each run: each cell's
+    bytes at rest equal to the dry-run's argument bytes (exact); the
+    flash launches of each step (4 cells x 1 microbatch x 4 layers x the
+    forward and the recompute) and their shape, each cell's 4 rows with
+    its 8 heads; the losses step by step (the dense run's against
+    train_olmoe's) and the gathered parameters and first moments after
+    the last one against the run's unpartitioned counterpart, run just
+    before it and its state kept on the card (train_olmoe's trainer
+    again; the a2a's through plain_a2a_moe), within MESH_LOSS_TOL,
+    MESH_PARAM_TOL and MESH_MOMENT_TOL (both, where a bf16 run exceeds a
+    bound, on f32 runs partitioned and not, cut as TRAIN_MESH_OLMOE
+    says). The last warm-up step is profiled (the idle share); step ms,
+    tokens/s and the peak are kept (the base counts the counterpart's
+    state)."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.sharding import MeshArray, ShardingCtx
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_elastic_mesh, make_mesh
+    from repro_torch.launch.programs import build_program
+    from repro_torch.models import moe
+    from repro_torch.models import params as P
+    from repro_torch.train.trainer import Trainer
+
+    spec = TRAIN_MESH_OLMOE
+    kernels = _kernel_counts()
+    FA = kernels["flash_attention"]
+    bundle = registry.get(spec["arch"])
+    cfg = dataclasses.replace(bundle.model, num_layers=spec["layers"])
+    gb, seq = TRAIN_SHAPE["global_batch"], TRAIN_SHAPE["seq"]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    d, m = spec["mesh"]
+    mesh = make_elastic_mesh(d, m, devices=[dev] * (d * m))
+    meta = make_mesh((d, m), ("data", "model"),
+                     [torch.device("meta")] * (d * m))
+    n_steps = spec["warmup"] + spec["steps"]
+    per_step = mesh_flash_launches(cfg, bundle.run, mesh, gb)
+    assert per_step == 4 * 1 * 2 * cfg.num_layers == 32, per_step
+    shape = (gb // d, seq, cfg.num_heads // m, cfg.head_dim)
+    assert shape == (4, 2048, 8, 128), shape
+
+    def data():
+        return OneBatch(SyntheticLM(cfg, gb, seq, seed=0))
+
+    def state(t):
+        return [x for tree in (t.params, t.opt_state) for x in P.leaves(tree)]
+
+    def freed():
+        # what a trainer left in reference cycles, collected before the
+        # next run's base is read (the unpartitioned trainer has some)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # each run's unpartitioned counterpart first, its state kept on the
+    # card: the dense dispatch is train_olmoe's trainer again; the a2a's,
+    # the same steps with the MoE layer through plain_a2a_moe over the
+    # mesh's d x m slices of the tokens (data cell i's rows, cut in m by
+    # model rank j, are slice m i + j)
+    dropped = []
+    plain = plain_a2a_moe(d * m, dropped)
+
+    @contextlib.contextmanager
+    def plain_a2a():
+        orig = moe.moe_apply
+        moe.moe_apply = lambda cfg_, ctx, w, x, impl="dense": plain(
+            cfg_, ctx, w, x)
+        try:
+            yield
+        finally:
+            moe.moe_apply = orig
+
+    plains = {"dense": ("train_olmoe", contextlib.nullcontext),
+              "a2a": ("plain_a2a_moe over 4 token slices, unpartitioned",
+                      plain_a2a)}
+
+    def unpartitioned(run, plain_ctx):
+        """Its losses and ``state_copy`` after the run's steps."""
+        with plain_ctx():
+            t = Trainer(cfg, run, global_batch=gb, seq_len=seq, seed=0,
+                        data=data(), device=dev)
+            t.train(n_steps)
+        out = [x["loss"] for x in t.metrics_log], state_copy(t)
+        del t
+        freed()
+        return out
+
+    def held(got, want):
+        return max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(got, want))
+
+    runs, total_launches = {}, 0
+    for name, impl, ruleset in spec["runs"]:
+        run = bundle.run.replace(moe_impl=impl)
+        plain_name, plain_ctx = plains[name]
+        freed()
+        plain_losses, plain_state = unpartitioned(run, plain_ctx)
+        if name == "dense":  # its losses held to train_olmoe's own
+            plain_losses = EMITTED["train_olmoe"]["losses"][:n_steps]
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        t = Trainer(cfg, run, global_batch=gb, seq_len=seq, seed=0,
+                    mesh=mesh, ruleset=ruleset, data=data(), device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        plan = t._step_fn.plan
+        assert plan.attn and plan.experts and plan.vocab, plan
+        assert plan.repeated(cfg) == [], plan
+        leaves = state(t)
+        assert all(isinstance(x, MeshArray) and len(x.shards) == d * m
+                   for x in leaves)
+        cell_bytes = [sum(x.shards[p].numel() * x.shards[p].element_size()
+                          for x in leaves) for p in range(d * m)]
+        prog = build_program(cfg, run, ShapeSpec(name, "train", seq, gb),
+                             ShardingCtx.for_mesh(meta, ruleset))
+        dry_bytes = dryrun.argument_bytes(dataclasses.replace(
+            prog, args=prog.args[:2], arg_shardings=prog.arg_shardings[:2]))
+        assert cell_bytes == [dry_bytes] * (d * m), (cell_bytes, dry_bytes)
+        del leaves, prog
+
+        # the main path: every count set to 0 just before, read just after
+        torch.cuda.reset_peak_memory_stats()
+        for mod in kernels.values():
+            mod.reset_launches()
+        step_s, step_launches, prof = [], [], None
+        with FlashShapes() as flash:
+            for i in range(n_steps):
+                l0 = FA.launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if i + 1 == spec["warmup"]:
+                    prof = profile_device(lambda: t.train(i + 1))
+                else:
+                    t.train(i + 1)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                step_launches.append(FA.launches() - l0)
+        main_launches = {k: mod.launches() for k, mod in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        assert step_launches == [per_step] * n_steps, step_launches
+        assert main_launches == {"blockhash": 0, "wkv6": 0, "ssd": 0,
+                                 "flash_attention": per_step * n_steps}
+        assert set(flash.shapes) == {shape}, set(flash.shapes)
+        total_launches += main_launches["flash_attention"]
+        busy_s = sum(us for us, _ in prof["by_name"].values()) * 1e-6
+        assert busy_s > 0, "the profiler saw no device time in the step"
+        losses = [x["loss"] for x in t.metrics_log]
+        assert len(losses) == n_steps and all(np.isfinite(losses)), losses
+        gaps = mesh_state_gaps(t, plain_state)
+        del plain_state
+        print(f"train_mesh_olmoe: the {name} run's bf16 parameters after "
+              f"{n_steps} steps within {gaps['params']:.3e} of "
+              f"{plain_name}'s (bound {MESH_PARAM_TOL}), its first moments "
+              f"within {gaps['mu']:.3e} (bound {MESH_MOMENT_TOL}; largest "
+              f"element {gaps['mu_max']:.3e})", flush=True)
+        step_med = statistics.median(step_s[spec["warmup"]:])
+        del t
+        freed()
+        f32 = None
+        if not state_held(gaps):
+            cut = spec["f32_hold"]
+            f32 = mesh_f32_hold(
+                dataclasses.replace(cfg, num_layers=cut["layers"]), run, mesh,
+                gb, cut["seq"], cut["steps"], ruleset=ruleset,
+                plain=plain_ctx)
+            freed()
+            assert f32["param_max_rel_err"] <= MESH_PARAM_TOL, f32
+            assert f32["moment_rel_err"] <= MESH_MOMENT_TOL, f32
+            assert f32["loss_max_rel_err"] <= MESH_LOSS_TOL, f32
+        loss_err = held(losses, plain_losses)
+        assert loss_err <= MESH_LOSS_TOL, (name, losses, plain_losses)
+        runs[name] = {
+            "moe_impl": impl, "ruleset": ruleset, "init_s": init_s,
+            "step_ms": step_med * 1e3, "step_ms_all": [x * 1e3 for x in step_s],
+            "tokens_per_s": gb * seq / step_med,
+            "device_idle_share": 1 - busy_s / prof["wall_s"],
+            "profiled_step_wall_s": prof["wall_s"], "device_busy_s": busy_s,
+            "peak_memory_bytes": peak, "base_memory_bytes": base,
+            "flash_launches_per_step": per_step,
+            "main_path_launches": main_launches, "flash_shape": list(shape),
+            "cell_bytes": cell_bytes, "dryrun_argument_bytes": dry_bytes,
+            "losses": losses, "plain": plain_name,
+            "plain_losses": plain_losses, "loss_max_rel_err": loss_err,
+            "param_max_rel_err": gaps["params"],
+            "moment_rel_err": gaps["mu"], "moment_max_rel_err": gaps["mu_max"],
+            "f32_hold": f32}
+    a2a = runs["a2a"]
+    a2a["plain_dropped_assignments_per_layer_call"] = [
+        min(dropped), max(dropped)]
+    a2a["loss_max_rel_err_to_train_olmoe"] = held(
+        a2a["losses"], runs["dense"]["plain_losses"])
+    emit("train_mesh_olmoe", arch=cfg.name, layers=cfg.num_layers,
+         cut=f"depth {bundle.model.num_layers} -> {cfg.num_layers} "
+             f"(train_olmoe's)", mesh=[d, m], device="virtual",
+         global_batch=gb, seq=seq, cell_rows=gb // d,
+         warmup_steps=spec["warmup"], timed_steps=spec["steps"],
+         step_ms_of_train_olmoe=EMITTED["train_olmoe"]["step_ms"],
+         tensor_parallel={"model_local": ["attention", "experts", "vocab"],
+                          "gathered_over_model": ["router", "norm scales"]},
+         tolerance={"loss": f"{MESH_LOSS_TOL} x max(1, |plain|)",
+                    "params": f"{MESH_PARAM_TOL} x max(1, max|plain|) a "
+                              f"leaf",
+                    "first_moment": f"|gap| <= {MESH_MOMENT_TOL} x "
+                                    f"|plain| a leaf (norms)",
+                    "f32_hold": "both, in f32 compute, where a bf16 run "
+                                "exceeds either"},
+         runs=runs)
+    return total_launches
 
 
 # --- the twelfth slice: the dry-run held against the card, the examples ------------
@@ -5323,7 +5718,13 @@ DRYRUN = {"serve_smollm": ("smollm-135m", "generate", None),
           "serve_vlm": ("llama-3.2-vision-11b", "generate", None),
           "serve_whisper": ("whisper-small", "generate", None),
           **{name: (spec["arch"], "train", spec["layers"])
-             for name, spec in TRAIN_MODELS.items()}}
+             for name, spec in TRAIN_MODELS.items()},
+          # the whole virtual mesh's step, every cell's tensors on the one
+          # card, as train_mesh_olmoe runs it
+          **{f"train_mesh_olmoe_{run}": (TRAIN_MESH_OLMOE["arch"],
+                                         "train_mesh",
+                                         TRAIN_MESH_OLMOE["layers"])
+             for run, _, _ in TRAIN_MESH_OLMOE["runs"]}}
 DRYRUN_PEAK_TOL = 0.10
 # the kernels' operator names, by their modules' names
 KERNEL_OPS = {"flash_attention": "flash_attention_fwd", "wkv6": "wkv6_chunked",
@@ -5364,6 +5765,21 @@ def dryrun_trace(name: str) -> dict:
                  **SERVE_CROSS}[name]
         prog = dryrun.generate_program(cfg, bundle.run, shape["batch"],
                                        shape["prompt"], shape["gen"])
+    elif kind == "train_mesh":
+        import torch
+
+        from repro_torch.launch.mesh import make_mesh
+
+        run_name = name.rsplit("_", 1)[1]
+        _, impl, ruleset = next(r for r in TRAIN_MESH_OLMOE["runs"]
+                                if r[0] == run_name)
+        d, m = TRAIN_MESH_OLMOE["mesh"]
+        mesh = make_mesh((d, m), ("data", "model"),
+                         [torch.device("meta")] * (d * m))
+        prog = build_program(cfg, bundle.run.replace(moe_impl=impl),
+                             ShapeSpec(name, "train", TRAIN_SHAPE["seq"],
+                                       TRAIN_SHAPE["global_batch"]),
+                             ShardingCtx.for_mesh(mesh, ruleset))
     else:
         gb, seq = ((TRAIN["global_batch"], TRAIN["seq"])
                    if name == "train_smollm" else
@@ -5410,11 +5826,15 @@ def phase_dryrun(traces):
     rows = {}
     for name, res in traces.items():
         got = res.get(timeout=900)
-        measured = EMITTED[name]
+        if name.startswith("train_mesh_olmoe_"):
+            measured = EMITTED["train_mesh_olmoe"]["runs"][
+                name.rsplit("_", 1)[1]]
+        else:
+            measured = EMITTED[name]
         if name in TRAIN_MODELS:
             want = {KERNEL_OPS[k]: n
                     for k, n in measured["launches_per_step"].items() if n}
-        elif name == "train_smollm":
+        elif name == "train_smollm" or name.startswith("train_mesh"):
             want = {"flash_attention_fwd": measured["flash_launches_per_step"]}
         else:
             want = {op: measured[field] for op, field in SERVE_LAUNCHES.get(
@@ -5573,6 +5993,8 @@ def run_phases(t_start, card, traces) -> int:
     torch.cuda.empty_cache()
     trained["train_olmoe"] = timed("train_olmoe", phase_train_model,
                                    "train_olmoe")
+    flash_by_path["train_mesh_olmoe"] = timed("train_mesh_olmoe",
+                                              phase_train_mesh_olmoe)
     for name in SERVE_CROSS:  # the VLM, then whisper: each served, trained
         flash_by_path[name] = timed(name, phase_serve_cross, name)
         train = name.replace("serve", "train")

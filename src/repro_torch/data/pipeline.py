@@ -101,6 +101,9 @@ class FsShardReader:
         return box[0]
 
 
+CLOSE_TIMEOUT_S = 30.0  # a fetch of one batch takes milliseconds
+
+
 class Prefetcher:
     """Background-thread prefetch queue over any step->batch function."""
 
@@ -129,9 +132,18 @@ class Prefetcher:
         return s, item
 
     def close(self):
+        """Stops the thread and waits for it, at most
+        ``CLOSE_TIMEOUT_S`` (then raises ``TimeoutError``: a fetch
+        hangs): a thread still running holds ``fetch`` (a trainer's
+        state, through its bound method) past the caller's own references
+        (its last put finds room once the queue is drained)."""
         self._stop = True
         try:
             while True:
                 self.q.get_nowait()
         except queue.Empty:
             pass
+        self._thread.join(CLOSE_TIMEOUT_S)
+        if self._thread.is_alive():
+            raise TimeoutError(f"a prefetch still runs {CLOSE_TIMEOUT_S} s "
+                               "after close()")

@@ -42,8 +42,9 @@ every shard on that card.
 
 ``constrain`` returns its tensor unchanged: the partitioned training step
 (``train.step``) runs the model once in each mesh cell on that cell's
-share of the batch, so an activation inside a cell is already the cell's
-own.
+share of the batch, with its own ``model`` shard of the leaves that
+``distributed.tensor_parallel`` keeps local, so an activation inside a
+cell is already the cell's own.
 """
 
 from __future__ import annotations

@@ -30,7 +30,12 @@ between cards). Autograd thus derives the transposes JAX derives: the
 gradient through ``ppermute`` is the reverse hand-off, through ``psum``
 the sum of the cotangents. Every cell calls the same collectives in the
 same order; a cell that calls another one, or returns while the others
-wait in one, makes every cell raise. A cell that raises breaks the
+wait in one, makes every cell raise. A collective runs in a cell's own
+code: one entered outside a cell, inside an autograd backward or a
+checkpoint's recompute, or inside a local segment of a
+``distributed.tensor_parallel.Tape`` raises ``SpmdError`` (on the card
+the autograd engine runs every cell's backward in one device thread,
+where a collective would wait for cells that never come). A cell that raises breaks the
 barrier, and the caller re-raises its exception. The cells of a virtual
 mesh (one device in every cell) take turns: one cell runs at a time, from
 one collective to the next, since their work meets on the one device's
@@ -66,7 +71,8 @@ _local = threading.local()
 
 
 class SpmdError(RuntimeError):
-    """The cells of one ``shard_map`` call disagree on a collective."""
+    """A collective misused: the cells of one ``shard_map`` call disagree
+    on it, or it runs outside a cell's own code (``_collective_cell``)."""
 
 
 @dataclasses.dataclass
@@ -106,8 +112,39 @@ def _axes(axis_name) -> Tuple[str, ...]:
 def _cell() -> _Cell:
     cell = getattr(_local, "cell", None)
     if cell is None:
-        raise RuntimeError("a collective runs inside shard_map only")
+        raise SpmdError("a collective runs inside shard_map only, in a "
+                        "cell's own code")
     return cell
+
+
+def _collective_cell() -> _Cell:
+    """The calling cell, where a collective may run: in the cell's own
+    code, not inside an autograd backward or a checkpoint's recompute
+    (the autograd engine runs a CUDA backward in its device thread, one
+    for every cell of a virtual mesh: a collective there waits for cells
+    that cannot arrive) and not inside a local segment of a
+    ``distributed.tensor_parallel.Tape`` (whose backward is autograd's)."""
+    cell = _cell()
+    if torch._C._current_graph_task_id() != -1:
+        raise SpmdError("a collective inside an autograd backward or a "
+                        "checkpoint's recompute: collectives and their "
+                        "transposes run in the cell's own code, between "
+                        "local segments (distributed.tensor_parallel)")
+    if getattr(_local, "segment", False):
+        raise SpmdError("a collective inside a local segment of a "
+                        "tensor-parallel tape: cut the segment there")
+    return cell
+
+
+@contextlib.contextmanager
+def local_segment():
+    """Within the block, collectives raise (``_collective_cell``)."""
+    prev = getattr(_local, "segment", False)
+    _local.segment = True
+    try:
+        yield
+    finally:
+        _local.segment = prev
 
 
 def _joint(coord: Dict[str, int], sizes: Dict[str, int], axes) -> int:
@@ -147,7 +184,7 @@ def _wait(run: _Run) -> None:
 def _exchange(tag, value) -> List[Any]:
     """Deposits ``value``; returns every cell's deposit, by position (a
     cell traced alone stands in for every cell)."""
-    cell = _cell()
+    cell = _collective_cell()
     run = cell.run
     if run.solo:
         return [value] * len(run.coords)
@@ -184,13 +221,15 @@ def _members(name: str, x, axis_name, take=None) -> Tuple[List[Any], int]:
 
 
 @contextlib.contextmanager
-def observe(fn: Callable[[str, torch.Tensor, int, int], None]):
+def observe(fn: Callable[..., None]):
     """Within the block, each collective that a ``shard_map`` cell issues
-    calls ``fn(op, result, group_size, cell)``: ``op`` the reference HLO's
-    name of it (``all-reduce``, ``all-gather``, ``all-to-all``,
-    ``collective-permute``), ``result`` the cell's result, ``cell`` its
-    flat position in the mesh. The cells of a call issue the same
-    collectives in the same order."""
+    calls ``fn(op, result, group_size, cell, axes=, label=)``: ``op`` the
+    reference HLO's name of it (``all-reduce``, ``all-gather``,
+    ``all-to-all``, ``collective-permute``, ``reduce-scatter``),
+    ``result`` the cell's result, ``cell`` its flat position in the mesh,
+    ``axes`` the tuple of mesh axes it ran over, ``label`` the innermost
+    ``labelled`` name around it (or None). The cells of a call issue the
+    same collectives in the same order."""
     prev = getattr(_local, "observer", None)
     _local.observer = fn
     try:
@@ -199,10 +238,22 @@ def observe(fn: Callable[[str, torch.Tensor, int, int], None]):
         _local.observer = prev
 
 
-def _noted(op: str, out, n: int):
+@contextlib.contextmanager
+def labelled(name: str):
+    """Names the collectives issued within the block for ``observe``."""
+    prev = getattr(_local, "label", None)
+    _local.label = name
+    try:
+        yield
+    finally:
+        _local.label = prev
+
+
+def _noted(op: str, out, n: int, axes):
     fn = getattr(_local, "observer", None)
     if fn is not None and isinstance(out, torch.Tensor):
-        fn(op, out, n, _cell().pos)
+        fn(op, out, n, _cell().pos, axes=_axes(axes),
+           label=getattr(_local, "label", None))
     return out
 
 
@@ -219,6 +270,16 @@ def axis_index(axis_name) -> int:
     return _joint(cell.run.coords[cell.pos], sizes, _axes(axis_name))
 
 
+def axis_size(axis_name) -> int:
+    """The number of cells in this cell's group over ``axis_name`` (a
+    name or a tuple of names), without a rendezvous."""
+    sizes = mesh_axis_sizes(_cell().run.mesh)
+    n = 1
+    for a in _axes(axis_name):
+        n *= sizes[a]
+    return n
+
+
 def _sum(vals):
     acc = vals[0]
     for v in vals[1:]:  # in cell order: every cell's copy is the same
@@ -230,19 +291,21 @@ def psum(x, axis_name):
     """The sum over the group (a tensor or a Python number: ``psum(1,
     axis)`` is the group's size)."""
     vals, _ = _members("psum", x, axis_name)
-    return _noted("all-reduce", _sum(vals), len(vals))
+    return _noted("all-reduce", _sum(vals), len(vals), axis_name)
 
 
 def pmax(x, axis_name):
     vals, _ = _members("pmax", x, axis_name)
     if not isinstance(x, torch.Tensor):
         return max(vals)
-    return _noted("all-reduce", torch.stack(vals).amax(dim=0), len(vals))
+    return _noted("all-reduce", torch.stack(vals).amax(dim=0), len(vals),
+                  axis_name)
 
 
 def pmean(x, axis_name):
     vals, _ = _members("pmean", x, axis_name)
-    return _noted("all-reduce", _sum(vals) / len(vals), len(vals))
+    return _noted("all-reduce", _sum(vals) / len(vals), len(vals),
+                  axis_name)
 
 
 def psum_block(x: torch.Tensor, axis_name, index) -> torch.Tensor:
@@ -255,14 +318,15 @@ def psum_block(x: torch.Tensor, axis_name, index) -> torch.Tensor:
     vals, _ = _members("psum_block", x, axis_name, take=lambda v: v[index])
     out = _sum(vals)
     op = "reduce-scatter" if out.numel() < x.numel() else "all-reduce"
-    return _noted(op, out, len(vals))
+    return _noted(op, out, len(vals), axis_name)
 
 
 def all_gather(x: torch.Tensor, axis_name, *, axis: int = 0) -> torch.Tensor:
     """Every group member's ``x``, in group order, concatenated along dim
     ``axis`` (``jax.lax.all_gather``'s ``tiled=True``)."""
     vals, _ = _members("all_gather", x, axis_name)
-    return _noted("all-gather", torch.cat(vals, dim=axis), len(vals))
+    return _noted("all-gather", torch.cat(vals, dim=axis), len(vals),
+                  axis_name)
 
 
 def all_to_all(x: torch.Tensor, axis_name, split_axis: int,
@@ -277,7 +341,8 @@ def all_to_all(x: torch.Tensor, axis_name, split_axis: int,
         raise ValueError(f"all_to_all needs dim {split_axis} of "
                          f"{tuple(x.shape)} to be the group's {n}")
     return _noted("all-to-all", torch.stack(
-        [v.select(split_axis, me) for v in vals], dim=concat_axis), n)
+        [v.select(split_axis, me) for v in vals], dim=concat_axis), n,
+        axis_name)
 
 
 def ppermute(x: torch.Tensor, axis_name, perm: Sequence[Tuple[int, int]]
@@ -289,7 +354,8 @@ def ppermute(x: torch.Tensor, axis_name, perm: Sequence[Tuple[int, int]]
     if len(src) > 1 or len({d for _, d in perm}) != len(perm):
         raise ValueError(f"ppermute's pairs send twice to one cell: {perm}")
     return _noted("collective-permute",
-                  vals[src[0]] if src else torch.zeros_like(x), len(vals))
+                  vals[src[0]] if src else torch.zeros_like(x), len(vals),
+                  axis_name)
 
 
 # --- the caller's thread-local state ---------------------------------------------

@@ -1,0 +1,372 @@
+"""Tensor parallelism over the ``model`` axis inside the partitioned
+training step (``train.step``): which parameter leaves a cell computes
+with as its own ``model`` shard, and the tape that cuts a cell's forward
+at its collectives and walks its backward segment by segment.
+
+The reference partitions its step under GSPMD with the ``BASELINE``
+ruleset, which puts ``heads``, ``kv_heads``, ``mlp``, ``vocab`` and
+``experts`` on ``model``: each device computes with its own model shard
+(Megatron-style tensor parallelism, which XLA derives). ``plan_for``
+makes the same decision once per (arch, mesh, ruleset), for the dense
+and MoE families, group by group of leaves (``Plan``): a group is
+*model-local* where its ``model`` cut falls on units the block code takes
+alone (attention: both head counts divide by the axis; the MLP's
+columns and rows; the experts; the vocabulary). Every other leaf (norm
+scales, the router, a group whose cut does not fall on such units, every
+leaf of another family) is gathered whole over ``model`` as before, and
+its work repeats in every cell of a ``model`` group.
+
+Autograd cannot run the collectives' transposes: on the card the engine
+runs every cell's CUDA backward in one device thread, where a collective
+waits for cells that never come (``spmd`` refuses it). So a ``Tape``
+runs a cell's forward as local segments (``run``: a function of explicit
+input tensors, its outputs detached leaves) with the collectives between
+them in the cell's own code (``enter``, ``exit``, ``all_to_all``,
+``all_gather``, ``pmax``), and ``backward`` walks the records in reverse:
+a segment's backward is ``torch.autograd.backward`` of its outputs
+against their accumulated ``.grad`` (after re-running it from its stored
+inputs, with ``remat``), a collective's is its transpose, called in the
+cell's code. Gradients of the parameters accumulate in their ``.grad``.
+Outside a step cell the same layer and loss code runs on ``INLINE``, whose
+segments are plain calls under autograd and whose plan keeps no leaf
+model-local (``models.transformer.block_apply``, ``models.lm.loss_fn``).
+
+Two conventions make the transposes those of Megatron's ``f`` and ``g``:
+every cell computes the whole loss of its data rows, identically across
+a ``model`` group, and the loss counts once. An entry (``enter``) is the
+identity forward and a ``model`` psum backward; an exit (``exit``) a
+psum forward and the identity backward; ``all_gather`` over ``model``
+(its result used identically by the group) slices its block backward.
+Hence the two rules the block code keeps: (a) replicated work (the
+norms, the router) sits ahead of an entry, so its gradient is the same
+in every cell and is not summed; (b) a replicated loss (the MoE's aux
+loss) is computed once ahead of an entry, or, where each cell computes a
+part, summed through an exit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.distributed import spmd
+
+AXIS = "model"
+
+
+# --- which leaves a cell keeps local ------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Which groups of leaves are model-local. ``segmented``: the step
+    runs the family's loss on a ``Tape`` (the dense and MoE families on a
+    mesh); ``size``: the ``model`` axis's."""
+
+    segmented: bool = False
+    size: int = 1
+    attn: bool = False
+    mlp: bool = False
+    shared: bool = False  # the MoE's shared MLP
+    experts: bool = False
+    vocab: bool = False
+    batch_axes: Tuple[str, ...] = ()  # the mesh axes that cut the batch
+
+    def repeated(self, cfg) -> List[str]:
+        """The blocks whose work repeats in every cell of a ``model``
+        group (their leaves gathered whole over it)."""
+        if self.size == 1:
+            return []
+        if not self.segmented:
+            return ["every block"]
+        out = [] if self.attn else ["attention"]
+        if cfg.family == "dense" and not self.mlp:
+            out.append("mlp")
+        if cfg.family == "moe":
+            if not self.experts:
+                out.append("experts")
+            if cfg.shared_expert and not self.shared:
+                out.append("shared mlp")
+        if not self.vocab:
+            out.append("embedding and logits")
+        return out
+
+
+def _at(tree, path):
+    for k in path:
+        if not isinstance(tree, dict) or k not in tree:
+            return None
+        tree = tree[k]
+    return tree
+
+
+def _model_cut(ts, spec) -> Optional[set]:
+    """The logical axes of a leaf that ``model`` cuts alone (None when it
+    is cut jointly with another mesh axis)."""
+    out = set()
+    entries = list(spec) + [None] * (len(ts.shape) - len(spec))
+    for name, e in zip(ts.logical, entries):
+        names = () if e is None else ((e,) if isinstance(e, str) else tuple(e))
+        if AXIS in names:
+            if len(names) > 1:
+                return None
+            out.add(name)
+    return out
+
+
+def _local(pspecs, param_specs, prefix, want: Dict[str, str]) -> bool:
+    """Whether every leaf ``prefix + name`` of ``want`` exists and is cut
+    by ``model`` on the logical axis ``want[name]`` and on no other."""
+    found = False
+    for name, axis in want.items():
+        ts = _at(pspecs, prefix + (name,))
+        if ts is None:
+            continue
+        found = True
+        if _model_cut(ts, _at(param_specs, prefix + (name,))) != {axis}:
+            return False
+    return found
+
+
+ATTN = {"wq": "heads", "wk": "kv_heads", "wv": "kv_heads", "wo": "heads",
+        "bq": "heads", "bk": "kv_heads", "bv": "kv_heads"}
+MLP = {"w_gate": "mlp", "w_up": "mlp", "w_down": "mlp"}
+EXPERTS = {"w_gate": "experts", "w_up": "experts", "w_down": "experts"}
+VOCAB = {"embedding": "vocab", "unembed": "vocab"}
+
+
+def plan_for(cfg, pspecs, param_specs, sizes: Dict[str, int],
+             batch_axes: Tuple[str, ...]) -> Plan:
+    """The plan for ``cfg``'s parameters (``pspecs``, the ``TensorSpec``
+    tree) laid out by ``param_specs`` over a mesh of axis ``sizes``."""
+    m = sizes.get(AXIS, 1)
+    if cfg.family not in ("dense", "moe"):
+        return Plan(size=m, batch_axes=batch_axes)
+    if m == 1:
+        return Plan(segmented=True, batch_axes=batch_axes)
+    layer = ("stack", "layers")
+
+    def local(prefix, want):
+        return _local(pspecs, param_specs, layer + prefix, want)
+
+    heads = cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0
+    return Plan(
+        segmented=True, size=m, batch_axes=batch_axes,
+        attn=heads and local(("attn",), ATTN),
+        mlp=local(("mlp",), MLP),
+        shared=local(("moe", "shared"), MLP),
+        experts=local(("moe",), EXPERTS),
+        vocab=_local(pspecs, param_specs, ("embed",), VOCAB))
+
+
+def local_leaves(plan: Plan, pspecs):
+    """A tree shaped like the parameters: True for each leaf a cell
+    computes with as its own ``model`` shard."""
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        if path[:1] == ("embed",):
+            return plan.vocab
+        if path[:2] != ("stack", "layers") or len(path) < 4:
+            return False
+        group, name = path[2], path[3]
+        if group == "attn":
+            return plan.attn
+        if group == "mlp":
+            return plan.mlp
+        if group == "moe":
+            if name == "shared":
+                return plan.shared
+            return plan.experts and name in EXPERTS
+        return False
+
+    return walk(pspecs, ())
+
+
+def paths(tree, prefix: str = ""):
+    """A tree shaped like ``tree`` (nested dicts) whose leaves are their
+    dotted paths."""
+    if isinstance(tree, dict):
+        return {k: paths(v, f"{prefix}{k}.") for k, v in tree.items()}
+    return prefix[:-1]
+
+
+# --- the tape ------------------------------------------------------------------------
+
+
+def _leaf(t):
+    """A segment output as a leaf of the autograd graphs that consume it
+    (the same storage); other values as they are."""
+    if isinstance(t, torch.Tensor) and t.is_floating_point():
+        return t.detach().requires_grad_()
+    return t
+
+
+def _accumulate(t: torch.Tensor, g: torch.Tensor) -> None:
+    g = g.to(t.dtype)
+    t.grad = g if t.grad is None else t.grad + g
+
+
+@dataclasses.dataclass
+class _Segment:
+    fn: Callable
+    inputs: Tuple[Any, ...]
+    leaves: Tuple[Any, ...]
+    graph: Optional[Tuple[Any, ...]]  # the outputs with their graph (no remat)
+
+
+@dataclasses.dataclass
+class _Collective:
+    src: torch.Tensor
+    dst: torch.Tensor
+    transpose: Callable[[torch.Tensor], torch.Tensor]
+
+
+class Tape:
+    """One cell's forward as local segments and collectives, and its
+    backward; see the module's docstring. With ``remat`` a segment's
+    forward runs without a graph and stores its inputs, and its backward
+    re-runs it first (PR 24's per-layer remat, per segment)."""
+
+    def __init__(self, remat: bool):
+        self.remat = remat
+        self.records: List[Any] = []
+
+    def run(self, fn: Callable, *inputs) -> Tuple[Any, ...]:
+        """``fn(*inputs)``, a tuple of tensors, as leaves. ``fn`` reads
+        the parameters by closure and issues no collective."""
+        with spmd.local_segment(), torch.set_grad_enabled(not self.remat):
+            outs = tuple(fn(*inputs))
+        leaves = tuple(_leaf(o) for o in outs)
+        self.records.append(_Segment(fn, inputs, leaves,
+                                     None if self.remat else outs))
+        return leaves
+
+    def _collective(self, src, dst, transpose):
+        if src.requires_grad:
+            self.records.append(_Collective(src, dst, transpose))
+        return dst
+
+    def enter(self, x: torch.Tensor, axis=AXIS) -> torch.Tensor:
+        """``x`` (used whole by every cell of the group) as the input of
+        a local computation: the identity forward, a psum of the
+        gradient backward."""
+        if _size(axis) == 1:
+            return x
+        return self._collective(x, _leaf(x),
+                                lambda g: spmd.psum(g, axis))
+
+    def exit(self, x: torch.Tensor, axis=AXIS) -> torch.Tensor:
+        """The group's sum of its cells' ``x`` (partial sums of one
+        replicated value): the gradient passes through as it is."""
+        if _size(axis) == 1:
+            return x
+        return self._collective(x, _leaf(spmd.psum(x.detach(), axis)),
+                                lambda g: g)
+
+    def all_to_all(self, x: torch.Tensor, axis, split_axis: int,
+                   concat_axis: int) -> torch.Tensor:
+        """``spmd.all_to_all``; backward the reverse exchange."""
+        y = spmd.all_to_all(x.detach(), axis, split_axis, concat_axis)
+        return self._collective(x, _leaf(y), lambda g: spmd.all_to_all(
+            g, axis, concat_axis, split_axis))
+
+    def all_gather(self, x: torch.Tensor, axis, dim: int = 0, *,
+                   replicated: bool = True) -> torch.Tensor:
+        """``spmd.all_gather`` along ``dim``. Backward: this cell's block
+        of the gradient where every cell of the group uses the result
+        identically and counts it once (``replicated``), else the group's
+        sum of every cell's block (the reduce-scatter, as where each data
+        cell's loss counts)."""
+        y = spmd.all_gather(x.detach(), axis, axis=dim)
+        n = x.shape[dim]
+
+        def transpose(g):
+            if replicated:
+                i = spmd.axis_index(axis)
+                return g.narrow(dim, i * n, n)
+            index = [slice(None)] * g.dim()
+            index[dim] = slice(spmd.axis_index(axis) * n,
+                               (spmd.axis_index(axis) + 1) * n)
+            return spmd.psum_block(g, axis, tuple(index))
+
+        return self._collective(x, _leaf(y), transpose)
+
+    def pmax(self, x: torch.Tensor, axis=AXIS) -> torch.Tensor:
+        """The group's elementwise max, no gradient."""
+        if _size(axis) == 1:
+            return x.detach()
+        return spmd.pmax(x.detach(), axis)
+
+    def backward(self, loss: torch.Tensor) -> None:
+        """Every parameter's gradient of ``loss`` (a leaf of the last
+        segment) into its ``.grad``: the records in reverse, each
+        dropped once done."""
+        loss.grad = torch.ones_like(loss)
+        while self.records:
+            rec = self.records.pop()
+            if isinstance(rec, _Collective):
+                g = rec.dst.grad
+                if g is None:  # every cell calls the transpose
+                    g = torch.zeros_like(rec.dst)
+                rec.dst.grad = None
+                _accumulate(rec.src, rec.transpose(g))
+                continue
+            self._segment_backward(rec)
+
+    def _segment_backward(self, rec: _Segment) -> None:
+        wanted = [i for i, t in enumerate(rec.leaves)
+                  if isinstance(t, torch.Tensor) and t.grad is not None]
+        grads = [rec.leaves[i].grad for i in wanted]
+        for t in rec.leaves:
+            if isinstance(t, torch.Tensor):
+                t.grad = None
+        if not wanted:
+            return
+        outs = rec.graph
+        if outs is None:
+            with spmd.local_segment(), torch.enable_grad():
+                outs = tuple(rec.fn(*rec.inputs))
+        pairs = [(outs[i], g) for i, g in zip(wanted, grads)
+                 if outs[i].requires_grad]
+        if pairs:
+            torch.autograd.backward([o for o, _ in pairs],
+                                    [g for _, g in pairs])
+
+
+def _size(axis) -> int:
+    return spmd.axis_size(axis)
+
+
+class Inline:
+    """The tape of the layer code outside a step cell (no mesh, or a
+    forward that is not the partitioned step's): each segment a plain
+    call under autograd, the model's own backward."""
+
+    @staticmethod
+    def run(fn: Callable, *inputs) -> Tuple[Any, ...]:
+        return tuple(fn(*inputs))
+
+
+@dataclasses.dataclass
+class Cell:
+    """What the block code of one cell reads: its tape and the plan."""
+
+    tape: Tape
+    plan: Plan
+
+    def index(self) -> int:
+        """This cell's index along ``model``."""
+        return spmd.axis_index(AXIS) if self.plan.size > 1 else 0
+
+    def block(self, n: int) -> Tuple[int, int]:
+        """This cell's ``[lo, hi)`` of ``n`` units cut over ``model``."""
+        k = n // self.plan.size
+        lo = self.index() * k
+        return lo, lo + k
+
+
+# the layer code outside a step cell: no leaf model-local, no collective
+INLINE = Cell(Inline(), Plan())

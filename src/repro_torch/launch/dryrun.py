@@ -22,16 +22,22 @@ Mesh kinds:
     (``spmd.one_cell``) on stand-ins of that cell's shards, so its
     collectives are the step's own parameter all-gathers, gradient
     reduce-scatters and optimizer all-reduces, each over its group as the
-    mesh sizes it, counted with the reference's ring factors. A serve
-    step is traced for one data cell's share of the batch at full model
-    width, on a mesh of that cell's ``model`` axis; its collectives are
-    the ones it issues over ``model`` (the a2a MoE's all-to-alls,
-    ``flash_decode``'s reductions), and one over the data axes
-    (``flash_decode``'s gather of its output under ``decode_flash``),
-    which that trace runs over one cell and cannot count, is refused.
-    Either way the port does not partition activations over ``model``:
-    each cell runs the model at full width, so the activation term is an
-    upper bound.
+    mesh sizes it, counted with the reference's ring factors. Its cell
+    computes the dense and MoE families tensor-parallel over ``model``
+    where the leaves' cut falls on heads, columns, experts or the
+    vocabulary (``distributed.tensor_parallel``): those collectives are
+    counted too (``per_axes``), and the activation term is the cell's
+    own. It is an upper bound (``activations_upper_bound``) where a block
+    repeats its work in every cell of a ``model`` group
+    (``repeated_over_model``: smollm's attention, whose 9 heads do not
+    split; every block of the other families). A serve step is traced for
+    one data cell's share of the batch at full model width, on a mesh of
+    that cell's ``model`` axis; its collectives are the ones it issues
+    over ``model`` (the a2a MoE's all-to-alls, ``flash_decode``'s
+    reductions), and one over the data axes (``flash_decode``'s gather of
+    its output under ``decode_flash``), which that trace runs over one
+    cell and cannot count, is refused. A serve cell runs the model at
+    full width, so its activation term is an upper bound.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-135m \\
@@ -191,6 +197,13 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, ruleset: str,
                 cell_ctx = ShardingCtx.for_mesh(_meta_mesh(cell_grid, axes),
                                                 ruleset)
                 trace_prog = build_program(cfg, run, cell_shape, cell_ctx)
+        # the blocks whose work every cell of a model group repeats: the
+        # partitioned step's (its tensor-parallel plan), every block of a
+        # serve program on a mesh
+        plan = getattr(prog.fn, "plan", None)
+        repeated = ([] if mesh_kind == "card" else
+                    plan.repeated(cfg) if plan is not None else
+                    ["every block"])
         summary = op_analysis.analyze(trace_prog.fn, *trace_prog.args)
         if mesh_kind != "card" and any(
                 d["one_cell_groups"] for d in summary.per_op.values()):
@@ -213,13 +226,15 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, ruleset: str,
             per_device_bytes={
                 "arguments": arg_b, "activations_and_temps": act_b,
                 "live_peak_est": live_b,
-                "activations_upper_bound": mesh_kind != "card"},
+                "activations_upper_bound": bool(repeated),
+                "repeated_over_model": repeated},
             fits_80gb=bool(live_b <= HBM_BYTES),
             ops={"dot_flops": summary.dot_flops,
                  "dot_bytes": summary.dot_bytes,
                  "collective_wire_bytes": summary.collective_wire_bytes,
                  "collective_op_bytes": summary.collective_op_bytes,
                  "per_op": summary.per_op,
+                 "per_axes": summary.per_axes,
                  "kernel_calls": summary.kernel_calls},
             collectives_not_issued=(None if mesh_kind == "card"
                                     or prog.cell is not None

@@ -13,8 +13,9 @@ the operators it dispatches:
     HBM traffic proxy, as in the reference);
   * the collectives that the program's ``shard_map`` cells issue
     (``distributed.spmd.observe``), with the reference's ring factors,
-    per device: the cells of a call issue the same collectives, so the
-    first cell's are counted;
+    per device, by operation and by the mesh axes they run over
+    (``per_axes``): the cells of a call issue the same collectives, so
+    the first cell's are counted;
   * each kernel operator's calls (``kernel_calls``);
   * the peak of the bytes of live tensor storages on the device of the
     program's largest argument, the arguments included: a storage
@@ -121,6 +122,9 @@ class Summary:
     collective_wire_bytes: float = 0.0
     collective_op_bytes: float = 0.0
     per_op: Dict[str, Dict[str, float]] = dataclasses.field(default_factory=dict)
+    # the same by the mesh axes each ran over ("all-reduce over model")
+    per_axes: Dict[str, Dict[str, float]] = dataclasses.field(
+        default_factory=dict)
     kernel_calls: Dict[str, int] = dataclasses.field(default_factory=dict)
     peak_bytes: int = 0
 
@@ -172,7 +176,8 @@ class _Ops(TorchDispatchMode):
                                                              out))
         return out
 
-    def collective(self, op: str, out: torch.Tensor, g: int, cell: int):
+    def collective(self, op: str, out: torch.Tensor, g: int, cell: int, *,
+                   axes, label):
         if cell != 0:  # every cell issues the same: count one device's
             return
         out_b = _bytes(out)
@@ -185,6 +190,10 @@ class _Ops(TorchDispatchMode):
         d["bytes"] += out_b
         d["wire"] += wire
         d["one_cell_groups"] += g <= 1  # a group of one sends nothing
+        a = self.s.per_axes.setdefault(f"{op} over {','.join(axes)}",
+                                       {"count": 0, "bytes": 0})
+        a["count"] += 1
+        a["bytes"] += out_b
 
 
 def analyze(fn: Callable, *args) -> Summary:

@@ -53,18 +53,21 @@ def attn_specs(cfg: ModelConfig, *, cross: bool = False) -> Dict[str, P.TensorSp
 
 
 def project_q(cfg: ModelConfig, w, x, positions, ctx: ShardingCtx, *, rope=True):
+    """q (B, S, H, D): H the heads of ``wq``'s columns, all of them or a
+    tensor-parallel cell's own (``distributed.tensor_parallel``)."""
     dt = x.dtype
     q = matmul(x, w["wq"])
     if "bq" in w:
         q = q + w["bq"].to(dt)
     B, S = x.shape[:2]
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    q = q.reshape(B, S, w["wq"].shape[1] // cfg.head_dim, cfg.head_dim)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
     return ctx.constrain(q, ("batch", "seq_inner", "heads", "head_dim"))
 
 
 def project_kv(cfg: ModelConfig, w, x, positions, ctx: ShardingCtx, *, rope=True):
+    """k, v (B, S, Hkv, D): Hkv the heads of ``wk``'s columns."""
     dt = x.dtype
     k = matmul(x, w["wk"])
     v = matmul(x, w["wv"])
@@ -72,8 +75,9 @@ def project_kv(cfg: ModelConfig, w, x, positions, ctx: ShardingCtx, *, rope=True
         k = k + w["bk"].to(dt)
         v = v + w["bv"].to(dt)
     B, S = x.shape[:2]
-    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    hkv = w["wk"].shape[1] // cfg.head_dim
+    k = k.reshape(B, S, hkv, cfg.head_dim)
+    v = v.reshape(B, S, hkv, cfg.head_dim)
     if rope:
         k = apply_rope(k, positions, cfg.rope_theta)
     k = ctx.constrain(k, ("batch", "seq_inner", "kv_heads", "head_dim"))

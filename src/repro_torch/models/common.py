@@ -68,6 +68,9 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def mlp_apply(w: Dict, x: torch.Tensor, ctx: ShardingCtx,
               act: str = "silu") -> torch.Tensor:
+    """The MLP, or, on a tensor-parallel cell's columns of ``w_gate`` and
+    ``w_up`` and rows of ``w_down``, its partial sum, which the block's
+    exit sums over ``model`` (``distributed.tensor_parallel``)."""
     gate = matmul(x, w["w_gate"])
     up = matmul(x, w["w_up"])
     gate = ctx.constrain(gate, ("batch", "seq_inner", "mlp")[: gate.ndim])
@@ -89,10 +92,22 @@ def embed_specs(cfg: ModelConfig) -> Dict:
 
 
 def embed_tokens(w: Dict, tokens: torch.Tensor, ctx: ShardingCtx,
-                 dtype: torch.dtype) -> torch.Tensor:
+                 dtype: torch.dtype, vocab_lo: Optional[int] = None
+                 ) -> torch.Tensor:
+    """The tokens' rows of the table. ``vocab_lo``: the table is a
+    tensor-parallel cell's rows from ``vocab_lo`` on, and a token outside
+    them gives a row of zeros (the cells' sum over ``model`` is the
+    lookup)."""
+    table = w["embedding"]
+    if vocab_lo is not None:
+        idx = tokens.long() - vocab_lo
+        inside = (idx >= 0) & (idx < table.shape[0])
+        x = table[idx.clamp(0, table.shape[0] - 1)].to(dtype)
+        return torch.where(inside[..., None], x, torch.zeros((), dtype=dtype,
+                                                             device=x.device))
     # gather, then cast: the same values as casting the table first, without
     # a copy of the whole table when the dtypes differ
-    x = w["embedding"][tokens].to(dtype)
+    x = table[tokens].to(dtype)
     return ctx.constrain(x, ("batch", "seq", "embed"))
 
 
@@ -114,6 +129,28 @@ def xent_loss(logits: torch.Tensor, labels: torch.Tensor,
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     label_logit = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return xent_of(lse, label_logit, z_loss)
+
+
+def vocab_parts(w: Dict, x: torch.Tensor, labels: torch.Tensor,
+                vocab_lo: int):
+    """A tensor-parallel cell's share of ``xent_loss`` over its vocabulary
+    rows from ``vocab_lo`` on: the logsumexp of its logits (float32) and
+    the label's logit where the label is one of its rows, else 0. No
+    (B, S, V) tensor leaves the cell."""
+    logits = logits_fn(w, x, ShardingCtx.null()).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    n = logits.shape[-1]
+    idx = labels.long() - vocab_lo
+    inside = (idx >= 0) & (idx < n)
+    label = torch.gather(logits, -1, idx.clamp(0, n - 1)[..., None])[..., 0]
+    return lse, torch.where(inside, label, torch.zeros_like(label))
+
+
+def xent_of(lse: torch.Tensor, label_logit: torch.Tensor,
+            z_loss: float = 1e-4):
+    """``xent_loss`` from the whole vocabulary's logsumexp and label
+    logits (B, S), float32."""
     nll = lse - label_logit
     zl = z_loss * torch.square(lse)
     loss = torch.mean(nll + zl)

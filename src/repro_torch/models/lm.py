@@ -10,6 +10,9 @@ Every architecture exposes the same entry points, the reference's, for
   param_specs(cfg)                   declarative parameter tree
   input_specs(cfg, shape)            batch stand-ins per ShapeSpec
   loss_fn(cfg, run, ctx, params, batch)      -> (loss, metrics)
+  loss_segments(cfg, run, ctx, cell, params, batch)   the dense and MoE
+                                     loss on a tape: a tensor-parallel
+                                     step cell's, or INLINE
   cache_specs(cfg, shape)            decode-state tree
   prefill_fn(...) / decode_fn(...)   serving programs
 """
@@ -21,6 +24,7 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeSpec
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.models import audio as AU
 from repro_torch.models import mamba2 as MB
@@ -29,7 +33,7 @@ from repro_torch.models import rwkv as RW
 from repro_torch.models import transformer as T
 from repro_torch.models.common import (compute_dtype, embed_specs, embed_tokens,
                                        logits_fn, rms_norm, rms_norm_specs,
-                                       xent_loss)
+                                       vocab_parts, xent_loss, xent_of)
 
 Q_CHUNK = 1024
 
@@ -108,16 +112,78 @@ def _backbone(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, batch,
     return x, aux
 
 
+def _total(loss, metrics, auxes):
+    """(loss, nll, z_loss, aux_loss): the cross-entropy's ``loss`` and
+    ``metrics`` plus the stack's aux losses, summed in order."""
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    for a in auxes:  # the layers' in order, as the stack sums them
+        aux = aux + a.float()
+    return loss + aux, metrics["nll"], metrics["z_loss"], aux
+
+
+def _metrics(loss, nll, zl, aux):
+    return loss, {"nll": nll, "z_loss": zl, "aux_loss": aux, "loss": loss}
+
+
 def loss_fn(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, batch):
     """Teacher-forced cross-entropy (plus the stack's auxiliary loss).
-    Returns (loss, metrics), both float32."""
+    Returns (loss, metrics), both float32. The dense and MoE families:
+    ``loss_segments`` on ``tensor_parallel.INLINE`` (plain calls)."""
+    if cfg.family in ("dense", "moe"):
+        return loss_segments(cfg, run, ctx, tp.INLINE, params, batch)
     x, aux = _backbone(cfg, run, ctx, params, batch, batch["tokens"])
-    logits = logits_fn(params["embed"], x, ctx)
-    loss, metrics = xent_loss(logits, batch["labels"])
-    loss = loss + aux
-    metrics["aux_loss"] = aux
-    metrics["loss"] = loss
-    return loss, metrics
+    return _metrics(*_total(*xent_loss(logits_fn(params["embed"], x, ctx),
+                                       batch["labels"]), (aux,)))
+
+
+def loss_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc,
+                  params, batch):
+    """``loss_fn`` of the dense and MoE families on the tape of ``tc`` (a
+    ``distributed.tensor_parallel.Cell``: a cell of the partitioned
+    training step, or ``INLINE``): the embedding, the stack
+    (``transformer.stack_segments``) and the loss head as local segments
+    and the collectives between them. Vocabulary-parallel where the
+    vocabulary is model-local: the lookup a partial sum (rows outside
+    the cell's give 0), the logits the cell's columns, each row's
+    logsumexp from the cells' by their ``pmax`` and a ``psum`` of the
+    exponentials, beside the label logits', so no (B, S, V) tensor
+    leaves a cell. Returns (loss, metrics), leaves of the last segment;
+    on a ``Tape``, ``tc.tape.backward(loss)`` then fills the parameters'
+    ``.grad``."""
+    tape, plan = tc.tape, tc.plan
+    dt = compute_dtype(run)
+    tokens, labels = batch["tokens"], batch["labels"]
+    positions = _positions(tokens)
+    lo = tc.block(cfg.vocab_size)[0] if plan.vocab else None
+    x, = tape.run(lambda: (embed_tokens(params["embed"], tokens, ctx, dt,
+                                        vocab_lo=lo),))
+    if plan.vocab:
+        x = tape.exit(x)
+    x, adds, auxes = T.stack_segments(cfg, run, ctx, tc, params["stack"], x,
+                                      positions, q_chunk=Q_CHUNK)
+
+    def final(x, *a):
+        return (rms_norm(T._resid(x, a), params["final_ln"], cfg.norm_eps),)
+
+    if plan.vocab:
+        h, = tape.run(final, x, *adds)
+        lse, label = tape.run(lambda h: vocab_parts(params["embed"], h, labels,
+                                                    lo), tape.enter(h))
+        top = tape.pmax(lse)
+        parts, = tape.run(lambda lse, label: (torch.stack(
+            [torch.exp(lse - top), label]),), lse, label)
+        outs = tape.run(lambda parts, *a: _total(*xent_of(
+            top + torch.log(parts[0]), parts[1]), a), tape.exit(parts),
+            *auxes)
+    else:
+        def whole(x, *rest):
+            a, auxes = rest[:len(adds)], rest[len(adds):]
+            h, = final(x, *a)
+            return _total(*xent_loss(logits_fn(params["embed"], h, ctx),
+                                     labels), auxes)
+
+        outs = tape.run(whole, x, *adds, *auxes)
+    return _metrics(*outs)
 
 
 def cache_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict:

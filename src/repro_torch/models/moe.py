@@ -8,13 +8,18 @@ bounded whatever the sequence length: at olmoe-1b-7b's 64 experts and a
 full group it is (4096, 64, 640) float32, 671 MB. ``impl="a2a"`` on a
 mesh with a ``model`` axis takes the expert-parallel path of
 ``models/moe_a2a`` (``spmd.shard_map`` and ``all_to_all`` over that
-axis), as the reference does.
+axis), as the reference does. Inside a cell of the partitioned training
+step the layer runs in parts instead (``moe_groups``, ``router_logits``,
+``route_logits``, ``experts_apply``; the a2a's ``a2a_route``,
+``a2a_experts``, ``a2a_combine`` on the step's own ``model`` axis, no
+nested ``shard_map``), put together by ``models.transformer``'s
+segmented stack with the collectives between them.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -58,60 +63,53 @@ def _route(cfg: ModelConfig, logits: torch.Tensor):
     return w, ids, probs
 
 
-def _combine_tensor(cfg: ModelConfig, w, ids, C: int):
-    """(g, E, C) combine weights (GShard): the slot of each assignment is
-    its rank among the expert's assignments in priority order, every
-    token's k=0 choice first, then its k=1 choice, and so on (a cumsum over
-    the k-major flattening); an assignment whose slot is C or more is
-    dropped. The reference sums k one-hot products of (g, E, C); since a
-    token's k experts differ, each cell holds at most one assignment, so
-    the port writes the same values into their cells, without k temporaries
-    of the combine tensor's size."""
+def _slots(cfg: ModelConfig, ids, C: int):
+    """(slot, keep) of each assignment (g, k) (GShard): its rank among
+    the expert's assignments in priority order, every token's k=0 choice
+    first, then its k=1 choice, and so on (a cumsum over the k-major
+    flattening); an assignment whose slot is C or more is dropped."""
     g, k = ids.shape
-    E = cfg.num_experts
-    onehot = F.one_hot(ids, E).float()  # (g, k, E)
-    flat = onehot.transpose(0, 1).reshape(k * g, E)
-    pos = (torch.cumsum(flat, dim=0) - flat).reshape(k, g, E)
+    onehot = F.one_hot(ids, cfg.num_experts).float()  # (g, k, E)
+    flat = onehot.transpose(0, 1).reshape(k * g, cfg.num_experts)
+    pos = (torch.cumsum(flat, dim=0) - flat).reshape(k, g, cfg.num_experts)
     slot = (pos * onehot.transpose(0, 1)).sum(dim=-1).T.long()  # (g, k)
-    keep = slot < C
-    # a dropped assignment writes 0 into slot 0 of its expert (where the
-    # reference's one_hot gives a zero row): mask before indexing
+    return slot, slot < C
+
+
+def _combine_of(w, ids, slot, keep, lo: int, n: int, C: int):
+    """(g, n, C) combine weights of experts ``[lo, lo + n)``. The
+    reference sums k one-hot products of (g, E, C); since a token's k
+    experts differ, each cell holds at most one assignment, so the port
+    writes the same values into their cells, without k temporaries of the
+    combine tensor's size. An assignment dropped, or to another expert,
+    writes 0 into cell (0, 0) (where the reference's one_hot gives a zero
+    row): masked before indexing."""
+    g, k = ids.shape
+    mine = keep & (ids >= lo) & (ids < lo + n)
     rows = torch.arange(g, device=ids.device)[:, None].expand(g, k)
-    combine = torch.zeros((g, E, C), dtype=torch.float32, device=w.device)
-    return combine.index_put((rows, ids, torch.where(keep, slot, 0)),
-                             w * keep, accumulate=True)
+    combine = torch.zeros((g, n, C), dtype=torch.float32, device=w.device)
+    return combine.index_put(
+        (rows, torch.where(mine, ids - lo, 0), torch.where(mine, slot, 0)),
+        w * mine, accumulate=True)
 
 
-def _moe_group_apply(cfg: ModelConfig, ctx: ShardingCtx, wts, xg):
-    """xg: (g, d) one token group -> (y (g, d), aux). Its four parts run
-    under the ranges (``repro_torch.ranges``) ``moe_route``,
-    ``moe_dispatch``, ``moe_experts`` and ``moe_combine``, which a trace
-    reads."""
-    dt = xg.dtype
-    g = xg.shape[0]
-    C = capacity(g, cfg)
-    with ranges.named("moe_route"):
-        logits = xg @ wts["router"].to(dt)  # (g, E)
-        w, ids, probs = _route(cfg, logits)
-        combine = _combine_tensor(cfg, w, ids, C)  # (g, E, C) f32
-        combine = ctx.constrain(combine, ("batch", "experts", "capacity"))
-        kept = combine > 0
-    with ranges.named("moe_dispatch"):
-        xe = torch.einsum("gec,gd->ecd", kept.to(dt), xg)
-        xe = ctx.constrain(xe, ("experts", "capacity", "embed"))
-    with ranges.named("moe_experts"):
-        h = F.silu(torch.einsum("ecd,edf->ecf", xe, wts["w_gate"].to(dt)))
-        h = h * torch.einsum("ecd,edf->ecf", xe, wts["w_up"].to(dt))
-        h = ctx.constrain(h, ("experts", "capacity", "expert_mlp"))
-        ye = torch.einsum("ecf,efd->ecd", h, wts["w_down"].to(dt))
-        ye = ctx.constrain(ye, ("experts", "capacity", "embed"))
-    with ranges.named("moe_combine"):
-        y = torch.einsum("gec,ecd->gd", combine.to(dt), ye)
-        # load-balancing aux loss (Switch): E * sum_e(frac_tokens_e *
-        # mean_prob_e)
-        frac = kept.sum(dim=2).float().mean(dim=0) / cfg.experts_per_token
-        aux = cfg.num_experts * torch.sum(frac * probs.mean(dim=0))
-    return y, aux
+def _combine_tensor(cfg: ModelConfig, w, ids, C: int):
+    """(g, E, C) combine weights: ``_slots``, then ``_combine_of`` every
+    expert."""
+    slot, keep = _slots(cfg, ids, C)
+    return _combine_of(w, ids, slot, keep, 0, cfg.num_experts, C)
+
+
+def _aux_of(cfg: ModelConfig, ids, kept, probs):
+    """The load-balancing aux loss (Switch) of one group: E * sum_e
+    (frac_tokens_e * mean_prob_e), ``kept`` (g, k) the assignments that
+    hold a slot and a weight above 0 (the combine tensor's cells above
+    0)."""
+    counts = torch.zeros(cfg.num_experts, dtype=torch.float32,
+                         device=ids.device).index_add_(
+        0, ids.reshape(-1), kept.reshape(-1).float())
+    frac = counts / ids.shape[0] / cfg.experts_per_token
+    return cfg.num_experts * torch.sum(frac * probs.mean(dim=0))
 
 
 def moe_apply(cfg: ModelConfig, ctx: ShardingCtx, wts, x,
@@ -124,15 +122,85 @@ def moe_apply(cfg: ModelConfig, ctx: ShardingCtx, wts, x,
         from repro_torch.models.moe_a2a import moe_a2a_apply
         return moe_a2a_apply(cfg, ctx, wts, x)
     B, S, d = x.shape
-    T = B * S
-    xf = x.reshape(T, d)
-    group = min(MOE_GROUP, T)
-    if T % group != 0:
-        group = T
-    outs = [_moe_group_apply(cfg, ctx, wts, xc) for xc in xf.split(group)]
-    # the groups' aux losses averaged (one group: its own, exactly)
-    y = torch.cat([o[0] for o in outs]).reshape(B, S, d)
-    aux = torch.stack([o[1] for o in outs]).mean()
+    xf = x.reshape(B * S, d)
+    group, _ = moe_groups(B * S, 1)
+    w, ids, slot, keep, aux = route_logits(
+        cfg, router_logits(wts, xf, group), group)
+    y = experts_apply(cfg, wts, xf, w, ids, slot, keep, 0, group,
+                      group).reshape(B, S, d)
     if cfg.shared_expert:
         y = y + mlp_apply(wts["shared"], x, ctx, cfg.act)
-    return y, aux * cfg.router_aux_loss
+    return y, aux
+
+
+# --- the layer's parts -------------------------------------------------------------
+# ``moe_apply`` runs them in turn; ``models.transformer``'s segmented stack
+# runs the routing whole in every cell of a ``model`` group, ahead of its
+# entry, and the experts on the cell's own (``distributed.tensor_parallel``).
+# Each token group's routing, dispatch, expert products and combine run
+# under the ranges (``repro_torch.ranges``) ``moe_route``, ``moe_dispatch``,
+# ``moe_experts`` and ``moe_combine``, which a trace reads.
+
+
+def moe_groups(tokens: int, n_batch: int) -> Tuple[int, int]:
+    """The reference's token group where ``n_batch`` data cells hold
+    ``tokens`` tokens each: (the group's size over the whole batch, the
+    rows of a group that one cell holds). A group lies within a cell, or
+    is the whole batch (the cells gather its router logits)."""
+    total = tokens * n_batch
+    group = min(MOE_GROUP, total)
+    if total % group:
+        group = total
+    if tokens % group == 0:
+        return group, group
+    if group == total:
+        return group, tokens
+    raise NotImplementedError(
+        f"MoE token groups of {group} over {n_batch} data cells of "
+        f"{tokens} tokens each span some cells but not all")
+
+
+def router_logits(wts, x, rows: int):
+    """x: (T, d) -> (T, E) router logits, ``rows`` at a time (a group's
+    rows in this cell), in the activations' dtype."""
+    return torch.cat([xg @ wts["router"].to(x.dtype) for xg in x.split(rows)])
+
+
+def route_logits(cfg: ModelConfig, logits, group: int):
+    """Every group's routing of (T, E) logits: the weights (T, k) in
+    float32, expert ids, slots, ``keep`` and the aux loss (the groups'
+    mean, times ``router_aux_loss``)."""
+    parts = []
+    for lg in logits.split(group):
+        with ranges.named("moe_route"):
+            w, ids, probs = _route(cfg, lg)
+            slot, keep = _slots(cfg, ids, capacity(group, cfg))
+            parts.append((w, ids, slot, keep,
+                          _aux_of(cfg, ids, keep & (w > 0), probs)))
+    w, ids, slot, keep = (torch.cat([p[i] for p in parts]) for i in range(4))
+    # the groups' aux losses averaged (one group: its own, exactly)
+    aux = torch.stack([p[4] for p in parts]).mean()
+    return w, ids, slot, keep, aux * cfg.router_aux_loss
+
+
+def experts_apply(cfg: ModelConfig, wts, x, w, ids, slot, keep, lo: int,
+                  group: int, rows: int):
+    """(T, d): the output of the experts ``wts`` holds (from ``lo`` on)
+    for the tokens ``x`` (T, d) routed to them, ``rows`` tokens of a group
+    of ``group`` at a time; the rest of each token's experts add in the
+    other cells of its ``model`` group."""
+    dt = x.dtype
+    n, C = wts["w_gate"].shape[0], capacity(group, cfg)
+    out = []
+    for xg, wg, ig, sg, kg in zip(*(t.split(rows) for t in
+                                    (x, w, ids, slot, keep))):
+        with ranges.named("moe_dispatch"):
+            combine = _combine_of(wg, ig, sg, kg, lo, n, C)
+            xe = torch.einsum("gec,gd->ecd", (combine > 0).to(dt), xg)
+        with ranges.named("moe_experts"):
+            h = F.silu(torch.einsum("ecd,edf->ecf", xe, wts["w_gate"].to(dt)))
+            h = h * torch.einsum("ecd,edf->ecf", xe, wts["w_up"].to(dt))
+            ye = torch.einsum("ecf,efd->ecd", h, wts["w_down"].to(dt))
+        with ranges.named("moe_combine"):
+            out.append(torch.einsum("gec,ecd->gd", combine.to(dt), ye))
+    return torch.cat(out)

@@ -6,7 +6,12 @@ index here. With remat each layer runs under
 ``torch.utils.checkpoint.checkpoint``: its activations are dropped after
 the forward and recomputed in the backward. Grouping into chunks of
 ``group`` layers with checkpoints at both levels stores O(L/G + G)
-residual-stream slices instead of O(L).
+residual-stream slices instead of O(L). In a cell of the partitioned
+training step the dense and MoE stacks loop over their layers on a
+``distributed.tensor_parallel.Tape`` instead
+(``models.transformer.stack_segments``): each layer's halves are
+segments, rematerialised one by one, and the tape stores every
+segment's inputs; grouped remat is not reproduced there.
 """
 
 from __future__ import annotations

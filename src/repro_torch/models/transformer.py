@@ -2,10 +2,12 @@
 the counterpart of ``repro/models/transformer.py``.
 
 A block (attention + MLP, or attention + MoE layer): specs, the
-teacher-forced forward, the prefill that also returns the block's (k, v),
-and one decode step against a KV cache; the zamba2 stack applies it as its
-weight-tied shared block. The dense and MoE stacks keep the reference's
-stacked ``(L, ...)`` parameters and run their layers through
+teacher-forced forward (``block_apply``: the segmented stack's layer, the
+same code as in a cell of the partitioned training step, on
+``tensor_parallel.INLINE``), the prefill that also returns the block's
+(k, v), and one decode step against a KV cache; the zamba2 stack applies
+it as its weight-tied shared block. The dense and MoE stacks keep the
+reference's stacked ``(L, ...)`` parameters and run their layers through
 ``scan_utils.grouped_scan`` (remat per layer under ``run.remat ==
 "block"``). The VLM family stacks super-blocks of ``cross_attn_every``
 layers ([p-1 self layers, 1 gated cross-attention layer] x groups,
@@ -22,6 +24,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
@@ -43,33 +46,33 @@ def block_specs(cfg: ModelConfig, *, moe: bool) -> Dict:
     return s
 
 
-def _attend(cfg: ModelConfig, ctx: ShardingCtx, w, x, positions, q_chunk):
-    """The attention half: (x + attn(x), k, v)."""
-    B, S, _ = x.shape
-    h = rms_norm(x, w["ln1"], cfg.norm_eps)
-    q = A.project_q(cfg, w["attn"], h, positions, ctx)
-    k, v = A.project_kv(cfg, w["attn"], h, positions, ctx)
+def _attention_out(cfg: ModelConfig, ctx: ShardingCtx, wa, h, positions,
+                   q_chunk):
+    """(attn(h) through ``wo``, k, v) of the heads ``wa`` holds: all of
+    them, or a tensor-parallel cell's own (then a partial sum)."""
+    B, S, _ = h.shape
+    q = A.project_q(cfg, wa, h, positions, ctx)
+    k, v = A.project_kv(cfg, wa, h, positions, ctx)
     o = A.attention_auto(q, k, v, causal=cfg.causal, window=cfg.sliding_window,
                          softcap=cfg.attn_logit_softcap, q_chunk=q_chunk, ctx=ctx)
-    o = matmul(o.reshape(B, S, cfg.q_dim), w["attn"]["wo"])
-    return x + ctx.constrain(o, ("batch", "seq", "embed")), k, v
+    return matmul(o.reshape(B, S, -1), wa["wo"]), k, v
 
 
 def _mlp_residual(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x):
-    """The second half: (x + mlp(x) or x + moe(x), the MoE aux loss or
-    None)."""
+    """The second half of a serving step: x + mlp(x) or x + moe(x)."""
     h2 = rms_norm(x, w["ln2"], cfg.norm_eps)
     if "moe" in w:
-        y, aux = M.moe_apply(cfg, ctx, w["moe"], h2, impl=run.moe_impl)
-        return x + y, aux
-    return x + mlp_apply(w["mlp"], h2, ctx, cfg.act), None
+        return x + M.moe_apply(cfg, ctx, w["moe"], h2, impl=run.moe_impl)[0]
+    return x + mlp_apply(w["mlp"], h2, ctx, cfg.act)
 
 
 def block_apply(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x,
                 positions, *, q_chunk: int = 1024):
-    """Returns (x, aux_loss): the MoE layer's, or 0."""
-    x, _, _ = _attend(cfg, ctx, w, x, positions, q_chunk)
-    x, aux = _mlp_residual(cfg, run, ctx, w, x)
+    """Returns (x, aux_loss): the MoE layer's, or 0. The segmented
+    stack's layer (``layer_segments``) on ``tensor_parallel.INLINE``."""
+    x, adds, aux = layer_segments(cfg, run, ctx, tp.INLINE, lambda: w, x, (),
+                                  positions, q_chunk)
+    x = _resid(x, adds)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
@@ -94,14 +97,15 @@ def block_decode(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x, ck,
         o = A.decode_attention(q, ck, cv, pos, window=cfg.sliding_window,
                                softcap=cfg.attn_logit_softcap)
     o = matmul(o.reshape(B, 1, cfg.q_dim), w["attn"]["wo"])
-    x, _ = _mlp_residual(cfg, run, ctx, w, x + o)
+    x = _mlp_residual(cfg, run, ctx, w, x + o)
     return x, ck, cv
 
 
 def block_prefill(cfg, run, ctx, w, x, positions, *, q_chunk=1024):
     """Like block_apply but also returns this layer's (k, v) for the cache."""
-    x, k, v = _attend(cfg, ctx, w, x, positions, q_chunk)
-    x, _ = _mlp_residual(cfg, run, ctx, w, x)
+    x, h = _normed(x, (), w["ln1"], cfg.norm_eps)
+    o, k, v = _attention_out(cfg, ctx, w["attn"], h, positions, q_chunk)
+    x = _mlp_residual(cfg, run, ctx, w, x + o)
     return x, k, v
 
 
@@ -286,3 +290,218 @@ def stack_prefill(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x,
         return x, {"self": P.stack_layers(self_c),
                    "cross": P.stack_layers(cross_c)}
     return prefill_layers(x, w["layers"], cfg.num_layers)
+
+
+# --- the segmented stack: tensor parallelism over "model" ----------------------------
+# The dense and MoE training stacks, written once for both callers: each
+# half of a layer is a segment ahead of its entry (the residual sum, the
+# norm and, for the MoE, the routing: replicated work, rule (a)) and a
+# segment of the layer's own work, whose output the next segment adds to
+# the residual stream. In a cell of the partitioned training step
+# (``train.step``) the segments run on a ``distributed.tensor_parallel.Tape``
+# with an entry and an exit around the work of a model-local half (the
+# cell's heads, columns or experts); a half gathered whole over ``model``
+# has no collective there. Outside the step (``block_apply``) the same
+# halves run on ``tensor_parallel.INLINE``: plain calls, no collective.
+
+
+def _resid(x, adds):
+    """``x`` plus the terms a layer's half left to add: its output and,
+    after a MoE layer, its shared MLP's."""
+    if not adds:
+        return x
+    y = adds[0].reshape(x.shape)
+    for a in adds[1:]:
+        y = y + a.reshape(x.shape)
+    return x + y
+
+
+def _normed(x, adds, scale, eps: float):
+    """The replicated head of a half: (the residual stream, its norm)."""
+    x = _resid(x, adds)
+    return x, rms_norm(x, scale, eps)
+
+
+def _same(t):
+    return t
+
+
+def _attn_half(cfg, ctx, tc, wl, x, adds, positions, q_chunk):
+    """The attention half of a layer. Returns (x, adds): the residual
+    stream and what the next segment adds to it."""
+    tape = tc.tape
+    local = tc.plan.attn
+    x, h = tape.run(lambda x, *a: _normed(x, a, wl()["ln1"], cfg.norm_eps),
+                    x, *adds)
+    part, = tape.run(lambda h: (_attention_out(
+        cfg, ctx, wl()["attn"], h, positions, q_chunk)[0],),
+        tape.enter(h) if local else h)
+    return x, (tape.exit(part) if local else part,)
+
+
+def _mlp_half(cfg, run, ctx, tc, wl, x, adds):
+    """The dense MLP half. Returns (x, adds, aux=None)."""
+    tape = tc.tape
+    local = tc.plan.mlp
+    x, h = tape.run(lambda x, *a: _normed(x, a, wl()["ln2"], cfg.norm_eps),
+                    x, *adds)
+    part, = tape.run(lambda h: (mlp_apply(wl()["mlp"], h, ctx, cfg.act),),
+                     tape.enter(h) if local else h)
+    return x, (tape.exit(part) if local else part,), None
+
+
+def _moe_whole(cfg, run, ctx, tc, wl, x, adds):
+    """The MoE half outside the partitioned step: ``moe.moe_apply``
+    (whose a2a on a mesh with a ``model`` axis is its own ``shard_map``).
+    Returns (x, adds, aux)."""
+    x, h = _normed(x, adds, wl()["ln2"], cfg.norm_eps)
+    y, aux = M.moe_apply(cfg, ctx, wl()["moe"], h, impl=run.moe_impl)
+    return x, (y,), aux
+
+
+def _moe_half(cfg, run, ctx, tc, wl, x, adds):
+    """The MoE half in a step cell, dense dispatch: the routing whole in
+    the replicated segment (its aux loss counted once: rule (b)); the
+    routing weights enter the expert segment beside the activations, so
+    their gradient is summed over ``model``. Returns (x, adds, aux)."""
+    from repro_torch.distributed import spmd
+
+    tape, plan = tc.tape, tc.plan
+    B, S, d = x.shape
+    T = B * S
+    batch = plan.batch_axes
+    group, rows = M.moe_groups(T, spmd.axis_size(batch) if batch else 1)
+    spans = rows < group  # one group of every data cell's tokens
+    shared_here = cfg.shared_expert and not plan.shared
+
+    def wm():
+        return wl()["moe"]
+
+    def pre(x, *a):
+        x, h = _normed(x, a, wl()["ln2"], cfg.norm_eps)
+        logits = M.router_logits(wm(), h.reshape(T, d), rows)
+        out = [x, h, *((logits,) if spans else
+                       M.route_logits(cfg, logits, group))]
+        if shared_here:
+            out.append(mlp_apply(wm()["shared"], h, ctx, cfg.act))
+        return out
+
+    x, h, *rest = tape.run(pre, x, *adds)
+    if spans:
+        logits = tape.all_gather(rest.pop(0), batch, 0, replicated=False)
+
+        def route(lg):
+            lo = spmd.axis_index(batch) * T
+            w, ids, slot, keep, aux = M.route_logits(cfg, lg, group)
+            return (*(t[lo:lo + T] for t in (w, ids, slot, keep)), aux)
+
+        routed = list(tape.run(route, logits))
+    else:
+        routed, rest = rest[:5], rest[5:]
+    w, ids, slot, keep, aux = routed
+    enter = tape.enter if plan.experts else _same
+    h_in, w_in = enter(h), enter(w)
+    lo = tc.block(cfg.num_experts)[0] if plan.experts else 0
+
+    def experts(h, w, ids, slot, keep):
+        y = M.experts_apply(cfg, wm(), h.reshape(T, d), w, ids, slot, keep,
+                            lo, group, rows).reshape(B, S, d)
+        if cfg.shared_expert and plan.shared:
+            y = y + mlp_apply(wm()["shared"], h, ctx, cfg.act)
+        return (y,)
+
+    part, = tape.run(experts, h_in, w_in, ids, slot, keep)
+    y = tape.exit(part) if plan.experts else part
+    return x, (y, *rest), aux
+
+
+def _a2a_half(cfg, run, ctx, tc, wl, x, adds):
+    """The MoE half in a step cell, expert-parallel (``moe_a2a``) on the
+    step's own ``model`` axis: the activations and the router enter
+    (each rank routes its slice of the tokens, so the router's gradient
+    is a partial sum), the all-to-all pair moves the buckets, the
+    all-gather rejoins the ranks' slices, and the ranks' aux losses are
+    summed by an exit and averaged. Returns (x, adds, aux)."""
+    from repro_torch.models import moe_a2a as MA
+
+    tape, plan = tc.tape, tc.plan
+    n = plan.size
+    if n > 1 and not plan.experts:
+        raise ValueError(f"{cfg.num_experts} experts do not split over "
+                         f"{n} model ranks")
+    B, S, d = x.shape
+    T = B * S
+    shared_here = cfg.shared_expert and not plan.shared
+
+    def wm():
+        return wl()["moe"]
+
+    def pre(x, *a):
+        x, h = _normed(x, a, wl()["ln2"], cfg.norm_eps)
+        out = [x, h, wm()["router"]]
+        if shared_here:
+            out.append(mlp_apply(wm()["shared"], h, ctx, cfg.act))
+        return out
+
+    x, h, router, *rest = tape.run(pre, x, *adds)
+    m = tc.index()
+
+    def route(h, router):
+        send, packing, aux = MA.a2a_route(cfg, n, m, h.reshape(T, d), router)
+        out = [send, *packing, aux]
+        if cfg.shared_expert and plan.shared:
+            out.append(mlp_apply(wm()["shared"], h, ctx, cfg.act))
+        return out
+
+    outs = tape.run(route, tape.enter(h), tape.enter(router))
+    send, packing, aux, shared = outs[0], outs[1:6], outs[6], outs[7:]
+    recv = tape.all_to_all(send, "model", 0, 0)
+    ye, = tape.run(lambda r: (MA.a2a_experts(
+        r, wm()["w_gate"], wm()["w_up"], wm()["w_down"]),), recv)
+    back = tape.all_to_all(ye, "model", 0, 0)
+    y_m, = tape.run(lambda b, *p: (MA.a2a_combine(b, *p, T // n),), back,
+                    *packing)
+    y = tape.all_gather(y_m, "model", 0)
+    aux, = tape.run(lambda a: (a / n * cfg.router_aux_loss,),
+                    tape.exit(aux))
+    shared = [tape.exit(s) for s in shared]
+    return x, (y, *shared, *rest), aux
+
+
+def layer_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc, wl,
+                   x, adds, positions, q_chunk: int):
+    """One dense or MoE layer on the tape of ``tc`` (a
+    ``distributed.tensor_parallel.Cell``), its leaves read by ``wl()``.
+    Returns (x, adds, aux): the residual stream, the terms still to add
+    to it (``_resid``), the MoE layer's aux loss or None."""
+    x, adds = _attn_half(cfg, ctx, tc, wl, x, adds, positions, q_chunk)
+    if not cfg.is_moe:
+        half = _mlp_half
+    elif tc is tp.INLINE:
+        half = _moe_whole
+    elif run.moe_impl == "a2a" and "model" in ctx.mesh.axis_names:
+        half = _a2a_half
+    else:
+        half = _moe_half
+    return half(cfg, run, ctx, tc, wl, x, adds)
+
+
+def stack_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc, w,
+                   x, positions, *, q_chunk: int = 1024):
+    """The dense or MoE stack on the tape of ``tc``, from the leaf ``x``.
+    Returns (x, adds, auxes): the last residual, the terms still to add
+    to it (``_resid``), each MoE layer's aux loss. On ``INLINE`` the
+    stack is ``stack_apply``'s, grouped remat included."""
+    if tc is tp.INLINE:
+        x, aux = stack_apply(cfg, run, ctx, w, x, positions, q_chunk=q_chunk)
+        return x, (), [aux]
+    adds, auxes = (), []
+    for i in range(cfg.num_layers):
+        def wl(i=i):
+            return P.layer(w["layers"], i)
+
+        x, adds, aux = layer_segments(cfg, run, ctx, tc, wl, x, adds,
+                                      positions, q_chunk)
+        if aux is not None:
+            auxes.append(aux)
+    return x, adds, auxes

@@ -12,26 +12,37 @@ With a mesh the step is partitioned over it, as the reference's
 arrive as ``sharding.MeshArray``s, each mesh cell holding its FSDP x
 model shard of every leaf, and the step is one ``spmd.shard_map`` over
 the whole mesh. Each cell casts its parameter shards to the compute
-dtype, all-gathers each leaf over the mesh axes its spec cuts, runs the
-model on its share of the batch (cut over the ``batch`` rule's axes) at
-full width, and keeps of each gradient the shard it owns, averaged over
-the cells that cut the batch (a reduce-scatter in the accumulation
-dtype). The cells of one ``model`` group see the same batch rows: over
-the axes that do not cut the batch the gradient is sliced, not summed.
-AdamW then updates each cell's shards (``optim.adamw``'s ``cells``).
+dtype and all-gathers each leaf over the mesh axes its spec cuts, but
+``model`` for a model-local leaf (``distributed.tensor_parallel``: the
+attention's heads, the MLP's columns and rows, the experts and the
+vocabulary of the dense and MoE families, where their cut falls on such
+units), and runs the model on its share of the batch (cut over the
+``batch`` rule's axes): the dense and MoE families tensor-parallel over
+``model`` on a ``tensor_parallel.Tape`` (``lm.loss_segments``), whose
+backward runs the collectives' transposes in the cell's code; the other
+families at full width under autograd. Each cell keeps of each gradient
+the shard it owns, averaged over the cells that cut the batch (a
+reduce-scatter in the accumulation dtype): a model-local leaf's
+gradient is its own block already; the cells of one ``model`` group see
+the same batch rows, so over the other axes that do not cut the batch
+a gathered leaf's gradient is sliced, not summed. AdamW then updates
+each cell's shards (``optim.adamw``'s ``cells``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.distributed import spmd
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import MeshSharding, ShardingCtx
 from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.models import lm, params as P
+from repro_torch.models.moe import moe_groups
 from repro_torch.optim.adamw import OptState, adamw_init_specs, adamw_update
 
 
@@ -61,8 +72,11 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx,
     accum_dt = P.torch_dtype(run.grad_accum_dtype)
     compute_dt = P.torch_dtype(run.compute_dtype)
 
-    def grad_fn(params_c, batch):
-        """(loss, metrics), grads of ``loss_fn`` at the cast params."""
+    def grad_fn(params_c, batch, plan=None):
+        """(loss, metrics), grads of ``loss_fn`` at the cast params; with
+        a segmented ``plan``, of ``lm.loss_segments`` on a tape."""
+        if plan is not None and plan.segmented:
+            return _taped_grads(cfg, run, ctx, plan, params_c, batch)
         flat = list(P.leaves(params_c))
         with torch.enable_grad():
             loss, metrics = lm.loss_fn(cfg, run, ctx, params_c, batch)
@@ -82,11 +96,11 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx,
         # Each cast leaf is a leaf of the autograd graph.
         return P.tree_map(lambda p: as_leaf(cast(p)), params)
 
-    def loss_and_grads(params_c, batch):
+    def loss_and_grads(params_c, batch, plan=None):
         """((loss, metrics), grads) of ``batch`` in ``n_accum``
         microbatches, the gradients averaged in the accumulation dtype."""
         if n_accum == 1:
-            return grad_fn(params_c, batch)
+            return grad_fn(params_c, batch, plan)
         micro = {k: v.reshape((n_accum, v.shape[0] // n_accum)
                               + v.shape[1:])
                  for k, v in batch.items() if v.dim() >= 1}
@@ -98,7 +112,8 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx,
         # accum-dtype copy of the gradients, not two at each add
         for i in range(n_accum):
             (loss, _), g = grad_fn(params_c, {k: v[i]
-                                              for k, v in micro.items()})
+                                              for k, v in micro.items()},
+                                   plan)
             P.tree_map(lambda a, b: a.add_(b.to(accum_dt)), grads, g)
             del g
             loss_sum = loss_sum + loss.float()
@@ -107,7 +122,7 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx,
         return (loss, {"loss": loss}), grads
 
     if ctx.mesh is not None:
-        return _partitioned(cfg, run, ctx, global_batch, cast,
+        return _partitioned(cfg, run, ctx, global_batch, n_accum, cast,
                             loss_and_grads)
 
     def train_step(params, opt_state: OptState, batch: Dict):
@@ -121,6 +136,23 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx,
         return params, opt_state, metrics
 
     return train_step
+
+
+def _taped_grads(cfg, run, ctx, plan, params_c, batch):
+    """(loss, metrics), grads of one cell's ``lm.loss_segments`` on a
+    ``tensor_parallel.Tape`` (remat per segment under block remat)."""
+    cell = tp.Cell(tp.Tape(remat=run.remat == "block"), plan)
+    with torch.enable_grad():
+        loss, metrics = lm.loss_segments(cfg, run, ctx, cell, params_c,
+                                         batch)
+        cell.tape.backward(loss)
+
+    def grad(p):
+        g, p.grad = p.grad, None
+        return torch.zeros_like(p) if g is None else g
+
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return (loss.detach(), metrics), P.tree_map(grad, params_c)
 
 
 def as_leaf(p: torch.Tensor) -> torch.Tensor:
@@ -161,20 +193,26 @@ class CellLayout:
             n *= self.sizes[a]
         return n
 
-    def gather(self, x: torch.Tensor, spec) -> torch.Tensor:
-        """The whole leaf from this cell's shard: an all-gather over each
-        dim's axes."""
-        for dim, entry in enumerate(spec):
+    def gather(self, x: torch.Tensor, spec, local: bool = False
+               ) -> torch.Tensor:
+        """The leaf from this cell's shard: an all-gather over each dim's
+        axes; for a model-local leaf, over all but ``model`` (the cell
+        computes with its own ``model`` shard)."""
+        for dim, entry in enumerate(_local_spec(spec, local)):
             if self._cuts(entry) > 1:
                 x = spmd.all_gather(x, entry, axis=dim)
         return x
 
-    def reduce(self, g: torch.Tensor, spec) -> torch.Tensor:
+    def reduce(self, g: torch.Tensor, spec, local: bool = False
+               ) -> torch.Tensor:
         """This cell's shard of the gradient averaged over the cells that
-        cut the batch, from its whole-leaf gradient: the dims cut only by
-        other axes are sliced here (the cells that share this cell's batch
-        rows hold the same gradient), the rest reduce-scattered (or
-        all-reduced, where no batch axis cuts the leaf)."""
+        cut the batch, from its gradient of the leaf ``gather`` gave it:
+        the dims cut only by other axes are sliced here (the cells that
+        share this cell's batch rows hold the same gradient), the rest
+        reduce-scattered (or all-reduced, where no batch axis cuts the
+        leaf); a model-local leaf's ``model`` dim is the cell's own
+        already."""
+        spec = _local_spec(spec, local)
         index = MeshSharding(self.mesh, spec).devices_indices_map(
             g.shape)[spmd.position()]
         by_batch = [bool(set(_names(e)) & set(self.batch_axes))
@@ -229,22 +267,22 @@ class CellLayout:
         return mean
 
 
-A2A_NOT_PORTED = ("the a2a MoE (moe_impl='a2a', ruleset 'moe_a2a') inside "
-                  "the partitioned training step is not ported: its "
-                  "shard_map would run inside the step's cells "
-                  "(ROADMAP.md Queue 1 item 11)")
+def _local_spec(spec, local: bool) -> tuple:
+    """``spec`` without its ``model`` cut, for a model-local leaf."""
+    if not local:
+        return tuple(spec)
+    return tuple(None if e == tp.AXIS else e for e in spec)
 
 
 def _partitioned(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx,
-                 global_batch: int, cast, loss_and_grads):
+                 global_batch: int, n_accum: int, cast, loss_and_grads):
     """The step over ``ctx.mesh``; see the module's docstring. The
     returned function takes ``MeshArray`` (or whole) parameter and state
     trees and a whole batch, and returns ``MeshArray`` trees and the
     metrics as whole scalars. ``.cell`` is the function one cell runs on
     its shards (``spmd.one_cell`` traces it), ``.in_specs(batch)`` its
-    arguments' spec trees."""
-    if run.moe_impl == "a2a":
-        raise NotImplementedError(A2A_NOT_PORTED)
+    arguments' spec trees, ``.plan`` its ``tensor_parallel.Plan``. Each
+    leaf's gather runs under its dotted path as ``spmd.labelled``."""
     mesh = ctx.mesh
     accum_dt = P.torch_dtype(run.grad_accum_dtype)
     pspecs = lm.param_specs(cfg)
@@ -255,14 +293,22 @@ def _partitioned(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx,
     batch_spec = ctx.spec(("batch",), (global_batch,))
     layout = CellLayout(mesh, pspecs, param_specs,
                         _names(batch_spec[0]) if batch_spec else ())
+    plan = tp.plan_for(cfg, pspecs, param_specs, layout.sizes,
+                       layout.batch_axes)
+    local = tp.local_leaves(plan, pspecs)
+    names = tp.paths(pspecs)
+
+    def gathered(p, s, loc, name):
+        with spmd.labelled(name):
+            return as_leaf(layout.gather(cast(p), s, loc))
 
     def cell(params, opt_state: OptState, batch: Dict):
-        params_c = P.tree_map(lambda p, s: as_leaf(layout.gather(cast(p), s)),
-                              params, param_specs)
-        (loss, metrics), grads = loss_and_grads(params_c, batch)
+        params_c = P.tree_map(gathered, params, param_specs, local, names)
+        (loss, metrics), grads = loss_and_grads(params_c, batch, plan)
         del params_c
-        grads = P.tree_map(lambda g, s: layout.reduce(g.to(accum_dt), s),
-                           grads, param_specs)
+        grads = P.tree_map(lambda g, s, loc: layout.reduce(g.to(accum_dt), s,
+                                                           loc),
+                           grads, param_specs, local)
         metrics = {k: layout.batch_mean(v.detach()) for k, v in
                    metrics.items()}
         params, opt_state, stats = adamw_update(grads, params, opt_state, run,
@@ -276,6 +322,9 @@ def _partitioned(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx,
                 {k: batch_spec if v.dim() else () for k, v in batch.items()})
 
     def train_step(params, opt_state: OptState, batch: Dict):
+        if cfg.is_moe and n_accum > 1:
+            _check_moe_microbatches(
+                math.prod(batch["tokens"].shape) // n_accum, layout.dp)
         step = spmd.shard_map(cell, mesh, in_specs=in_specs(batch),
                               out_specs=(param_specs, opt_specs, ()),
                               keep=True)
@@ -285,7 +334,21 @@ def _partitioned(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx,
 
     train_step.cell = cell
     train_step.in_specs = in_specs
+    train_step.plan = plan
     return train_step
+
+
+def _check_moe_microbatches(tokens: int, n_batch: int) -> None:
+    """Refuses a MoE token group that spans the data cells when the
+    batch runs in several microbatches of ``tokens`` tokens: each data
+    cell then routes its own microbatch i together, where the reference
+    routes global microbatch i, other rows (ROADMAP Queue 3)."""
+    group, rows = moe_groups(tokens // n_batch, n_batch)
+    if rows < group:
+        raise NotImplementedError(
+            f"a MoE token group of {group} spans the {n_batch} data cells "
+            "and the batch runs in several microbatches: each cell would "
+            "route its own rows, not the reference's global microbatch")
 
 
 def _trim(entries) -> tuple:

@@ -37,7 +37,7 @@ from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.launch.programs import _ns_tree
 from repro_torch.models import lm, params as P
 from repro_torch.optim.adamw import adamw_init_specs
-from repro_torch.train.step import A2A_NOT_PORTED, make_train_step
+from repro_torch.train.step import make_train_step
 
 
 class WorkerFailure(Exception):
@@ -86,8 +86,6 @@ class Trainer(BentoModule):
 
     # --- build / init -----------------------------------------------------------
     def _build(self, mesh, ruleset: str) -> None:
-        if mesh is not None and ruleset == "moe_a2a":
-            raise NotImplementedError(A2A_NOT_PORTED)
         self.mesh = mesh
         self.ruleset = ruleset
         self.ctx = (ShardingCtx.for_mesh(mesh, ruleset) if mesh is not None

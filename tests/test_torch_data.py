@@ -131,6 +131,28 @@ def test_prefetcher_keeps_order_and_surfaces_errors():
     pf.close()
 
 
+def test_prefetcher_close_waits_for_its_thread_and_times_out(monkeypatch):
+    import threading
+
+    from repro_torch.data import pipeline
+
+    monkeypatch.setattr(pipeline, "CLOSE_TIMEOUT_S", 0.2)
+    release = threading.Event()
+
+    def fetch(s):
+        if s == 1:
+            release.wait()  # a fetch that hangs until released
+        return s
+
+    pf = T_data.Prefetcher(fetch)
+    assert pf.next() == (0, 0)
+    with pytest.raises(TimeoutError, match="still runs"):
+        pf.close()
+    release.set()
+    pf.close()
+    assert not pf._thread.is_alive()
+
+
 def test_prefetcher_over_fs_shards_equals_the_batches():
     mf = T_mounts.make_mount("bento", n_blocks=8192, device="cpu")
     ds = T_data.SyntheticLM(T_reg.get("smollm-135m").smoke, 2, 32, seed=3)

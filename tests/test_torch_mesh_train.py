@@ -21,8 +21,10 @@ norm, moves them by far more); rwkv6 and zamba2 on (2, 1) against (1, 1);
 the flash launches of a partitioned step; each cell's bytes at rest
 against the dry-run's; checkpoints: the files of a partitioned trainer
 byte for byte those of its whole leaves at the same grid, restores
-across the packages and elastic rescales bit for bit; and the errors
-(a mesh over devices the host lacks, the a2a MoE in a partitioned step).
+across the packages and elastic rescales bit for bit; and the error of a
+mesh over devices the host lacks. The tensor parallelism over ``model``
+inside the step, olmoe's a2a MoE included, is held in
+``test_torch_tensor_parallel.py``.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from repro_torch import checkpoint as T_ck  # noqa: E402
 from repro_torch.checkpoint import store as T_store  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
+from repro_torch.distributed import tensor_parallel  # noqa: E402
 from repro_torch.distributed.sharding import (MeshArray, ShardingCtx,  # noqa: E402
                                               gathered)
 from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
@@ -87,9 +90,12 @@ def port_run(arch=ARCH, **kw):
     return registry.get(arch).run.replace(**{**RUN, **kw})
 
 
-def trainer(mesh, arch=ARCH, **kw):
+def trainer(mesh, arch=ARCH, remat=None, **kw):
     b = registry.get(arch)
-    return Trainer(b.smoke, port_run(arch), global_batch=BATCH, seq_len=SEQ,
+    run = port_run(arch)
+    if remat is not None:
+        run = run.replace(remat=remat)
+    return Trainer(b.smoke, run, global_batch=BATCH, seq_len=SEQ,
                    seed=SEED, mesh=mesh, device="cpu", **kw)
 
 
@@ -274,19 +280,27 @@ def test_each_cell_holds_the_dry_runs_argument_bytes():
 
 def test_dry_run_counts_the_partitioned_steps_collectives(tmp_path):
     """The 16 x 16 mesh: the step's first cell traced alone; its
-    all-gathers (one a cut dim of a parameter), reduce-scatters (one a
-    parameter the data axis cuts) and all-reduces are counted."""
+    all-gathers (one a cut dim of a parameter, but the ``model`` dim of
+    a leaf the cell keeps as its own ``model`` shard), reduce-scatters
+    (one a parameter the data axis cuts) and all-reduces are counted."""
     r = dryrun.run_cell(ARCH, "train_4k", "single", "baseline",
                         str(tmp_path), smoke=True)
     assert r["ok"] and r["collectives_not_issued"] is None
     cfg = registry.get(ARCH).smoke
     mesh = dryrun._meta_mesh((16, 16), ("data", "model"))
     ctx = ShardingCtx.for_mesh(mesh)
-    specs = [ctx.spec(s.logical, s.shape)
-             for s in P.leaves(train_step.lm.param_specs(cfg))]
+    pspecs = train_step.lm.param_specs(cfg)
+    specs = [ctx.spec(s.logical, s.shape) for s in P.leaves(pspecs)]
+    plan = tensor_parallel.plan_for(
+        cfg, pspecs, P.map_specs(lambda s: ctx.spec(s.logical, s.shape),
+                                 pspecs), {"data": 16, "model": 16},
+        ("data",))
+    local = P.leaves(tensor_parallel.local_leaves(plan, pspecs))
+    assert plan.mlp and plan.vocab and not plan.attn
     per_op = r["ops"]["per_op"]
     assert per_op["all-gather"]["count"] == sum(
-        e is not None for s in specs for e in s)
+        e is not None and not (loc and e == "model")
+        for s, loc in zip(specs, local, strict=True) for e in s)
     assert per_op["reduce-scatter"]["count"] == sum(
         any(e == "data" for e in s) for s in specs)
     assert per_op["all-reduce"]["count"] >= 2  # the clip norm, the loss
@@ -378,6 +392,42 @@ def test_elastic_rescale_keeps_the_state_bit_exact():
     mf.close()
 
 
+def test_a2a_trainer_checkpoints_and_rescales_bit_exact():
+    """olmoe's a2a MoE partitioned over (2, 2) (ruleset ``moe_a2a``):
+    saved, rescaled to (1, 2) and to (1, 4), restored onto each bit for
+    bit, and trained on from there."""
+    b = registry.get("olmoe-1b-7b")
+    run = b.run.replace(**RUN, moe_impl="a2a")
+    mf = T_mounts.make_mount("bento", n_blocks=32768, device="cpu")
+    t = Trainer(b.smoke, run, global_batch=BATCH, seq_len=SEQ, seed=SEED,
+                mesh=virtual(2, 2), ruleset="moe_a2a", ckpt_view=mf.view,
+                device="cpu")
+    t.train(2)
+    t.save_checkpoint()
+    before = whole_state(t)
+    for d, m in ((1, 2), (1, 4)):
+        t.elastic_rescale(virtual(d, m), ruleset="moe_a2a")
+        assert all(torch.equal(a, w) for a, w in zip(whole_state(t), before))
+        assert t.restore_checkpoint() and t.step_idx == 2
+        assert all(torch.equal(a, w) for a, w in zip(whole_state(t), before))
+    t.train(3)
+    assert t.step_idx == 3 and np.isfinite(t.metrics_log[-1]["loss"])
+    mf.close()
+
+
+@pytest.mark.parametrize("arch,mesh_shape", [("smollm-135m", (2, 2)),
+                                             ("olmoe-1b-7b", (1, 2))])
+def test_tape_without_remat_gives_the_remat_steps_parameters(arch,
+                                                             mesh_shape):
+    """``remat="none"``: each segment keeps its graph instead of running
+    again in the backward, to the same parameters."""
+    kept, rerun = (trainer(virtual(*mesh_shape), arch, remat=r)
+                   for r in ("none", "block"))
+    kept.train(STEPS)
+    rerun.train(STEPS)
+    assert relative_gap(gathered(kept.params), gathered(rerun.params)) <= 1e-6
+
+
 # --- errors ------------------------------------------------------------------------------------
 
 
@@ -392,15 +442,16 @@ def test_a_mesh_over_devices_the_host_lacks_raises():
     assert proc.returncode != 0 and "need 2 devices" in proc.stderr
 
 
-def test_the_a2a_moe_in_a_partitioned_step_raises():
+def test_moe_group_over_the_data_cells_in_microbatches_raises():
+    """olmoe's smoke batch on (2, 2) in two microbatches: each cell's 32
+    tokens of a microbatch are half of a token group of 64 over both data
+    cells, which the reference forms of another set of rows."""
     b = registry.get("olmoe-1b-7b")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        Trainer(b.smoke, b.run, global_batch=BATCH, seq_len=SEQ,
-                mesh=virtual(1, 2), ruleset="moe_a2a", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        train_step.make_train_step(
-            b.smoke, b.run.replace(moe_impl="a2a"),
-            ShardingCtx.for_mesh(virtual(1, 2)), BATCH)
+    run = b.run.replace(**RUN, microbatch_per_data_shard=2)
+    t = Trainer(b.smoke, run, global_batch=BATCH, seq_len=SEQ, seed=SEED,
+                mesh=virtual(2, 2), device="cpu")
+    with pytest.raises(NotImplementedError, match="spans the 2 data cells"):
+        t.train(1)
 
 
 def test_train_cli_trains_on_a_virtual_mesh(tmp_path):

@@ -339,7 +339,7 @@ def test_psum_block_is_each_cells_block_of_the_sum():
                           (False, ("data", "model"))):
         whole = torch.arange(2 * 2 * 4 * 3, dtype=torch.float32).reshape(
             2, 2, 4, 3)
-        with spmd.observe(lambda op, out, n, cell: seen.append((op, n))):
+        with spmd.observe(lambda op, out, n, cell, **kw: seen.append((op, n))):
             got = spmd.shard_map(lambda x: body(x, cut), MESH,
                                  in_specs=(("data", "model"),),
                                  out_specs=out_spec)(whole)
@@ -362,7 +362,7 @@ def test_one_cell_runs_one_cell_with_the_mesh_group_sizes():
         assert spmd.position() == 3 and spmd.axis_index("data") == 1
         return spmd.all_gather(x, "data"), spmd.psum(x, "model")
 
-    with spmd.observe(lambda op, out, n, c: seen.append((op, n, c))):
+    with spmd.observe(lambda op, out, n, c, **kw: seen.append((op, n, c))):
         g, s = spmd.one_cell(cell, mesh, pos=3)(torch.ones(2))
     assert tuple(g.shape) == (8,) and torch.equal(s, torch.full((2,), 2.0))
     assert seen == [("all-gather", 4, 3), ("all-reduce", 2, 3)]

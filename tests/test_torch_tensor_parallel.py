@@ -1,0 +1,381 @@
+"""Tensor parallelism over ``model`` in the port's partitioned training
+step (``distributed.tensor_parallel``, ``models.transformer``'s segmented
+stack), on virtual CPU meshes, against the reference's trainer under
+GSPMD on fake host devices.
+
+The reference runs in one subprocess on 4 fake host devices
+(``test_torch_spmd.run_reference``): olmoe-1b-7b's smoke config, f32
+compute, the factored second moment and global-norm clipping on, the
+dense dispatch on (2, 2), (1, 2) and (1, 4) and the expert-parallel a2a
+(``moe_impl="a2a"``, ruleset ``moe_a2a``) on (1, 2) and (2, 2), each
+from the same initial state, which the port carries over. Held: each
+cell's shapes at rest (exact), the losses of 3 steps within 1e-4, the
+parameters and optimizer state after them within 1e-4 x max(1,
+max|ref|) a leaf (``test_torch_mesh_train.py``'s tolerances).
+
+In the port: the exact set of leaves each cell gathers over ``model``
+(``spmd.observe`` with labels), the flash calls' shapes in each cell,
+``spmd``'s refusal of a collective inside an autograd backward, a
+checkpoint's recompute or a tape's local segment, the dry-run's counts of
+the ``model``-axis collectives, and three planted breaches, each of
+which the reference differential refuses: replicated work (a norm)
+after an entry (rule (a)), the MoE's replicated aux loss summed over
+``model`` (rule (b)), and an entry whose backward does not sum.
+"""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+from repro_torch.configs import registry  # noqa: E402
+from repro_torch.configs.base import ShapeSpec  # noqa: E402
+from repro_torch.distributed import spmd  # noqa: E402
+from repro_torch.distributed import tensor_parallel as tp  # noqa: E402
+from repro_torch.distributed.sharding import MeshArray, ShardingCtx  # noqa: E402
+from repro_torch.launch import dryrun, op_analysis  # noqa: E402
+from repro_torch.launch.programs import build_program  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.common import rms_norm  # noqa: E402
+from repro_torch.train.trainer import Trainer  # noqa: E402
+from test_torch_mesh_train import (BATCH, RUN, SEED, SEQ, STEPS,  # noqa: E402
+                                   carried, counted_flash, leaves, virtual,
+                                   whole_state)
+from test_torch_rwkv import assert_close  # noqa: E402
+from test_torch_spmd import run_reference  # noqa: E402
+
+MOE = "olmoe-1b-7b"
+CASES = (("dense", (2, 2)), ("dense", (1, 2)), ("dense", (1, 4)),
+         ("a2a", (1, 2)), ("a2a", (2, 2)))
+
+REF_TRAIN = """
+import json
+from repro.configs import registry
+from repro.launch.mesh import make_host_mesh
+from repro.train.trainer import Trainer
+b = registry.get(inp["arch"])
+for impl, (d, m) in inp["cases"]:
+    run = b.run.replace(moe_impl=impl, **inp["run"])
+    mesh = make_host_mesh(d, m)
+    t = Trainer(b.smoke, run, global_batch=inp["batch"], seq_len=inp["seq"],
+                seed=inp["seed"], mesh=mesh,
+                ruleset="moe_a2a" if impl == "a2a" else "baseline")
+    key = f"{impl}/{d}x{m}"
+    if "init" not in out:
+        st = t.extract_state()
+        out["init"] = {"params": st["params"], "opt": st["opt_state"]}
+
+    def shapes(leaf):
+        by_dev = {s.device: list(s.data.shape) for s in leaf.addressable_shards}
+        return [by_dev[dv] for dv in mesh.devices.flat]
+    out[f"{key}/shapes"] = json.dumps([shapes(leaf) for leaf in jax.tree.leaves(
+        {"params": t.params, "opt": t.opt_state})])
+    t.train(inp["steps"])
+    out[f"{key}/losses"] = np.array([m_["loss"] for m_ in t.metrics_log])
+    st = t.extract_state()
+    out[f"{key}/final"] = {"params": st["params"], "opt": st["opt_state"]}
+"""
+
+
+@pytest.fixture(scope="module")
+def reference():
+    return run_reference(REF_TRAIN, {
+        "arch": MOE, "run": RUN, "cases": CASES, "batch": BATCH, "seq": SEQ,
+        "seed": SEED, "steps": STEPS}, 4)
+
+
+def moe_trainer(impl: str, mesh, **run_kw):
+    b = registry.get(MOE)
+    run = b.run.replace(**{**RUN, "moe_impl": impl, **run_kw})
+    return Trainer(b.smoke, run, global_batch=BATCH, seq_len=SEQ, seed=SEED,
+                   mesh=mesh, device="cpu",
+                   ruleset="moe_a2a" if impl == "a2a" else "baseline")
+
+
+def trained_against(reference, impl, mesh_shape) -> list:
+    """The port's trainer on the case's mesh from the reference's initial
+    state, 3 steps; the leaves whose gap exceeds the tolerance (the loss
+    as leaf -1), each with its gap."""
+    d, m = mesh_shape
+    key = f"{impl}/{d}x{m}"
+    t = moe_trainer(impl, virtual(d, m))
+    t.restore_state(carried(reference["init"]))
+    t.train(STEPS)
+    bad = []
+    loss_gap = np.abs(np.array([x["loss"] for x in t.metrics_log])
+                      - reference[f"{key}/losses"]).max()
+    if loss_gap > 1e-4:
+        bad.append((-1, float(loss_gap)))
+    want = jax.tree.leaves(reference[f"{key}/final"])
+    for i, (g, w) in enumerate(zip(whole_state(t), want, strict=True)):
+        w = torch.as_tensor(np.asarray(w))
+        gap = ((g - w).abs().max() / max(1.0, w.abs().max().item())).item()
+        if gap > 1e-4:
+            bad.append((i, gap))
+    return bad
+
+
+@pytest.mark.parametrize("impl,mesh_shape", CASES)
+def test_moe_trainer_matches_reference_on_its_mesh(reference, impl,
+                                                   mesh_shape):
+    d, m = mesh_shape
+    key = f"{impl}/{d}x{m}"
+    t = moe_trainer(impl, virtual(d, m))
+    assert t._step_fn.plan.experts and t._step_fn.plan.attn
+    t.restore_state(carried(reference["init"]))
+    got = leaves(t)
+    assert all(isinstance(x, MeshArray) for x in got)
+    assert [[list(s.shape) for s in x.shards] for x in got] == json.loads(
+        str(reference[f"{key}/shapes"]))
+    t.train(STEPS)
+    np.testing.assert_allclose([x["loss"] for x in t.metrics_log],
+                               reference[f"{key}/losses"], rtol=0, atol=1e-4)
+    want = jax.tree.leaves(reference[f"{key}/final"])
+    have = whole_state(t)
+    assert len(have) == len(want)
+    for i, (g, w) in enumerate(zip(have, want)):
+        assert_close(g, w, 1e-4, f"{key} leaf {i}")
+
+
+# --- what a cell gathers over model, and computes -------------------------------------
+
+
+def gathered_over_model(t) -> dict:
+    """{cell: the labels of the leaves it all-gathered over ``model``} in
+    one step of ``t``."""
+    seen = {}
+
+    def note(op, out, n, cell, *, axes, label):
+        if op == "all-gather" and "model" in axes and label is not None:
+            seen.setdefault(cell, set()).add(label)
+
+    with spmd.observe(note):
+        t.train(t.step_idx + 1)
+    return seen
+
+
+@pytest.mark.parametrize("arch,want", [
+    (MOE, {"stack.layers.moe.router"}),
+    ("smollm-135m", {f"stack.layers.attn.{w}"
+                     for w in ("wq", "wk", "wv", "wo")})])
+def test_cells_gather_over_model_only_the_leaves_they_repeat(arch, want):
+    """olmoe: only its router (which the routing needs whole); smollm: its
+    attention (3 heads, 1 kv head do not split over 2 cells)."""
+    b = registry.get(arch)
+    t = Trainer(b.smoke, b.run.replace(**RUN), global_batch=BATCH,
+                seq_len=SEQ, seed=SEED, mesh=virtual(2, 2), device="cpu")
+    assert gathered_over_model(t) == {c: want for c in range(4)}
+    plan = t._step_fn.plan
+    assert plan.repeated(b.smoke) == ([] if arch == MOE else ["attention"])
+
+
+def test_flash_runs_on_each_cells_own_heads(counted_flash):
+    b = registry.get(MOE)
+    run = b.run  # bf16 compute, block remat
+    t = Trainer(b.smoke, run, global_batch=BATCH, seq_len=SEQ, seed=SEED,
+                mesh=virtual(2, 2), device="cpu")
+    t.train(1)
+    cfg = b.smoke
+    # 4 cells x 1 microbatch x the layers' forward and recompute
+    assert len(counted_flash) == 4 * 1 * 2 * cfg.num_layers
+    assert set(counted_flash) == {(BATCH // 2, SEQ, cfg.num_heads // 2,
+                                   cfg.head_dim)}
+
+
+# --- the guard --------------------------------------------------------------------------
+
+
+def on_two_cells(body):
+    mesh = virtual(1, 2)
+    x = torch.arange(4.0).reshape(2, 2)
+    return spmd.shard_map(body, mesh, in_specs=(("model",),),
+                          out_specs=("model",))(x)
+
+
+class _PsumBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return spmd.psum(g, "model")  # planted: a collective in a backward
+
+
+def test_a_collective_in_a_backward_raises():
+    def body(x):
+        x = x.clone().requires_grad_()
+        y = _PsumBackward.apply(x).sum()
+        return torch.autograd.grad(y, x)[0]
+
+    with pytest.raises(spmd.SpmdError, match="autograd backward"):
+        on_two_cells(body)
+
+
+def test_a_collective_in_a_checkpoint_recompute_raises():
+    from torch.utils.checkpoint import checkpoint
+
+    def body(x):
+        x = x.clone().requires_grad_()
+        # the forward's psum runs in the cell; its recompute, to give the
+        # sine the input it saved, in the backward
+        y = checkpoint(lambda t: torch.sin(spmd.psum(t * t, "model")), x,
+                       use_reentrant=False).sum()
+        return torch.autograd.grad(y, x)[0]
+
+    with pytest.raises(spmd.SpmdError, match="recompute"):
+        on_two_cells(body)
+
+
+def test_a_collective_in_a_tape_segment_raises():
+    def body(x):
+        tape = tp.Tape(remat=True)
+        tape.run(lambda t: (spmd.psum(t, "model"),), x)
+        return x
+
+    with pytest.raises(spmd.SpmdError, match="local segment"):
+        on_two_cells(body)
+    with pytest.raises(spmd.SpmdError, match="inside shard_map only"):
+        spmd.psum(torch.ones(2), "model")
+
+
+def test_tape_transposes_against_autograd_of_the_whole():
+    """Two cells of a (1, 2) mesh: an entry, each cell's columns and rows
+    of a two-layer product, an exit; the gradients of the tape's backward
+    against autograd of the whole product."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 4, generator=gen)
+    w1 = torch.randn(4, 6, generator=gen)
+    w2 = torch.randn(6, 4, generator=gen)
+    s = torch.randn(4, generator=gen)
+
+    def whole():
+        p = [t.clone().requires_grad_() for t in (s, w1, w2)]
+        h = (x * p[0]) @ p[1]
+        loss = torch.tanh(torch.relu(h) @ p[2]).square().sum()
+        return torch.autograd.grad(loss, p)
+
+    def body(s_, w1_, w2_):
+        tape = tp.Tape(remat=True)
+        p = [t.clone().requires_grad_() for t in (s_, w1_, w2_)]
+        h, = tape.run(lambda: (x * p[0],))
+        part, = tape.run(lambda h: (torch.relu(h @ p[1]) @ p[2],),
+                         tape.enter(h))
+        loss, = tape.run(lambda y: (torch.tanh(y).square().sum(),),
+                         tape.exit(part))
+        tape.backward(loss)
+        return tuple(t.grad for t in p)
+
+    got = spmd.shard_map(body, virtual(1, 2),
+                         in_specs=((), (None, "model"), ("model",)),
+                         out_specs=((), (None, "model"), ("model",)))(
+        s, w1, w2)
+    for g, w in zip(got, whole()):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+
+# --- planted breaches --------------------------------------------------------------------
+
+
+def attn_half_norm_after_entry(cfg, ctx, tc, wl, x, adds, positions,
+                               q_chunk):
+    """Rule (a) broken: the attention's norm in each cell's local
+    segment, after the entry (its scale's gradient a partial sum)."""
+    tape = tc.tape
+    x, = tape.run(lambda x, *a: (T._resid(x, a),), x, *adds)
+    part, = tape.run(lambda h: (T._attention_out(
+        cfg, ctx, wl()["attn"], rms_norm(h, wl()["ln1"], cfg.norm_eps),
+        positions, q_chunk)[0],), tape.enter(x))
+    return x, (tape.exit(part),)
+
+
+def summed_aux(half):
+    """Rule (b) broken: the replicated aux loss summed over ``model``."""
+    def breached(cfg, run, ctx, tc, wl, x, adds):
+        x, adds, aux = half(cfg, run, ctx, tc, wl, x, adds)
+        return x, adds, tc.tape.exit(aux)
+    return breached
+
+
+def enter_without_psum(self, x, axis=tp.AXIS):
+    """An entry whose backward passes each cell's partial gradient on."""
+    return self._collective(x, tp._leaf(x), lambda g: g)
+
+
+@pytest.mark.parametrize("breach", ["norm_after_entry", "aux_summed",
+                                    "entry_without_psum"])
+def test_planted_breaches_fail_the_reference_differential(
+        reference, monkeypatch, breach):
+    impl, mesh_shape = "dense", (1, 2)
+    assert trained_against(reference, impl, mesh_shape) == []
+    if breach == "norm_after_entry":
+        monkeypatch.setattr(T, "_attn_half", attn_half_norm_after_entry)
+    elif breach == "aux_summed":
+        monkeypatch.setattr(T, "_moe_half", summed_aux(T._moe_half))
+    else:
+        monkeypatch.setattr(tp.Tape, "enter", enter_without_psum)
+    bad = trained_against(reference, impl, mesh_shape)
+    assert bad, breach
+    if breach == "aux_summed":  # the loss itself counts the aux twice
+        assert bad[0][0] == -1
+
+
+# --- the dry-run's collectives ---------------------------------------------------------------
+
+
+def cell_trace(arch, **run_kw):
+    """One cell of a (2, 2) mesh of meta devices traced alone
+    (``dryrun``'s trace of a partitioned step) at the smoke config."""
+    b = registry.get(arch)
+    mesh = dryrun._meta_mesh((2, 2), ("data", "model"))
+    ctx = ShardingCtx.for_mesh(mesh, "moe_a2a" if run_kw else "baseline")
+    prog = build_program(b.smoke, b.run.replace(**run_kw),
+                         ShapeSpec("t", "train", SEQ, BATCH), ctx)
+    fn, args = prog.cell
+    return op_analysis.analyze(spmd.one_cell(fn, mesh), *args).per_axes
+
+
+def count(per_axes, key) -> int:
+    return per_axes.get(key, {"count": 0})["count"]
+
+
+def test_dry_run_counts_the_model_axis_collectives():
+    """smollm: each layer's MLP exit and entry (its attention repeats);
+    olmoe: each layer's attention exit and entry and its experts' exit
+    and two entries (the activations', the routing weights'), or, with
+    the a2a, its two all-to-alls each way, its all-gather, the entries of
+    the activations and the router and the aux loss's exit; every step
+    one exit of the embedding and three of the loss head (the final
+    norm's entry, the logsumexps' max and the sum of their exponentials
+    beside the label logits). The parameters' all-gathers over ``model``:
+    smollm's four attention leaves, olmoe's router."""
+    L = registry.get("smollm-135m").smoke.num_layers
+    per = cell_trace("smollm-135m")
+    assert count(per, "all-reduce over model") == 2 * L + 4
+    assert count(per, "all-gather over model") == 4
+    assert count(per, "all-to-all over model") == 0
+    L = registry.get(MOE).smoke.num_layers
+    per = cell_trace(MOE)
+    assert count(per, "all-reduce over model") == 5 * L + 4
+    assert count(per, "all-gather over model") == 1
+    per = cell_trace(MOE, moe_impl="a2a")
+    assert count(per, "all-reduce over model") == 5 * L + 4
+    assert count(per, "all-to-all over model") == 4 * L
+    assert count(per, "all-gather over model") == L + 1
+
+
+def test_dry_run_activation_term_is_the_cells_own_where_nothing_repeats():
+    """On the reference's 16 x 16 mesh: olmoe-1b-7b splits its 16 heads,
+    64 experts and 50304 rows of vocabulary over 16; smollm-135m's 9
+    heads do not split, so its attention repeats."""
+    mesh = dryrun._meta_mesh(*dryrun.MESHES["single"])
+    shape = ShapeSpec("t", "train", 4096, 256)
+    for arch, want in ((MOE, []), ("smollm-135m", ["attention"])):
+        b = registry.get(arch)
+        prog = build_program(b.model, b.run, shape, ShardingCtx.for_mesh(mesh))
+        assert prog.fn.plan.repeated(b.model) == want
