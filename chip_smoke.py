@@ -63,13 +63,18 @@ and whisper serves (``decode_flash``), smollm's blocks as a 3-stage
 GPipe pipeline against the sequential stack (``pipeline``) and its
 gradients through the int8 compressors (``compression``), both on
 train_smollm's trainer, and the trainer partitioned over a (2, 2) mesh
-(``train_mesh``: smollm-135m whole, each cell holding its FSDP x model
-shards and computing with its own half of the MLP and the vocabulary,
-tensor-parallel over ``model``, held against train_smollm's steps, and
-an elastic round through a bento mount; ``train_mesh_olmoe``, after
-``train_olmoe``: olmoe-1b-7b at its depth, each cell's own heads,
-experts and vocabulary, with the dense dispatch and the expert-parallel
-a2a, held against train_olmoe's steps and the plain a2a's). The training phases' profiled steps trace the
+(``train_mesh``: smollm-135m at 10 of its 30 layers, each cell holding
+its FSDP x model shards and computing with its own half of the MLP and
+the vocabulary, tensor-parallel over ``model``, held against the same
+steps unpartitioned, and an elastic round through a bento mount;
+``train_mesh_olmoe``, after ``train_olmoe``: olmoe-1b-7b at 2 layers,
+each cell's own heads, experts and vocabulary, with the dense dispatch
+and the expert-parallel a2a, held against the same steps unpartitioned
+and the plain a2a's;
+``train_mesh_vlm``, after ``train_vlm``: llama-3.2-vision-11b at
+train_vlm's depth, each cell's own heads of the self and the cross
+attention, MLP columns and vocabulary, held against train_vlm's first
+steps). The training phases' profiled steps trace the
 device alone, as the serves' profiles do, and time their named ranges
 (``repro_torch.ranges``) with CUDA events. Last the launch half and
 the examples: the dry-run (``launch.dryrun``: programs traced on meta
@@ -157,7 +162,9 @@ SSD_TOL = 2e-4  # x max(1, max|ref|), for y and the state
 # layers over the 6404 image tokens) and at its training microbatch (4 x
 # 2048), and whisper-small (12 heads of 64) at its serve (the encoder's
 # 1500 frames, non-causal; a 384-token prompt; the cross attention to the
-# frames) and at its training step (8 x 448 tokens).
+# frames) and at its training step (8 x 448 tokens); last a VLM cell's own
+# in train_mesh_vlm (16 of the q heads over 4 of the kv heads, 4 rows),
+# self and cross.
 FLASH_CASES = ((2, 256, 256, 4, 2, 64, True, 0, 0.0),
                (1, 512, 512, 8, 8, 128, True, 0, 0.0),
                (2, 256, 256, 4, 4, 64, False, 0, 0.0),
@@ -183,7 +190,9 @@ FLASH_CASES = ((2, 256, 256, 4, 2, 64, True, 0, 0.0),
                (4, 384, 1500, 12, 12, 64, False, 0, 0.0),
                (8, 1500, 1500, 12, 12, 64, False, 0, 0.0),
                (8, 448, 448, 12, 12, 64, True, 0, 0.0),
-               (8, 448, 1500, 12, 12, 64, False, 0, 0.0))
+               (8, 448, 1500, 12, 12, 64, False, 0, 0.0),
+               (4, 2048, 2048, 16, 4, 128, True, 0, 0.0),
+               (4, 2048, 6404, 16, 4, 128, False, 0, 0.0))
 FLASH_HEADLINE = ((4, 1024, 1024, 32, 32, 112, True, 0, 0.0), "bfloat16")
 # atol = rtol, as the tests; the atol taken at the output's own scale where
 # that is below 1 (flash_within)
@@ -214,14 +223,16 @@ SMOLLM = {"arch": "smollm-135m", "batch": 4, "prompt": 1024, "gen": 32,
 TRAIN = {"arch": "smollm-135m", "global_batch": 8, "seq": 2048, "warmup": 2,
          "steps": 6}
 # The trainer partitioned over a virtual (2, 2) ("data", "model") mesh of
-# the card (train_mesh): smollm-135m at full width and depth with
-# train_smollm's RunConfig, batch, data and seed, every leaf a MeshArray
-# whose cells hold their FSDP x model shards; held against train_smollm's
-# first warmup + steps steps. Its elastic round keeps the width and cuts
-# the depth to train_ckpt's 2 layers at its 8 x 256 (a full-depth
-# checkpoint is 1.61 GB: a save and two restores would take a minute at
-# the store's rates): saved at (2, 2), restored onto (4, 1) and (1, 1).
-TRAIN_MESH = {"mesh": (2, 2), "warmup": 2, "steps": 3,
+# the card (train_mesh): smollm-135m at full width with train_smollm's
+# RunConfig, batch, data and seed, its depth cut from 30 to 10 layers (the
+# smoke's seconds: the VLM's mesh phase joined it), every leaf a
+# MeshArray whose cells hold their FSDP x model shards; held against the
+# same steps unpartitioned at the same depth, run just before it. Its
+# elastic round keeps the width and cuts the depth to 2 layers at train_ckpt's
+# 8 x 256 (a full-depth checkpoint is 1.61 GB: a save and two restores
+# would take a minute at the store's rates): saved at (2, 2), restored
+# onto (4, 1) and (1, 1).
+TRAIN_MESH = {"layers": 10, "mesh": (2, 2), "warmup": 2, "steps": 3,
               "elastic": ((4, 1), (1, 1)), "elastic_layers": 2,
               "elastic_seq": 256, "real_mesh": (2, 1)}
 # The partitioned step against the unpartitioned one from the same seed:
@@ -234,7 +245,7 @@ TRAIN_MESH = {"mesh": (2, 2), "warmup": 2, "steps": 3,
 # their own (the embedding's backward).
 # Since the step is tensor-parallel over ``model`` (its MLP's and the
 # vocabulary's partial sums added over the cells), the bf16 step's
-# parameters may stray from train_smollm's past MESH_PARAM_TOL (partial
+# parameters may stray from the unpartitioned run's past MESH_PARAM_TOL (partial
 # sums added in another order flip Adam's sign on a gradient near 0): its
 # gap is printed, and where it exceeds the bound the parameters are held
 # on the same steps in f32 compute, partitioned and not (mesh_f32_hold).
@@ -249,14 +260,15 @@ TRAIN_MESH = {"mesh": (2, 2), "warmup": 2, "steps": 3,
 # and that one token's share of an expert's gradient sets the largest
 # element's gap (0.098 of olmoe's largest first moment in f32).
 MESH_LOSS_TOL, MESH_PARAM_TOL, MESH_MOMENT_TOL = 1e-3, 1e-4, 5e-2
-SMOLLM_STATE_AT = {}  # train_smollm's state_copy (on the host) by step
 # The partitioned step tensor-parallel over ``model`` on the MoE family
-# (train_mesh_olmoe): olmoe-1b-7b at full width and train_olmoe's depth (4
-# layers), its batch (8 x 2048), RunConfig, data and seed, on a virtual (2,
-# 2) mesh whose cells compute with their own 8 heads, 32 experts and half
-# of the vocabulary; the dense dispatch and the expert-parallel a2a
-# (ruleset moe_a2a), 2 + 2 steps each. The dense run's losses and gathered
-# parameters are held against train_olmoe's; the a2a's against the same
+# (train_mesh_olmoe): olmoe-1b-7b at full width and 2 layers (train_olmoe's
+# 4 halved for the smoke's seconds, since train_mesh_vlm joined it), its
+# batch (8 x 2048), RunConfig, data and seed, on a virtual (2, 2) mesh
+# whose cells compute with their own 8 heads, 32 experts and half of the
+# vocabulary; the dense dispatch and the expert-parallel a2a (ruleset
+# moe_a2a), 2 + 2 steps each. The dense run's losses and gathered
+# parameters are held against the same steps unpartitioned (train_olmoe's
+# trainer at 2 layers); the a2a's against the same
 # steps unpartitioned with the MoE layer through plain_a2a_moe over the
 # mesh's 4 slices of the tokens (at full width the a2a drops other
 # assignments than the dense dispatch: serve_olmoe_a2a); MESH_LOSS_TOL,
@@ -265,11 +277,28 @@ SMOLLM_STATE_AT = {}  # train_smollm's state_copy (on the host) by step
 # more in bf16), is cut to 2 layers, 8 x 1024 and 2 steps: at the run's
 # size the a2a's f32 mesh step ran out of the card's 80 GB; 1024 keeps a
 # token group of 4096 inside a data cell, the bf16 run's path.
-TRAIN_MESH_OLMOE = {"arch": "olmoe-1b-7b", "layers": 4, "mesh": (2, 2),
+TRAIN_MESH_OLMOE = {"arch": "olmoe-1b-7b", "layers": 2, "mesh": (2, 2),
                     "warmup": 2, "steps": 2,
                     "runs": (("dense", "dense", "baseline"),
                              ("a2a", "a2a", "moe_a2a")),
                     "f32_hold": {"layers": 2, "seq": 1024, "steps": 2}}
+# The partitioned step tensor-parallel over ``model`` on the VLM
+# (train_mesh_vlm): llama-3.2-vision-11b at full width and train_vlm's
+# depth (one super-block: 4 self layers and a cross layer), its batch (8
+# x 2048 over 6404 stub image tokens), RunConfig, data, gates and seed, on
+# a virtual (2, 2) mesh whose cells compute with their own 16 of the 32 q
+# heads and 4 of the 8 kv heads in the self and the cross attention, half
+# the MLP columns and half the vocabulary; 2 steps, held against
+# train_vlm's first 2 (its parameters and first moments copied to the
+# host after them: VLM_STATE_AT) within MESH_LOSS_TOL, MESH_PARAM_TOL and
+# MESH_MOMENT_TOL. Where the bf16 run strays past a bound, the f32 hold
+# runs cut to 8 x 256 (the depth cannot go below one super-block; in f32
+# each of the 4 cells holds its gathered parameters and their gradients at
+# 4 bytes, 17.1 GB each over the cells, beside 25.7 GB of state at rest),
+# its unpartitioned state on the host.
+TRAIN_MESH_VLM = {"arch": "llama-3.2-vision-11b", "mesh": (2, 2), "steps": 2,
+                  "f32_hold": {"seq": 256, "steps": 2}}
+VLM_STATE_AT = {}  # train_vlm's state_copy (on the host) by step
 TRAIN_CKPT = {"arch": "smollm-135m", "layers": 2, "global_batch": 8,
               "seq": 256, "steps": 9, "ckpt_every": 3, "fail_at": 6,
               "n_blocks": 1 << 19, "decode_steps": 4}
@@ -3094,6 +3123,8 @@ def draw_gates(prm, seed: int):
     Returns the values, or None for a tree with no cross layers."""
     import torch
 
+    from repro_torch.distributed.sharding import MeshArray
+
     cross = prm["stack"].get("cross")
     if cross is None:
         return None
@@ -3101,11 +3132,14 @@ def draw_gates(prm, seed: int):
     out = {}
     for name in ("gate_attn", "gate_mlp"):
         t = cross[name]
+        # a partitioned trainer's gate: the same whole value in every cell
+        copies = t.shards if isinstance(t, MeshArray) else [t]
         mag = 0.5 + torch.rand(t.shape, generator=g)
         sign = torch.randint(0, 2, t.shape, generator=g) * 2 - 1
         with torch.no_grad():
-            t.copy_((mag * sign).to(t.dtype))
-        out[name] = t.float().cpu().tolist()
+            for c in copies:
+                c.copy_((mag * sign).to(c.dtype))
+        out[name] = copies[0].float().cpu().tolist()
     return out
 
 
@@ -3331,9 +3365,6 @@ def phase_train_smollm():
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         step_launches.append(kernels["flash_attention"].launches() - l0)
-        if i + 1 == TRAIN_MESH["warmup"] + TRAIN_MESH["steps"]:
-            # what train_mesh's partitioned trainer holds after its steps
-            SMOLLM_STATE_AT[i + 1] = state_copy(t, "cpu")
     main_launches = {name: mod.launches() for name, mod in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
     assert step_launches == [per_step] * n_steps, step_launches
@@ -3991,6 +4022,11 @@ def phase_train_model(name):
         step_s.append(time.perf_counter() - t0)
         step_launches.append({k: m.launches() - l0[k]
                               for k, m in kernels.items()})
+        if name == "train_vlm" and i + 1 == TRAIN_MESH_VLM["steps"]:
+            # what train_mesh_vlm's partitioned trainer holds after its
+            # steps (on the host: train_mesh_vlm's state and cells need
+            # the card)
+            VLM_STATE_AT[i + 1] = state_copy(t, "cpu")
     main_launches = {k: m.launches() for k, m in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
     assert step_launches == [per_step] * n_steps, (step_launches, per_step)
@@ -5129,16 +5165,19 @@ def phase_compression(t):
 
 class FlashShapes:
     """Within the block, the q shape of every launch of the flash kernel
-    (``kernel.flash_attention_fwd`` wrapped: looked up at each call)."""
+    (``kernel.flash_attention_fwd`` wrapped: looked up at each call), and
+    its (q, k) shapes (``pairs``)."""
 
     def __enter__(self):
         from repro_torch.kernels.flash_attention import kernel as K
 
         self.K, self.orig, self.shapes = K, K.flash_attention_fwd, []
+        self.pairs = []
 
-        def launch(q, *a, **kw):
+        def launch(q, k, *a, **kw):
             self.shapes.append(tuple(q.shape))
-            return self.orig(q, *a, **kw)
+            self.pairs.append((tuple(q.shape), tuple(k.shape)))
+            return self.orig(q, k, *a, **kw)
 
         K.flash_attention_fwd = launch
         return self
@@ -5149,12 +5188,22 @@ class FlashShapes:
 
 def state_copy(t, device=None) -> dict:
     """An unpartitioned trainer's parameters and first moments: copies of
-    the leaves, in order, on ``device`` (default: where they are; the
-    card's copy takes milliseconds, the host's seconds)."""
+    the leaves, in order, on ``device`` (default: where they are). The
+    host's copies are pinned: the card writes and reads pinned memory
+    several times faster than pageable memory, and the host allocator
+    keeps the pinned blocks for the next copy (the VLM's 17.1 GB of f32
+    parameters and first moments go to the host and back twice)."""
+    import torch
+
     from repro_torch.models import params as P
 
-    return {k: [x.detach().to(device or x.device, copy=True)
-                for x in P.leaves(tree)]
+    def copy(x):
+        if device == "cpu":
+            return torch.empty(x.shape, dtype=x.dtype,
+                               pin_memory=True).copy_(x.detach())
+        return x.detach().to(device or x.device, copy=True)
+
+    return {k: [copy(x) for x in P.leaves(tree)]
             for k, tree in (("params", t.params), ("mu", t.opt_state.mu))}
 
 
@@ -5186,13 +5235,14 @@ def state_held(gaps) -> bool:
 
 
 def mesh_f32_hold(cfg, run, mesh, gb: int, seq: int, n_steps: int, *,
-                  ruleset: str = "baseline", plain=contextlib.nullcontext
-                  ) -> dict:
+                  ruleset: str = "baseline", plain=contextlib.nullcontext,
+                  host: bool = False) -> dict:
     """The partitioned trainer's parameters and first moments after
     ``n_steps`` against the unpartitioned one's (run inside the context
-    ``plain()``, its state copied on the card), both in f32 compute from
-    one seed on one batch (``mesh_state_gaps``), and the largest
-    relative gap of a loss."""
+    ``plain()``, its state copied on the card, or to the host with
+    ``host``), both in f32 compute from one seed on one batch, the VLM's
+    gates drawn as train_vlm draws them (``mesh_state_gaps``), and the
+    largest relative gap of a loss."""
     import torch
 
     from repro_torch.data.pipeline import SyntheticLM
@@ -5205,12 +5255,13 @@ def mesh_f32_hold(cfg, run, mesh, gb: int, seq: int, n_steps: int, *,
         t = Trainer(cfg, run32, global_batch=gb, seq_len=seq, seed=0, mesh=m,
                     data=OneBatch(SyntheticLM(cfg, gb, seq, seed=0)),
                     device=dev, **kw)
+        draw_gates(t.params, seed=0)
         t.train(n_steps)
         return t
 
     with plain():
         t = trained(None)
-    want = state_copy(t)
+    want = state_copy(t, "cpu" if host else None)
     want_losses = [x["loss"] for x in t.metrics_log]
     del t
     gc.collect()  # the unpartitioned trainer holds reference cycles
@@ -5243,8 +5294,8 @@ def mesh_flash_launches(cfg, run, mesh, global_batch: int) -> int:
 
 def phase_train_mesh():
     """The trainer partitioned over a virtual (2, 2) mesh of the card
-    (TRAIN_MESH): smollm-135m at full width and depth, every parameter
-    and optimizer leaf a MeshArray whose four cells hold their FSDP x
+    (TRAIN_MESH): smollm-135m at full width and 10 of its 30 layers, every
+    parameter and optimizer leaf a MeshArray whose four cells hold their FSDP x
     model shards, each step one shard_map whose cells gather their bf16
     parameters (the MLP's and the vocabulary's over the data axis only:
     each cell computes with its own half of them, tensor-parallel over
@@ -5254,8 +5305,9 @@ def phase_train_mesh():
     equal to the dry-run's argument bytes for the mesh (exact); the flash
     launches of each step (the CPU's count) and their shape; the losses
     step by step and the gathered parameters and first moments after the
-    last one against train_smollm's unpartitioned trainer from the same
-    seed (MESH_LOSS_TOL, MESH_PARAM_TOL, MESH_MOMENT_TOL; both in f32
+    last one against the same steps unpartitioned from the same seed at
+    the same depth, run just before it, its state kept on the card
+    (MESH_LOSS_TOL, MESH_PARAM_TOL, MESH_MOMENT_TOL; both in f32
     compute where the bf16 step's gap exceeds a bound). The last warm-up step is profiled
     (the idle share). Then the elastic round through a bento mount at depth 2: saved
     at (2, 2), rescaled to (4, 1) and to (1, 1), restored onto each, the
@@ -5282,13 +5334,15 @@ def phase_train_mesh():
     kernels = _kernel_counts()
     FA = kernels["flash_attention"]
     bundle = registry.get(TRAIN["arch"])
-    cfg, run = bundle.model, bundle.run
+    cfg = dataclasses.replace(bundle.model, num_layers=TRAIN_MESH["layers"])
+    run = bundle.run
     gb, seq = TRAIN["global_batch"], TRAIN["seq"]
     dev = torch.device("cuda", torch.cuda.current_device())
     d, m = TRAIN_MESH["mesh"]
     mesh = make_elastic_mesh(d, m, devices=[dev] * (d * m))
     per_step = mesh_flash_launches(cfg, run, mesh, gb)
     assert per_step == 4 * 1 * 2 * cfg.num_layers, per_step
+    n_steps = TRAIN_MESH["warmup"] + TRAIN_MESH["steps"]
 
     def state(t):
         return store._flatten({"params": t.params, "opt": t.opt_state})[0]
@@ -5296,6 +5350,21 @@ def phase_train_mesh():
     def data(c, s):
         return OneBatch(SyntheticLM(c, gb, s, seed=0))
 
+    # the same steps unpartitioned at the same depth, its state kept on
+    # the card (smollm at 10 layers: 0.6 GB of parameters and moments)
+    u = Trainer(cfg, run, global_batch=gb, seq_len=seq, seed=0,
+                data=data(cfg, seq), device=dev)
+    u_step_s = []
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u.train(i + 1)
+        torch.cuda.synchronize()
+        u_step_s.append(time.perf_counter() - t0)
+    plain_losses = [x["loss"] for x in u.metrics_log]
+    plain_state = state_copy(u)
+    del u
+    gc.collect()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -5322,7 +5391,6 @@ def phase_train_mesh():
     del leaves, prog
 
     # the main path: every count set to 0 just before, read just after
-    n_steps = TRAIN_MESH["warmup"] + TRAIN_MESH["steps"]
     for mod in kernels.values():
         mod.reset_launches()
     step_s, step_launches, prof = [], [], None
@@ -5354,14 +5422,14 @@ def phase_train_mesh():
     assert main_launches == {"blockhash": 0, "wkv6": 0, "ssd": 0,
                              "flash_attention": per_step * n_steps}
     losses = [x["loss"] for x in t.metrics_log]
-    plain_losses = EMITTED["train_smollm"]["losses"][:n_steps]
     loss_err = max(abs(a - b) / max(1.0, abs(b))
                    for a, b in zip(losses, plain_losses))
     assert all(np.isfinite(losses)) and loss_err <= MESH_LOSS_TOL, (
         losses, plain_losses)
-    gaps = mesh_state_gaps(t, SMOLLM_STATE_AT.pop(n_steps))
+    gaps = mesh_state_gaps(t, plain_state)
+    del plain_state
     print(f"train_mesh: the bf16 step's parameters after {n_steps} steps "
-          f"within {gaps['params']:.3e} of train_smollm's (bound "
+          f"within {gaps['params']:.3e} of the unpartitioned run's (bound "
           f"{MESH_PARAM_TOL}), its first moments within {gaps['mu']:.3e} "
           f"(bound {MESH_MOMENT_TOL}; largest element {gaps['mu_max']:.3e})",
           flush=True)
@@ -5442,11 +5510,14 @@ def phase_train_mesh():
               f"of real cards needs {rd * rm}", flush=True)
     torch.cuda.empty_cache()
     emit("train_mesh", arch=cfg.name, layers=cfg.num_layers,
+         cut=f"depth {bundle.model.num_layers} -> {cfg.num_layers}",
          mesh=[d, m], device="virtual", ruleset="baseline",
          global_batch=gb, seq=seq, cell_rows=gb // d, init_s=init_s,
          warmup_steps=TRAIN_MESH["warmup"], timed_steps=len(timed_s),
          step_ms=step_med * 1e3, step_ms_all=[x * 1e3 for x in step_s],
-         step_ms_of_train_smollm=EMITTED["train_smollm"]["step_ms"],
+         step_ms_unpartitioned=statistics.median(
+             u_step_s[TRAIN_MESH["warmup"]:]) * 1e3,
+         step_ms_all_unpartitioned=[x * 1e3 for x in u_step_s],
          tokens_per_s=gb * seq / step_med,
          device_idle_share=1 - busy_s / prof["wall_s"],
          profiled_step_wall_s=prof["wall_s"], device_busy_s=busy_s,
@@ -5481,20 +5552,20 @@ def phase_train_mesh():
 
 def phase_train_mesh_olmoe():
     """The partitioned step tensor-parallel over ``model`` on the MoE
-    family (TRAIN_MESH_OLMOE): olmoe-1b-7b at full width, 4 layers, on a
+    family (TRAIN_MESH_OLMOE): olmoe-1b-7b at full width, 2 layers, on a
     virtual (2, 2) mesh of the card, with the dense dispatch and with the
     expert-parallel a2a, each run on its own trainer (freed before the
     next: 1.88 G parameters at 16 bytes each). Each cell computes with
     its own attention heads, experts and vocabulary rows (the plan's),
     gathering over ``model`` only the router. Held, each run: each cell's
     bytes at rest equal to the dry-run's argument bytes (exact); the
-    flash launches of each step (4 cells x 1 microbatch x 4 layers x the
+    flash launches of each step (4 cells x 1 microbatch x 2 layers x the
     forward and the recompute) and their shape, each cell's 4 rows with
-    its 8 heads; the losses step by step (the dense run's against
-    train_olmoe's) and the gathered parameters and first moments after
-    the last one against the run's unpartitioned counterpart, run just
-    before it and its state kept on the card (train_olmoe's trainer
-    again; the a2a's through plain_a2a_moe), within MESH_LOSS_TOL,
+    its 8 heads; the losses step by step and the gathered parameters and
+    first moments after the last one against the run's unpartitioned
+    counterpart, run just before it and its state kept on the card
+    (train_olmoe's trainer at 2 layers; the a2a's through plain_a2a_moe;
+    its step ms beside the run's), within MESH_LOSS_TOL,
     MESH_PARAM_TOL and MESH_MOMENT_TOL (both, where a bf16 run exceeds a
     bound, on f32 runs partitioned and not, cut as TRAIN_MESH_OLMOE
     says). The last warm-up step is profiled (the idle share); step ms,
@@ -5529,7 +5600,7 @@ def phase_train_mesh_olmoe():
                      [torch.device("meta")] * (d * m))
     n_steps = spec["warmup"] + spec["steps"]
     per_step = mesh_flash_launches(cfg, bundle.run, mesh, gb)
-    assert per_step == 4 * 1 * 2 * cfg.num_layers == 32, per_step
+    assert per_step == 4 * 1 * 2 * cfg.num_layers == 16, per_step
     shape = (gb // d, seq, cfg.num_heads // m, cfg.head_dim)
     assert shape == (4, 2048, 8, 128), shape
 
@@ -5563,17 +5634,25 @@ def phase_train_mesh_olmoe():
         finally:
             moe.moe_apply = orig
 
-    plains = {"dense": ("train_olmoe", contextlib.nullcontext),
+    plains = {"dense": ("train_olmoe (2 layers)", contextlib.nullcontext),
               "a2a": ("plain_a2a_moe over 4 token slices, unpartitioned",
                       plain_a2a)}
 
     def unpartitioned(run, plain_ctx):
-        """Its losses and ``state_copy`` after the run's steps."""
+        """Its losses, ``state_copy`` after the run's steps, and the
+        median ms of its steps after the warm-up."""
+        step_s = []
         with plain_ctx():
             t = Trainer(cfg, run, global_batch=gb, seq_len=seq, seed=0,
                         data=data(), device=dev)
-            t.train(n_steps)
-        out = [x["loss"] for x in t.metrics_log], state_copy(t)
+            for i in range(n_steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                t.train(i + 1)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+        out = ([x["loss"] for x in t.metrics_log], state_copy(t),
+               statistics.median(step_s[spec["warmup"]:]) * 1e3)
         del t
         freed()
         return out
@@ -5586,9 +5665,7 @@ def phase_train_mesh_olmoe():
         run = bundle.run.replace(moe_impl=impl)
         plain_name, plain_ctx = plains[name]
         freed()
-        plain_losses, plain_state = unpartitioned(run, plain_ctx)
-        if name == "dense":  # its losses held to train_olmoe's own
-            plain_losses = EMITTED["train_olmoe"]["losses"][:n_steps]
+        plain_losses, plain_state, plain_ms = unpartitioned(run, plain_ctx)
         base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         t = Trainer(cfg, run, global_batch=gb, seq_len=seq, seed=0,
@@ -5671,6 +5748,7 @@ def phase_train_mesh_olmoe():
             "flash_launches_per_step": per_step,
             "main_path_launches": main_launches, "flash_shape": list(shape),
             "cell_bytes": cell_bytes, "dryrun_argument_bytes": dry_bytes,
+            "plain_step_ms": plain_ms,
             "losses": losses, "plain": plain_name,
             "plain_losses": plain_losses, "loss_max_rel_err": loss_err,
             "param_max_rel_err": gaps["params"],
@@ -5679,11 +5757,12 @@ def phase_train_mesh_olmoe():
     a2a = runs["a2a"]
     a2a["plain_dropped_assignments_per_layer_call"] = [
         min(dropped), max(dropped)]
-    a2a["loss_max_rel_err_to_train_olmoe"] = held(
+    a2a["loss_max_rel_err_to_dense_plain"] = held(
         a2a["losses"], runs["dense"]["plain_losses"])
     emit("train_mesh_olmoe", arch=cfg.name, layers=cfg.num_layers,
          cut=f"depth {bundle.model.num_layers} -> {cfg.num_layers} "
-             f"(train_olmoe's)", mesh=[d, m], device="virtual",
+             f"(train_olmoe's 4 halved for the smoke's seconds)",
+         mesh=[d, m], device="virtual",
          global_batch=gb, seq=seq, cell_rows=gb // d,
          warmup_steps=spec["warmup"], timed_steps=spec["steps"],
          step_ms_of_train_olmoe=EMITTED["train_olmoe"]["step_ms"],
@@ -5698,6 +5777,178 @@ def phase_train_mesh_olmoe():
                                 "exceeds either"},
          runs=runs)
     return total_launches
+
+
+
+def phase_train_mesh_vlm():
+    """The partitioned step tensor-parallel over ``model`` on the VLM
+    (TRAIN_MESH_VLM): llama-3.2-vision-11b at full width, one super-block
+    (4 self layers, 1 gated cross layer), on a virtual (2, 2) mesh of the
+    card. Each cell computes with its own 16 q and 4 kv heads in the self
+    attention and in the cross attention over the image embeddings, its
+    half of the MLP columns and of the vocabulary; the norms and the gates
+    are replicated work (the gates after the exits). Held: the plan
+    (nothing repeats over ``model``); each cell's bytes at rest equal to
+    the dry-run's argument bytes (exact); the flash launches of each step
+    (4 cells x 1 microbatch x 5 layers x the forward and the recompute)
+    and their (q, k) shapes, each cell's 4 rows with its own heads, the
+    cross attention over the 6404 image tokens; the losses step by step,
+    and the gathered parameters and first moments after the last step,
+    against train_vlm's first 2 steps (VLM_STATE_AT), within
+    MESH_LOSS_TOL, MESH_PARAM_TOL and MESH_MOMENT_TOL (both, where the
+    bf16 run exceeds a bound, in f32 compute at the cut TRAIN_MESH_VLM
+    gives). Step ms against train_vlm's and the peak are kept."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.sharding import MeshArray, ShardingCtx
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_elastic_mesh, make_mesh
+    from repro_torch.launch.programs import build_program
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer as T
+    from repro_torch.train.trainer import Trainer
+
+    spec = TRAIN_MESH_VLM
+    kernels = _kernel_counts()
+    FA = kernels["flash_attention"]
+    bundle = registry.get(spec["arch"])
+    layers = TRAIN_MODELS["train_vlm"]["layers"]
+    cfg = dataclasses.replace(bundle.model, num_layers=layers)
+    run = bundle.run
+    gb, seq = TRAIN_SHAPE["global_batch"], TRAIN_SHAPE["seq"]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    d, m = spec["mesh"]
+    mesh = make_elastic_mesh(d, m, devices=[dev] * (d * m))
+    n_steps = spec["steps"]
+    per_step = mesh_flash_launches(cfg, run, mesh, gb)
+    assert per_step == 4 * 1 * 2 * layers == 40, per_step
+    q = (gb // d, seq, cfg.num_heads // m, cfg.head_dim)
+    kv = cfg.num_kv_heads // m
+    shapes = {"self": (q, (gb // d, seq, kv, cfg.head_dim)),
+              "cross": (q, (gb // d, cfg.num_image_tokens, kv, cfg.head_dim))}
+    assert q == (4, 2048, 16, 128) and kv == 4, (q, kv)
+
+    def state(t):
+        return [x for tree in (t.params, t.opt_state) for x in P.leaves(tree)]
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    t = Trainer(cfg, run, global_batch=gb, seq_len=seq, seed=0, mesh=mesh,
+                data=OneBatch(SyntheticLM(cfg, gb, seq, seed=0)), device=dev)
+    gates = draw_gates(t.params, seed=0)  # as train_vlm draws them
+    assert gates == EMITTED["train_vlm"]["gates"], (gates,
+                                                    EMITTED["train_vlm"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    plan = t._step_fn.plan
+    assert plan.attn and plan.xattn and plan.mlp and plan.vocab, plan
+    assert plan.repeated(cfg) == [], plan
+    leaves = state(t)
+    assert all(isinstance(x, MeshArray) and len(x.shards) == d * m
+               for x in leaves)
+    cell_bytes = [sum(x.shards[p].numel() * x.shards[p].element_size()
+                      for x in leaves) for p in range(d * m)]
+    meta = make_mesh((d, m), ("data", "model"),
+                     [torch.device("meta")] * (d * m))
+    prog = build_program(cfg, run, ShapeSpec("train_mesh_vlm", "train", seq,
+                                             gb),
+                         ShardingCtx.for_mesh(meta, t.ruleset))
+    dry_bytes = dryrun.argument_bytes(dataclasses.replace(
+        prog, args=prog.args[:2], arg_shardings=prog.arg_shardings[:2]))
+    assert cell_bytes == [dry_bytes] * (d * m), (cell_bytes, dry_bytes)
+    whole_bytes = sum(x.nbytes for x in leaves)
+    del leaves, prog
+
+    # the main path: every count set to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    for mod in kernels.values():
+        mod.reset_launches()
+    step_s, step_launches = [], []
+    with FlashShapes() as flash:
+        for i in range(n_steps):
+            l0 = FA.launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.train(i + 1)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            step_launches.append(FA.launches() - l0)
+    main_launches = {k: mod.launches() for k, mod in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    assert step_launches == [per_step] * n_steps, step_launches
+    assert main_launches == {"blockhash": 0, "wkv6": 0, "ssd": 0,
+                             "flash_attention": per_step * n_steps}
+    # each step: 4 cells x (4 self + 1 cross) x the forward and recompute
+    g, s = T._vlm_groups(cfg)
+    assert sorted(flash.pairs) == sorted(
+        [shapes["self"]] * (d * m * 2 * g * s * n_steps)
+        + [shapes["cross"]] * (d * m * 2 * g * n_steps)
+    ), sorted(set(flash.pairs))
+    losses = [x["loss"] for x in t.metrics_log]
+    assert len(losses) == n_steps and all(np.isfinite(losses)), losses
+    plain_losses = EMITTED["train_vlm"]["losses"][:n_steps]
+    loss_err = max(abs(a - b) / max(1.0, abs(b))
+                   for a, b in zip(losses, plain_losses))
+    assert loss_err <= MESH_LOSS_TOL, (losses, plain_losses)
+    gaps = mesh_state_gaps(t, VLM_STATE_AT.pop(n_steps))
+    print(f"train_mesh_vlm: the bf16 step's parameters after {n_steps} "
+          f"steps within {gaps['params']:.3e} of train_vlm's (bound "
+          f"{MESH_PARAM_TOL}), its first moments within {gaps['mu']:.3e} "
+          f"(bound {MESH_MOMENT_TOL}; largest element {gaps['mu_max']:.3e})",
+          flush=True)
+    del t
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = None
+    if not state_held(gaps):
+        cut = spec["f32_hold"]
+        f32 = mesh_f32_hold(cfg, run, mesh, gb, cut["seq"], cut["steps"],
+                            host=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        assert f32["param_max_rel_err"] <= MESH_PARAM_TOL, f32
+        assert f32["moment_rel_err"] <= MESH_MOMENT_TOL, f32
+        assert f32["loss_max_rel_err"] <= MESH_LOSS_TOL, f32
+    step_ms = [x * 1e3 for x in step_s]
+    emit("train_mesh_vlm", arch=cfg.name, layers=cfg.num_layers,
+         cut=f"depth {bundle.model.num_layers} -> {cfg.num_layers} "
+             f"(train_vlm's)", mesh=[d, m], device="virtual",
+         ruleset="baseline", global_batch=gb, seq=seq,
+         cell_rows=gb // d, image_tokens=cfg.num_image_tokens, steps=n_steps,
+         init_s=init_s, step_ms=step_ms[-1], step_ms_all=step_ms,
+         step_ms_of_train_vlm=EMITTED["train_vlm"]["step_ms"],
+         tokens_per_s=gb * seq / step_s[-1],
+         peak_memory_bytes=peak, base_memory_bytes=base,
+         peak_memory_of_train_vlm=EMITTED["train_vlm"]["peak_memory_bytes"],
+         flash_launches_per_step=per_step, main_path_launches=main_launches,
+         flash_shapes={k: [list(q_), list(k_)]
+                       for k, (q_, k_) in shapes.items()},
+         tensor_parallel={"model_local": ["attention", "cross attention",
+                                          "mlp", "vocab"],
+                          "repeated": plan.repeated(cfg),
+                          "replicated": ["norm scales", "gates"]},
+         losses=losses, plain_losses=plain_losses, loss_max_rel_err=loss_err,
+         param_max_rel_err=gaps["params"], moment_rel_err=gaps["mu"],
+         moment_max_rel_err=gaps["mu_max"], f32_hold=f32,
+         tolerance={"loss": f"{MESH_LOSS_TOL} x max(1, |plain|)",
+                    "params": f"{MESH_PARAM_TOL} x max(1, max|plain|) a "
+                              f"leaf",
+                    "first_moment": f"|gap| <= {MESH_MOMENT_TOL} x "
+                                    f"|plain| a leaf (norms)",
+                    "f32_hold": "all three, in f32 compute, where the bf16 "
+                                "run exceeds one"},
+         cell_bytes=cell_bytes, dryrun_argument_bytes=dry_bytes,
+         whole_state_bytes=whole_bytes)
+    # the pinned blocks of the host copies, kept by the host allocator
+    getattr(torch._C, "_host_emptyCache", lambda: None)()
+    return main_launches["flash_attention"]
 
 
 # --- the twelfth slice: the dry-run held against the card, the examples ------------
@@ -5999,6 +6250,9 @@ def run_phases(t_start, card, traces) -> int:
         flash_by_path[name] = timed(name, phase_serve_cross, name)
         train = name.replace("serve", "train")
         trained[train] = timed(train, phase_train_model, train)
+        if train == "train_vlm":  # its state on the host for the mesh run
+            flash_by_path["train_mesh_vlm"] = timed("train_mesh_vlm",
+                                                    phase_train_mesh_vlm)
     timed("dryrun", phase_dryrun, traces)
     timed("examples", phase_examples)
     (rwkv_train, rwkv_bwd), (zamba_train, zamba_bwd) = (

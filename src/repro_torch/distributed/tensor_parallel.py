@@ -7,14 +7,15 @@ The reference partitions its step under GSPMD with the ``BASELINE``
 ruleset, which puts ``heads``, ``kv_heads``, ``mlp``, ``vocab`` and
 ``experts`` on ``model``: each device computes with its own model shard
 (Megatron-style tensor parallelism, which XLA derives). ``plan_for``
-makes the same decision once per (arch, mesh, ruleset), for the dense
-and MoE families, group by group of leaves (``Plan``): a group is
+makes the same decision once per (arch, mesh, ruleset), for the dense,
+MoE and VLM families, group by group of leaves (``Plan``): a group is
 *model-local* where its ``model`` cut falls on units the block code takes
-alone (attention: both head counts divide by the axis; the MLP's
-columns and rows; the experts; the vocabulary). Every other leaf (norm
-scales, the router, a group whose cut does not fall on such units, every
-leaf of another family) is gathered whole over ``model`` as before, and
-its work repeats in every cell of a ``model`` group.
+alone (attention and the VLM's cross attention: both head counts divide
+by the axis; the MLP's columns and rows; the experts; the vocabulary).
+Every other leaf (norm scales, the router, the VLM's gates, a group
+whose cut does not fall on such units, every leaf of another family) is
+gathered whole over ``model`` as before, and its work repeats in every
+cell of a ``model`` group.
 
 Autograd cannot run the collectives' transposes: on the card the engine
 runs every cell's CUDA backward in one device thread, where a collective
@@ -38,8 +39,9 @@ identity forward and a ``model`` psum backward; an exit (``exit``) a
 psum forward and the identity backward; ``all_gather`` over ``model``
 (its result used identically by the group) slices its block backward.
 Hence the two rules the block code keeps: (a) replicated work (the
-norms, the router) sits ahead of an entry, so its gradient is the same
-in every cell and is not summed; (b) a replicated loss (the MoE's aux
+norms, the router) sits ahead of an entry, or after an exit (the VLM's
+gates, which scale the group's sum), so its gradient is the same in
+every cell and is not summed; (b) a replicated loss (the MoE's aux
 loss) is computed once ahead of an entry, or, where each cell computes a
 part, summed through an exit.
 """
@@ -62,13 +64,14 @@ AXIS = "model"
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """Which groups of leaves are model-local. ``segmented``: the step
-    runs the family's loss on a ``Tape`` (the dense and MoE families on a
-    mesh); ``size``: the ``model`` axis's."""
+    runs the family's loss on a ``Tape`` (the dense, MoE and VLM families
+    on a mesh); ``size``: the ``model`` axis's."""
 
     segmented: bool = False
     size: int = 1
     attn: bool = False
-    mlp: bool = False
+    xattn: bool = False  # the VLM's cross attention
+    mlp: bool = False  # the dense MLP (the VLM's: its self and cross layers')
     shared: bool = False  # the MoE's shared MLP
     experts: bool = False
     vocab: bool = False
@@ -82,7 +85,9 @@ class Plan:
         if not self.segmented:
             return ["every block"]
         out = [] if self.attn else ["attention"]
-        if cfg.family == "dense" and not self.mlp:
+        if cfg.family == "vlm" and not self.xattn:
+            out.append("cross attention")
+        if cfg.family in ("dense", "vlm") and not self.mlp:
             out.append("mlp")
         if cfg.family == "moe":
             if not self.experts:
@@ -142,23 +147,30 @@ def plan_for(cfg, pspecs, param_specs, sizes: Dict[str, int],
     """The plan for ``cfg``'s parameters (``pspecs``, the ``TensorSpec``
     tree) laid out by ``param_specs`` over a mesh of axis ``sizes``."""
     m = sizes.get(AXIS, 1)
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         return Plan(size=m, batch_axes=batch_axes)
     if m == 1:
         return Plan(segmented=True, batch_axes=batch_axes)
-    layer = ("stack", "layers")
 
-    def local(prefix, want):
-        return _local(pspecs, param_specs, layer + prefix, want)
+    def local(group, want):
+        return _local(pspecs, param_specs, ("stack",) + group, want)
 
     heads = cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0
+    vocab = _local(pspecs, param_specs, ("embed",), VOCAB)
+    if cfg.family == "vlm":
+        return Plan(
+            segmented=True, size=m, batch_axes=batch_axes,
+            attn=heads and local(("self", "attn"), ATTN),
+            xattn=heads and local(("cross", "xattn"), ATTN),
+            mlp=local(("self", "mlp"), MLP) and local(("cross", "mlp"), MLP),
+            vocab=vocab)
     return Plan(
         segmented=True, size=m, batch_axes=batch_axes,
-        attn=heads and local(("attn",), ATTN),
-        mlp=local(("mlp",), MLP),
-        shared=local(("moe", "shared"), MLP),
-        experts=local(("moe",), EXPERTS),
-        vocab=_local(pspecs, param_specs, ("embed",), VOCAB))
+        attn=heads and local(("layers", "attn"), ATTN),
+        mlp=local(("layers", "mlp"), MLP),
+        shared=local(("layers", "moe", "shared"), MLP),
+        experts=local(("layers", "moe"), EXPERTS),
+        vocab=vocab)
 
 
 def local_leaves(plan: Plan, pspecs):
@@ -169,11 +181,14 @@ def local_leaves(plan: Plan, pspecs):
             return {k: walk(v, path + (k,)) for k, v in tree.items()}
         if path[:1] == ("embed",):
             return plan.vocab
-        if path[:2] != ("stack", "layers") or len(path) < 4:
+        if path[:2] not in (("stack", "layers"), ("stack", "self"),
+                            ("stack", "cross")) or len(path) < 4:
             return False
         group, name = path[2], path[3]
         if group == "attn":
             return plan.attn
+        if group == "xattn":
+            return plan.xattn
         if group == "mlp":
             return plan.mlp
         if group == "moe":

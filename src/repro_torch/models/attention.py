@@ -332,15 +332,18 @@ def attention_full(q, k, v):
 
 
 def cross_attention(cfg: ModelConfig, w, x, enc, ctx: ShardingCtx):
-    """q from x (B,S,d); kv from enc (B,T,d). No causal mask, no rope."""
+    """q from x (B,S,d); kv from enc (B,T,d). No causal mask, no rope.
+    The heads are those of ``w``'s columns: all of them, or a
+    tensor-parallel cell's own (then the output is a partial sum)."""
     B, S = x.shape[:2]
     T = enc.shape[1]
-    q = matmul(x, w["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = matmul(enc, w["wk"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-    v = matmul(enc, w["wv"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    D = cfg.head_dim
+    q = matmul(x, w["wq"]).reshape(B, S, -1, D)
+    k = matmul(enc, w["wk"]).reshape(B, T, -1, D)
+    v = matmul(enc, w["wv"]).reshape(B, T, -1, D)
     q = ctx.constrain(q, ("batch", "seq", "heads", "head_dim"))
     out = attention_full(q, k, v)
-    return matmul(out.reshape(B, S, cfg.q_dim), w["wo"])
+    return matmul(out.reshape(B, S, -1), w["wo"])
 
 
 def cross_decode(cfg: ModelConfig, w, x, ck, cv):

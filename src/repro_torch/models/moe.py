@@ -19,7 +19,7 @@ segmented stack with the collectives between them.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -124,10 +124,11 @@ def moe_apply(cfg: ModelConfig, ctx: ShardingCtx, wts, x,
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
     group, _ = moe_groups(B * S, 1)
+    pieces = group_pieces(0, B * S, group)
     w, ids, slot, keep, aux = route_logits(
-        cfg, router_logits(wts, xf, group), group)
+        cfg, router_logits(wts, xf, pieces), group)
     y = experts_apply(cfg, wts, xf, w, ids, slot, keep, 0, group,
-                      group).reshape(B, S, d)
+                      pieces).reshape(B, S, d)
     if cfg.shared_expert:
         y = y + mlp_apply(wts["shared"], x, ctx, cfg.act)
     return y, aux
@@ -142,28 +143,35 @@ def moe_apply(cfg: ModelConfig, ctx: ShardingCtx, wts, x,
 # ``moe_experts`` and ``moe_combine``, which a trace reads.
 
 
-def moe_groups(tokens: int, n_batch: int) -> Tuple[int, int]:
+def moe_groups(tokens: int, n_batch: int) -> Tuple[int, bool]:
     """The reference's token group where ``n_batch`` data cells hold
-    ``tokens`` tokens each: (the group's size over the whole batch, the
-    rows of a group that one cell holds). A group lies within a cell, or
-    is the whole batch (the cells gather its router logits)."""
+    ``tokens`` tokens each, the cells' rows in order: (the group's size
+    over the whole batch, whether a group crosses an edge between cells:
+    then the cells gather their router logits and route every group)."""
     total = tokens * n_batch
     group = min(MOE_GROUP, total)
     if total % group:
         group = total
-    if tokens % group == 0:
-        return group, group
-    if group == total:
-        return group, tokens
-    raise NotImplementedError(
-        f"MoE token groups of {group} over {n_batch} data cells of "
-        f"{tokens} tokens each span some cells but not all")
+    return group, tokens % group != 0
 
 
-def router_logits(wts, x, rows: int):
-    """x: (T, d) -> (T, E) router logits, ``rows`` at a time (a group's
-    rows in this cell), in the activations' dtype."""
-    return torch.cat([xg @ wts["router"].to(x.dtype) for xg in x.split(rows)])
+def group_pieces(lo: int, tokens: int, group: int) -> List[int]:
+    """The sizes of the pieces that the tokens ``[lo, lo + tokens)`` of
+    the whole batch make when cut at each group's edge (a cell's rows of
+    each group it holds a part of)."""
+    pieces, t = [], lo
+    while t < lo + tokens:
+        end = min((t // group + 1) * group, lo + tokens)
+        pieces.append(end - t)
+        t = end
+    return pieces
+
+
+def router_logits(wts, x, pieces: List[int]):
+    """x: (T, d) -> (T, E) router logits, a piece at a time (``pieces``:
+    ``group_pieces``), in the activations' dtype."""
+    return torch.cat([xg @ wts["router"].to(x.dtype)
+                      for xg in x.split(pieces)])
 
 
 def route_logits(cfg: ModelConfig, logits, group: int):
@@ -184,15 +192,15 @@ def route_logits(cfg: ModelConfig, logits, group: int):
 
 
 def experts_apply(cfg: ModelConfig, wts, x, w, ids, slot, keep, lo: int,
-                  group: int, rows: int):
+                  group: int, pieces: List[int]):
     """(T, d): the output of the experts ``wts`` holds (from ``lo`` on)
-    for the tokens ``x`` (T, d) routed to them, ``rows`` tokens of a group
-    of ``group`` at a time; the rest of each token's experts add in the
-    other cells of its ``model`` group."""
+    for the tokens ``x`` (T, d) routed to them, a piece of a group of
+    ``group`` at a time (``pieces``: ``group_pieces``); the rest of each
+    token's experts add in the other cells of its ``model`` group."""
     dt = x.dtype
     n, C = wts["w_gate"].shape[0], capacity(group, cfg)
     out = []
-    for xg, wg, ig, sg, kg in zip(*(t.split(rows) for t in
+    for xg, wg, ig, sg, kg in zip(*(t.split(pieces) for t in
                                     (x, w, ids, slot, keep))):
         with ranges.named("moe_dispatch"):
             combine = _combine_of(wg, ig, sg, kg, lo, n, C)

@@ -123,24 +123,24 @@ def cross_block_specs(cfg: ModelConfig) -> Dict:
     }
 
 
-def _gated_mlp(cfg: ModelConfig, ctx: ShardingCtx, w, x, o):
-    """x + tanh(gate_attn) o, then its gated MLP residual."""
-    x = x + torch.tanh(w["gate_attn"]).to(x.dtype) * o
-    h2 = rms_norm(x, w["ln2"], cfg.norm_eps)
-    return x + torch.tanh(w["gate_mlp"]).to(x.dtype) * mlp_apply(
-        w["mlp"], h2, ctx, cfg.act)
+def _gated(gate, o):
+    """tanh(gate) o, in ``o``'s dtype."""
+    return torch.tanh(gate).to(o.dtype) * o
 
 
 def cross_block_apply(cfg: ModelConfig, ctx: ShardingCtx, w, x, img):
-    h = rms_norm(x, w["ln1"], cfg.norm_eps)
-    return _gated_mlp(cfg, ctx, w, x, A.cross_attention(cfg, w["xattn"], h,
-                                                        img, ctx))
+    """The gated cross-attention layer: the segmented stack's cross half
+    (``cross_segments``) on ``tensor_parallel.INLINE``."""
+    x, adds = cross_segments(cfg, ctx, tp.INLINE, lambda: w, x, (), img)
+    return _resid(x, adds)
 
 
 def cross_block_decode(cfg: ModelConfig, ctx: ShardingCtx, w, x, img_k, img_v):
     h = rms_norm(x, w["ln1"], cfg.norm_eps)
-    return _gated_mlp(cfg, ctx, w, x, A.cross_decode(cfg, w["xattn"], h,
-                                                     img_k, img_v))
+    x = x + _gated(w["gate_attn"], A.cross_decode(cfg, w["xattn"], h, img_k,
+                                                  img_v))
+    h2 = rms_norm(x, w["ln2"], cfg.norm_eps)
+    return x + _gated(w["gate_mlp"], mlp_apply(w["mlp"], h2, ctx, cfg.act))
 
 
 # --- stacks -----------------------------------------------------------------------
@@ -293,7 +293,7 @@ def stack_prefill(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x,
 
 
 # --- the segmented stack: tensor parallelism over "model" ----------------------------
-# The dense and MoE training stacks, written once for both callers: each
+# The dense, MoE and VLM training stacks, written once for both callers: each
 # half of a layer is a segment ahead of its entry (the residual sum, the
 # norm and, for the MoE, the routing: replicated work, rule (a)) and a
 # segment of the layer's own work, whose output the next segment adds to
@@ -301,8 +301,9 @@ def stack_prefill(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x,
 # (``train.step``) the segments run on a ``distributed.tensor_parallel.Tape``
 # with an entry and an exit around the work of a model-local half (the
 # cell's heads, columns or experts); a half gathered whole over ``model``
-# has no collective there. Outside the step (``block_apply``) the same
-# halves run on ``tensor_parallel.INLINE``: plain calls, no collective.
+# has no collective there. Outside the step (``block_apply``,
+# ``cross_block_apply``) the same halves run on ``tensor_parallel.INLINE``:
+# plain calls, no collective.
 
 
 def _resid(x, adds):
@@ -363,15 +364,21 @@ def _moe_half(cfg, run, ctx, tc, wl, x, adds):
     """The MoE half in a step cell, dense dispatch: the routing whole in
     the replicated segment (its aux loss counted once: rule (b)); the
     routing weights enter the expert segment beside the activations, so
-    their gradient is summed over ``model``. Returns (x, adds, aux)."""
+    their gradient is summed over ``model``. Where a token group crosses
+    an edge between the data cells (``moe.moe_groups``), the cells gather
+    the microbatch's router logits over the batch axes and route every
+    group of it, as the reference routes its global microbatch: each
+    keeps its own rows' routing and the aux loss of all the groups.
+    Returns (x, adds, aux)."""
     from repro_torch.distributed import spmd
 
     tape, plan = tc.tape, tc.plan
     B, S, d = x.shape
     T = B * S
     batch = plan.batch_axes
-    group, rows = M.moe_groups(T, spmd.axis_size(batch) if batch else 1)
-    spans = rows < group  # one group of every data cell's tokens
+    group, spans = M.moe_groups(T, spmd.axis_size(batch) if batch else 1)
+    lo = spmd.axis_index(batch) * T if spans else 0
+    pieces = M.group_pieces(lo, T, group)
     shared_here = cfg.shared_expert and not plan.shared
 
     def wm():
@@ -379,7 +386,7 @@ def _moe_half(cfg, run, ctx, tc, wl, x, adds):
 
     def pre(x, *a):
         x, h = _normed(x, a, wl()["ln2"], cfg.norm_eps)
-        logits = M.router_logits(wm(), h.reshape(T, d), rows)
+        logits = M.router_logits(wm(), h.reshape(T, d), pieces)
         out = [x, h, *((logits,) if spans else
                        M.route_logits(cfg, logits, group))]
         if shared_here:
@@ -391,7 +398,6 @@ def _moe_half(cfg, run, ctx, tc, wl, x, adds):
         logits = tape.all_gather(rest.pop(0), batch, 0, replicated=False)
 
         def route(lg):
-            lo = spmd.axis_index(batch) * T
             w, ids, slot, keep, aux = M.route_logits(cfg, lg, group)
             return (*(t[lo:lo + T] for t in (w, ids, slot, keep)), aux)
 
@@ -401,11 +407,11 @@ def _moe_half(cfg, run, ctx, tc, wl, x, adds):
     w, ids, slot, keep, aux = routed
     enter = tape.enter if plan.experts else _same
     h_in, w_in = enter(h), enter(w)
-    lo = tc.block(cfg.num_experts)[0] if plan.experts else 0
+    first = tc.block(cfg.num_experts)[0] if plan.experts else 0
 
     def experts(h, w, ids, slot, keep):
         y = M.experts_apply(cfg, wm(), h.reshape(T, d), w, ids, slot, keep,
-                            lo, group, rows).reshape(B, S, d)
+                            first, group, pieces).reshape(B, S, d)
         if cfg.shared_expert and plan.shared:
             y = y + mlp_apply(wm()["shared"], h, ctx, cfg.act)
         return (y,)
@@ -470,10 +476,10 @@ def _a2a_half(cfg, run, ctx, tc, wl, x, adds):
 
 def layer_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc, wl,
                    x, adds, positions, q_chunk: int):
-    """One dense or MoE layer on the tape of ``tc`` (a
-    ``distributed.tensor_parallel.Cell``), its leaves read by ``wl()``.
-    Returns (x, adds, aux): the residual stream, the terms still to add
-    to it (``_resid``), the MoE layer's aux loss or None."""
+    """One dense or MoE layer, or a VLM self layer, on the tape of ``tc``
+    (a ``distributed.tensor_parallel.Cell``), its leaves read by
+    ``wl()``. Returns (x, adds, aux): the residual stream, the terms
+    still to add to it (``_resid``), the MoE layer's aux loss or None."""
     x, adds = _attn_half(cfg, ctx, tc, wl, x, adds, positions, q_chunk)
     if not cfg.is_moe:
         half = _mlp_half
@@ -486,16 +492,57 @@ def layer_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc, wl,
     return half(cfg, run, ctx, tc, wl, x, adds)
 
 
+def cross_segments(cfg: ModelConfig, ctx: ShardingCtx, tc, wc, x, adds, img):
+    """The VLM's gated cross-attention layer on the tape of ``tc``, its
+    leaves read by ``wc()``: the norm ahead of the entry (rule (a)); q
+    from the cell's heads of the entered stream, k and v from the image
+    embeddings ``img`` (batch input, no gradient) on its kv heads, out
+    through its rows of ``wo`` and the exit; then ``tanh(gate_attn)`` in
+    a segment of its own after the exit (in the local segment each
+    cell's gradient of the gate would be a partial sum that nothing adds
+    up), the MLP half as a self layer's, and ``tanh(gate_mlp)`` after
+    its exit. Returns (x, adds)."""
+    tape = tc.tape
+    local = tc.plan.xattn
+    x, h = tape.run(lambda x, *a: _normed(x, a, wc()["ln1"], cfg.norm_eps),
+                    x, *adds)
+    part, = tape.run(lambda h: (A.cross_attention(cfg, wc()["xattn"], h, img,
+                                                  ctx),),
+                     tape.enter(h) if local else h)
+    o, = tape.run(lambda o: (_gated(wc()["gate_attn"], o),),
+                  tape.exit(part) if local else part)
+    x, (m,), _ = _mlp_half(cfg, None, ctx, tc, wc, x, (o,))
+    m, = tape.run(lambda m: (_gated(wc()["gate_mlp"], m),), m)
+    return x, (m,)
+
+
 def stack_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc, w,
-                   x, positions, *, q_chunk: int = 1024):
-    """The dense or MoE stack on the tape of ``tc``, from the leaf ``x``.
-    Returns (x, adds, auxes): the last residual, the terms still to add
-    to it (``_resid``), each MoE layer's aux loss. On ``INLINE`` the
-    stack is ``stack_apply``'s, grouped remat included."""
+                   x, positions, *, img: Optional[torch.Tensor] = None,
+                   q_chunk: int = 1024):
+    """The dense, MoE or VLM stack on the tape of ``tc``, from the leaf
+    ``x`` (the VLM's super-blocks: ``cross_attn_every - 1`` self layers,
+    then a cross layer on the image embeddings ``img``). Returns (x,
+    adds, auxes): the last residual, the terms still to add to it
+    (``_resid``), each MoE layer's aux loss. On ``INLINE`` the stack is
+    ``stack_apply``'s, grouped and nested remat included."""
     if tc is tp.INLINE:
-        x, aux = stack_apply(cfg, run, ctx, w, x, positions, q_chunk=q_chunk)
+        x, aux = stack_apply(cfg, run, ctx, w, x, positions, img=img,
+                             q_chunk=q_chunk)
         return x, (), [aux]
     adds, auxes = (), []
+    if cfg.family == "vlm":
+        g, s = _vlm_groups(cfg)
+        for j in range(g):
+            for i in range(s):
+                def wl(i=i, j=j):
+                    return P.layer(P.layer(w["self"], j), i)
+
+                x, adds, _ = layer_segments(cfg, run, ctx, tc, wl, x, adds,
+                                            positions, q_chunk)
+            x, adds = cross_segments(cfg, ctx, tc,
+                                     lambda j=j: P.layer(w["cross"], j), x,
+                                     adds, img)
+        return x, adds, auxes
     for i in range(cfg.num_layers):
         def wl(i=i):
             return P.layer(w["layers"], i)

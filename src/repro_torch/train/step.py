@@ -15,12 +15,14 @@ the whole mesh. Each cell casts its parameter shards to the compute
 dtype and all-gathers each leaf over the mesh axes its spec cuts, but
 ``model`` for a model-local leaf (``distributed.tensor_parallel``: the
 attention's heads, the MLP's columns and rows, the experts and the
-vocabulary of the dense and MoE families, where their cut falls on such
-units), and runs the model on its share of the batch (cut over the
-``batch`` rule's axes): the dense and MoE families tensor-parallel over
-``model`` on a ``tensor_parallel.Tape`` (``lm.loss_segments``), whose
-backward runs the collectives' transposes in the cell's code; the other
-families at full width under autograd. Each cell keeps of each gradient
+vocabulary of the dense, MoE and VLM families, where their cut falls on
+such units), and runs the model on its share of the batch (cut over the
+``batch`` rule's axes; in microbatches, each cell's microbatch i is its
+block of the global microbatch i, as in the reference): the dense, MoE
+and VLM families tensor-parallel over ``model`` on a
+``tensor_parallel.Tape`` (``lm.loss_segments``), whose backward runs the
+collectives' transposes in the cell's code; the other families at full
+width under autograd. Each cell keeps of each gradient
 the shard it owns, averaged over the cells that cut the batch (a
 reduce-scatter in the accumulation dtype): a model-local leaf's
 gradient is its own block already; the cells of one ``model`` group see
@@ -31,7 +33,6 @@ each cell's shards (``optim.adamw``'s ``cells``).
 
 from __future__ import annotations
 
-import math
 from typing import Dict
 
 import torch
@@ -42,7 +43,6 @@ from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import MeshSharding, ShardingCtx
 from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.models import lm, params as P
-from repro_torch.models.moe import moe_groups
 from repro_torch.optim.adamw import OptState, adamw_init_specs, adamw_update
 
 
@@ -322,9 +322,8 @@ def _partitioned(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx,
                 {k: batch_spec if v.dim() else () for k, v in batch.items()})
 
     def train_step(params, opt_state: OptState, batch: Dict):
-        if cfg.is_moe and n_accum > 1:
-            _check_moe_microbatches(
-                math.prod(batch["tokens"].shape) // n_accum, layout.dp)
+        if n_accum > 1 and layout.dp > 1:
+            batch = _by_microbatch(batch, n_accum, layout.dp)
         step = spmd.shard_map(cell, mesh, in_specs=in_specs(batch),
                               out_specs=(param_specs, opt_specs, ()),
                               keep=True)
@@ -338,17 +337,19 @@ def _partitioned(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx,
     return train_step
 
 
-def _check_moe_microbatches(tokens: int, n_batch: int) -> None:
-    """Refuses a MoE token group that spans the data cells when the
-    batch runs in several microbatches of ``tokens`` tokens: each data
-    cell then routes its own microbatch i together, where the reference
-    routes global microbatch i, other rows (ROADMAP Queue 3)."""
-    group, rows = moe_groups(tokens // n_batch, n_batch)
-    if rows < group:
-        raise NotImplementedError(
-            f"a MoE token group of {group} spans the {n_batch} data cells "
-            "and the batch runs in several microbatches: each cell would "
-            "route its own rows, not the reference's global microbatch")
+def _by_microbatch(batch: Dict, n_accum: int, dp: int) -> Dict:
+    """The batch's rows reordered so that data cell c's microbatch i is
+    block c of global microbatch i, as in the reference, whose microbatch
+    i is rows ``[i B / n_accum, (i + 1) B / n_accum)`` of the whole batch
+    cut over the data cells (each cell cuts its microbatches out of its
+    own rows). The loss is a mean over rows, so only the rows that a MoE
+    token group routes together, and the a2a's per-cell routing, see the
+    order."""
+    def rows(v):
+        return v.reshape((n_accum, dp, v.shape[0] // (n_accum * dp))
+                         + v.shape[1:]).transpose(0, 1).reshape(v.shape)
+
+    return {k: rows(v) if v.dim() else v for k, v in batch.items()}
 
 
 def _trim(entries) -> tuple:

@@ -22,7 +22,10 @@ the flash launches of a partitioned step; each cell's bytes at rest
 against the dry-run's; checkpoints: the files of a partitioned trainer
 byte for byte those of its whole leaves at the same grid, restores
 across the packages and elastic rescales bit for bit; and the error of a
-mesh over devices the host lacks. The tensor parallelism over ``model``
+mesh over devices the host lacks. Against the reference too: olmoe's MoE
+token groups that span data cells, on (2, 2) in two microbatches and on
+(4, 1) at 8 x 1024 (a group over 2 of the 4 cells), in a second
+subprocess. The tensor parallelism over ``model``
 inside the step, olmoe's a2a MoE included, is held in
 ``test_torch_tensor_parallel.py``.
 """
@@ -58,7 +61,7 @@ from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.launch import dryrun, programs  # noqa: E402
 from repro_torch.launch.mesh import (make_elastic_mesh, make_host_mesh,  # noqa: E402
                                      make_mesh)
-from repro_torch.models import attention, params as P  # noqa: E402
+from repro_torch.models import attention, moe, params as P  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train import step as train_step  # noqa: E402
 from repro_torch.train.trainer import Trainer  # noqa: E402
@@ -442,16 +445,67 @@ def test_a_mesh_over_devices_the_host_lacks_raises():
     assert proc.returncode != 0 and "need 2 devices" in proc.stderr
 
 
-def test_moe_group_over_the_data_cells_in_microbatches_raises():
-    """olmoe's smoke batch on (2, 2) in two microbatches: each cell's 32
-    tokens of a microbatch are half of a token group of 64 over both data
-    cells, which the reference forms of another set of rows."""
+# --- MoE token groups across the data cells ------------------------------------------
+
+# olmoe's smoke config: on (2, 2) in two microbatches of 2 rows a data
+# cell, a token group of 64 is global microbatch i, over both data cells;
+# on (4, 1) at 8 x 1024, a group of 4096 spans 2 of the 4 data cells
+GROUP_CASES = {"microbatches": ((2, 2), SEQ, {"microbatch_per_data_shard": 2}),
+               "some_cells": ((4, 1), 1024, {"microbatch_per_data_shard": 0})}
+
+REF_GROUPS = """
+from repro.configs import registry
+from repro.launch.mesh import make_host_mesh
+from repro.train.trainer import Trainer
+b = registry.get(inp["arch"])
+for key, ((d, m), seq, run_kw) in inp["cases"].items():
+    run = b.run.replace(**inp["run"], **run_kw)
+    t = Trainer(b.smoke, run, global_batch=inp["batch"], seq_len=seq,
+                seed=inp["seed"], mesh=make_host_mesh(d, m))
+    st = t.extract_state()
+    out[f"{key}/init"] = {"params": st["params"], "opt": st["opt_state"]}
+    t.train(inp["steps"])
+    out[f"{key}/losses"] = np.array([m_["loss"] for m_ in t.metrics_log])
+    st = t.extract_state()
+    out[f"{key}/final"] = {"params": st["params"], "opt": st["opt_state"]}
+"""
+
+
+@pytest.fixture(scope="module")
+def group_reference():
+    return run_reference(REF_GROUPS, {
+        "arch": "olmoe-1b-7b", "run": RUN, "cases": GROUP_CASES,
+        "batch": BATCH, "seed": SEED, "steps": STEPS}, 4)
+
+
+@pytest.mark.parametrize("case", sorted(GROUP_CASES))
+def test_moe_groups_across_the_data_cells_match_reference(group_reference,
+                                                          case):
+    """The rows routed together are the reference's token groups of its
+    global microbatch: each data cell's microbatch i is block i of the
+    global one (``step._by_microbatch``), and a group that crosses an
+    edge between cells is routed from the gathered router logits."""
+    (d, m), seq, run_kw = GROUP_CASES[case]
     b = registry.get("olmoe-1b-7b")
-    run = b.run.replace(**RUN, microbatch_per_data_shard=2)
-    t = Trainer(b.smoke, run, global_batch=BATCH, seq_len=SEQ, seed=SEED,
-                mesh=virtual(2, 2), device="cpu")
-    with pytest.raises(NotImplementedError, match="spans the 2 data cells"):
-        t.train(1)
+    run = b.run.replace(**RUN, **run_kw)
+    t = Trainer(b.smoke, run, global_batch=BATCH, seq_len=seq, seed=SEED,
+                mesh=virtual(d, m), device="cpu")
+    n_accum = train_step.num_accum_steps(run, t.ctx, BATCH)
+    assert n_accum == (2 if case == "microbatches" else 1)
+    tokens = BATCH // n_accum // d * seq  # a data cell's microbatch
+    group, spans = moe.moe_groups(tokens, d)
+    assert spans and group == (tokens * d if case == "microbatches"
+                               else 2 * tokens)
+    t.restore_state(carried(group_reference[f"{case}/init"]))
+    t.train(STEPS)
+    np.testing.assert_allclose([x["loss"] for x in t.metrics_log],
+                               group_reference[f"{case}/losses"], rtol=0,
+                               atol=1e-4)
+    want = jax.tree.leaves(group_reference[f"{case}/final"])
+    have = whole_state(t)
+    assert len(have) == len(want)
+    for i, (g, w) in enumerate(zip(have, want)):
+        assert_close(g, w, 1e-4, f"{case} leaf {i}")
 
 
 def test_train_cli_trains_on_a_virtual_mesh(tmp_path):

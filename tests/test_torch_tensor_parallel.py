@@ -13,19 +13,30 @@ cell's shapes at rest (exact), the losses of 3 steps within 1e-4, the
 parameters and optimizer state after them within 1e-4 x max(1,
 max|ref|) a leaf (``test_torch_mesh_train.py``'s tolerances).
 
+The VLM (llama-3.2-vision-11b's smoke config: 4 layers in super-blocks
+of a self and a cross layer, 4 q and 2 kv heads), its gates drawn away
+from 0, on (2, 2) and (1, 2), against the reference the same way: each
+cell computes with its own heads of the self and the cross attention,
+its MLP columns and its vocabulary rows.
+
 In the port: the exact set of leaves each cell gathers over ``model``
-(``spmd.observe`` with labels), the flash calls' shapes in each cell,
+(``spmd.observe`` with labels), the flash calls' shapes in each cell (the
+VLM's self and cross attention on the cell's heads), the plan of the
+whole VLM for a ``model`` axis of 2 and 4, the token groups' pieces,
 ``spmd``'s refusal of a collective inside an autograd backward, a
 checkpoint's recompute or a tape's local segment, the dry-run's counts of
-the ``model``-axis collectives, and three planted breaches, each of
-which the reference differential refuses: replicated work (a norm)
-after an entry (rule (a)), the MoE's replicated aux loss summed over
-``model`` (rule (b)), and an entry whose backward does not sum.
+the ``model``-axis collectives, and five planted breaches, each of which
+the reference differential refuses: replicated work (a norm) after an
+entry (rule (a)), the MoE's replicated aux loss summed over ``model``
+(rule (b)), an entry whose backward does not sum, and, in the VLM's
+cross layer, a gate multiplied inside the local segment (rule (a)) and
+an entry whose backward does not sum.
 """
 
 from __future__ import annotations
 
 import json
+import types
 
 import numpy as np
 import pytest
@@ -37,9 +48,12 @@ from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.distributed import spmd  # noqa: E402
 from repro_torch.distributed import tensor_parallel as tp  # noqa: E402
-from repro_torch.distributed.sharding import MeshArray, ShardingCtx  # noqa: E402
+from repro_torch.distributed.sharding import (MeshArray, ShardingCtx,  # noqa: E402
+                                              gathered)
 from repro_torch.launch import dryrun, op_analysis  # noqa: E402
 from repro_torch.launch.programs import build_program  # noqa: E402
+from repro_torch.models import attention as A, lm, moe  # noqa: E402
+from repro_torch.models import params as P  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.train.trainer import Trainer  # noqa: E402
@@ -50,6 +64,7 @@ from test_torch_rwkv import assert_close  # noqa: E402
 from test_torch_spmd import run_reference  # noqa: E402
 
 MOE = "olmoe-1b-7b"
+VLM = "llama-3.2-vision-11b"
 CASES = (("dense", (2, 2)), ("dense", (1, 2)), ("dense", (1, 4)),
          ("a2a", (1, 2)), ("a2a", (2, 2)))
 
@@ -102,8 +117,38 @@ def trained_against(reference, impl, mesh_shape) -> list:
     state, 3 steps; the leaves whose gap exceeds the tolerance (the loss
     as leaf -1), each with its gap."""
     d, m = mesh_shape
-    key = f"{impl}/{d}x{m}"
-    t = moe_trainer(impl, virtual(d, m))
+    return gaps_after(moe_trainer(impl, virtual(d, m)), reference,
+                      f"{impl}/{d}x{m}")
+
+
+# A first moment's gap norm over its norm, a leaf: a gradient that only
+# a fault in the backward changes may be too small for the parameters'
+# absolute 1e-4 to see (the VLM's gates, whose first moments are about
+# 1e-5 and whose parameters Adam's sign-like first steps move alike
+# whatever the gradient's size); the sound runs stay well inside the
+# bound and the planted faults far outside it.
+MOMENT_TOL = 1e-3
+
+
+def moment_gaps(t, final) -> list:
+    """(leaf, gap) of each first-moment leaf of ``t`` whose gap's norm to
+    the reference's ``final`` state exceeds MOMENT_TOL of its norm."""
+    want = jax.tree.leaves(final["opt"].mu)
+    got = list(P.leaves(gathered(t.opt_state.mu)))
+    bad = []
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        w = torch.as_tensor(np.asarray(w))
+        gap = ((g - w).norm() / w.norm().clamp(min=1e-30)).item()
+        if gap > MOMENT_TOL:
+            bad.append((("mu", i), gap))
+    return bad
+
+
+def gaps_after(t, reference, key) -> list:
+    """``t`` trained 3 steps from the reference's initial state: the
+    leaves whose gap to the reference's case ``key`` exceeds the
+    tolerance (the loss as leaf -1), each with its gap, and the first
+    moments' (``moment_gaps``)."""
     t.restore_state(carried(reference["init"]))
     t.train(STEPS)
     bad = []
@@ -117,7 +162,7 @@ def trained_against(reference, impl, mesh_shape) -> list:
         gap = ((g - w).abs().max() / max(1.0, w.abs().max().item())).item()
         if gap > 1e-4:
             bad.append((i, gap))
-    return bad
+    return bad + moment_gaps(t, reference[f"{key}/final"])
 
 
 @pytest.mark.parametrize("impl,mesh_shape", CASES)
@@ -159,19 +204,25 @@ def gathered_over_model(t) -> dict:
     return seen
 
 
-@pytest.mark.parametrize("arch,want", [
-    (MOE, {"stack.layers.moe.router"}),
+@pytest.mark.parametrize("arch,want,repeated", [
+    (MOE, {"stack.layers.moe.router"}, []),
     ("smollm-135m", {f"stack.layers.attn.{w}"
-                     for w in ("wq", "wk", "wv", "wo")})])
-def test_cells_gather_over_model_only_the_leaves_they_repeat(arch, want):
+                     for w in ("wq", "wk", "wv", "wo")}, ["attention"]),
+    (VLM, set(), [])])
+def test_cells_gather_over_model_only_the_leaves_they_repeat(arch, want,
+                                                             repeated):
     """olmoe: only its router (which the routing needs whole); smollm: its
-    attention (3 heads, 1 kv head do not split over 2 cells)."""
+    attention (3 heads, 1 kv head do not split over 2 cells); the VLM:
+    nothing (its self and cross attention, MLPs and vocabulary split,
+    and no other leaf is cut over ``model``)."""
     b = registry.get(arch)
     t = Trainer(b.smoke, b.run.replace(**RUN), global_batch=BATCH,
                 seq_len=SEQ, seed=SEED, mesh=virtual(2, 2), device="cpu")
-    assert gathered_over_model(t) == {c: want for c in range(4)}
+    seen = gathered_over_model(t)
+    assert {c: seen.get(c, set()) for c in range(4)} == {
+        c: want for c in range(4)}
     plan = t._step_fn.plan
-    assert plan.repeated(b.smoke) == ([] if arch == MOE else ["attention"])
+    assert plan.repeated(b.smoke) == repeated
 
 
 def test_flash_runs_on_each_cells_own_heads(counted_flash):
@@ -185,6 +236,88 @@ def test_flash_runs_on_each_cells_own_heads(counted_flash):
     assert len(counted_flash) == 4 * 1 * 2 * cfg.num_layers
     assert set(counted_flash) == {(BATCH // 2, SEQ, cfg.num_heads // 2,
                                    cfg.head_dim)}
+
+
+@pytest.fixture
+def counted_cross_flash(counted_flash, monkeypatch):
+    """``counted_flash`` with the cross attention's flash Function too,
+    each call's (q shape, k shape) kept."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    calls = []
+
+    def fwd(q, k, v, *, causal, window, softcap):
+        calls.append((tuple(q.shape), tuple(k.shape), causal))
+        return fa_ref.attention(q, k, v, causal=causal, window=window,
+                                softcap=softcap)
+
+    monkeypatch.setattr(FK, "flash_attention_fwd", fwd)
+    monkeypatch.setattr(A, "attention_full", lambda q, k, v: (
+        fa_ops.flash_attention(q, k, v, False, 0, 0.0, use_kernel=True)))
+    return calls
+
+
+def test_vlm_flash_runs_on_each_cells_own_heads(counted_cross_flash):
+    """The VLM on (2, 2) with its bundle's run (bf16 compute, block
+    remat): each cell's self attention (causal) and cross attention (over
+    the image tokens) on its data cell's rows, its 2 of the 4 q heads and
+    1 of the 2 kv heads, once forward and once in the tape's recompute."""
+    b = registry.get(VLM)
+    cfg = b.smoke
+    t = Trainer(cfg, b.run, global_batch=BATCH, seq_len=SEQ, seed=SEED,
+                mesh=virtual(2, 2), device="cpu")
+    t.train(1)
+    q = (BATCH // 2, SEQ, cfg.num_heads // 2, cfg.head_dim)
+    kv = cfg.num_kv_heads // 2
+    self_call = (q, (BATCH // 2, SEQ, kv, cfg.head_dim), True)
+    cross_call = (q, (BATCH // 2, cfg.num_image_tokens, kv, cfg.head_dim),
+                  False)
+    g, s = T._vlm_groups(cfg)
+    # 4 cells x 1 microbatch x (the forward and the recompute) a layer
+    assert sorted(counted_cross_flash) == sorted(
+        [self_call] * (4 * 2 * g * s) + [cross_call] * (4 * 2 * g))
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_plan_makes_the_whole_vlm_model_local(m):
+    """llama-3.2-vision-11b at its published widths (32 q and 8 kv heads,
+    d_ff 14336, vocabulary 128256) over ``model`` of 2 and 4: the self
+    and cross attention, the MLPs and the vocabulary are the cell's own,
+    and nothing repeats; over 16 its 8 kv heads do not split."""
+    cfg = registry.get(VLM).model
+    for size, local in ((m, True), (16, False)):
+        mesh = dryrun._meta_mesh((2, size), ("data", "model"))
+        ctx = ShardingCtx.for_mesh(mesh)
+        pspecs = lm.param_specs(cfg)
+        plan = tp.plan_for(cfg, pspecs, P.map_specs(
+            lambda s: ctx.spec(s.logical, s.shape), pspecs),
+            {"data": 2, "model": size}, ("data",))
+        assert (plan.attn, plan.xattn) == (local, local)
+        assert plan.mlp and plan.vocab and plan.segmented
+        assert plan.repeated(cfg) == (
+            [] if local else ["attention", "cross attention"])
+        leaves = tp.local_leaves(plan, pspecs)
+        assert all(leaves["stack"]["cross"]["xattn"][w] == local
+                   and leaves["stack"]["self"]["attn"][w] == local
+                   for w in ("wq", "wk", "wv", "wo"))
+        assert not any(leaves["stack"]["cross"][w] for w in (
+            "gate_attn", "gate_mlp", "ln1", "ln2"))
+
+
+def test_token_group_pieces_cut_at_each_groups_edge():
+    """A cell's rows of each group it holds a part of: within a cell, a
+    group over some cells, a group whose edge falls inside a cell."""
+    assert moe.moe_groups(8192, 2) == (4096, False)
+    assert moe.group_pieces(8192, 8192, 4096) == [4096, 4096]
+    assert moe.moe_groups(2048, 4) == (4096, True)
+    assert moe.group_pieces(2048, 2048, 4096) == [2048]
+    assert moe.moe_groups(32, 2) == (64, True)
+    assert moe.moe_groups(6144, 2) == (4096, True)
+    assert moe.group_pieces(6144, 6144, 4096) == [2048, 4096]
+    assert moe.group_pieces(0, 6144, 4096) == [4096, 2048]
+    assert moe.moe_groups(3000, 4) == (12000, True)
 
 
 # --- the guard --------------------------------------------------------------------------
@@ -325,6 +458,119 @@ def test_planted_breaches_fail_the_reference_differential(
         assert bad[0][0] == -1
 
 
+# --- the VLM against the reference --------------------------------------------------------
+
+VLM_MESHES = ((2, 2), (1, 2))
+
+REF_VLM = """
+import json
+from repro.configs import registry
+from repro.launch.mesh import make_host_mesh
+from repro.train.trainer import Trainer
+b = registry.get(inp["arch"])
+run = b.run.replace(**inp["run"])
+rng = np.random.default_rng(inp["seed"])
+for d, m in inp["meshes"]:
+    mesh = make_host_mesh(d, m)
+    t = Trainer(b.smoke, run, global_batch=inp["batch"], seq_len=inp["seq"],
+                seed=inp["seed"], mesh=mesh)
+    key = f"{d}x{m}"
+    if "init" not in out:
+        st = t.extract_state()
+        # the gates drawn away from 0, where tanh shuts the cross layers
+        cross = st["params"]["stack"]["cross"]
+        for name in ("gate_attn", "gate_mlp"):
+            shape = np.shape(cross[name])
+            cross[name] = (rng.uniform(0.5, 1.5, shape) * rng.choice(
+                [-1, 1], shape)).astype(np.float32)
+        out["init"] = {"params": st["params"], "opt": st["opt_state"]}
+    t.restore_state({"params": out["init"]["params"],
+                     "opt_state": out["init"]["opt"], "step": 0,
+                     "seed": inp["seed"]})
+
+    def shapes(leaf):
+        by_dev = {s.device: list(s.data.shape) for s in leaf.addressable_shards}
+        return [by_dev[dv] for dv in mesh.devices.flat]
+    out[f"{key}/shapes"] = json.dumps([shapes(leaf) for leaf in jax.tree.leaves(
+        {"params": t.params, "opt": t.opt_state})])
+    t.train(inp["steps"])
+    out[f"{key}/losses"] = np.array([m_["loss"] for m_ in t.metrics_log])
+    st = t.extract_state()
+    out[f"{key}/final"] = {"params": st["params"], "opt": st["opt_state"]}
+"""
+
+
+@pytest.fixture(scope="module")
+def vlm_reference():
+    return run_reference(REF_VLM, {
+        "arch": VLM, "run": RUN, "meshes": VLM_MESHES, "batch": BATCH,
+        "seq": SEQ, "seed": SEED, "steps": STEPS}, 4)
+
+
+def vlm_trainer(mesh):
+    b = registry.get(VLM)
+    return Trainer(b.smoke, b.run.replace(**RUN), global_batch=BATCH,
+                   seq_len=SEQ, seed=SEED, mesh=mesh, device="cpu")
+
+
+@pytest.mark.parametrize("mesh_shape", VLM_MESHES)
+def test_vlm_trainer_matches_reference_on_its_mesh(vlm_reference,
+                                                   mesh_shape):
+    """(2, 2): one microbatch a data cell; (1, 2): the bundle's two."""
+    d, m = mesh_shape
+    key = f"{d}x{m}"
+    t = vlm_trainer(virtual(d, m))
+    plan = t._step_fn.plan
+    assert plan.attn and plan.xattn and plan.mlp and plan.vocab
+    t.restore_state(carried(vlm_reference["init"]))
+    assert [[list(s.shape) for s in x.shards] for x in leaves(t)] == \
+        json.loads(str(vlm_reference[f"{key}/shapes"]))
+    t.train(STEPS)
+    np.testing.assert_allclose([x["loss"] for x in t.metrics_log],
+                               vlm_reference[f"{key}/losses"], rtol=0,
+                               atol=1e-4)
+    want = jax.tree.leaves(vlm_reference[f"{key}/final"])
+    have = whole_state(t)
+    assert len(have) == len(want)
+    for i, (g, w) in enumerate(zip(have, want)):
+        assert_close(g, w, 1e-4, f"{key} leaf {i}")
+    assert moment_gaps(t, vlm_reference[f"{key}/final"]) == []
+
+
+CROSS = T.cross_segments
+
+
+def cross_gate_in_local_segment(cfg, ctx, tc, wc, x, adds, img):
+    """Rule (a) broken: ``tanh(gate_attn)`` multiplied in each cell's
+    local segment, ahead of the exit (its gradient a partial sum)."""
+    tape = tc.tape
+    x, h = tape.run(lambda x, *a: T._normed(x, a, wc()["ln1"], cfg.norm_eps),
+                    x, *adds)
+    part, = tape.run(lambda h: (T._gated(wc()["gate_attn"], A.cross_attention(
+        cfg, wc()["xattn"], h, img, ctx)),), tape.enter(h))
+    x, (y,), _ = T._mlp_half(cfg, None, ctx, tc, wc, x, (tape.exit(part),))
+    y, = tape.run(lambda y: (T._gated(wc()["gate_mlp"], y),), y)
+    return x, (y,)
+
+
+def cross_entry_without_psum(cfg, ctx, tc, wc, x, adds, img):
+    """The cross layer's entries pass each cell's partial gradient on."""
+    tc.tape.enter = types.MethodType(enter_without_psum, tc.tape)
+    try:
+        return CROSS(cfg, ctx, tc, wc, x, adds, img)
+    finally:
+        del tc.tape.enter
+
+
+@pytest.mark.parametrize("breach", [cross_gate_in_local_segment,
+                                    cross_entry_without_psum])
+def test_vlm_planted_breaches_fail_the_reference_differential(
+        vlm_reference, monkeypatch, breach):
+    assert gaps_after(vlm_trainer(virtual(1, 2)), vlm_reference, "1x2") == []
+    monkeypatch.setattr(T, "cross_segments", breach)
+    assert gaps_after(vlm_trainer(virtual(1, 2)), vlm_reference, "1x2")
+
+
 # --- the dry-run's collectives ---------------------------------------------------------------
 
 
@@ -372,10 +618,16 @@ def test_dry_run_counts_the_model_axis_collectives():
 def test_dry_run_activation_term_is_the_cells_own_where_nothing_repeats():
     """On the reference's 16 x 16 mesh: olmoe-1b-7b splits its 16 heads,
     64 experts and 50304 rows of vocabulary over 16; smollm-135m's 9
-    heads do not split, so its attention repeats."""
-    mesh = dryrun._meta_mesh(*dryrun.MESHES["single"])
+    heads do not split, so its attention repeats; so do the VLM's self
+    and cross attention (8 kv heads), which split over the 4 of a (64, 4)
+    mesh of the same 256 chips, where nothing of the VLM repeats."""
     shape = ShapeSpec("t", "train", 4096, 256)
-    for arch, want in ((MOE, []), ("smollm-135m", ["attention"])):
+    single = dryrun.MESHES["single"]
+    for arch, grid, want in (
+            (MOE, single, []), ("smollm-135m", single, ["attention"]),
+            (VLM, single, ["attention", "cross attention"]),
+            (VLM, ((64, 4), ("data", "model")), [])):
         b = registry.get(arch)
-        prog = build_program(b.model, b.run, shape, ShardingCtx.for_mesh(mesh))
+        prog = build_program(b.model, b.run, shape,
+                             ShardingCtx.for_mesh(dryrun._meta_mesh(*grid)))
         assert prog.fn.plan.repeated(b.model) == want
