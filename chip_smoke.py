@@ -71,10 +71,15 @@ steps unpartitioned, and an elastic round through a bento mount;
 each cell's own heads, experts and vocabulary, with the dense dispatch
 and the expert-parallel a2a, held against the same steps unpartitioned
 and the plain a2a's;
-``train_mesh_vlm``, after ``train_vlm``: llama-3.2-vision-11b at
-train_vlm's depth, each cell's own heads of the self and the cross
-attention, MLP columns and vocabulary, held against train_vlm's first
-steps). The training phases' profiled steps trace the
+``train_mesh_rwkv6``, after ``train_rwkv6``: rwkv6-7b at 2 layers,
+each cell's own WKV heads, channel-mix columns and vocabulary, held
+against the same steps unpartitioned; ``train_mesh_vlm``, after
+``train_vlm``: llama-3.2-vision-11b at train_vlm's depth, each cell's
+own heads of the self and the cross attention, MLP columns and
+vocabulary, held against train_vlm's first steps; ``train_mesh_whisper``,
+after ``train_whisper``: whisper-small whole, each cell's own heads of
+the encoder's, the decoder's and the cross attention and MLP columns,
+held against train_whisper's first steps). The training phases' profiled steps trace the
 device alone, as the serves' profiles do, and time their named ranges
 (``repro_torch.ranges``) with CUDA events. Last the launch half and
 the examples: the dry-run (``launch.dryrun``: programs traced on meta
@@ -95,6 +100,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -132,9 +138,11 @@ SOURCES = ("blockhash", "wkv6", "ssd", "flash_attention")  # csrc/<name>.cu
 
 # (B, S, H, K, V, chunk): the three shapes of tests/test_kernels.py's WKV6
 # sweep, then the serve's full width (rwkv6-7b: 64 heads of 64, chunk 32,
-# batch 4, prompt 1024).
+# batch 4, prompt 1024), then a cell's own in train_mesh_rwkv6 (its 4
+# rows of 2048 tokens, 32 of the 64 heads).
 WKV6_SHAPES = ((2, 64, 3, 16, 16, 16), (1, 128, 2, 32, 32, 32),
-               (1, 64, 1, 8, 8, 64), (4, 1024, 64, 64, 64, 32))
+               (1, 64, 1, 8, 8, 64), (4, 1024, 64, 64, 64, 32),
+               (4, 2048, 32, 64, 64, 32))
 WKV6_HEADLINE = ((4, 1024, 64, 64, 64, 32), "bfloat16")
 WKV6_TOL = 1e-4  # x max(1, max|ref|), for y and the state
 SERVE = {"arch": "rwkv6-7b", "batch": 4, "prompt": 1024, "gen": 32}
@@ -162,9 +170,10 @@ SSD_TOL = 2e-4  # x max(1, max|ref|), for y and the state
 # layers over the 6404 image tokens) and at its training microbatch (4 x
 # 2048), and whisper-small (12 heads of 64) at its serve (the encoder's
 # 1500 frames, non-causal; a 384-token prompt; the cross attention to the
-# frames) and at its training step (8 x 448 tokens); last a VLM cell's own
+# frames) and at its training step (8 x 448 tokens); then a VLM cell's own
 # in train_mesh_vlm (16 of the q heads over 4 of the kv heads, 4 rows),
-# self and cross.
+# self and cross; last a whisper cell's own in train_mesh_whisper (6 of
+# the 12 heads, 4 rows): the encoder's, the decoder's, the cross.
 FLASH_CASES = ((2, 256, 256, 4, 2, 64, True, 0, 0.0),
                (1, 512, 512, 8, 8, 128, True, 0, 0.0),
                (2, 256, 256, 4, 4, 64, False, 0, 0.0),
@@ -192,7 +201,10 @@ FLASH_CASES = ((2, 256, 256, 4, 2, 64, True, 0, 0.0),
                (8, 448, 448, 12, 12, 64, True, 0, 0.0),
                (8, 448, 1500, 12, 12, 64, False, 0, 0.0),
                (4, 2048, 2048, 16, 4, 128, True, 0, 0.0),
-               (4, 2048, 6404, 16, 4, 128, False, 0, 0.0))
+               (4, 2048, 6404, 16, 4, 128, False, 0, 0.0),
+               (4, 1500, 1500, 6, 6, 64, False, 0, 0.0),
+               (4, 448, 448, 6, 6, 64, True, 0, 0.0),
+               (4, 448, 1500, 6, 6, 64, False, 0, 0.0))
 FLASH_HEADLINE = ((4, 1024, 1024, 32, 32, 112, True, 0, 0.0), "bfloat16")
 # atol = rtol, as the tests; the atol taken at the output's own scale where
 # that is below 1 (flash_within)
@@ -206,10 +218,16 @@ FLASH_DROP_MIN_KEYS = 1024
 # cross attention at its serve
 FLASH_CROSS_HEADLINE = ((4, 1024, 6404, 32, 8, 128, False, 0, 0.0),
                         "bfloat16")
-# a case whose forward does more operations than this is timed in fewer
-# calls: (count, reps) of the kernel and of the plain version; the others
-# in 10 replays of 5 calls each (the smoke's seconds are budgeted)
+# (count, reps) of device_ms for the kernel and sdpa, then for the plain
+# version (the smoke's seconds are budgeted): a bf16 case in 10 replays of
+# 5 calls each, or in fewer where its forward does more than FLASH_BIG_OPS
+# operations; every f32 case, and the plain version of a big one, in 3
+# replays of 1 call (tens of ms a call: the timing, not the check, took
+# most of the phase's seconds)
 FLASH_BIG_OPS = 2e11
+FLASH_TIMING = {"small": ({"count": 5, "reps": 10}, {"count": 5, "reps": 10}),
+                "big": ({"count": 3, "reps": 5}, {"count": 1, "reps": 3}),
+                "float32": ({"count": 1, "reps": 3}, {"count": 1, "reps": 3})}
 # odd_prompt: a prefill whose length neither a flash block (128) nor the
 # SSD chunk (128) divides
 ZAMBA = {"arch": "zamba2-7b", "batch": 4, "prompt": 1024, "gen": 32,
@@ -290,7 +308,7 @@ TRAIN_MESH_OLMOE = {"arch": "olmoe-1b-7b", "layers": 2, "mesh": (2, 2),
 # heads and 4 of the 8 kv heads in the self and the cross attention, half
 # the MLP columns and half the vocabulary; 2 steps, held against
 # train_vlm's first 2 (its parameters and first moments copied to the
-# host after them: VLM_STATE_AT) within MESH_LOSS_TOL, MESH_PARAM_TOL and
+# host after them: TRAIN_STATE_AT) within MESH_LOSS_TOL, MESH_PARAM_TOL and
 # MESH_MOMENT_TOL. Where the bf16 run strays past a bound, the f32 hold
 # runs cut to 8 x 256 (the depth cannot go below one super-block; in f32
 # each of the 4 cells holds its gathered parameters and their gradients at
@@ -298,7 +316,35 @@ TRAIN_MESH_OLMOE = {"arch": "olmoe-1b-7b", "layers": 2, "mesh": (2, 2),
 # its unpartitioned state on the host.
 TRAIN_MESH_VLM = {"arch": "llama-3.2-vision-11b", "mesh": (2, 2), "steps": 2,
                   "f32_hold": {"seq": 256, "steps": 2}}
-VLM_STATE_AT = {}  # train_vlm's state_copy (on the host) by step
+# The same on whisper (train_mesh_whisper): whisper-small whole (12
+# encoder and 12 decoder layers), train_whisper's batch (8 x 448 over 1500
+# stub frames), RunConfig, data and seed, on a virtual (2, 2) mesh whose
+# cells compute with their own 6 of the 12 heads in the encoder's, the
+# decoder's and the cross attention and 1536 of the 3072 MLP columns; its
+# vocabulary of 51865 divides by neither 2 nor 4, so the embedding and
+# logits are gathered whole and repeat in each cell, as GSPMD replicates
+# them. 2 steps held against train_whisper's first 2, as the VLM's; its
+# f32 hold, where the bf16 run strays, at the run's own size (whisper's
+# 335 M parameters leave room).
+TRAIN_MESH_WHISPER = {"arch": "whisper-small", "mesh": (2, 2), "steps": 2,
+                      "f32_hold": {"seq": 448, "steps": 2}}
+# the mesh phases held against a training phase's first steps, by name:
+# train_mesh_<x> follows train_<x> (mesh_of)
+TRAIN_MESH_CROSS = {"train_mesh_vlm": TRAIN_MESH_VLM,
+                    "train_mesh_whisper": TRAIN_MESH_WHISPER}
+TRAIN_STATE_AT = {}  # such a training phase's state_copy (on the host)
+# The partitioned step tensor-parallel over ``model`` on rwkv6
+# (train_mesh_rwkv6): rwkv6-7b at full width with its depth cut 32 -> 2,
+# train_rwkv6's RunConfig, batch (8 x 2048), data and seed, on a virtual
+# (2, 2) mesh whose cells run the time mix on their own 32 of the 64 WKV
+# heads and the channel mix on 7168 of its 14336 columns, with half the
+# vocabulary; 2 + 2 steps held against the same steps unpartitioned at
+# that depth, run just before it (its state kept on the card), within
+# MESH_LOSS_TOL, MESH_PARAM_TOL and MESH_MOMENT_TOL; its f32 hold, where
+# the bf16 run strays, at 8 x 1024.
+TRAIN_MESH_RWKV6 = {"arch": "rwkv6-7b", "layers": 2, "mesh": (2, 2),
+                    "warmup": 2, "steps": 2,
+                    "f32_hold": {"seq": 1024, "steps": 2}}
 TRAIN_CKPT = {"arch": "smollm-135m", "layers": 2, "global_batch": 8,
               "seq": 256, "steps": 9, "ckpt_every": 3, "fail_at": 6,
               "n_blocks": 1 << 19, "decode_steps": 4}
@@ -328,6 +374,12 @@ def emit(phase: str, **fields) -> None:
 
 
 PHASE_SECONDS = {}  # each phase's seconds, in the order they ran
+
+
+def mesh_of(train: str) -> str:
+    """The mesh phase that follows a training phase: train_<x> ->
+    train_mesh_<x>."""
+    return train.replace("train", "train_mesh", 1)
 
 
 def timed(name: str, fn, *args):
@@ -802,11 +854,14 @@ def phase_trace():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     mf.close()
-    by_name = {}
-    for e in prof.key_averages():  # device events only: no double count
-        us = e.self_device_time_total
-        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
-            by_name[e.key[:60]] = (us, e.count)
+    # the raw events' window against key_averages()'s, on this small
+    # profile: the training and serve profiles read the raw events alone
+    fast, ref = device_window(prof), _device_window(prof.key_averages())
+    assert fast.keys() == ref.keys() and all(
+        fast[k][1] == ref[k][1] and math.isclose(fast[k][0], ref[k][0],
+                                                 rel_tol=1e-6, abs_tol=1e-3)
+        for k in ref), (fast, ref)
+    by_name = {k[:60]: v for k, v in ref.items()}
     busy_s = sum(us for us, _ in by_name.values()) * 1e-6
     assert busy_s > 0, "the profiler saw no device time"
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
@@ -2051,8 +2106,11 @@ def phase_wkv6_kernel():
     rows = []
     for (B, S, H, Kd, V, C), regime in cases:
         arrays = wkv6_inputs(rng, B, S, H, Kd, V, regime)
+        # the plain version takes 15-18 ms a call at the big shapes: 3
+        # replays of 1 call there (the smoke's seconds)
         big = B * S * H >= 1 << 16
         for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
             dt = getattr(torch, dtype)
             r, k, v, w, u = (torch.from_numpy(a).to(dev, dt)
                              for a in arrays[:5])
@@ -2071,8 +2129,8 @@ def phase_wkv6_kernel():
             ms = device_ms(lambda: K.wkv6_chunked(r, k, v, w, u, s0, chunk=C),
                            **KERNEL_TIMING)
             plain_ms = device_ms(lambda: ref.wkv6(r, k, v, w, u, s0, chunk=C),
-                                 count=5 if big else 20,
-                                 reps=10 if big else 20)
+                                 count=1 if big else 20,
+                                 reps=3 if big else 20)
             row = {"shape": [B, S, H, Kd, V, C], "dtype": dtype,
                    "regime": regime,
                    "tensor_cores": K.uses_tensor_cores(Kd, V, C,
@@ -2082,6 +2140,7 @@ def phase_wkv6_kernel():
                    "y_scale": y_ref.abs().max().item(),
                    "state_scale": st_ref.abs().max().item(),
                    "within_tol": ok, "ms": ms, "plain_ms": plain_ms,
+                   "seconds": time.perf_counter() - t0,
                    **wkv6_bound(B, S, H, Kd, V, C, dtype)}
             row["share_of_bound"] = row["bound_ms"] / ms
             rows.append(row)
@@ -2430,10 +2489,29 @@ def phase_ckpt_model(prm, tokens, logits_serve):
     return launches
 
 
+def device_window(prof) -> dict:
+    """(device µs, count) by kernel name of a ``torch.profiler`` profile,
+    read from its raw device events: what ``_device_window`` makes of
+    its ``key_averages()`` (phase_trace holds the two equal), without
+    building the profile's event tree, which took 21 s after one rwkv6
+    training step (hundreds of thousands of events)."""
+    import torch
+    from torch.autograd.profiler_util import _rewrite_name
+
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA or \
+                e.is_hidden_event():
+            continue
+        key = _rewrite_name(name=e.name(), with_wildcard=True)
+        us, n = by_name.get(key, (0.0, 0))
+        by_name[key] = (us + e.duration_ns() / 1e3, n + 1)
+    return {k: v for k, v in by_name.items() if v[0] > 0}
+
+
 def _device_window(avgs) -> dict:
     """(device µs, count) by kernel name, from a profile's
-    ``key_averages()`` (taken once a profile: on a training step's
-    hundreds of thousands of events each call takes tens of seconds)."""
+    ``key_averages()``: the reference ``device_window`` is held to."""
     import torch
 
     by_name = {}
@@ -2504,7 +2582,7 @@ def phase_serve_trace(prm, tokens):
     for name, prof, wall, launched in (
             ("prefill", prof_p, prefill_wall, l1 - l0),
             ("decode_8_steps", prof_d, decode_wall, l2 - l1)):
-        by_name = _device_window(prof.key_averages())
+        by_name = device_window(prof)
         busy_s = sum(us for us, _ in by_name.values()) * 1e-6
         assert busy_s > 0, f"the profiler saw no device time in {name}"
         wkv_us = sum(us for k, (us, _) in by_name.items() if "wkv6" in k)
@@ -2694,21 +2772,24 @@ def phase_flash_attention_kernel():
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ref
 
-    rng = np.random.default_rng(2027)
     dev = torch.device("cuda")
+    # the inputs drawn on the card: numpy's draws of the cases' 741 M
+    # values on the host took most of the 12 s the phase spent outside its
+    # cases' checks and timings
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2027)
     rows = []
     for case in FLASH_CASES:
         B, Sq, Skv, Hq, Hkv, D, causal, window, softcap = case
-        arrays = [rng.standard_normal(s, dtype=np.float32) for s in
+        arrays = [torch.randn(s, generator=gen, device=dev) for s in
                   ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D))]
         kw = {"causal": causal, "window": window, "softcap": softcap}
-        # tens of ms a call in f32 at the largest cases: fewer calls there
         big = flash_work(*case, 4)[1] > FLASH_BIG_OPS
-        timing = ({"count": 3, "reps": 5}, {"count": 2, "reps": 3}) if big \
-            else ({"count": 5, "reps": 10}, {"count": 5, "reps": 10})
         for dtype in ("float32", "bfloat16"):
-            q, k, v = (torch.from_numpy(a).to(dev, getattr(torch, dtype))
-                       for a in arrays)
+            t0 = time.perf_counter()
+            timing = FLASH_TIMING[
+                dtype if dtype == "float32" else "big" if big else "small"]
+            q, k, v = (a.to(getattr(torch, dtype)) for a in arrays)
             out = K.flash_attention_fwd(q, k, v, **kw)
             want = ref.attention(q, k, v, **kw)
             torch.cuda.synchronize()
@@ -2721,6 +2802,7 @@ def phase_flash_attention_kernel():
                 dropped = flash_dropped_tile(K, q, k, v, want, dtype)
                 assert not dropped["within_tol"], \
                     f"the check passes a dropped key tile at {case}: {dropped}"
+            check_s = time.perf_counter() - t0
             ms = device_ms(lambda: K.flash_attention_fwd(q, k, v, **kw),
                            **timing[0])
             plain_ms = device_ms(lambda: ref.attention(q, k, v, **kw),
@@ -2739,6 +2821,8 @@ def phase_flash_attention_kernel():
                    "atol": atol, "within_tol": ok,
                    "dropped_key_tile": dropped, "ms": ms, "plain_ms": plain_ms,
                    "library_ms": library_ms, "library_max_abs_err": lib_err,
+                   "timing": timing, "check_s": check_s,
+                   "seconds": time.perf_counter() - t0,
                    **bound(*flash_work(*case, q.element_size()), dtype)}
             row["share_of_bound"] = row["bound_ms"] / ms
             rows.append(row)
@@ -3348,7 +3432,7 @@ def phase_train_smollm():
     assert t.device.type == "cuda"
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(x.numel() for x in P.leaves(t.params))
+    n_params = sum(math.prod(x.shape) for x in P.leaves(t.params))
     assert n_params == 134_515_008, n_params
 
     # the main path: every count set to 0 just before, read just after
@@ -3780,7 +3864,7 @@ def profile_device(fn, range_names=()) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     t0 = time.perf_counter()
-    by_name = _device_window(prof.key_averages())
+    by_name = device_window(prof)
     return {"wall_s": wall, "by_name": by_name, "ranges": ranges,
             "tables_s": time.perf_counter() - t0}
 
@@ -4002,7 +4086,7 @@ def phase_train_model(name):
     assert t.device.type == "cuda"
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(x.numel() for x in P.leaves(t.params))
+    n_params = sum(math.prod(x.shape) for x in P.leaves(t.params))
     assert n_params == spec["params"] == cfg.param_count(), n_params
     active = cfg.active_param_count()
     gates = draw_gates(t.params, seed=0)
@@ -4022,11 +4106,12 @@ def phase_train_model(name):
         step_s.append(time.perf_counter() - t0)
         step_launches.append({k: m.launches() - l0[k]
                               for k, m in kernels.items()})
-        if name == "train_vlm" and i + 1 == TRAIN_MESH_VLM["steps"]:
-            # what train_mesh_vlm's partitioned trainer holds after its
-            # steps (on the host: train_mesh_vlm's state and cells need
+        held = TRAIN_MESH_CROSS.get(mesh_of(name))
+        if held and i + 1 == held["steps"]:
+            # what the mesh phase's partitioned trainer holds after its
+            # steps (on the host: the mesh phase's state and cells need
             # the card)
-            VLM_STATE_AT[i + 1] = state_copy(t, "cpu")
+            TRAIN_STATE_AT[name] = state_copy(t, "cpu")
     main_launches = {k: m.launches() for k, m in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
     assert step_launches == [per_step] * n_steps, (step_launches, per_step)
@@ -5163,27 +5248,35 @@ def phase_compression(t):
     return rows
 
 
-class FlashShapes:
-    """Within the block, the q shape of every launch of the flash kernel
-    (``kernel.flash_attention_fwd`` wrapped: looked up at each call), and
-    its (q, k) shapes (``pairs``)."""
+class LaunchShapes:
+    """Within the block, the shape of the first argument of every launch
+    of ``module.<name>`` (wrapped: looked up at each call), and the shapes
+    of its first two (``pairs``)."""
+
+    def __init__(self, module, name: str):
+        self.mod, self.name = module, name
 
     def __enter__(self):
-        from repro_torch.kernels.flash_attention import kernel as K
+        self.orig, self.shapes, self.pairs = getattr(self.mod, self.name), \
+            [], []
 
-        self.K, self.orig, self.shapes = K, K.flash_attention_fwd, []
-        self.pairs = []
+        def launch(a, b, *rest, **kw):
+            self.shapes.append(tuple(a.shape))
+            self.pairs.append((tuple(a.shape), tuple(b.shape)))
+            return self.orig(a, b, *rest, **kw)
 
-        def launch(q, k, *a, **kw):
-            self.shapes.append(tuple(q.shape))
-            self.pairs.append((tuple(q.shape), tuple(k.shape)))
-            return self.orig(q, k, *a, **kw)
-
-        K.flash_attention_fwd = launch
+        setattr(self.mod, self.name, launch)
         return self
 
     def __exit__(self, *exc):
-        self.K.flash_attention_fwd = self.orig
+        setattr(self.mod, self.name, self.orig)
+
+
+def FlashShapes():
+    """``LaunchShapes`` of the flash kernel: its q and (q, k) shapes."""
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    return LaunchShapes(K, "flash_attention_fwd")
 
 
 def state_copy(t, device=None) -> dict:
@@ -5281,15 +5374,20 @@ def mesh_f32_hold(cfg, run, mesh, gb: int, seq: int, n_steps: int, *,
             "losses": losses, "plain_losses": want_losses}
 
 
-def mesh_flash_launches(cfg, run, mesh, global_batch: int) -> int:
-    """Flash launches of one partitioned step: every cell runs each
-    layer's forward and its recompute in each of its microbatches
-    (tests/test_torch_mesh_train.py counts the same on the CPU)."""
+def mesh_kernel_launches(cfg, run, mesh, global_batch: int) -> int:
+    """Flash (rwkv6: WKV6) launches of one partitioned step: every cell
+    runs each attention's (time mix's) forward and its recompute in each
+    of its microbatches (tests/test_torch_mesh_train.py and
+    test_torch_tensor_parallel.py count the same on the CPU): one a
+    layer, whisper's 12 encoder layers and its decoder's self and cross
+    attention."""
     from repro_torch.distributed.sharding import ShardingCtx
     from repro_torch.train.step import num_accum_steps
 
     n_accum = num_accum_steps(run, ShardingCtx.for_mesh(mesh), global_batch)
-    return mesh.devices.size * n_accum * 2 * cfg.num_layers
+    calls = (cfg.encoder_layers + 2 * cfg.num_layers
+             if cfg.family == "audio" else cfg.num_layers)
+    return mesh.devices.size * n_accum * 2 * calls
 
 
 def phase_train_mesh():
@@ -5340,7 +5438,7 @@ def phase_train_mesh():
     dev = torch.device("cuda", torch.cuda.current_device())
     d, m = TRAIN_MESH["mesh"]
     mesh = make_elastic_mesh(d, m, devices=[dev] * (d * m))
-    per_step = mesh_flash_launches(cfg, run, mesh, gb)
+    per_step = mesh_kernel_launches(cfg, run, mesh, gb)
     assert per_step == 4 * 1 * 2 * cfg.num_layers, per_step
     n_steps = TRAIN_MESH["warmup"] + TRAIN_MESH["steps"]
 
@@ -5550,65 +5648,50 @@ def phase_train_mesh():
     return main_launches["flash_attention"]
 
 
-def phase_train_mesh_olmoe():
-    """The partitioned step tensor-parallel over ``model`` on the MoE
-    family (TRAIN_MESH_OLMOE): olmoe-1b-7b at full width, 2 layers, on a
-    virtual (2, 2) mesh of the card, with the dense dispatch and with the
-    expert-parallel a2a, each run on its own trainer (freed before the
-    next: 1.88 G parameters at 16 bytes each). Each cell computes with
-    its own attention heads, experts and vocabulary rows (the plan's),
-    gathering over ``model`` only the router. Held, each run: each cell's
+def mesh_held_run(phase: str, cfg, run, mesh, spec, *, kernel: str, shape,
+                  local, ruleset: str = "baseline",
+                  plain=contextlib.nullcontext,
+                  plain_name: str = "the unpartitioned run",
+                  profile: bool = False) -> dict:
+    """One partitioned trainer on ``mesh`` held against its unpartitioned
+    counterpart (train_mesh_olmoe's runs, train_mesh_rwkv6): the
+    counterpart first (inside the context ``plain()``, at the same depth,
+    its state kept on the card), then the mesh run. Held: the plan (the
+    leaf groups ``local`` model-local, nothing repeated); each cell's
     bytes at rest equal to the dry-run's argument bytes (exact); the
-    flash launches of each step (4 cells x 1 microbatch x 2 layers x the
-    forward and the recompute) and their shape, each cell's 4 rows with
-    its 8 heads; the losses step by step and the gathered parameters and
-    first moments after the last one against the run's unpartitioned
-    counterpart, run just before it and its state kept on the card
-    (train_olmoe's trainer at 2 layers; the a2a's through plain_a2a_moe;
-    its step ms beside the run's), within MESH_LOSS_TOL,
-    MESH_PARAM_TOL and MESH_MOMENT_TOL (both, where a bf16 run exceeds a
-    bound, on f32 runs partitioned and not, cut as TRAIN_MESH_OLMOE
-    says). The last warm-up step is profiled (the idle share); step ms,
-    tokens/s and the peak are kept (the base counts the counterpart's
+    ``kernel``'s launches of each step (``mesh_kernel_launches``) at the
+    cell's ``shape``, and no other kernel's; the losses step by step and
+    the gathered parameters and first moments after the last one within
+    MESH_LOSS_TOL, MESH_PARAM_TOL and MESH_MOMENT_TOL (where the bf16 run
+    exceeds a bound, in f32 compute at the cut ``spec["f32_hold"]``
+    gives). With ``profile`` the last warm-up step is profiled (the
+    device's idle share). Returns the run's row: step ms against the
+    counterpart's, tokens/s, the peak (its base counts the counterpart's
     state)."""
     import dataclasses
-    import gc
 
     import torch
 
-    from repro_torch.configs import registry
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.distributed.sharding import MeshArray, ShardingCtx
     from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_elastic_mesh, make_mesh
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.programs import build_program
-    from repro_torch.models import moe
     from repro_torch.models import params as P
     from repro_torch.train.trainer import Trainer
 
-    spec = TRAIN_MESH_OLMOE
     kernels = _kernel_counts()
-    FA = kernels["flash_attention"]
-    bundle = registry.get(spec["arch"])
-    cfg = dataclasses.replace(bundle.model, num_layers=spec["layers"])
+    counted = kernels[kernel]
+    tag = kernel.split("_")[0]
     gb, seq = TRAIN_SHAPE["global_batch"], TRAIN_SHAPE["seq"]
-    dev = torch.device("cuda", torch.cuda.current_device())
-    d, m = spec["mesh"]
-    mesh = make_elastic_mesh(d, m, devices=[dev] * (d * m))
-    meta = make_mesh((d, m), ("data", "model"),
-                     [torch.device("meta")] * (d * m))
+    dev = mesh.devices.flat[0]
+    d, m = mesh.devices.shape
     n_steps = spec["warmup"] + spec["steps"]
-    per_step = mesh_flash_launches(cfg, bundle.run, mesh, gb)
-    assert per_step == 4 * 1 * 2 * cfg.num_layers == 16, per_step
-    shape = (gb // d, seq, cfg.num_heads // m, cfg.head_dim)
-    assert shape == (4, 2048, 8, 128), shape
+    per_step = mesh_kernel_launches(cfg, run, mesh, gb)
 
     def data():
         return OneBatch(SyntheticLM(cfg, gb, seq, seed=0))
-
-    def state(t):
-        return [x for tree in (t.params, t.opt_state) for x in P.leaves(tree)]
 
     def freed():
         # what a trainer left in reference cycles, collected before the
@@ -5616,11 +5699,166 @@ def phase_train_mesh_olmoe():
         gc.collect()
         torch.cuda.empty_cache()
 
-    # each run's unpartitioned counterpart first, its state kept on the
-    # card: the dense dispatch is train_olmoe's trainer again; the a2a's,
-    # the same steps with the MoE layer through plain_a2a_moe over the
-    # mesh's d x m slices of the tokens (data cell i's rows, cut in m by
-    # model rank j, are slice m i + j)
+    def steps(t, step=lambda t, i: t.train(i + 1)):
+        step_s = []
+        for i in range(n_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(t, i)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        return step_s
+
+    freed()
+    with plain():
+        t = Trainer(cfg, run, global_batch=gb, seq_len=seq, seed=0,
+                    data=data(), device=dev)
+        plain_s = steps(t)
+    plain_losses = [x["loss"] for x in t.metrics_log]
+    plain_state = state_copy(t)
+    plain_ms = statistics.median(plain_s[spec["warmup"]:]) * 1e3
+    del t
+    freed()
+
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    t = Trainer(cfg, run, global_batch=gb, seq_len=seq, seed=0, mesh=mesh,
+                ruleset=ruleset, data=data(), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    plan = t._step_fn.plan
+    assert plan.segmented and all(getattr(plan, g) for g in local), plan
+    assert plan.repeated(cfg) == [], plan
+    leaves = [x for tree in (t.params, t.opt_state) for x in P.leaves(tree)]
+    assert all(isinstance(x, MeshArray) and len(x.shards) == d * m
+               for x in leaves)
+    cell_bytes = [sum(x.shards[p].numel() * x.shards[p].element_size()
+                      for x in leaves) for p in range(d * m)]
+    meta = make_mesh((d, m), ("data", "model"),
+                     [torch.device("meta")] * (d * m))
+    prog = build_program(cfg, run, ShapeSpec(phase, "train", seq, gb),
+                         ShardingCtx.for_mesh(meta, ruleset))
+    dry_bytes = dryrun.argument_bytes(dataclasses.replace(
+        prog, args=prog.args[:2], arg_shardings=prog.arg_shardings[:2]))
+    assert cell_bytes == [dry_bytes] * (d * m), (cell_bytes, dry_bytes)
+    whole_bytes = sum(x.nbytes for x in leaves)
+    n_params = sum(math.prod(x.shape) for x in P.leaves(t.params))
+    del leaves, prog
+
+    # the main path: every count set to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    for mod in kernels.values():
+        mod.reset_launches()
+    step_launches, prof = [], {}
+
+    def step(t, i):
+        l0 = counted.launches()
+        if profile and i + 1 == spec["warmup"]:
+            prof.update(profile_device(lambda: t.train(i + 1)))
+        else:
+            t.train(i + 1)
+        step_launches.append(counted.launches() - l0)
+
+    with LaunchShapes(counted, KERNEL_OPS[kernel]) as seen:
+        step_s = steps(t, step)
+    main_launches = {k: mod.launches() for k, mod in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    assert step_launches == [per_step] * n_steps, step_launches
+    assert main_launches == {k: per_step * n_steps if k == kernel else 0
+                             for k in kernels}, main_launches
+    assert set(seen.shapes) == {shape}, set(seen.shapes)
+    losses = [x["loss"] for x in t.metrics_log]
+    assert len(losses) == n_steps and all(np.isfinite(losses)), losses
+    loss_err = max(abs(a - b) / max(1.0, abs(b))
+                   for a, b in zip(losses, plain_losses))
+    assert loss_err <= MESH_LOSS_TOL, (phase, ruleset, losses, plain_losses)
+    gaps = mesh_state_gaps(t, plain_state)
+    del plain_state
+    print(f"{phase} ({ruleset}): the bf16 parameters after {n_steps} steps "
+          f"within {gaps['params']:.3e} of {plain_name}'s (bound "
+          f"{MESH_PARAM_TOL}), the first moments within {gaps['mu']:.3e} "
+          f"(bound {MESH_MOMENT_TOL}; largest element "
+          f"{gaps['mu_max']:.3e})", flush=True)
+    step_med = statistics.median(step_s[spec["warmup"]:])
+    del t
+    freed()
+    f32 = None
+    if not state_held(gaps):
+        cut = spec["f32_hold"]
+        f32 = mesh_f32_hold(
+            dataclasses.replace(cfg, num_layers=cut.get("layers",
+                                                        cfg.num_layers)),
+            run, mesh, gb, cut["seq"], cut["steps"], ruleset=ruleset,
+            plain=plain)
+        freed()
+        assert f32["param_max_rel_err"] <= MESH_PARAM_TOL, f32
+        assert f32["moment_rel_err"] <= MESH_MOMENT_TOL, f32
+        assert f32["loss_max_rel_err"] <= MESH_LOSS_TOL, f32
+    row = {"ruleset": ruleset, "params": n_params, "init_s": init_s,
+           "step_ms": step_med * 1e3, "step_ms_all": [x * 1e3 for x in step_s],
+           "plain_step_ms": plain_ms, "tokens_per_s": gb * seq / step_med,
+           "peak_memory_bytes": peak, "base_memory_bytes": base,
+           f"{tag}_launches_per_step": per_step,
+           "main_path_launches": main_launches, f"{tag}_shape": list(shape),
+           "repeated": plan.repeated(cfg), "cell_bytes": cell_bytes,
+           "dryrun_argument_bytes": dry_bytes,
+           "whole_state_bytes": whole_bytes,
+           "losses": losses, "plain": plain_name,
+           "plain_losses": plain_losses, "loss_max_rel_err": loss_err,
+           "param_max_rel_err": gaps["params"],
+           "moment_rel_err": gaps["mu"], "moment_max_rel_err": gaps["mu_max"],
+           "f32_hold": f32}
+    if profile:
+        busy_s = sum(us for us, _ in prof["by_name"].values()) * 1e-6
+        assert busy_s > 0, "the profiler saw no device time in the step"
+        row.update(device_idle_share=1 - busy_s / prof["wall_s"],
+                   profiled_step_wall_s=prof["wall_s"], device_busy_s=busy_s)
+    return row
+
+
+MESH_TOLERANCE = {"loss": f"{MESH_LOSS_TOL} x max(1, |plain|)",
+                  "params": f"{MESH_PARAM_TOL} x max(1, max|plain|) a leaf",
+                  "first_moment": f"|gap| <= {MESH_MOMENT_TOL} x |plain| a "
+                                  f"leaf (norms)",
+                  "f32_hold": "all three, in f32 compute, where a bf16 run "
+                              "exceeds one"}
+
+
+def phase_train_mesh_olmoe():
+    """The partitioned step tensor-parallel over ``model`` on the MoE
+    family (TRAIN_MESH_OLMOE): olmoe-1b-7b at full width, 2 layers, on a
+    virtual (2, 2) mesh of the card, with the dense dispatch and with the
+    expert-parallel a2a, each run on its own trainer (freed before the
+    next: 1.88 G parameters at 16 bytes each), each held by
+    ``mesh_held_run``. Each cell computes with its own attention heads,
+    experts and vocabulary rows (the plan's), gathering over ``model``
+    only the router; 4 cells x 1 microbatch x 2 layers x the forward and
+    the recompute flash launches a step, each cell's 4 rows with its 8
+    heads. The dense run's counterpart is train_olmoe's trainer at 2
+    layers; the a2a's the same steps with the MoE layer through
+    plain_a2a_moe over the mesh's d x m slices of the tokens (data cell
+    i's rows, cut in m by model rank j, are slice m i + j). The last
+    warm-up step of each run is profiled (the idle share)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_elastic_mesh
+    from repro_torch.models import moe
+
+    spec = TRAIN_MESH_OLMOE
+    bundle = registry.get(spec["arch"])
+    cfg = dataclasses.replace(bundle.model, num_layers=spec["layers"])
+    gb, seq = TRAIN_SHAPE["global_batch"], TRAIN_SHAPE["seq"]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    d, m = spec["mesh"]
+    mesh = make_elastic_mesh(d, m, devices=[dev] * (d * m))
+    assert mesh_kernel_launches(cfg, bundle.run, mesh, gb) == \
+        4 * 1 * 2 * cfg.num_layers == 16
+    shape = (gb // d, seq, cfg.num_heads // m, cfg.head_dim)
+    assert shape == (4, 2048, 8, 128), shape
+
     dropped = []
     plain = plain_a2a_moe(d * m, dropped)
 
@@ -5634,131 +5872,25 @@ def phase_train_mesh_olmoe():
         finally:
             moe.moe_apply = orig
 
-    plains = {"dense": ("train_olmoe (2 layers)", contextlib.nullcontext),
+    plains = {"dense": (f"train_olmoe ({cfg.num_layers} layers)",
+                        contextlib.nullcontext),
               "a2a": ("plain_a2a_moe over 4 token slices, unpartitioned",
                       plain_a2a)}
-
-    def unpartitioned(run, plain_ctx):
-        """Its losses, ``state_copy`` after the run's steps, and the
-        median ms of its steps after the warm-up."""
-        step_s = []
-        with plain_ctx():
-            t = Trainer(cfg, run, global_batch=gb, seq_len=seq, seed=0,
-                        data=data(), device=dev)
-            for i in range(n_steps):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                t.train(i + 1)
-                torch.cuda.synchronize()
-                step_s.append(time.perf_counter() - t0)
-        out = ([x["loss"] for x in t.metrics_log], state_copy(t),
-               statistics.median(step_s[spec["warmup"]:]) * 1e3)
-        del t
-        freed()
-        return out
-
-    def held(got, want):
-        return max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(got, want))
-
     runs, total_launches = {}, 0
     for name, impl, ruleset in spec["runs"]:
-        run = bundle.run.replace(moe_impl=impl)
         plain_name, plain_ctx = plains[name]
-        freed()
-        plain_losses, plain_state, plain_ms = unpartitioned(run, plain_ctx)
-        base = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        t = Trainer(cfg, run, global_batch=gb, seq_len=seq, seed=0,
-                    mesh=mesh, ruleset=ruleset, data=data(), device=dev)
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        plan = t._step_fn.plan
-        assert plan.attn and plan.experts and plan.vocab, plan
-        assert plan.repeated(cfg) == [], plan
-        leaves = state(t)
-        assert all(isinstance(x, MeshArray) and len(x.shards) == d * m
-                   for x in leaves)
-        cell_bytes = [sum(x.shards[p].numel() * x.shards[p].element_size()
-                          for x in leaves) for p in range(d * m)]
-        prog = build_program(cfg, run, ShapeSpec(name, "train", seq, gb),
-                             ShardingCtx.for_mesh(meta, ruleset))
-        dry_bytes = dryrun.argument_bytes(dataclasses.replace(
-            prog, args=prog.args[:2], arg_shardings=prog.arg_shardings[:2]))
-        assert cell_bytes == [dry_bytes] * (d * m), (cell_bytes, dry_bytes)
-        del leaves, prog
-
-        # the main path: every count set to 0 just before, read just after
-        torch.cuda.reset_peak_memory_stats()
-        for mod in kernels.values():
-            mod.reset_launches()
-        step_s, step_launches, prof = [], [], None
-        with FlashShapes() as flash:
-            for i in range(n_steps):
-                l0 = FA.launches()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                if i + 1 == spec["warmup"]:
-                    prof = profile_device(lambda: t.train(i + 1))
-                else:
-                    t.train(i + 1)
-                torch.cuda.synchronize()
-                step_s.append(time.perf_counter() - t0)
-                step_launches.append(FA.launches() - l0)
-        main_launches = {k: mod.launches() for k, mod in kernels.items()}
-        peak = torch.cuda.max_memory_allocated()
-        assert step_launches == [per_step] * n_steps, step_launches
-        assert main_launches == {"blockhash": 0, "wkv6": 0, "ssd": 0,
-                                 "flash_attention": per_step * n_steps}
-        assert set(flash.shapes) == {shape}, set(flash.shapes)
-        total_launches += main_launches["flash_attention"]
-        busy_s = sum(us for us, _ in prof["by_name"].values()) * 1e-6
-        assert busy_s > 0, "the profiler saw no device time in the step"
-        losses = [x["loss"] for x in t.metrics_log]
-        assert len(losses) == n_steps and all(np.isfinite(losses)), losses
-        gaps = mesh_state_gaps(t, plain_state)
-        del plain_state
-        print(f"train_mesh_olmoe: the {name} run's bf16 parameters after "
-              f"{n_steps} steps within {gaps['params']:.3e} of "
-              f"{plain_name}'s (bound {MESH_PARAM_TOL}), its first moments "
-              f"within {gaps['mu']:.3e} (bound {MESH_MOMENT_TOL}; largest "
-              f"element {gaps['mu_max']:.3e})", flush=True)
-        step_med = statistics.median(step_s[spec["warmup"]:])
-        del t
-        freed()
-        f32 = None
-        if not state_held(gaps):
-            cut = spec["f32_hold"]
-            f32 = mesh_f32_hold(
-                dataclasses.replace(cfg, num_layers=cut["layers"]), run, mesh,
-                gb, cut["seq"], cut["steps"], ruleset=ruleset,
-                plain=plain_ctx)
-            freed()
-            assert f32["param_max_rel_err"] <= MESH_PARAM_TOL, f32
-            assert f32["moment_rel_err"] <= MESH_MOMENT_TOL, f32
-            assert f32["loss_max_rel_err"] <= MESH_LOSS_TOL, f32
-        loss_err = held(losses, plain_losses)
-        assert loss_err <= MESH_LOSS_TOL, (name, losses, plain_losses)
-        runs[name] = {
-            "moe_impl": impl, "ruleset": ruleset, "init_s": init_s,
-            "step_ms": step_med * 1e3, "step_ms_all": [x * 1e3 for x in step_s],
-            "tokens_per_s": gb * seq / step_med,
-            "device_idle_share": 1 - busy_s / prof["wall_s"],
-            "profiled_step_wall_s": prof["wall_s"], "device_busy_s": busy_s,
-            "peak_memory_bytes": peak, "base_memory_bytes": base,
-            "flash_launches_per_step": per_step,
-            "main_path_launches": main_launches, "flash_shape": list(shape),
-            "cell_bytes": cell_bytes, "dryrun_argument_bytes": dry_bytes,
-            "plain_step_ms": plain_ms,
-            "losses": losses, "plain": plain_name,
-            "plain_losses": plain_losses, "loss_max_rel_err": loss_err,
-            "param_max_rel_err": gaps["params"],
-            "moment_rel_err": gaps["mu"], "moment_max_rel_err": gaps["mu_max"],
-            "f32_hold": f32}
+        runs[name] = {"moe_impl": impl, **mesh_held_run(
+            "train_mesh_olmoe", cfg, bundle.run.replace(moe_impl=impl), mesh,
+            spec, kernel="flash_attention", shape=shape,
+            local=("attn", "experts", "vocab"), ruleset=ruleset,
+            plain=plain_ctx, plain_name=plain_name, profile=True)}
+        total_launches += runs[name]["main_path_launches"]["flash_attention"]
     a2a = runs["a2a"]
     a2a["plain_dropped_assignments_per_layer_call"] = [
         min(dropped), max(dropped)]
-    a2a["loss_max_rel_err_to_dense_plain"] = held(
-        a2a["losses"], runs["dense"]["plain_losses"])
+    a2a["loss_max_rel_err_to_dense_plain"] = max(
+        abs(a - b) / max(1.0, abs(b)) for a, b in
+        zip(a2a["losses"], runs["dense"]["plain_losses"]))
     emit("train_mesh_olmoe", arch=cfg.name, layers=cfg.num_layers,
          cut=f"depth {bundle.model.num_layers} -> {cfg.num_layers} "
              f"(train_olmoe's 4 halved for the smoke's seconds)",
@@ -5768,36 +5900,54 @@ def phase_train_mesh_olmoe():
          step_ms_of_train_olmoe=EMITTED["train_olmoe"]["step_ms"],
          tensor_parallel={"model_local": ["attention", "experts", "vocab"],
                           "gathered_over_model": ["router", "norm scales"]},
-         tolerance={"loss": f"{MESH_LOSS_TOL} x max(1, |plain|)",
-                    "params": f"{MESH_PARAM_TOL} x max(1, max|plain|) a "
-                              f"leaf",
-                    "first_moment": f"|gap| <= {MESH_MOMENT_TOL} x "
-                                    f"|plain| a leaf (norms)",
-                    "f32_hold": "both, in f32 compute, where a bf16 run "
-                                "exceeds either"},
-         runs=runs)
+         tolerance=MESH_TOLERANCE, runs=runs)
     return total_launches
 
 
+def cross_flash_pairs(cfg, gb: int, seq: int, d: int, m: int) -> dict:
+    """The (q, k) shapes of a cell's flash launches on the VLM's or
+    whisper's mesh path, by kind, and each kind's launches a step: every
+    cell's rows and its own heads, forward and recompute."""
+    from repro_torch.models import transformer as T
 
-def phase_train_mesh_vlm():
-    """The partitioned step tensor-parallel over ``model`` on the VLM
-    (TRAIN_MESH_VLM): llama-3.2-vision-11b at full width, one super-block
-    (4 self layers, 1 gated cross layer), on a virtual (2, 2) mesh of the
-    card. Each cell computes with its own 16 q and 4 kv heads in the self
-    attention and in the cross attention over the image embeddings, its
-    half of the MLP columns and of the vocabulary; the norms and the gates
-    are replicated work (the gates after the exits). Held: the plan
-    (nothing repeats over ``model``); each cell's bytes at rest equal to
-    the dry-run's argument bytes (exact); the flash launches of each step
-    (4 cells x 1 microbatch x 5 layers x the forward and the recompute)
-    and their (q, k) shapes, each cell's 4 rows with its own heads, the
-    cross attention over the 6404 image tokens; the losses step by step,
-    and the gathered parameters and first moments after the last step,
-    against train_vlm's first 2 steps (VLM_STATE_AT), within
-    MESH_LOSS_TOL, MESH_PARAM_TOL and MESH_MOMENT_TOL (both, where the
-    bf16 run exceeds a bound, in f32 compute at the cut TRAIN_MESH_VLM
-    gives). Step ms against train_vlm's and the peak are kept."""
+    rows, hq, hkv, D = gb // d, cfg.num_heads // m, cfg.num_kv_heads // m, \
+        cfg.head_dim
+    q = (rows, seq, hq, D)
+    if cfg.family == "vlm":
+        g, s = T._vlm_groups(cfg)
+        return {"self": ((q, (rows, seq, hkv, D)), d * m * 2 * g * s),
+                "cross": ((q, (rows, cfg.num_image_tokens, hkv, D)),
+                          d * m * 2 * g)}
+    enc = (rows, cfg.encoder_seq, hq, D)
+    return {"encoder": ((enc, (rows, cfg.encoder_seq, hkv, D)),
+                        d * m * 2 * cfg.encoder_layers),
+            "decoder": ((q, (rows, seq, hkv, D)), d * m * 2 * cfg.num_layers),
+            "cross": ((q, (rows, cfg.encoder_seq, hkv, D)),
+                      d * m * 2 * cfg.num_layers)}
+
+
+def phase_train_mesh_cross(name):
+    """The partitioned step tensor-parallel over ``model`` on the
+    cross-attention families, held against the training phase it follows
+    (TRAIN_MESH_CROSS): llama-3.2-vision-11b (``train_mesh_vlm``) at
+    full width and one super-block (4 self layers, 1 gated cross layer),
+    or whisper-small whole (``train_mesh_whisper``: 12 encoder layers, 12
+    decoder layers with their cross attention), on a virtual (2, 2) mesh
+    of the card. Each cell computes with its own heads in every attention
+    (the VLM's 16 q and 4 kv heads, whisper's 6 of 12), its half of the
+    MLP columns, and its half of the vocabulary (the VLM's; whisper's
+    51865 rows do not split, so its embedding and logits repeat); the
+    norms and the gates are replicated work (the gates after the exits).
+    Held: the plan (``Plan.repeated``); each cell's bytes at rest equal
+    to the dry-run's argument bytes (exact); the flash launches of each
+    step (``mesh_kernel_launches``) and their (q, k) shapes, each cell's 4
+    rows with its own heads (``cross_flash_pairs``); the losses step by
+    step, and the gathered parameters and first moments after the last
+    step, against the training phase's first steps (TRAIN_STATE_AT),
+    within MESH_LOSS_TOL, MESH_PARAM_TOL and MESH_MOMENT_TOL (all three,
+    where the bf16 run exceeds a bound, in f32 compute at the cut the
+    spec gives). Step ms against the training phase's and the peak are
+    kept."""
     import dataclasses
 
     import torch
@@ -5810,28 +5960,32 @@ def phase_train_mesh_vlm():
     from repro_torch.launch.mesh import make_elastic_mesh, make_mesh
     from repro_torch.launch.programs import build_program
     from repro_torch.models import params as P
-    from repro_torch.models import transformer as T
     from repro_torch.train.trainer import Trainer
 
-    spec = TRAIN_MESH_VLM
+    spec = TRAIN_MESH_CROSS[name]
+    of = name.replace("train_mesh", "train")
     kernels = _kernel_counts()
     FA = kernels["flash_attention"]
     bundle = registry.get(spec["arch"])
-    layers = TRAIN_MODELS["train_vlm"]["layers"]
-    cfg = dataclasses.replace(bundle.model, num_layers=layers)
+    train = TRAIN_MODELS[of]
+    cfg = dataclasses.replace(bundle.model, num_layers=train["layers"])
     run = bundle.run
-    gb, seq = TRAIN_SHAPE["global_batch"], TRAIN_SHAPE["seq"]
+    gb, seq = TRAIN_SHAPE["global_batch"], train.get("seq",
+                                                    TRAIN_SHAPE["seq"])
     dev = torch.device("cuda", torch.cuda.current_device())
     d, m = spec["mesh"]
     mesh = make_elastic_mesh(d, m, devices=[dev] * (d * m))
     n_steps = spec["steps"]
-    per_step = mesh_flash_launches(cfg, run, mesh, gb)
-    assert per_step == 4 * 1 * 2 * layers == 40, per_step
-    q = (gb // d, seq, cfg.num_heads // m, cfg.head_dim)
-    kv = cfg.num_kv_heads // m
-    shapes = {"self": (q, (gb // d, seq, kv, cfg.head_dim)),
-              "cross": (q, (gb // d, cfg.num_image_tokens, kv, cfg.head_dim))}
-    assert q == (4, 2048, 16, 128) and kv == 4, (q, kv)
+    per_step = mesh_kernel_launches(cfg, run, mesh, gb)
+    shapes = cross_flash_pairs(cfg, gb, seq, d, m)
+    assert per_step == sum(n for _, n in shapes.values()), (per_step, shapes)
+    if cfg.family == "vlm":
+        assert per_step == 40 and shapes["self"][0][0] == (4, 2048, 16, 128) \
+            and shapes["cross"][0][1] == (4, 6404, 4, 128), shapes
+    else:
+        assert per_step == 4 * 36 * 2 == 288, per_step
+        assert shapes["encoder"][0] == ((4, 1500, 6, 64),) * 2 and \
+            shapes["cross"][0] == ((4, 448, 6, 64), (4, 1500, 6, 64)), shapes
 
     def state(t):
         return [x for tree in (t.params, t.opt_state) for x in P.leaves(tree)]
@@ -5842,14 +5996,15 @@ def phase_train_mesh_vlm():
     t0 = time.perf_counter()
     t = Trainer(cfg, run, global_batch=gb, seq_len=seq, seed=0, mesh=mesh,
                 data=OneBatch(SyntheticLM(cfg, gb, seq, seed=0)), device=dev)
-    gates = draw_gates(t.params, seed=0)  # as train_vlm draws them
-    assert gates == EMITTED["train_vlm"]["gates"], (gates,
-                                                    EMITTED["train_vlm"])
+    gates = draw_gates(t.params, seed=0)  # as the training phase draws them
+    assert gates == EMITTED[of]["gates"], (gates, EMITTED[of]["gates"])
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     plan = t._step_fn.plan
-    assert plan.attn and plan.xattn and plan.mlp and plan.vocab, plan
-    assert plan.repeated(cfg) == [], plan
+    assert plan.attn and plan.xattn and plan.mlp, plan
+    repeated = [] if cfg.family == "vlm" else ["embedding and logits"]
+    assert plan.vocab == (not repeated) and plan.repeated(cfg) == repeated, \
+        plan
     leaves = state(t)
     assert all(isinstance(x, MeshArray) and len(x.shards) == d * m
                for x in leaves)
@@ -5857,8 +6012,7 @@ def phase_train_mesh_vlm():
                       for x in leaves) for p in range(d * m)]
     meta = make_mesh((d, m), ("data", "model"),
                      [torch.device("meta")] * (d * m))
-    prog = build_program(cfg, run, ShapeSpec("train_mesh_vlm", "train", seq,
-                                             gb),
+    prog = build_program(cfg, run, ShapeSpec(name, "train", seq, gb),
                          ShardingCtx.for_mesh(meta, t.ruleset))
     dry_bytes = dryrun.argument_bytes(dataclasses.replace(
         prog, args=prog.args[:2], arg_shardings=prog.arg_shardings[:2]))
@@ -5885,23 +6039,20 @@ def phase_train_mesh_vlm():
     assert step_launches == [per_step] * n_steps, step_launches
     assert main_launches == {"blockhash": 0, "wkv6": 0, "ssd": 0,
                              "flash_attention": per_step * n_steps}
-    # each step: 4 cells x (4 self + 1 cross) x the forward and recompute
-    g, s = T._vlm_groups(cfg)
     assert sorted(flash.pairs) == sorted(
-        [shapes["self"]] * (d * m * 2 * g * s * n_steps)
-        + [shapes["cross"]] * (d * m * 2 * g * n_steps)
+        pair for pair, n in shapes.values() for _ in range(n * n_steps)
     ), sorted(set(flash.pairs))
     losses = [x["loss"] for x in t.metrics_log]
     assert len(losses) == n_steps and all(np.isfinite(losses)), losses
-    plain_losses = EMITTED["train_vlm"]["losses"][:n_steps]
+    plain_losses = EMITTED[of]["losses"][:n_steps]
     loss_err = max(abs(a - b) / max(1.0, abs(b))
                    for a, b in zip(losses, plain_losses))
     assert loss_err <= MESH_LOSS_TOL, (losses, plain_losses)
-    gaps = mesh_state_gaps(t, VLM_STATE_AT.pop(n_steps))
-    print(f"train_mesh_vlm: the bf16 step's parameters after {n_steps} "
-          f"steps within {gaps['params']:.3e} of train_vlm's (bound "
-          f"{MESH_PARAM_TOL}), its first moments within {gaps['mu']:.3e} "
-          f"(bound {MESH_MOMENT_TOL}; largest element {gaps['mu_max']:.3e})",
+    gaps = mesh_state_gaps(t, TRAIN_STATE_AT.pop(of))
+    print(f"{name}: the bf16 step's parameters after {n_steps} steps "
+          f"within {gaps['params']:.3e} of {of}'s (bound {MESH_PARAM_TOL}), "
+          f"its first moments within {gaps['mu']:.3e} (bound "
+          f"{MESH_MOMENT_TOL}; largest element {gaps['mu_max']:.3e})",
           flush=True)
     del t
     gc.collect()
@@ -5917,23 +6068,27 @@ def phase_train_mesh_vlm():
         assert f32["moment_rel_err"] <= MESH_MOMENT_TOL, f32
         assert f32["loss_max_rel_err"] <= MESH_LOSS_TOL, f32
     step_ms = [x * 1e3 for x in step_s]
-    emit("train_mesh_vlm", arch=cfg.name, layers=cfg.num_layers,
-         cut=f"depth {bundle.model.num_layers} -> {cfg.num_layers} "
-             f"(train_vlm's)", mesh=[d, m], device="virtual",
-         ruleset="baseline", global_batch=gb, seq=seq,
-         cell_rows=gb // d, image_tokens=cfg.num_image_tokens, steps=n_steps,
+    local = (["attention", "cross attention", "mlp"]
+             + ([] if repeated else ["vocab"]))
+    replicated = ["norm scales"] + (["gates"] if gates else [])
+    emit(name, arch=cfg.name, layers=cfg.num_layers,
+         encoder_layers=cfg.encoder_layers or None,
+         cut=None if cfg.num_layers == bundle.model.num_layers else
+         f"depth {bundle.model.num_layers} -> {cfg.num_layers} ({of}'s)",
+         mesh=[d, m], device="virtual", ruleset="baseline", global_batch=gb,
+         seq=seq, cell_rows=gb // d,
+         kv_tokens=(cfg.num_image_tokens if cfg.family == "vlm"
+                    else cfg.encoder_seq), steps=n_steps,
          init_s=init_s, step_ms=step_ms[-1], step_ms_all=step_ms,
-         step_ms_of_train_vlm=EMITTED["train_vlm"]["step_ms"],
+         step_ms_of_plain=EMITTED[of]["step_ms"], plain=of,
          tokens_per_s=gb * seq / step_s[-1],
          peak_memory_bytes=peak, base_memory_bytes=base,
-         peak_memory_of_train_vlm=EMITTED["train_vlm"]["peak_memory_bytes"],
+         peak_memory_of_plain=EMITTED[of]["peak_memory_bytes"],
          flash_launches_per_step=per_step, main_path_launches=main_launches,
-         flash_shapes={k: [list(q_), list(k_)]
-                       for k, (q_, k_) in shapes.items()},
-         tensor_parallel={"model_local": ["attention", "cross attention",
-                                          "mlp", "vocab"],
-                          "repeated": plan.repeated(cfg),
-                          "replicated": ["norm scales", "gates"]},
+         flash_shapes={k: {"q": list(q_), "k": list(k_), "per_step": n}
+                       for k, ((q_, k_), n) in shapes.items()},
+         tensor_parallel={"model_local": local, "repeated": repeated,
+                          "replicated": replicated},
          losses=losses, plain_losses=plain_losses, loss_max_rel_err=loss_err,
          param_max_rel_err=gaps["params"], moment_rel_err=gaps["mu"],
          moment_max_rel_err=gaps["mu_max"], f32_hold=f32,
@@ -5949,6 +6104,58 @@ def phase_train_mesh_vlm():
     # the pinned blocks of the host copies, kept by the host allocator
     getattr(torch._C, "_host_emptyCache", lambda: None)()
     return main_launches["flash_attention"]
+
+
+def phase_train_mesh_rwkv6():
+    """The partitioned step tensor-parallel over ``model`` on rwkv6
+    (TRAIN_MESH_RWKV6), held by ``mesh_held_run``: rwkv6-7b at full width
+    and 2 layers on a virtual (2, 2) mesh of the card. Each cell runs the
+    time mix on its own 32 of the 64 WKV heads (its columns of ``wr``,
+    ``wk``, ``wv``, ``wg``, its rows of ``wo``; ``ln_x`` over all of d
+    from the cells' summed squares), the channel mix on its 7168 of the
+    14336 columns, and its half of the vocabulary; the token shift, the
+    mixes, their LoRAs, the decay, the receptance gate and the norms are
+    replicated work. 4 cells x 1 microbatch x 2 layers x the forward and
+    the recompute WKV6 launches a step, each cell's 4 rows with its 32
+    heads. Its counterpart is train_rwkv6's trainer at 2 layers. No step
+    is profiled (reading the trace of rwkv6's step costs its phase tens
+    of seconds: train_rwkv6's)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_elastic_mesh
+
+    spec = TRAIN_MESH_RWKV6
+    bundle = registry.get(spec["arch"])
+    cfg = dataclasses.replace(bundle.model, num_layers=spec["layers"])
+    gb, seq = TRAIN_SHAPE["global_batch"], TRAIN_SHAPE["seq"]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    d, m = spec["mesh"]
+    mesh = make_elastic_mesh(d, m, devices=[dev] * (d * m))
+    assert mesh_kernel_launches(cfg, bundle.run, mesh, gb) == \
+        4 * 1 * 2 * cfg.num_layers == 16
+    K = cfg.wkv_head_dim
+    shape = (gb // d, seq, cfg.d_model // K // m, K)
+    assert shape == (4, 2048, 32, 64), shape
+    row = mesh_held_run("train_mesh_rwkv6", cfg, bundle.run, mesh, spec,
+                        kernel="wkv6", shape=shape,
+                        local=("attn", "mlp", "vocab"),
+                        plain_name=f"train_rwkv6 ({cfg.num_layers} layers)")
+    emit("train_mesh_rwkv6", arch=cfg.name, layers=cfg.num_layers,
+         cut=f"depth {bundle.model.num_layers} -> {cfg.num_layers}: the "
+             f"smoke's seconds; f32 state at 12 bytes a parameter",
+         mesh=[d, m], device="virtual", global_batch=gb, seq=seq,
+         cell_rows=gb // d, warmup_steps=spec["warmup"],
+         timed_steps=spec["steps"], wkv6_chunk=cfg.scan_chunk,
+         step_ms_of_train_rwkv6=EMITTED["train_rwkv6"]["step_ms"],
+         tensor_parallel={"model_local": ["time mix", "channel mix",
+                                          "vocab"],
+                          "replicated": ["token shift, mixes, LoRAs, decay",
+                                         "receptance gate", "norm scales"]},
+         tolerance=MESH_TOLERANCE, **row)
+    return row["main_path_launches"]["wkv6"]
 
 
 # --- the twelfth slice: the dry-run held against the card, the examples ------------
@@ -6234,8 +6441,11 @@ def run_phases(t_start, card, traces) -> int:
         "train_ckpt", phase_train_ckpt)
     grad_rows = {name: timed(f"{name}_grad", phase_scan_grad, name)
                  for name in ("wkv6", "ssd")}
-    trained = {name: timed(name, phase_train_model, name)
-               for name in ("train_rwkv6", "train_zamba2")}
+    trained = {"train_rwkv6": timed("train_rwkv6", phase_train_model,
+                                    "train_rwkv6")}
+    wkv_mesh_launches = timed("train_mesh_rwkv6", phase_train_mesh_rwkv6)
+    trained["train_zamba2"] = timed("train_zamba2", phase_train_model,
+                                    "train_zamba2")
     flash_by_path["serve_olmoe"], prm, tokens = timed("serve_olmoe",
                                                       phase_serve_olmoe)
     flash_by_path["serve_olmoe_a2a"] = timed(
@@ -6246,13 +6456,14 @@ def run_phases(t_start, card, traces) -> int:
                                    "train_olmoe")
     flash_by_path["train_mesh_olmoe"] = timed("train_mesh_olmoe",
                                               phase_train_mesh_olmoe)
-    for name in SERVE_CROSS:  # the VLM, then whisper: each served, trained
+    # the VLM, then whisper: each served, trained, and trained on a mesh
+    # against the training phase's state on the host
+    for name in SERVE_CROSS:
         flash_by_path[name] = timed(name, phase_serve_cross, name)
         train = name.replace("serve", "train")
         trained[train] = timed(train, phase_train_model, train)
-        if train == "train_vlm":  # its state on the host for the mesh run
-            flash_by_path["train_mesh_vlm"] = timed("train_mesh_vlm",
-                                                    phase_train_mesh_vlm)
+        mesh = mesh_of(train)
+        flash_by_path[mesh] = timed(mesh, phase_train_mesh_cross, mesh)
     timed("dryrun", phase_dryrun, traces)
     timed("examples", phase_examples)
     (rwkv_train, rwkv_bwd), (zamba_train, zamba_bwd) = (
@@ -6307,7 +6518,8 @@ def run_phases(t_start, card, traces) -> int:
         "replaces": "src/repro/kernels/wkv6/kernel.py:72",
         "launches": wkv_launches,
         "launches_by_path": {"serve_rwkv6": wkv_launches,
-                             "train_rwkv6": rwkv_train["wkv6"]},
+                             "train_rwkv6": rwkv_train["wkv6"],
+                             "train_mesh_rwkv6": wkv_mesh_launches},
         "recompute_bwd": recompute("wkv6"),
         "recompute_bwd_ms_in_train_rwkv6": rwkv_bwd["wkv6"],
         "max_abs_err": max(r["max_abs_err"] for r in wkv_rows),

@@ -7,30 +7,36 @@ The reference partitions its step under GSPMD with the ``BASELINE``
 ruleset, which puts ``heads``, ``kv_heads``, ``mlp``, ``vocab`` and
 ``experts`` on ``model``: each device computes with its own model shard
 (Megatron-style tensor parallelism, which XLA derives). ``plan_for``
-makes the same decision once per (arch, mesh, ruleset), for the dense,
-MoE and VLM families, group by group of leaves (``Plan``): a group is
+makes the same decision once per (arch, mesh, ruleset), for every family
+but the hybrid one, group by group of leaves (``Plan``): a group is
 *model-local* where its ``model`` cut falls on units the block code takes
-alone (attention and the VLM's cross attention: both head counts divide
-by the axis; the MLP's columns and rows; the experts; the vocabulary).
-Every other leaf (norm scales, the router, the VLM's gates, a group
-whose cut does not fall on such units, every leaf of another family) is
-gathered whole over ``model`` as before, and its work repeats in every
-cell of a ``model`` group.
+alone (attention and the cross attention of the VLM and of whisper's
+decoder: both head counts divide by the axis; rwkv6's time mix: its WKV
+heads; the MLP's columns and rows, rwkv6's channel mix's; the experts;
+the vocabulary). Every other leaf (norm scales, the router, the VLM's
+gates, rwkv6's token-shift mixes, LoRAs, decay and bonus, a group whose
+cut does not fall on such units, every leaf of the hybrid family) is
+gathered whole over ``model`` as before; its work repeats in every cell
+of a ``model`` group where it is a block's own work (``Plan.repeated``),
+and is replicated work, the same in every cell, where it is not cut over
+``model`` by the reference's specs either.
 
 Autograd cannot run the collectives' transposes: on the card the engine
 runs every cell's CUDA backward in one device thread, where a collective
 waits for cells that never come (``spmd`` refuses it). So a ``Tape``
 runs a cell's forward as local segments (``run``: a function of explicit
 input tensors, its outputs detached leaves) with the collectives between
-them in the cell's own code (``enter``, ``exit``, ``all_to_all``,
-``all_gather``, ``pmax``), and ``backward`` walks the records in reverse:
-a segment's backward is ``torch.autograd.backward`` of its outputs
-against their accumulated ``.grad`` (after re-running it from its stored
-inputs, with ``remat``), a collective's is its transpose, called in the
-cell's code. Gradients of the parameters accumulate in their ``.grad``.
-Outside a step cell the same layer and loss code runs on ``INLINE``, whose
-segments are plain calls under autograd and whose plan keeps no leaf
-model-local (``models.transformer.block_apply``, ``models.lm.loss_fn``).
+them in the cell's own code (``enter``, ``exit``, ``total``,
+``all_to_all``, ``all_gather``, ``pmax``), and ``backward`` walks the
+records in reverse: a segment's backward is ``torch.autograd.backward``
+of its outputs against their accumulated ``.grad`` (after re-running it
+from its stored inputs, with ``remat``), a collective's is its
+transpose, called in the cell's code. Gradients of the parameters
+accumulate in their ``.grad``. Outside a step cell the same layer and
+loss code runs on ``INLINE``, whose segments are plain calls under
+autograd and whose plan keeps no leaf model-local
+(``models.transformer.block_apply``, ``models.rwkv.layer_apply``,
+``models.lm.loss_fn``).
 
 Two conventions make the transposes those of Megatron's ``f`` and ``g``:
 every cell computes the whole loss of its data rows, identically across
@@ -38,12 +44,26 @@ a ``model`` group, and the loss counts once. An entry (``enter``) is the
 identity forward and a ``model`` psum backward; an exit (``exit``) a
 psum forward and the identity backward; ``all_gather`` over ``model``
 (its result used identically by the group) slices its block backward.
-Hence the two rules the block code keeps: (a) replicated work (the
-norms, the router) sits ahead of an entry, or after an exit (the VLM's
-gates, which scale the group's sum), so its gradient is the same in
-every cell and is not summed; (b) a replicated loss (the MoE's aux
-loss) is computed once ahead of an entry, or, where each cell computes a
-part, summed through an exit.
+Hence the rules the block code keeps: (a) replicated work (the norms,
+the router, rwkv6's token shift, mixes and decay) sits ahead of an
+entry, or after an exit (the VLM's gates and rwkv6's receptance gate,
+which scale the group's sum), so its gradient is the same in every cell
+and is not summed; a replicated leaf that a cell's local segment reads
+only in part (rwkv6's bonus ``u`` and ``ln_x``'s scale, on the cell's
+heads) leaves the replicated segment as an output and enters, as the
+a2a's router does, so its gradient sums over ``model``; (b) a replicated
+loss (the MoE's aux loss) is computed once ahead of an entry, or, where
+each cell computes a part, summed through an exit; (c) a replicated
+value that each cell computes a part of and then uses differently
+(rwkv6's ``ln_x``, an RMS norm over all of ``d``, of which a cell holds
+its heads' channels: each row's sum of squares) goes through an exit and
+at once an entry (``Tape.total``): the group's sum forward, and backward
+the sum of the cells' gradients of it, each cell's own being only its
+channels' part. An activation that several local segments read
+(whisper's encoder output, read by every decoder cross layer) enters
+each of them: its gradient sums over the cells at each entry and over
+the entries in its ``.grad`` before the segment that made it runs its
+backward.
 """
 
 from __future__ import annotations
@@ -64,14 +84,16 @@ AXIS = "model"
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """Which groups of leaves are model-local. ``segmented``: the step
-    runs the family's loss on a ``Tape`` (the dense, MoE and VLM families
+    runs the family's loss on a ``Tape`` (every family but the hybrid one
     on a mesh); ``size``: the ``model`` axis's."""
 
     segmented: bool = False
     size: int = 1
-    attn: bool = False
-    xattn: bool = False  # the VLM's cross attention
-    mlp: bool = False  # the dense MLP (the VLM's: its self and cross layers')
+    attn: bool = False  # whisper's encoder's and decoder's; rwkv6's time mix
+    xattn: bool = False  # the VLM's and whisper's cross attention
+    # the dense MLP (the VLM's self and cross layers', whisper's encoder
+    # and decoder layers'); rwkv6's channel mix
+    mlp: bool = False
     shared: bool = False  # the MoE's shared MLP
     experts: bool = False
     vocab: bool = False
@@ -84,11 +106,12 @@ class Plan:
             return []
         if not self.segmented:
             return ["every block"]
-        out = [] if self.attn else ["attention"]
-        if cfg.family == "vlm" and not self.xattn:
+        ssm = cfg.family == "ssm"
+        out = [] if self.attn else ["time mix" if ssm else "attention"]
+        if cfg.family in ("vlm", "audio") and not self.xattn:
             out.append("cross attention")
-        if cfg.family in ("dense", "vlm") and not self.mlp:
-            out.append("mlp")
+        if cfg.family != "moe" and not self.mlp:
+            out.append("channel mix" if ssm else "mlp")
         if cfg.family == "moe":
             if not self.experts:
                 out.append("experts")
@@ -139,6 +162,9 @@ ATTN = {"wq": "heads", "wk": "kv_heads", "wv": "kv_heads", "wo": "heads",
         "bq": "heads", "bk": "kv_heads", "bv": "kv_heads"}
 MLP = {"w_gate": "mlp", "w_up": "mlp", "w_down": "mlp"}
 EXPERTS = {"w_gate": "experts", "w_up": "experts", "w_down": "experts"}
+TMIX = {"wr": "heads", "wk": "heads", "wv": "heads", "wg": "heads",
+        "wo": "heads"}  # rwkv6's time mix
+CMIX = {"wk": "mlp", "wv": "mlp"}  # rwkv6's channel mix
 VOCAB = {"embedding": "vocab", "unembed": "vocab"}
 
 
@@ -147,7 +173,7 @@ def plan_for(cfg, pspecs, param_specs, sizes: Dict[str, int],
     """The plan for ``cfg``'s parameters (``pspecs``, the ``TensorSpec``
     tree) laid out by ``param_specs`` over a mesh of axis ``sizes``."""
     m = sizes.get(AXIS, 1)
-    if cfg.family not in ("dense", "moe", "vlm"):
+    if cfg.family == "hybrid":
         return Plan(size=m, batch_axes=batch_axes)
     if m == 1:
         return Plan(segmented=True, batch_axes=batch_axes)
@@ -155,8 +181,23 @@ def plan_for(cfg, pspecs, param_specs, sizes: Dict[str, int],
     def local(group, want):
         return _local(pspecs, param_specs, ("stack",) + group, want)
 
-    heads = cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0
     vocab = _local(pspecs, param_specs, ("embed",), VOCAB)
+    if cfg.family == "ssm":
+        heads = cfg.d_model // cfg.wkv_head_dim % m == 0
+        return Plan(
+            segmented=True, size=m, batch_axes=batch_axes,
+            attn=heads and local(("layers", "tmix"), TMIX),
+            mlp=local(("layers", "cmix"), CMIX), vocab=vocab)
+    heads = cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0
+    if cfg.family == "audio":
+        return Plan(
+            segmented=True, size=m, batch_axes=batch_axes,
+            attn=heads and local(("encoder", "attn"), ATTN)
+            and local(("decoder", "attn"), ATTN),
+            xattn=heads and local(("decoder", "xattn"), ATTN),
+            mlp=local(("encoder", "mlp"), MLP) and local(("decoder", "mlp"),
+                                                          MLP),
+            vocab=vocab)
     if cfg.family == "vlm":
         return Plan(
             segmented=True, size=m, batch_axes=batch_axes,
@@ -182,9 +223,14 @@ def local_leaves(plan: Plan, pspecs):
         if path[:1] == ("embed",):
             return plan.vocab
         if path[:2] not in (("stack", "layers"), ("stack", "self"),
-                            ("stack", "cross")) or len(path) < 4:
+                            ("stack", "cross"), ("stack", "encoder"),
+                            ("stack", "decoder")) or len(path) < 4:
             return False
         group, name = path[2], path[3]
+        if group == "tmix":
+            return plan.attn and name in TMIX
+        if group == "cmix":
+            return plan.mlp and name in CMIX
         if group == "attn":
             return plan.attn
         if group == "xattn":
@@ -280,6 +326,13 @@ class Tape:
             return x
         return self._collective(x, _leaf(spmd.psum(x.detach(), axis)),
                                 lambda g: g)
+
+    def total(self, x: torch.Tensor, axis=AXIS) -> torch.Tensor:
+        """The group's sum of its cells' parts ``x`` of a value that each
+        cell then uses in its own way (rule (c)): an exit and at once an
+        entry, so the gradient that reaches ``x`` is the group's sum of
+        the cells' gradients of the total."""
+        return self.enter(self.exit(x, axis), axis)
 
     def all_to_all(self, x: torch.Tensor, axis, split_axis: int,
                    concat_axis: int) -> torch.Tensor:

@@ -11,6 +11,15 @@ attend to their own tokens (``attention_auto``) and to the encoder states
 says, as the reference passes it. Under ``run.remat == "block"`` each
 encoder and decoder layer is checkpointed. Parameters keep the reference's
 stacked ``(L, ...)`` leaves.
+
+Each training layer is written once, as ``models.transformer``'s halves
+(the encoder's attention bidirectional, every MLP gelu; the decoder's
+cross half the VLM's without its gates, on the encoder's output):
+``_enc_segments`` and ``_dec_segments``. ``encode`` and ``decode_train``
+run them on ``tensor_parallel.INLINE``; in a cell of the partitioned
+training step ``stack_segments`` runs them on the cell's tape,
+tensor-parallel over ``model``, the encoder's output entering each cross
+layer.
 """
 
 from __future__ import annotations
@@ -20,9 +29,11 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.models import attention as A
 from repro_torch.models import params as P
+from repro_torch.models import transformer as T
 from repro_torch.models.common import (matmul, mlp_apply, mlp_specs, rms_norm,
                                        rms_norm_specs)
 from repro_torch.models.scan_utils import grouped_scan
@@ -60,15 +71,18 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
+def _enc_segments(cfg, run, ctx, tc, wl, x, adds, positions):
+    """One encoder layer on the tape of ``tc``: ``transformer``'s halves,
+    the attention bidirectional, the MLP gelu. Returns (x, adds)."""
+    x, adds = T._attn_half(cfg, ctx, tc, wl, x, adds, positions, 1024,
+                           causal=False)
+    x, adds, _ = T._mlp_half(cfg, run, ctx, tc, wl, x, adds, act="gelu")
+    return x, adds
+
+
 def _enc_layer(cfg, run, ctx, w, x, positions):
-    B, S, _ = x.shape
-    h = rms_norm(x, w["ln1"], cfg.norm_eps)
-    q = A.project_q(cfg, w["attn"], h, positions, ctx)
-    k, v = A.project_kv(cfg, w["attn"], h, positions, ctx)
-    o = A.attention_full(q, k, v)
-    x = x + matmul(o.reshape(B, S, cfg.q_dim), w["attn"]["wo"])
-    h2 = rms_norm(x, w["ln2"], cfg.norm_eps)
-    return x + mlp_apply(w["mlp"], h2, ctx, act="gelu")
+    return T._resid(*_enc_segments(cfg, run, ctx, tp.INLINE, lambda: w, x,
+                                   (), positions))
 
 
 def encode(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, frames):
@@ -85,25 +99,35 @@ def encode(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, frames):
 
 
 def _self_attend(cfg, ctx, w, x, positions, q_chunk):
-    """The decoder layer's causal self-attention half: (x + attn, k, v)."""
-    B, S, _ = x.shape
+    """The decoder layer's causal self-attention half for prefill:
+    (x + attn, k, v)."""
     h = rms_norm(x, w["ln1"], cfg.norm_eps)
-    q = A.project_q(cfg, w["attn"], h, positions, ctx)
-    k, v = A.project_kv(cfg, w["attn"], h, positions, ctx)
-    o = A.attention_auto(q, k, v, causal=True, q_chunk=q_chunk, ctx=ctx)
-    return x + matmul(o.reshape(B, S, cfg.q_dim), w["attn"]["wo"]), k, v
+    o, k, v = T._attention_out(cfg, ctx, w["attn"], h, positions, q_chunk)
+    return x + o, k, v
+
+
+def _cross_mlp_segments(cfg, run, ctx, tc, wl, x, adds, enc):
+    """The decoder layer's cross half on the encoder states ``enc`` and
+    its gelu MLP half, on the tape of ``tc``. Returns (x, adds)."""
+    x, adds = T._xattn_half(cfg, ctx, tc, wl, x, adds, enc, "lnx")
+    x, adds, _ = T._mlp_half(cfg, run, ctx, tc, wl, x, adds, act="gelu")
+    return x, adds
+
+
+def _dec_segments(cfg, run, ctx, tc, wl, x, adds, enc, positions, q_chunk):
+    """One decoder layer on the tape of ``tc``. Returns (x, adds)."""
+    x, adds = T._attn_half(cfg, ctx, tc, wl, x, adds, positions, q_chunk)
+    return _cross_mlp_segments(cfg, run, ctx, tc, wl, x, adds, enc)
 
 
 def _cross_mlp(cfg, ctx, w, x, enc):
-    hx = rms_norm(x, w["lnx"], cfg.norm_eps)
-    x = x + A.cross_attention(cfg, w["xattn"], hx, enc, ctx)
-    h2 = rms_norm(x, w["ln2"], cfg.norm_eps)
-    return x + mlp_apply(w["mlp"], h2, ctx, act="gelu")
+    return T._resid(*_cross_mlp_segments(cfg, None, ctx, tp.INLINE,
+                                         lambda: w, x, (), enc))
 
 
 def _dec_layer(cfg, run, ctx, w, x, enc, positions, *, q_chunk=1024):
-    x, _, _ = _self_attend(cfg, ctx, w, x, positions, q_chunk)
-    return _cross_mlp(cfg, ctx, w, x, enc)
+    return T._resid(*_dec_segments(cfg, run, ctx, tp.INLINE, lambda: w, x,
+                                   (), enc, positions, q_chunk))
 
 
 def decode_train(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x,
@@ -115,6 +139,38 @@ def decode_train(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x,
     x, _ = grouped_scan(body, x, w["decoder"], cfg.num_layers, 0,
                         run.remat == "block")
     return x
+
+
+def stack_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc, w,
+                   x, frames, positions, *, q_chunk=1024):
+    """The encoder on ``frames``, ``enc_ln``, then the decoder from the
+    leaf ``x``, on the tape of ``tc`` (a
+    ``distributed.tensor_parallel.Cell``): each layer's halves as local
+    segments with the collectives of the model-local ones between them;
+    the decoder's cross halves read the encoder's output as a segment
+    input (``transformer._xattn_half``), so its gradient, summed over the
+    cells and the cross layers, reaches the encoder. Returns (x, adds):
+    the last residual and the terms still to add to it. On ``INLINE``:
+    ``encode`` and ``decode_train``, their per-layer remat included."""
+    if tc is tp.INLINE:
+        enc = encode(cfg, run, ctx, w, frames)
+        return decode_train(cfg, run, ctx, w, x, enc, positions,
+                            q_chunk=q_chunk), ()
+    B, S, _ = frames.shape
+    enc_positions = _positions(B, S, frames.device)
+    e, adds = frames, ()
+    for i in range(cfg.encoder_layers):
+        e, adds = _enc_segments(cfg, run, ctx, tc,
+                                lambda i=i: P.layer(w["encoder"], i), e,
+                                adds, enc_positions)
+    enc, = tc.tape.run(lambda e, *a: (rms_norm(T._resid(e, a), w["enc_ln"],
+                                               cfg.norm_eps),), e, *adds)
+    adds = ()
+    for i in range(cfg.num_layers):
+        x, adds = _dec_segments(cfg, run, ctx, tc,
+                                lambda i=i: P.layer(w["decoder"], i), x,
+                                adds, enc, positions, q_chunk)
+    return x, adds
 
 
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Dict:

@@ -10,10 +10,10 @@ Every architecture exposes the same entry points, the reference's, for
   param_specs(cfg)                   declarative parameter tree
   input_specs(cfg, shape)            batch stand-ins per ShapeSpec
   loss_fn(cfg, run, ctx, params, batch)      -> (loss, metrics)
-  loss_segments(cfg, run, ctx, cell, params, batch)   the dense, MoE
-                                     and VLM loss on a tape: a
-                                     tensor-parallel step cell's, or
-                                     INLINE
+  loss_segments(cfg, run, ctx, cell, params, batch)   the loss of every
+                                     family but the hybrid one on a
+                                     tape: a tensor-parallel step
+                                     cell's, or INLINE
   cache_specs(cfg, shape)            decode-state tree
   prefill_fn(...) / decode_fn(...)   serving programs
 """
@@ -128,10 +128,9 @@ def _metrics(loss, nll, zl, aux):
 
 def loss_fn(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, batch):
     """Teacher-forced cross-entropy (plus the stack's auxiliary loss).
-    Returns (loss, metrics), both float32. The dense, MoE and VLM
-    families: ``loss_segments`` on ``tensor_parallel.INLINE`` (plain
-    calls)."""
-    if cfg.family in ("dense", "moe", "vlm"):
+    Returns (loss, metrics), both float32. Every family but the hybrid
+    one: ``loss_segments`` on ``tensor_parallel.INLINE`` (plain calls)."""
+    if cfg.family != "hybrid":
         return loss_segments(cfg, run, ctx, tp.INLINE, params, batch)
     x, aux = _backbone(cfg, run, ctx, params, batch, batch["tokens"])
     return _metrics(*_total(*xent_loss(logits_fn(params["embed"], x, ctx),
@@ -140,12 +139,13 @@ def loss_fn(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, batch):
 
 def loss_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc,
                   params, batch):
-    """``loss_fn`` of the dense, MoE and VLM families on the tape of ``tc``
-    (a ``distributed.tensor_parallel.Cell``: a cell of the partitioned
-    training step, or ``INLINE``): the embedding, the stack
-    (``transformer.stack_segments``; the VLM's cross layers on the
-    batch's ``image_embeds``) and the loss head as local segments
-    and the collectives between them. Vocabulary-parallel where the
+    """``loss_fn`` of every family but the hybrid one on the tape of
+    ``tc`` (a ``distributed.tensor_parallel.Cell``: a cell of the
+    partitioned training step, or ``INLINE``): the embedding, the stack
+    (``transformer.stack_segments``, the VLM's cross layers on the
+    batch's ``image_embeds``; ``audio.stack_segments`` on its
+    ``frame_embeds``; ``rwkv.stack_segments``) and the loss head as local
+    segments and the collectives between them. Vocabulary-parallel where the
     vocabulary is model-local: the lookup a partial sum (rows outside
     the cell's give 0), the logits the cell's columns, each row's
     logsumexp from the cells' by their ``pmax`` and a ``psum`` of the
@@ -162,9 +162,19 @@ def loss_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc,
                                         vocab_lo=lo),))
     if plan.vocab:
         x = tape.exit(x)
-    img = batch["image_embeds"].to(dt) if cfg.family == "vlm" else None
-    x, adds, auxes = T.stack_segments(cfg, run, ctx, tc, params["stack"], x,
-                                      positions, img=img, q_chunk=Q_CHUNK)
+    w = params["stack"]
+    auxes = []
+    if cfg.family == "audio":
+        x, adds = AU.stack_segments(cfg, run, ctx, tc, w, x,
+                                    batch["frame_embeds"].to(dt), positions,
+                                    q_chunk=Q_CHUNK)
+    elif cfg.family == "ssm":
+        x, adds = RW.stack_segments(cfg, run, ctx, tc, w, x,
+                                    chunk=cfg.scan_chunk)
+    else:
+        img = batch["image_embeds"].to(dt) if cfg.family == "vlm" else None
+        x, adds, auxes = T.stack_segments(cfg, run, ctx, tc, w, x, positions,
+                                          img=img, q_chunk=Q_CHUNK)
 
     def final(x, *a):
         return (rms_norm(T._resid(x, a), params["final_ln"], cfg.norm_eps),)

@@ -12,6 +12,13 @@ parameter layout; the teacher-forced stack runs through
 ``scan_utils.grouped_scan`` (the run's remat and scan group), prefill and
 decode loop over the layer index, as the reference scans them without
 remat.
+
+A layer's training forward is written as segments (``layer_segments``):
+in a cell of the partitioned training step they run on the cell's tape,
+tensor-parallel over ``model`` (the time mix on the cell's WKV heads,
+the channel mix on its columns; ``distributed.tensor_parallel``'s rules
+(a) and (c)); outside it (``layer_apply``) on
+``tensor_parallel.INLINE``, plain calls.
 """
 
 from __future__ import annotations
@@ -22,9 +29,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.models import params as P
+from repro_torch.models import transformer as T
 from repro_torch.models.common import rms_norm, rms_norm_specs
 from repro_torch.models.scan_utils import grouped_scan
 
@@ -133,42 +142,76 @@ def _split_heads(x, H, K):
     return x.reshape(x.shape[:-1] + (H, K))
 
 
-def time_mix_apply(cfg: ModelConfig, ctx: ShardingCtx, w, x, xx, state, *, chunk):
-    """x: (B,S,d); xx: token-shifted x; state: (B,H,K,V) or None (from 0)."""
-    B, S, d = x.shape
-    H, K = _num_heads(cfg), cfg.wkv_head_dim
-    h = rms_norm(x, w["ln"], cfg.norm_eps)
-    hh = rms_norm(xx, w["ln"], cfg.norm_eps)
+def _tmix_streams(w, x, xx, eps: float):
+    """The time mix's replicated work: the norms of x and of its shift
+    ``xx``, the token-shift interpolation with its LoRA and the decay.
+    Returns (xr, xk, xv, xg, ww), each (B, S, d)."""
+    h = rms_norm(x, w["ln"], eps)
+    hh = rms_norm(xx, w["ln"], eps)
     xr, xk, xv, xw, xg = _ddlerp(w, h, hh)
-    dt = x.dtype
+    return xr, xk, xv, xg, _decay(w, xw)
+
+
+def _tmix_heads(cfg: ModelConfig, ctx: ShardingCtx, w, xr, xk, xv, xg, ww,
+                u, *, chunk):
+    """WKV6 on the heads of ``w``'s columns (all of them, or a
+    tensor-parallel cell's own, whose ``ww`` and ``u`` the caller cuts
+    alike), from the zero state. Returns (y, g, state): y (B, S, H K) in
+    the activations' dtype, the gate g on the same channels."""
+    B, S, _ = xr.shape
+    K = cfg.wkv_head_dim
+    H = w["wr"].shape[1] // K
+    dt = xr.dtype
     r = _split_heads(xr @ w["wr"].to(dt), H, K)
     k = _split_heads(xk @ w["wk"].to(dt), H, K)
     v = _split_heads(xv @ w["wv"].to(dt), H, K)
     g = F.silu(xg @ w["wg"].to(dt))
-    ww = _split_heads(_decay(w, xw), H, K)
+    ww = _split_heads(ww, H, K)
     r = ctx.constrain(r, ("batch", "seq_inner", "heads", "head_dim"))
     k = ctx.constrain(k, ("batch", "seq_inner", "heads", "head_dim"))
-    if state is None:
-        state = torch.zeros((B, H, K, K), dtype=torch.float32, device=x.device)
-    y, state = wkv6_chunked(r, k, v, ww, w["u"], state, chunk=chunk)
-    y = y.reshape(B, S, d).to(dt)
+    state = torch.zeros((B, H, K, K), dtype=torch.float32, device=xr.device)
+    y, state = wkv6_chunked(r, k, v, ww, u, state, chunk=chunk)
+    return y.reshape(B, S, H * K).to(dt), g, state
+
+
+def time_mix_apply(cfg: ModelConfig, ctx: ShardingCtx, w, x, xx, *, chunk):
+    """x: (B,S,d); xx: token-shifted x; the scan from the zero state.
+    Returns (out, state)."""
+    y, g, state = _tmix_heads(cfg, ctx, w, *_tmix_streams(w, x, xx,
+                                                          cfg.norm_eps),
+                              w["u"], chunk=chunk)
     y = rms_norm(y, w["ln_x"], cfg.norm_eps)  # stand-in for per-head groupnorm
-    out = (y * g) @ w["wo"].to(dt)
+    out = (y * g) @ w["wo"].to(x.dtype)
     return ctx.constrain(out, ("batch", "seq", "embed")), state
 
 
-def channel_mix_apply(cfg: ModelConfig, ctx: ShardingCtx, w, x, xx):
+def _cmix_streams(w, x, xx, eps: float):
+    """The channel mix's token-shift mixes: (xk, xr)."""
     dt = x.dtype
-    h = rms_norm(x, w["ln"], cfg.norm_eps)
-    hh = rms_norm(xx, w["ln"], cfg.norm_eps)
+    h = rms_norm(x, w["ln"], eps)
+    hh = rms_norm(xx, w["ln"], eps)
     dx = hh - h
-    xk = h + dx * w["mu_k"].to(dt)
-    xr = h + dx * w["mu_r"].to(dt)
+    return h + dx * w["mu_k"].to(dt), h + dx * w["mu_r"].to(dt)
+
+
+def _cmix_value(ctx: ShardingCtx, w, xk):
+    """relu(xk wk)^2 wv over ``w``'s columns of ``wk`` and rows of ``wv``
+    (all, or a cell's: then a partial sum)."""
+    dt = xk.dtype
     k = torch.square(F.relu(xk @ w["wk"].to(dt)))
     k = ctx.constrain(k, ("batch", "seq_inner", "mlp"))
-    v = k @ w["wv"].to(dt)
-    rgate = torch.sigmoid(xr @ w["wr"].to(dt))
-    return ctx.constrain(rgate * v, ("batch", "seq", "embed"))
+    return k @ w["wv"].to(dt)
+
+
+def _rgate(w, xr):
+    """The receptance gate, over the whole ``wr`` (not cut over ``model``)."""
+    return torch.sigmoid(xr @ w["wr"].to(xr.dtype))
+
+
+def channel_mix_apply(cfg: ModelConfig, ctx: ShardingCtx, w, x, xx):
+    xk, xr = _cmix_streams(w, x, xx, cfg.norm_eps)
+    v = _cmix_value(ctx, w, xk)
+    return ctx.constrain(_rgate(w, xr) * v, ("batch", "seq", "embed"))
 
 
 def _shift(x):
@@ -176,19 +219,109 @@ def _shift(x):
     return F.pad(x, (0, 0, 1, 0))[:, :-1]
 
 
+def _tmix_half(cfg: ModelConfig, ctx: ShardingCtx, tc, wl, x, adds, chunk):
+    """The time mix on the tape of ``tc``, its leaves read by
+    ``wl()["tmix"]``. The replicated segment: the residual sum, the
+    token shift, the norms, the mixes with their LoRA and the decay (rule
+    (a)), and the bonus ``u`` and ``ln_x``'s scale passed out as they
+    are. Where the time mix is model-local, the five streams enter, and
+    so do ``u`` and the scale, which the cell reads on its heads; the
+    cell's segment runs WKV6 on its H/m heads and takes each row's sum of
+    squares of its channels of y, which exits and enters at once (rule
+    (c)): ``ln_x`` normalises over all of ``d``. Then the norm, the gate
+    and the cell's rows of ``wo``, through the exit. Returns (x, adds)."""
+    tape = tc.tape
+    local = tc.plan.attn
+    K, d, eps = cfg.wkv_head_dim, cfg.d_model, cfg.norm_eps
+
+    def w():
+        return wl()["tmix"]
+
+    def pre(x, *a):
+        x = T._resid(x, a)
+        return (x, *_tmix_streams(w(), x, _shift(x), eps), w()["u"],
+                w()["ln_x"])
+
+    x, *streams, u, scale = tape.run(pre, x, *adds)
+    lo, hi = tc.block(_num_heads(cfg)) if local else (0, _num_heads(cfg))
+    cols = slice(lo * K, hi * K)
+
+    def heads(xr, xk, xv, xg, ww, u):
+        y, g, _ = _tmix_heads(cfg, ctx, w(), xr, xk, xv, xg, ww[..., cols],
+                              u[lo:hi], chunk=chunk)
+        if not local:
+            return y, g
+        return y, g, torch.sum(torch.square(y.float()), -1, keepdim=True)
+
+    if not local:
+        y, g = tape.run(heads, *streams, u)
+        part, = tape.run(lambda y, g, s: ((rms_norm(y, s, eps) * g)
+                                          @ w()["wo"].to(y.dtype),),
+                         y, g, scale)
+        return x, (part,)
+    y, g, squares = tape.run(heads, *(tape.enter(t) for t in streams),
+                             tape.enter(u))
+    squares = tape.total(squares)
+
+    def out(y, g, squares, s):
+        # rms_norm over all of d, from the group's sum of squares
+        ynorm = (y.float() * torch.rsqrt(squares / d + eps)
+                 * s[cols].float()).to(y.dtype)
+        return ((ynorm * g) @ w()["wo"].to(y.dtype),)
+
+    part, = tape.run(out, y, g, squares, tape.enter(scale))
+    return x, (tape.exit(part),)
+
+
+def _cmix_half(cfg: ModelConfig, ctx: ShardingCtx, tc, wl, x, adds):
+    """The channel mix on the tape of ``tc``, its leaves read by
+    ``wl()["cmix"]``: the replicated segment (the residual sum, the
+    shift, the norms, the mixes and the receptance gate, whose ``wr`` is
+    not cut over ``model``), xk entering the cell's columns of ``wk`` and
+    rows of ``wv`` where those are model-local, the exit, and the gate
+    multiplying the exited sum in a segment of its own (rule (a)).
+    Returns (x, adds)."""
+    tape = tc.tape
+    local = tc.plan.mlp
+
+    def w():
+        return wl()["cmix"]
+
+    def pre(x, *a):
+        x = T._resid(x, a)
+        xk, xr = _cmix_streams(w(), x, _shift(x), cfg.norm_eps)
+        return x, xk, _rgate(w(), xr)
+
+    x, xk, rgate = tape.run(pre, x, *adds)
+    part, = tape.run(lambda xk: (_cmix_value(ctx, w(), xk),),
+                     tape.enter(xk) if local else xk)
+    y, = tape.run(lambda r, v: (ctx.constrain(r * v, ("batch", "seq",
+                                                      "embed")),),
+                  rgate, tape.exit(part) if local else part)
+    return x, (y,)
+
+
+def layer_segments(cfg: ModelConfig, run, ctx: ShardingCtx, tc, wl, x, adds,
+                   *, chunk):
+    """One layer on the tape of ``tc`` (a
+    ``distributed.tensor_parallel.Cell``), its leaves read by ``wl()``.
+    Returns (x, adds): the residual stream and the terms still to add to
+    it (``transformer._resid``)."""
+    x, adds = _tmix_half(cfg, ctx, tc, wl, x, adds, chunk)
+    return _cmix_half(cfg, ctx, tc, wl, x, adds)
+
+
 def layer_apply(cfg, run, ctx, w, x, *, chunk):
-    xx = _shift(x)
-    y, _ = time_mix_apply(cfg, ctx, w["tmix"], x, xx, None, chunk=chunk)
-    x = x + y
-    xx2 = _shift(x)
-    x = x + channel_mix_apply(cfg, ctx, w["cmix"], x, xx2)
-    return x
+    """``layer_segments`` on ``tensor_parallel.INLINE``."""
+    x, adds = layer_segments(cfg, run, ctx, tp.INLINE, lambda: w, x, (),
+                             chunk=chunk)
+    return T._resid(x, adds)
 
 
 def layer_prefill(cfg, run, ctx, w, x, *, chunk):
     """Like layer_apply but returns decode state (wkv state + last-token xs)."""
     xx = _shift(x)
-    y, wkv_state = time_mix_apply(cfg, ctx, w["tmix"], x, xx, None, chunk=chunk)
+    y, wkv_state = time_mix_apply(cfg, ctx, w["tmix"], x, xx, chunk=chunk)
     last_tmix = x[:, -1]
     x = x + y
     xx2 = _shift(x)
@@ -255,6 +388,20 @@ def stack_apply(cfg, run, ctx, w, x, *, chunk):
     x, _ = grouped_scan(body, x, w["layers"], cfg.num_layers, run.scan_group,
                         run.remat == "block")
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def stack_segments(cfg, run, ctx, tc, w, x, *, chunk):
+    """The stack on the tape of ``tc`` from the leaf ``x``, layer by
+    layer. Returns (x, adds). On ``INLINE``: ``stack_apply``, its scan
+    group and remat included."""
+    if tc is tp.INLINE:
+        return stack_apply(cfg, run, ctx, w, x, chunk=chunk)[0], ()
+    adds = ()
+    for i in range(cfg.num_layers):
+        x, adds = layer_segments(cfg, run, ctx, tc,
+                                 lambda i=i: P.layer(w["layers"], i), x,
+                                 adds, chunk=chunk)
+    return x, adds
 
 
 def stack_prefill(cfg, run, ctx, w, x, *, chunk):

@@ -47,14 +47,21 @@ def block_specs(cfg: ModelConfig, *, moe: bool) -> Dict:
 
 
 def _attention_out(cfg: ModelConfig, ctx: ShardingCtx, wa, h, positions,
-                   q_chunk):
+                   q_chunk, causal: bool = True):
     """(attn(h) through ``wo``, k, v) of the heads ``wa`` holds: all of
-    them, or a tensor-parallel cell's own (then a partial sum)."""
+    them, or a tensor-parallel cell's own (then a partial sum). ``causal``
+    False: bidirectional, with no window or softcap, whatever ``cfg``
+    says (whisper's encoder, ``attention_full``)."""
     B, S, _ = h.shape
     q = A.project_q(cfg, wa, h, positions, ctx)
     k, v = A.project_kv(cfg, wa, h, positions, ctx)
-    o = A.attention_auto(q, k, v, causal=cfg.causal, window=cfg.sliding_window,
-                         softcap=cfg.attn_logit_softcap, q_chunk=q_chunk, ctx=ctx)
+    if causal:
+        o = A.attention_auto(q, k, v, causal=cfg.causal,
+                             window=cfg.sliding_window,
+                             softcap=cfg.attn_logit_softcap, q_chunk=q_chunk,
+                             ctx=ctx)
+    else:
+        o = A.attention_full(q, k, v)
     return matmul(o.reshape(B, S, -1), wa["wo"]), k, v
 
 
@@ -293,7 +300,8 @@ def stack_prefill(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x,
 
 
 # --- the segmented stack: tensor parallelism over "model" ----------------------------
-# The dense, MoE and VLM training stacks, written once for both callers: each
+# The dense, MoE and VLM training stacks, written once for both callers
+# (whisper's, ``models.audio``, reuses the halves): each
 # half of a layer is a segment ahead of its entry (the residual sum, the
 # norm and, for the MoE, the routing: replicated work, rule (a)) and a
 # segment of the layer's own work, whose output the next segment adds to
@@ -327,28 +335,55 @@ def _same(t):
     return t
 
 
-def _attn_half(cfg, ctx, tc, wl, x, adds, positions, q_chunk):
-    """The attention half of a layer. Returns (x, adds): the residual
-    stream and what the next segment adds to it."""
+def _attn_half(cfg, ctx, tc, wl, x, adds, positions, q_chunk, *,
+               causal: bool = True):
+    """The attention half of a layer (``causal``: ``_attention_out``'s).
+    Returns (x, adds): the residual stream and what the next segment adds
+    to it."""
     tape = tc.tape
     local = tc.plan.attn
     x, h = tape.run(lambda x, *a: _normed(x, a, wl()["ln1"], cfg.norm_eps),
                     x, *adds)
     part, = tape.run(lambda h: (_attention_out(
-        cfg, ctx, wl()["attn"], h, positions, q_chunk)[0],),
+        cfg, ctx, wl()["attn"], h, positions, q_chunk, causal)[0],),
         tape.enter(h) if local else h)
     return x, (tape.exit(part) if local else part,)
 
 
-def _mlp_half(cfg, run, ctx, tc, wl, x, adds):
-    """The dense MLP half. Returns (x, adds, aux=None)."""
+def _mlp_half(cfg, run, ctx, tc, wl, x, adds, *, act: Optional[str] = None):
+    """The dense MLP half, its activation ``act`` (default ``cfg.act``;
+    whisper's is gelu whatever ``cfg.act`` says). Returns (x, adds,
+    aux=None)."""
     tape = tc.tape
     local = tc.plan.mlp
     x, h = tape.run(lambda x, *a: _normed(x, a, wl()["ln2"], cfg.norm_eps),
                     x, *adds)
-    part, = tape.run(lambda h: (mlp_apply(wl()["mlp"], h, ctx, cfg.act),),
+    part, = tape.run(lambda h: (mlp_apply(wl()["mlp"], h, ctx,
+                                          act or cfg.act),),
                      tape.enter(h) if local else h)
     return x, (tape.exit(part) if local else part,), None
+
+
+def _xattn_half(cfg, ctx, tc, wl, x, adds, src, ln: str):
+    """The cross-attention half of a layer (its leaves ``wl()["xattn"]``,
+    its norm ``wl()[ln]``): the norm ahead of the entry (rule (a)); q from
+    the cell's heads of the entered stream, k and v from ``src`` on its
+    kv heads, out through its rows of ``wo`` and the exit. ``src`` is a
+    segment input: a batch input (the VLM's image embeddings, no
+    gradient) as it is; an activation (whisper's encoder output) entered
+    where the half is model-local, so its gradient sums over the cells.
+    Returns (x, adds)."""
+    tape = tc.tape
+    local = tc.plan.xattn
+    x, h = tape.run(lambda x, *a: _normed(x, a, wl()[ln], cfg.norm_eps),
+                    x, *adds)
+    if local:
+        h = tape.enter(h)
+        if src.requires_grad:
+            src = tape.enter(src)
+    part, = tape.run(lambda h, src: (A.cross_attention(cfg, wl()["xattn"], h,
+                                                       src, ctx),), h, src)
+    return x, (tape.exit(part) if local else part,)
 
 
 def _moe_whole(cfg, run, ctx, tc, wl, x, adds):
@@ -494,23 +529,15 @@ def layer_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc, wl,
 
 def cross_segments(cfg: ModelConfig, ctx: ShardingCtx, tc, wc, x, adds, img):
     """The VLM's gated cross-attention layer on the tape of ``tc``, its
-    leaves read by ``wc()``: the norm ahead of the entry (rule (a)); q
-    from the cell's heads of the entered stream, k and v from the image
-    embeddings ``img`` (batch input, no gradient) on its kv heads, out
-    through its rows of ``wo`` and the exit; then ``tanh(gate_attn)`` in
-    a segment of its own after the exit (in the local segment each
-    cell's gradient of the gate would be a partial sum that nothing adds
-    up), the MLP half as a self layer's, and ``tanh(gate_mlp)`` after
-    its exit. Returns (x, adds)."""
+    leaves read by ``wc()``: the cross half (``_xattn_half``) over the
+    image embeddings ``img`` (batch input, no gradient); then
+    ``tanh(gate_attn)`` in a segment of its own after the exit (in the
+    local segment each cell's gradient of the gate would be a partial sum
+    that nothing adds up), the MLP half as a self layer's, and
+    ``tanh(gate_mlp)`` after its exit. Returns (x, adds)."""
     tape = tc.tape
-    local = tc.plan.xattn
-    x, h = tape.run(lambda x, *a: _normed(x, a, wc()["ln1"], cfg.norm_eps),
-                    x, *adds)
-    part, = tape.run(lambda h: (A.cross_attention(cfg, wc()["xattn"], h, img,
-                                                  ctx),),
-                     tape.enter(h) if local else h)
-    o, = tape.run(lambda o: (_gated(wc()["gate_attn"], o),),
-                  tape.exit(part) if local else part)
+    x, (part,) = _xattn_half(cfg, ctx, tc, wc, x, adds, img, "ln1")
+    o, = tape.run(lambda o: (_gated(wc()["gate_attn"], o),), part)
     x, (m,), _ = _mlp_half(cfg, None, ctx, tc, wc, x, (o,))
     m, = tape.run(lambda m: (_gated(wc()["gate_mlp"], m),), m)
     return x, (m,)

@@ -19,6 +19,13 @@ from 0, on (2, 2) and (1, 2), against the reference the same way: each
 cell computes with its own heads of the self and the cross attention,
 its MLP columns and its vocabulary rows.
 
+whisper-small's and rwkv6-7b's smoke configs on (2, 2) and (1, 2), the
+same way: whisper's encoder and decoder on each cell's heads (its
+encoder's output entering each decoder cross layer), MLP columns and
+vocabulary; rwkv6's time mix on each cell's WKV heads (its ``ln_x`` over
+all of ``d`` from the group's sum of squares), its channel mix on the
+cell's columns, the vocabulary.
+
 In the port: the exact set of leaves each cell gathers over ``model``
 (``spmd.observe`` with labels), the flash calls' shapes in each cell (the
 VLM's self and cross attention on the cell's heads), the plan of the
@@ -30,7 +37,11 @@ the reference differential refuses: replicated work (a norm) after an
 entry (rule (a)), the MoE's replicated aux loss summed over ``model``
 (rule (b)), an entry whose backward does not sum, and, in the VLM's
 cross layer, a gate multiplied inside the local segment (rule (a)) and
-an entry whose backward does not sum.
+an entry whose backward does not sum; and five more: whisper's cross
+layer reading the encoder's output by closure, its entries without their
+psum; rwkv6's receptance gate multiplied ahead of the channel mix's exit
+(rule (a)), the sum of squares of ``ln_x`` exited with no entry after it
+(rule (c)), the bonus ``u`` read by closure in the cell's segment.
 """
 
 from __future__ import annotations
@@ -54,6 +65,7 @@ from repro_torch.launch import dryrun, op_analysis  # noqa: E402
 from repro_torch.launch.programs import build_program  # noqa: E402
 from repro_torch.models import attention as A, lm, moe  # noqa: E402
 from repro_torch.models import params as P  # noqa: E402
+from repro_torch.models import rwkv as RW  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.train.trainer import Trainer  # noqa: E402
@@ -65,6 +77,7 @@ from test_torch_spmd import run_reference  # noqa: E402
 
 MOE = "olmoe-1b-7b"
 VLM = "llama-3.2-vision-11b"
+AUDIO, SSM = "whisper-small", "rwkv6-7b"
 CASES = (("dense", (2, 2)), ("dense", (1, 2)), ("dense", (1, 4)),
          ("a2a", (1, 2)), ("a2a", (2, 2)))
 
@@ -208,13 +221,14 @@ def gathered_over_model(t) -> dict:
     (MOE, {"stack.layers.moe.router"}, []),
     ("smollm-135m", {f"stack.layers.attn.{w}"
                      for w in ("wq", "wk", "wv", "wo")}, ["attention"]),
-    (VLM, set(), [])])
+    (VLM, set(), []), (AUDIO, set(), []), (SSM, set(), [])])
 def test_cells_gather_over_model_only_the_leaves_they_repeat(arch, want,
                                                              repeated):
     """olmoe: only its router (which the routing needs whole); smollm: its
-    attention (3 heads, 1 kv head do not split over 2 cells); the VLM:
-    nothing (its self and cross attention, MLPs and vocabulary split,
-    and no other leaf is cut over ``model``)."""
+    attention (3 heads, 1 kv head do not split over 2 cells); the VLM,
+    whisper and rwkv6: nothing (their attention or time mix, MLPs or
+    channel mix and vocabulary split, and no other leaf is cut over
+    ``model``)."""
     b = registry.get(arch)
     t = Trainer(b.smoke, b.run.replace(**RUN), global_batch=BATCH,
                 seq_len=SEQ, seed=SEED, mesh=virtual(2, 2), device="cpu")
@@ -288,17 +302,11 @@ def test_plan_makes_the_whole_vlm_model_local(m):
     and nothing repeats; over 16 its 8 kv heads do not split."""
     cfg = registry.get(VLM).model
     for size, local in ((m, True), (16, False)):
-        mesh = dryrun._meta_mesh((2, size), ("data", "model"))
-        ctx = ShardingCtx.for_mesh(mesh)
-        pspecs = lm.param_specs(cfg)
-        plan = tp.plan_for(cfg, pspecs, P.map_specs(
-            lambda s: ctx.spec(s.logical, s.shape), pspecs),
-            {"data": 2, "model": size}, ("data",))
+        plan, leaves = whole_plan(cfg, size)
         assert (plan.attn, plan.xattn) == (local, local)
         assert plan.mlp and plan.vocab and plan.segmented
         assert plan.repeated(cfg) == (
             [] if local else ["attention", "cross attention"])
-        leaves = tp.local_leaves(plan, pspecs)
         assert all(leaves["stack"]["cross"]["xattn"][w] == local
                    and leaves["stack"]["self"]["attn"][w] == local
                    for w in ("wq", "wk", "wv", "wo"))
@@ -571,6 +579,285 @@ def test_vlm_planted_breaches_fail_the_reference_differential(
     assert gaps_after(vlm_trainer(virtual(1, 2)), vlm_reference, "1x2")
 
 
+# --- whisper and rwkv6 against the reference ------------------------------------------
+
+FAMILY_MESHES = ((2, 2), (1, 2))
+
+REF_FAMILIES = """
+import json
+from repro.configs import registry
+from repro.launch.mesh import make_host_mesh
+from repro.train.trainer import Trainer
+for arch in inp["archs"]:
+    b = registry.get(arch)
+    run = b.run.replace(**inp["run"])
+    for d, m in inp["meshes"]:
+        mesh = make_host_mesh(d, m)
+        t = Trainer(b.smoke, run, global_batch=inp["batch"],
+                    seq_len=inp["seq"], seed=inp["seed"], mesh=mesh)
+        key = f"{arch}/{d}x{m}"
+        if f"{arch}/init" not in out:
+            st = t.extract_state()
+            out[f"{arch}/init"] = {"params": st["params"],
+                                   "opt": st["opt_state"]}
+
+        def shapes(leaf):
+            by_dev = {s.device: list(s.data.shape)
+                      for s in leaf.addressable_shards}
+            return [by_dev[dv] for dv in mesh.devices.flat]
+        out[f"{key}/shapes"] = json.dumps([shapes(leaf) for leaf in
+                                           jax.tree.leaves({"params": t.params,
+                                                            "opt": t.opt_state})])
+        t.train(inp["steps"])
+        out[f"{key}/losses"] = np.array([m_["loss"] for m_ in t.metrics_log])
+        st = t.extract_state()
+        out[f"{key}/final"] = {"params": st["params"], "opt": st["opt_state"]}
+"""
+
+
+@pytest.fixture(scope="module")
+def family_reference():
+    """whisper's and rwkv6's smoke configs in the reference's trainer on
+    FAMILY_MESHES, keyed ``{arch}/{d}x{m}``."""
+    ref = run_reference(REF_FAMILIES, {
+        "archs": (AUDIO, SSM), "run": RUN, "meshes": FAMILY_MESHES,
+        "batch": BATCH, "seq": SEQ, "seed": SEED, "steps": STEPS}, 4)
+    return {arch: {**{k.split("/", 1)[1]: v for k, v in ref.items()
+                      if k.startswith(arch + "/")}}
+            for arch in (AUDIO, SSM)}
+
+
+def family_trainer(arch, mesh, run=None):
+    b = registry.get(arch)
+    return Trainer(b.smoke, run or b.run.replace(**RUN), global_batch=BATCH,
+                   seq_len=SEQ, seed=SEED, mesh=mesh, device="cpu")
+
+
+@pytest.mark.parametrize("arch", [AUDIO, SSM])
+@pytest.mark.parametrize("mesh_shape", FAMILY_MESHES)
+def test_family_trainer_matches_reference_on_its_mesh(family_reference, arch,
+                                                      mesh_shape):
+    """Each cell computes with its own heads (whisper's encoder, decoder
+    and cross attention; rwkv6's WKV heads), MLP or channel-mix columns
+    and vocabulary rows: the shapes at rest, the losses of 3 steps, every
+    leaf after them and the first moments' gaps. rwkv6 on (1, 2): the
+    bundle's two microbatches."""
+    d, m = mesh_shape
+    key = f"{d}x{m}"
+    ref = family_reference[arch]
+    t = family_trainer(arch, virtual(d, m))
+    plan = t._step_fn.plan
+    assert plan.segmented and plan.attn and plan.mlp and plan.vocab
+    assert plan.xattn == (arch == AUDIO)
+    t.restore_state(carried(ref["init"]))
+    assert [[list(s.shape) for s in x.shards] for x in leaves(t)] == \
+        json.loads(str(ref[f"{key}/shapes"]))
+    t.train(STEPS)
+    np.testing.assert_allclose([x["loss"] for x in t.metrics_log],
+                               ref[f"{key}/losses"], rtol=0, atol=1e-4)
+    want = jax.tree.leaves(ref[f"{key}/final"])
+    have = whole_state(t)
+    assert len(have) == len(want)
+    for i, (g, w) in enumerate(zip(have, want)):
+        assert_close(g, w, 1e-4, f"{arch} {key} leaf {i}")
+    assert moment_gaps(t, ref[f"{key}/final"]) == []
+
+
+@pytest.mark.parametrize("arch", [AUDIO, SSM])
+@pytest.mark.parametrize("m", [2, 4])
+def test_plan_makes_the_smoke_families_model_local(arch, m):
+    """whisper's (4 heads, d_ff 128, vocabulary 256) and rwkv6's (4 WKV
+    heads of 16, d_ff 128, vocabulary 256) smoke configs over ``model``
+    of 2 and 4: every group is the cell's own, nothing repeats; the
+    leaves that are not cut over ``model`` (norms, rwkv6's mixes, LoRAs,
+    decay, bonus, the channel mix's ``wr``) are not local."""
+    cfg = registry.get(arch).smoke
+    plan, leaves_ = whole_plan(cfg, m)
+    assert plan.segmented and plan.attn and plan.mlp and plan.vocab
+    assert plan.xattn == (arch == AUDIO)
+    assert plan.repeated(cfg) == []
+    st = leaves_["stack"]
+    if arch == AUDIO:
+        for part, groups in (("encoder", ("attn", "mlp")),
+                             ("decoder", ("attn", "xattn", "mlp"))):
+            assert all(all(st[part][g].values()) for g in groups)
+            assert not any(st[part][n] for n in st[part]
+                           if n.startswith("ln"))
+        assert st["enc_ln"] is False
+    else:
+        tm, cm = st["layers"]["tmix"], st["layers"]["cmix"]
+        assert {n for n, v in tm.items() if v} == set(tp.TMIX)
+        assert {n for n, v in cm.items() if v} == set(tp.CMIX)
+
+
+def whole_plan(cfg, m: int, data: int = 2):
+    """``plan_for`` and ``local_leaves`` of ``cfg`` on a (data, m) mesh of
+    meta devices (specs only)."""
+    mesh = dryrun._meta_mesh((data, m), ("data", "model"))
+    ctx = ShardingCtx.for_mesh(mesh)
+    pspecs = lm.param_specs(cfg)
+    plan = tp.plan_for(cfg, pspecs, P.map_specs(
+        lambda s: ctx.spec(s.logical, s.shape), pspecs),
+        {"data": data, "model": m}, ("data",))
+    return plan, tp.local_leaves(plan, pspecs)
+
+
+@pytest.mark.parametrize("arch,m,repeated", [
+    (AUDIO, 2, ["embedding and logits"]), (AUDIO, 4, ["embedding and logits"]),
+    (SSM, 2, []), (SSM, 4, []), (SSM, 128, ["time mix"])])
+def test_plan_of_the_full_families(arch, m, repeated):
+    """At the published widths (specs only): whisper-small's 12 heads and
+    3072 MLP columns split over 2 and 4, its vocabulary of 51865 over
+    neither, so the embedding and logits repeat in every cell (GSPMD
+    replicates them too); rwkv6-7b's 64 WKV heads, 14336 channel-mix
+    columns and 65536 rows split, and over 128 its heads do not."""
+    cfg = registry.get(arch).model
+    plan, leaves_ = whole_plan(cfg, m)
+    assert plan.segmented and plan.repeated(cfg) == repeated
+    assert plan.vocab == (arch == SSM)
+    assert leaves_["embed"]["embedding"] == plan.vocab
+
+
+@pytest.fixture
+def counted_wkv6(monkeypatch):
+    """The WKV6 kernel's place taken by the plain forward, counted with
+    its (r shape, chunk), and the model's scan sent through the kernel's
+    Function, as on the card."""
+    import functools
+
+    from repro_torch.kernels.wkv6 import kernel as WK
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.kernels.wkv6 import ref as wkv_ref
+
+    calls = []
+
+    def fwd(r, k, v, w, u, state, *, chunk):
+        calls.append((tuple(r.shape), chunk))
+        return wkv_ref.wkv6(r, k, v, w, u, state, chunk=chunk)
+
+    monkeypatch.setattr(WK, "wkv6_chunked", fwd)
+    monkeypatch.setattr(wkv_ops, "wkv6", functools.partial(wkv_ops.wkv6,
+                                                           use_kernel=True))
+    return calls
+
+
+def test_whisper_flash_runs_on_each_cells_own_heads(counted_cross_flash):
+    """whisper on (2, 2) with its bundle's run (bf16 compute, block
+    remat): each cell's encoder attention (bidirectional, over the stub
+    frames), decoder self attention (causal) and cross attention (over
+    the frames) on its data cell's rows and its 2 of the 4 heads, once
+    forward and once in the tape's recompute."""
+    cfg = registry.get(AUDIO).smoke
+    t = family_trainer(AUDIO, virtual(2, 2), registry.get(AUDIO).run)
+    t.train(1)
+    rows, h, D, T_ = BATCH // 2, cfg.num_heads // 2, cfg.head_dim, \
+        cfg.encoder_seq
+    enc = ((rows, T_, h, D), (rows, T_, h, D), False)
+    dec = ((rows, SEQ, h, D), (rows, SEQ, h, D), True)
+    cross = ((rows, SEQ, h, D), (rows, T_, h, D), False)
+    # 4 cells x 1 microbatch x (the forward and the recompute)
+    assert sorted(counted_cross_flash) == sorted(
+        [enc] * (4 * 2 * cfg.encoder_layers)
+        + [dec, cross] * (4 * 2 * cfg.num_layers))
+
+
+def test_rwkv6_wkv6_runs_on_each_cells_own_heads(counted_wkv6):
+    """rwkv6 on (2, 2) with its bundle's run (bf16 compute, block remat,
+    microbatches of 4 rows a data cell: one): each cell's time mix on its
+    data cell's rows and its 2 of the 4 WKV heads, once forward and once
+    in the tape's recompute."""
+    cfg = registry.get(SSM).smoke
+    t = family_trainer(SSM, virtual(2, 2), registry.get(SSM).run)
+    t.train(1)
+    K = cfg.wkv_head_dim
+    shape = (BATCH // 2, SEQ, cfg.d_model // K // 2, K)
+    assert counted_wkv6 == [(shape, cfg.scan_chunk)] * (
+        4 * 1 * 2 * cfg.num_layers)
+
+
+# planted breaches of whisper's and rwkv6's halves
+
+XATTN = T._xattn_half
+
+
+def xattn_src_by_closure(cfg, ctx, tc, wl, x, adds, src, ln):
+    """whisper's cross half reading the encoder's output by closure, not
+    entered: its gradient in each cell is that cell's heads' part, and
+    nothing sums it over ``model``."""
+    tape = tc.tape
+    x, h = tape.run(lambda x, *a: T._normed(x, a, wl()[ln], cfg.norm_eps),
+                    x, *adds)
+    part, = tape.run(lambda h: (A.cross_attention(cfg, wl()["xattn"], h, src,
+                                                  ctx),), tape.enter(h))
+    return x, (tape.exit(part),)
+
+
+def xattn_entry_without_psum(cfg, ctx, tc, wl, x, adds, src, ln):
+    """The cross half's entries (the stream's and the encoder output's)
+    pass each cell's partial gradient on."""
+    tc.tape.enter = types.MethodType(enter_without_psum, tc.tape)
+    try:
+        return XATTN(cfg, ctx, tc, wl, x, adds, src, ln)
+    finally:
+        del tc.tape.enter
+
+
+def cmix_gate_before_exit(cfg, ctx, tc, wl, x, adds):
+    """Rule (a) broken: rwkv6's receptance gate multiplied in each cell's
+    segment, ahead of the exit (its gradient a partial sum)."""
+    tape = tc.tape
+
+    def w():
+        return wl()["cmix"]
+
+    def pre(x, *a):
+        x = T._resid(x, a)
+        xk, xr = RW._cmix_streams(w(), x, RW._shift(x), cfg.norm_eps)
+        return x, xk, RW._rgate(w(), xr)
+
+    x, xk, rgate = tape.run(pre, x, *adds)
+    part, = tape.run(lambda xk, r: (r * RW._cmix_value(ctx, w(), xk),),
+                     tape.enter(xk), rgate)
+    return x, (tape.exit(part),)
+
+
+def exit_without_entry(self, x, axis=tp.AXIS):
+    """Rule (c) broken: the group's sum with no entry after it, so each
+    cell's sum of squares gets only its own gradient of the total."""
+    return self.exit(x, axis)
+
+
+HEADS = RW._tmix_heads
+
+
+def u_by_closure(cfg, ctx, w, xr, xk, xv, xg, ww, u, *, chunk):
+    """The bonus ``u`` read by closure in the cell's segment, its rows of
+    the gathered leaf: its gradient each cell's part, not summed."""
+    from repro_torch.distributed import spmd
+
+    H = w["wr"].shape[1] // cfg.wkv_head_dim
+    lo = spmd.axis_index("model") * H
+    return HEADS(cfg, ctx, w, xr, xk, xv, xg, ww, w["u"][lo:lo + H],
+                 chunk=chunk)
+
+
+@pytest.mark.parametrize("arch,breach", [
+    (AUDIO, "xattn_src_by_closure"), (AUDIO, "xattn_entry_without_psum"),
+    (SSM, "cmix_gate_before_exit"), (SSM, "exit_without_entry"),
+    (SSM, "u_by_closure")])
+def test_family_planted_breaches_fail_the_reference_differential(
+        family_reference, monkeypatch, arch, breach):
+    ref = family_reference[arch]
+    assert gaps_after(family_trainer(arch, virtual(1, 2)), ref, "1x2") == []
+    target = {"xattn_src_by_closure": (T, "_xattn_half"),
+              "xattn_entry_without_psum": (T, "_xattn_half"),
+              "cmix_gate_before_exit": (RW, "_cmix_half"),
+              "exit_without_entry": (tp.Tape, "total"),
+              "u_by_closure": (RW, "_tmix_heads")}[breach]
+    monkeypatch.setattr(*target, globals()[breach])
+    assert gaps_after(family_trainer(arch, virtual(1, 2)), ref, "1x2"), breach
+
+
 # --- the dry-run's collectives ---------------------------------------------------------------
 
 
@@ -595,11 +882,17 @@ def test_dry_run_counts_the_model_axis_collectives():
     olmoe: each layer's attention exit and entry and its experts' exit
     and two entries (the activations', the routing weights'), or, with
     the a2a, its two all-to-alls each way, its all-gather, the entries of
-    the activations and the router and the aux loss's exit; every step
-    one exit of the embedding and three of the loss head (the final
-    norm's entry, the logsumexps' max and the sum of their exponentials
-    beside the label logits). The parameters' all-gathers over ``model``:
-    smollm's four attention leaves, olmoe's router."""
+    the activations and the router and the aux loss's exit; whisper: each
+    encoder layer's attention and MLP exits and entries, each decoder
+    layer's too and its cross attention's exit and two entries (the
+    stream's, the encoder output's); rwkv6: each layer's time mix (the
+    five streams', ``u``'s and ``ln_x``'s scale's entries, the sum of
+    squares' exit and entry, the exit) and channel mix (an entry, an
+    exit); every step one exit of the embedding and three of the loss
+    head (the final norm's entry, the logsumexps' max and the sum of
+    their exponentials beside the label logits). The parameters'
+    all-gathers over ``model``: smollm's four attention leaves, olmoe's
+    router; whisper and rwkv6 none."""
     L = registry.get("smollm-135m").smoke.num_layers
     per = cell_trace("smollm-135m")
     assert count(per, "all-reduce over model") == 2 * L + 4
@@ -613,6 +906,16 @@ def test_dry_run_counts_the_model_axis_collectives():
     assert count(per, "all-reduce over model") == 5 * L + 4
     assert count(per, "all-to-all over model") == 4 * L
     assert count(per, "all-gather over model") == L + 1
+    cfg = registry.get(AUDIO).smoke
+    per = cell_trace(AUDIO)
+    assert count(per, "all-reduce over model") == (
+        4 * cfg.encoder_layers + 7 * cfg.num_layers + 4)
+    assert count(per, "all-gather over model") == 0
+    L = registry.get(SSM).smoke.num_layers
+    per = cell_trace(SSM)
+    assert count(per, "all-reduce over model") == 12 * L + 4
+    assert count(per, "all-gather over model") == 0
+    assert count(per, "all-to-all over model") == 0
 
 
 def test_dry_run_activation_term_is_the_cells_own_where_nothing_repeats():
@@ -620,13 +923,21 @@ def test_dry_run_activation_term_is_the_cells_own_where_nothing_repeats():
     64 experts and 50304 rows of vocabulary over 16; smollm-135m's 9
     heads do not split, so its attention repeats; so do the VLM's self
     and cross attention (8 kv heads), which split over the 4 of a (64, 4)
-    mesh of the same 256 chips, where nothing of the VLM repeats."""
+    mesh of the same 256 chips, where nothing of the VLM repeats.
+    rwkv6-7b splits its 64 WKV heads, 14336 channel-mix columns and 65536
+    rows over 16; whisper-small's 12 heads do not split over 16 but do
+    over 4, and its vocabulary of 51865 over neither: its term stays an
+    upper bound."""
     shape = ShapeSpec("t", "train", 4096, 256)
     single = dryrun.MESHES["single"]
+    quad = ((64, 4), ("data", "model"))
     for arch, grid, want in (
             (MOE, single, []), ("smollm-135m", single, ["attention"]),
             (VLM, single, ["attention", "cross attention"]),
-            (VLM, ((64, 4), ("data", "model")), [])):
+            (VLM, quad, []), (SSM, single, []),
+            (AUDIO, single, ["attention", "cross attention",
+                             "embedding and logits"]),
+            (AUDIO, quad, ["embedding and logits"])):
         b = registry.get(arch)
         prog = build_program(b.model, b.run, shape,
                              ShardingCtx.for_mesh(dryrun._meta_mesh(*grid)))
