@@ -149,9 +149,11 @@ SERVE = {"arch": "rwkv6-7b", "batch": 4, "prompt": 1024, "gen": 32}
 
 # (b, S, H, P, N, chunk): the three shapes of tests/test_kernels.py's SSD
 # sweep, then the serve's full width (zamba2-7b: 112 heads, P = N = 64,
-# chunk 128, batch 4, prompt 1024).
+# chunk 128, batch 4, prompt 1024), then a cell's own in train_mesh_zamba2
+# (its 4 rows of 2048 tokens, 56 of the 112 heads).
 SSD_SHAPES = ((2, 128, 3, 16, 8, 32), (1, 256, 2, 64, 64, 128),
-              (1, 64, 1, 8, 8, 64), (4, 1024, 112, 64, 64, 128))
+              (1, 64, 1, 8, 8, 64), (4, 1024, 112, 64, 64, 128),
+              (4, 2048, 56, 64, 64, 128))
 SSD_HEADLINE = ((4, 1024, 112, 64, 64, 128), "bfloat16")
 SSD_TOL = 2e-4  # x max(1, max|ref|), for y and the state
 # (B, Sq, Skv, Hq, Hkv, D, causal, window, softcap): the five shapes of
@@ -172,8 +174,10 @@ SSD_TOL = 2e-4  # x max(1, max|ref|), for y and the state
 # 1500 frames, non-causal; a 384-token prompt; the cross attention to the
 # frames) and at its training step (8 x 448 tokens); then a VLM cell's own
 # in train_mesh_vlm (16 of the q heads over 4 of the kv heads, 4 rows),
-# self and cross; last a whisper cell's own in train_mesh_whisper (6 of
-# the 12 heads, 4 rows): the encoder's, the decoder's, the cross.
+# self and cross; a whisper cell's own in train_mesh_whisper (6 of
+# the 12 heads, 4 rows): the encoder's, the decoder's, the cross; last a
+# zamba2 cell's own shared block in train_mesh_zamba2 (16 of the 32 heads,
+# 4 rows).
 FLASH_CASES = ((2, 256, 256, 4, 2, 64, True, 0, 0.0),
                (1, 512, 512, 8, 8, 128, True, 0, 0.0),
                (2, 256, 256, 4, 4, 64, False, 0, 0.0),
@@ -204,7 +208,8 @@ FLASH_CASES = ((2, 256, 256, 4, 2, 64, True, 0, 0.0),
                (4, 2048, 6404, 16, 4, 128, False, 0, 0.0),
                (4, 1500, 1500, 6, 6, 64, False, 0, 0.0),
                (4, 448, 448, 6, 6, 64, True, 0, 0.0),
-               (4, 448, 1500, 6, 6, 64, False, 0, 0.0))
+               (4, 448, 1500, 6, 6, 64, False, 0, 0.0),
+               (4, 2048, 2048, 16, 16, 112, True, 0, 0.0))
 FLASH_HEADLINE = ((4, 1024, 1024, 32, 32, 112, True, 0, 0.0), "bfloat16")
 # atol = rtol, as the tests; the atol taken at the output's own scale where
 # that is below 1 (flash_within)
@@ -345,6 +350,19 @@ TRAIN_STATE_AT = {}  # such a training phase's state_copy (on the host)
 TRAIN_MESH_RWKV6 = {"arch": "rwkv6-7b", "layers": 2, "mesh": (2, 2),
                     "warmup": 2, "steps": 2,
                     "f32_hold": {"seq": 1024, "steps": 2}}
+# The same on zamba2 (train_mesh_zamba2): zamba2-7b at full width with its
+# depth cut 81 -> 6 (one application of the shared block, after layer 5),
+# train_zamba2's RunConfig, batch (8 x 2048), data and seed, on a virtual
+# (2, 2) mesh whose cells run the Mamba2 blocks on their own 56 of the 112
+# SSD heads (their gate, x and dt columns of the gathered ``w_in``, B and C
+# whole; their 3584 rows of ``w_out``), the shared block's attention on 16
+# of its 32 heads and its MLP on 7168 of its 14336 columns, with half the
+# vocabulary; 2 + 2 steps held against the same steps unpartitioned at
+# that depth, run just before it, as train_mesh_rwkv6's; its f32 hold,
+# where the bf16 run strays, at 8 x 1024.
+TRAIN_MESH_ZAMBA2 = {"arch": "zamba2-7b", "layers": 6, "mesh": (2, 2),
+                     "warmup": 2, "steps": 2,
+                     "f32_hold": {"seq": 1024, "steps": 2}}
 TRAIN_CKPT = {"arch": "smollm-135m", "layers": 2, "global_batch": 8,
               "seq": 256, "steps": 9, "ckpt_every": 3, "fail_at": 6,
               "n_blocks": 1 << 19, "decode_steps": 4}
@@ -5374,19 +5392,26 @@ def mesh_f32_hold(cfg, run, mesh, gb: int, seq: int, n_steps: int, *,
             "losses": losses, "plain_losses": want_losses}
 
 
-def mesh_kernel_launches(cfg, run, mesh, global_batch: int) -> int:
+def mesh_kernel_launches(cfg, run, mesh, global_batch: int,
+                         kernel: str = "flash_attention") -> int:
     """Flash (rwkv6: WKV6) launches of one partitioned step: every cell
     runs each attention's (time mix's) forward and its recompute in each
     of its microbatches (tests/test_torch_mesh_train.py and
     test_torch_tensor_parallel.py count the same on the CPU): one a
     layer, whisper's 12 encoder layers and its decoder's self and cross
-    attention."""
+    attention; zamba2's SSD one a layer, its flash one an application of
+    the shared block."""
     from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.models import mamba2
     from repro_torch.train.step import num_accum_steps
 
     n_accum = num_accum_steps(run, ShardingCtx.for_mesh(mesh), global_batch)
-    calls = (cfg.encoder_layers + 2 * cfg.num_layers
-             if cfg.family == "audio" else cfg.num_layers)
+    if cfg.family == "audio":
+        calls = cfg.encoder_layers + 2 * cfg.num_layers
+    elif cfg.family == "hybrid" and kernel == "flash_attention":
+        calls = mamba2.n_shared_applications(cfg)
+    else:
+        calls = cfg.num_layers
     return mesh.devices.size * n_accum * 2 * calls
 
 
@@ -5648,19 +5673,21 @@ def phase_train_mesh():
     return main_launches["flash_attention"]
 
 
-def mesh_held_run(phase: str, cfg, run, mesh, spec, *, kernel: str, shape,
+def mesh_held_run(phase: str, cfg, run, mesh, spec, *, shapes: dict,
                   local, ruleset: str = "baseline",
                   plain=contextlib.nullcontext,
                   plain_name: str = "the unpartitioned run",
                   profile: bool = False) -> dict:
     """One partitioned trainer on ``mesh`` held against its unpartitioned
-    counterpart (train_mesh_olmoe's runs, train_mesh_rwkv6): the
-    counterpart first (inside the context ``plain()``, at the same depth,
-    its state kept on the card), then the mesh run. Held: the plan (the
-    leaf groups ``local`` model-local, nothing repeated); each cell's
-    bytes at rest equal to the dry-run's argument bytes (exact); the
-    ``kernel``'s launches of each step (``mesh_kernel_launches``) at the
-    cell's ``shape``, and no other kernel's; the losses step by step and
+    counterpart (train_mesh_olmoe's runs, train_mesh_rwkv6,
+    train_mesh_zamba2): the counterpart first (inside the context
+    ``plain()``, at the same depth, its state kept on the card), then the
+    mesh run. Held: the plan (the leaf groups ``local`` model-local,
+    nothing repeated); each cell's bytes at rest equal to the dry-run's
+    argument bytes (exact); the launches of each step of each kernel of
+    ``shapes`` (``mesh_kernel_launches``), each at the cell's shape
+    ``shapes`` gives it (its first argument's), and no other kernel's; the
+    losses step by step and
     the gathered parameters and first moments after the last one within
     MESH_LOSS_TOL, MESH_PARAM_TOL and MESH_MOMENT_TOL (where the bf16 run
     exceeds a bound, in f32 compute at the cut ``spec["f32_hold"]``
@@ -5682,13 +5709,12 @@ def mesh_held_run(phase: str, cfg, run, mesh, spec, *, kernel: str, shape,
     from repro_torch.train.trainer import Trainer
 
     kernels = _kernel_counts()
-    counted = kernels[kernel]
-    tag = kernel.split("_")[0]
     gb, seq = TRAIN_SHAPE["global_batch"], TRAIN_SHAPE["seq"]
     dev = mesh.devices.flat[0]
     d, m = mesh.devices.shape
     n_steps = spec["warmup"] + spec["steps"]
-    per_step = mesh_kernel_launches(cfg, run, mesh, gb)
+    per_step = {k: mesh_kernel_launches(cfg, run, mesh, gb, k)
+                for k in shapes}
 
     def data():
         return OneBatch(SyntheticLM(cfg, gb, seq, seed=0))
@@ -5752,21 +5778,26 @@ def mesh_held_run(phase: str, cfg, run, mesh, spec, *, kernel: str, shape,
     step_launches, prof = [], {}
 
     def step(t, i):
-        l0 = counted.launches()
+        l0 = {k: kernels[k].launches() for k in shapes}
         if profile and i + 1 == spec["warmup"]:
             prof.update(profile_device(lambda: t.train(i + 1)))
         else:
             t.train(i + 1)
-        step_launches.append(counted.launches() - l0)
+        step_launches.append({k: kernels[k].launches() - l0[k]
+                              for k in shapes})
 
-    with LaunchShapes(counted, KERNEL_OPS[kernel]) as seen:
+    with contextlib.ExitStack() as stack:
+        seen = {k: stack.enter_context(LaunchShapes(kernels[k],
+                                                    KERNEL_OPS[k]))
+                for k in shapes}
         step_s = steps(t, step)
     main_launches = {k: mod.launches() for k, mod in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
     assert step_launches == [per_step] * n_steps, step_launches
-    assert main_launches == {k: per_step * n_steps if k == kernel else 0
+    assert main_launches == {k: per_step.get(k, 0) * n_steps
                              for k in kernels}, main_launches
-    assert set(seen.shapes) == {shape}, set(seen.shapes)
+    for k, shape in shapes.items():
+        assert set(seen[k].shapes) == {shape}, (k, set(seen[k].shapes))
     losses = [x["loss"] for x in t.metrics_log]
     assert len(losses) == n_steps and all(np.isfinite(losses)), losses
     loss_err = max(abs(a - b) / max(1.0, abs(b))
@@ -5798,8 +5829,11 @@ def mesh_held_run(phase: str, cfg, run, mesh, spec, *, kernel: str, shape,
            "step_ms": step_med * 1e3, "step_ms_all": [x * 1e3 for x in step_s],
            "plain_step_ms": plain_ms, "tokens_per_s": gb * seq / step_med,
            "peak_memory_bytes": peak, "base_memory_bytes": base,
-           f"{tag}_launches_per_step": per_step,
-           "main_path_launches": main_launches, f"{tag}_shape": list(shape),
+           **{f"{k.split('_')[0]}_launches_per_step": n
+              for k, n in per_step.items()},
+           "main_path_launches": main_launches,
+           **{f"{k.split('_')[0]}_shape": list(shape)
+              for k, shape in shapes.items()},
            "repeated": plan.repeated(cfg), "cell_bytes": cell_bytes,
            "dryrun_argument_bytes": dry_bytes,
            "whole_state_bytes": whole_bytes,
@@ -5881,7 +5915,7 @@ def phase_train_mesh_olmoe():
         plain_name, plain_ctx = plains[name]
         runs[name] = {"moe_impl": impl, **mesh_held_run(
             "train_mesh_olmoe", cfg, bundle.run.replace(moe_impl=impl), mesh,
-            spec, kernel="flash_attention", shape=shape,
+            spec, shapes={"flash_attention": shape},
             local=("attn", "experts", "vocab"), ruleset=ruleset,
             plain=plain_ctx, plain_name=plain_name, profile=True)}
         total_launches += runs[name]["main_path_launches"]["flash_attention"]
@@ -6134,13 +6168,13 @@ def phase_train_mesh_rwkv6():
     dev = torch.device("cuda", torch.cuda.current_device())
     d, m = spec["mesh"]
     mesh = make_elastic_mesh(d, m, devices=[dev] * (d * m))
-    assert mesh_kernel_launches(cfg, bundle.run, mesh, gb) == \
+    assert mesh_kernel_launches(cfg, bundle.run, mesh, gb, "wkv6") == \
         4 * 1 * 2 * cfg.num_layers == 16
     K = cfg.wkv_head_dim
     shape = (gb // d, seq, cfg.d_model // K // m, K)
     assert shape == (4, 2048, 32, 64), shape
     row = mesh_held_run("train_mesh_rwkv6", cfg, bundle.run, mesh, spec,
-                        kernel="wkv6", shape=shape,
+                        shapes={"wkv6": shape},
                         local=("attn", "mlp", "vocab"),
                         plain_name=f"train_rwkv6 ({cfg.num_layers} layers)")
     emit("train_mesh_rwkv6", arch=cfg.name, layers=cfg.num_layers,
@@ -6156,6 +6190,73 @@ def phase_train_mesh_rwkv6():
                                          "receptance gate", "norm scales"]},
          tolerance=MESH_TOLERANCE, **row)
     return row["main_path_launches"]["wkv6"]
+
+
+def phase_train_mesh_zamba2():
+    """The partitioned step tensor-parallel over ``model`` on zamba2
+    (TRAIN_MESH_ZAMBA2), held by ``mesh_held_run``: zamba2-7b at full
+    width and 6 layers on a virtual (2, 2) mesh of the card. Each cell
+    keeps its even block of each layer's ``w_in`` columns at rest (7288 of
+    14576: gate, x, B, C and dt side by side, so the cut falls on no
+    head's border) and gathers the leaf over ``model`` inside its tape,
+    whose transpose reduce-scatters the gradient; it runs the Mamba2 block
+    on its own 56 of the 112 SSD heads (B and C projected and convolved in
+    every cell), the gated norm over all of d_inner from the cells' summed
+    squares, its 3584 rows of ``w_out``; the shared block (after layer 5)
+    on 16 of the 32 heads and 7168 of the 14336 MLP columns; half the
+    vocabulary. The conv, ``A_log``, ``D``, ``dt_bias`` and the norms'
+    scales are replicated. 4 cells x 1 microbatch x the forward and the
+    recompute: 48 SSD launches a step at a cell's (4, 2048, 56, 64) and 8
+    flash launches at (4, 2048, 16, 112), causal. Its counterpart is
+    train_zamba2's trainer at 6 layers. No step is profiled."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_elastic_mesh
+    from repro_torch.models import mamba2
+
+    spec = TRAIN_MESH_ZAMBA2
+    bundle = registry.get(spec["arch"])
+    cfg = dataclasses.replace(bundle.model, num_layers=spec["layers"])
+    gb, seq = TRAIN_SHAPE["global_batch"], TRAIN_SHAPE["seq"]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    d, m = spec["mesh"]
+    mesh = make_elastic_mesh(d, m, devices=[dev] * (d * m))
+    assert mamba2.n_shared_applications(cfg) == 1
+    assert (mesh_kernel_launches(cfg, bundle.run, mesh, gb, "ssd"),
+            mesh_kernel_launches(cfg, bundle.run, mesh, gb,
+                                 "flash_attention")) == (
+        4 * 1 * 2 * cfg.num_layers, 4 * 1 * 2 * 1) == (48, 8)
+    _, H, Pd, N = mamba2.dims(cfg)
+    shapes = {"ssd": (gb // d, seq, H // m, Pd),
+              "flash_attention": (gb // d, seq, cfg.num_heads // m,
+                                  cfg.head_dim)}
+    assert shapes == {"ssd": (4, 2048, 56, 64),
+                      "flash_attention": (4, 2048, 16, 112)}, shapes
+    assert (*shapes["ssd"], N, cfg.scan_chunk) in SSD_SHAPES
+    assert (4, 2048, 2048, 16, 16, 112, True, 0, 0.0) in FLASH_CASES
+    row = mesh_held_run("train_mesh_zamba2", cfg, bundle.run, mesh, spec,
+                        shapes=shapes, local=("ssd", "attn", "mlp", "vocab"),
+                        plain_name=f"train_zamba2 ({cfg.num_layers} layers)")
+    emit("train_mesh_zamba2", arch=cfg.name, layers=cfg.num_layers,
+         cut=f"depth {bundle.model.num_layers} -> {cfg.num_layers} (one "
+             f"shared-block application): the smoke's seconds; f32 state at "
+             f"12 bytes a parameter",
+         mesh=[d, m], device="virtual", global_batch=gb, seq=seq,
+         cell_rows=gb // d, warmup_steps=spec["warmup"],
+         timed_steps=spec["steps"], ssd_chunk=cfg.scan_chunk,
+         step_ms_of_train_zamba2=EMITTED["train_zamba2"]["step_ms"],
+         tensor_parallel={"model_local": ["mamba2 (w_in, w_out)",
+                                          "shared attention",
+                                          "shared mlp", "vocab"],
+                          "gathered_in_the_tape": ["w_in, a layer at a time"],
+                          "replicated": ["B and C projections and conv",
+                                         "conv, A_log, D, dt_bias",
+                                         "norm scales"]},
+         tolerance=MESH_TOLERANCE, **row)
+    return row["main_path_launches"]
 
 
 # --- the twelfth slice: the dry-run held against the card, the examples ------------
@@ -6446,6 +6547,9 @@ def run_phases(t_start, card, traces) -> int:
     wkv_mesh_launches = timed("train_mesh_rwkv6", phase_train_mesh_rwkv6)
     trained["train_zamba2"] = timed("train_zamba2", phase_train_model,
                                     "train_zamba2")
+    zamba_mesh_launches = timed("train_mesh_zamba2", phase_train_mesh_zamba2)
+    flash_by_path["train_mesh_zamba2"] = zamba_mesh_launches[
+        "flash_attention"]
     flash_by_path["serve_olmoe"], prm, tokens = timed("serve_olmoe",
                                                       phase_serve_olmoe)
     flash_by_path["serve_olmoe_a2a"] = timed(
@@ -6535,7 +6639,8 @@ def run_phases(t_start, card, traces) -> int:
         "replaces": "src/repro/kernels/ssd/kernel.py:69",
         "launches": zamba_launches["ssd"],
         "launches_by_path": {"serve_zamba2": zamba_launches["ssd"],
-                             "train_zamba2": zamba_train["ssd"]},
+                             "train_zamba2": zamba_train["ssd"],
+                             "train_mesh_zamba2": zamba_mesh_launches["ssd"]},
         "recompute_bwd": recompute("ssd"),
         "recompute_bwd_ms_in_train_zamba2": zamba_bwd["ssd"],
         "max_abs_err": max(r["max_abs_err"] for r in ssd_rows),

@@ -7,19 +7,20 @@ The reference partitions its step under GSPMD with the ``BASELINE``
 ruleset, which puts ``heads``, ``kv_heads``, ``mlp``, ``vocab`` and
 ``experts`` on ``model``: each device computes with its own model shard
 (Megatron-style tensor parallelism, which XLA derives). ``plan_for``
-makes the same decision once per (arch, mesh, ruleset), for every family
-but the hybrid one, group by group of leaves (``Plan``): a group is
-*model-local* where its ``model`` cut falls on units the block code takes
-alone (attention and the cross attention of the VLM and of whisper's
-decoder: both head counts divide by the axis; rwkv6's time mix: its WKV
-heads; the MLP's columns and rows, rwkv6's channel mix's; the experts;
-the vocabulary). Every other leaf (norm scales, the router, the VLM's
-gates, rwkv6's token-shift mixes, LoRAs, decay and bonus, a group whose
-cut does not fall on such units, every leaf of the hybrid family) is
-gathered whole over ``model`` as before; its work repeats in every cell
-of a ``model`` group where it is a block's own work (``Plan.repeated``),
-and is replicated work, the same in every cell, where it is not cut over
-``model`` by the reference's specs either.
+makes the same decision once per (arch, mesh, ruleset), for every family,
+group by group of leaves (``Plan``): a group is *model-local* where its
+``model`` cut falls on units the block code takes alone (attention and
+the cross attention of the VLM and of whisper's decoder: both head
+counts divide by the axis; rwkv6's time mix: its WKV heads; zamba2's
+Mamba2 blocks: their SSD heads; the MLP's columns and rows, rwkv6's
+channel mix's; the experts; the vocabulary). Every other leaf (norm
+scales, the router, the VLM's gates, rwkv6's token-shift mixes, LoRAs,
+decay and bonus, the Mamba2 conv, decay, skip and gated norm's scale, a
+group whose cut does not fall on such units) is gathered whole over
+``model`` as before; its work repeats in every cell of a ``model`` group
+where it is a block's own work (``Plan.repeated``), and is replicated
+work, the same in every cell, where it is not cut over ``model`` by the
+reference's specs either.
 
 Autograd cannot run the collectives' transposes: on the card the engine
 runs every cell's CUDA backward in one device thread, where a collective
@@ -36,7 +37,7 @@ accumulate in their ``.grad``. Outside a step cell the same layer and
 loss code runs on ``INLINE``, whose segments are plain calls under
 autograd and whose plan keeps no leaf model-local
 (``models.transformer.block_apply``, ``models.rwkv.layer_apply``,
-``models.lm.loss_fn``).
+``models.mamba2.layer_apply``, ``models.lm.loss_fn``).
 
 Two conventions make the transposes those of Megatron's ``f`` and ``g``:
 every cell computes the whole loss of its data rows, identically across
@@ -50,20 +51,35 @@ entry, or after an exit (the VLM's gates and rwkv6's receptance gate,
 which scale the group's sum), so its gradient is the same in every cell
 and is not summed; a replicated leaf that a cell's local segment reads
 only in part (rwkv6's bonus ``u`` and ``ln_x``'s scale, on the cell's
-heads) leaves the replicated segment as an output and enters, as the
-a2a's router does, so its gradient sums over ``model``; (b) a replicated
-loss (the MoE's aux loss) is computed once ahead of an entry, or, where
-each cell computes a part, summed through an exit; (c) a replicated
-value that each cell computes a part of and then uses differently
-(rwkv6's ``ln_x``, an RMS norm over all of ``d``, of which a cell holds
-its heads' channels: each row's sum of squares) goes through an exit and
-at once an entry (``Tape.total``): the group's sum forward, and backward
-the sum of the cells' gradients of it, each cell's own being only its
-channels' part. An activation that several local segments read
-(whisper's encoder output, read by every decoder cross layer) enters
-each of them: its gradient sums over the cells at each entry and over
-the entries in its ``.grad`` before the segment that made it runs its
-backward.
+heads; the Mamba2 conv's weights and bias, ``A_log``, ``D``, ``dt_bias``
+and the gated norm's scale, on the cell's heads and channels) leaves the
+replicated segment as an output and enters, as the a2a's router does,
+so its gradient sums over ``model``; (b) a replicated loss (the MoE's
+aux loss) is computed once ahead of an entry, or, where each cell
+computes a part, summed through an exit; (c) a replicated value that
+each cell computes a part of and then uses differently (rwkv6's
+``ln_x`` and the Mamba2 gated norm, RMS norms over all of ``d`` and
+``d_inner``, of which a cell holds its heads' channels: each row's sum
+of squares) goes through an exit and at once an entry (``Tape.total``):
+the group's sum forward, and backward the sum of the cells' gradients of
+it, each cell's own being only its channels' part. An activation that
+several local segments read (whisper's encoder output, read by every
+decoder cross layer) enters each of them: its gradient sums over the
+cells at each entry and over the entries in its ``.grad`` before the
+segment that made it runs its backward. A leaf that several segments
+read by closure (zamba2's weight-tied shared block, applied after every
+``shared_attn_every``-th layer) sums their gradients in its ``.grad``.
+
+zamba2's Mamba2 in-projection ``w_in`` is one leaf whose columns hold
+the gate, x, B, C and dt side by side, so its even cut over ``model``
+does not fall on a cell's heads. It is model-local all the same: the
+cell keeps its even block at rest, and inside the tape gathers the
+whole leaf (``all_gather`` with ``replicated=False``, one a layer) and
+reads its heads' gate, x and dt columns and the B and C columns, which
+every head shares: the gradient each cell computes of the gathered leaf
+is a partial sum, which the gather's transpose reduce-scatters, as
+GSPMD's reshard does. B and C are projected and convolved in every cell
+of the group: replicated work, 2N of the block's columns.
 """
 
 from __future__ import annotations
@@ -84,16 +100,19 @@ AXIS = "model"
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """Which groups of leaves are model-local. ``segmented``: the step
-    runs the family's loss on a ``Tape`` (every family but the hybrid one
-    on a mesh); ``size``: the ``model`` axis's."""
+    runs the family's loss on a ``Tape`` (every family on a mesh);
+    ``size``: the ``model`` axis's."""
 
     segmented: bool = False
     size: int = 1
-    attn: bool = False  # whisper's encoder's and decoder's; rwkv6's time mix
+    # whisper's encoder's and decoder's; rwkv6's time mix; zamba2's shared
+    # block's
+    attn: bool = False
     xattn: bool = False  # the VLM's and whisper's cross attention
     # the dense MLP (the VLM's self and cross layers', whisper's encoder
-    # and decoder layers'); rwkv6's channel mix
+    # and decoder layers', zamba2's shared block's); rwkv6's channel mix
     mlp: bool = False
+    ssd: bool = False  # zamba2's Mamba2 blocks (``w_in`` and ``w_out``)
     shared: bool = False  # the MoE's shared MLP
     experts: bool = False
     vocab: bool = False
@@ -104,10 +123,10 @@ class Plan:
         group (their leaves gathered whole over it)."""
         if self.size == 1:
             return []
-        if not self.segmented:
-            return ["every block"]
         ssm = cfg.family == "ssm"
-        out = [] if self.attn else ["time mix" if ssm else "attention"]
+        out = ["mamba2"] if cfg.family == "hybrid" and not self.ssd else []
+        if not self.attn:
+            out.append("time mix" if ssm else "attention")
         if cfg.family in ("vlm", "audio") and not self.xattn:
             out.append("cross attention")
         if cfg.family != "moe" and not self.mlp:
@@ -165,6 +184,7 @@ EXPERTS = {"w_gate": "experts", "w_up": "experts", "w_down": "experts"}
 TMIX = {"wr": "heads", "wk": "heads", "wv": "heads", "wg": "heads",
         "wo": "heads"}  # rwkv6's time mix
 CMIX = {"wk": "mlp", "wv": "mlp"}  # rwkv6's channel mix
+MAMBA = {"w_in": "mlp", "w_out": "mlp"}  # zamba2's Mamba2 block
 VOCAB = {"embedding": "vocab", "unembed": "vocab"}
 
 
@@ -173,8 +193,6 @@ def plan_for(cfg, pspecs, param_specs, sizes: Dict[str, int],
     """The plan for ``cfg``'s parameters (``pspecs``, the ``TensorSpec``
     tree) laid out by ``param_specs`` over a mesh of axis ``sizes``."""
     m = sizes.get(AXIS, 1)
-    if cfg.family == "hybrid":
-        return Plan(size=m, batch_axes=batch_axes)
     if m == 1:
         return Plan(segmented=True, batch_axes=batch_axes)
 
@@ -189,6 +207,13 @@ def plan_for(cfg, pspecs, param_specs, sizes: Dict[str, int],
             attn=heads and local(("layers", "tmix"), TMIX),
             mlp=local(("layers", "cmix"), CMIX), vocab=vocab)
     heads = cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0
+    if cfg.family == "hybrid":
+        ssd_heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim % m == 0
+        return Plan(
+            segmented=True, size=m, batch_axes=batch_axes,
+            ssd=ssd_heads and local(("layers",), MAMBA),
+            attn=heads and local(("shared", "attn"), ATTN),
+            mlp=local(("shared", "mlp"), MLP), vocab=vocab)
     if cfg.family == "audio":
         return Plan(
             segmented=True, size=m, batch_axes=batch_axes,
@@ -222,9 +247,12 @@ def local_leaves(plan: Plan, pspecs):
             return {k: walk(v, path + (k,)) for k, v in tree.items()}
         if path[:1] == ("embed",):
             return plan.vocab
+        if path[:2] == ("stack", "layers") and len(path) == 3:
+            return plan.ssd and path[2] in MAMBA
         if path[:2] not in (("stack", "layers"), ("stack", "self"),
                             ("stack", "cross"), ("stack", "encoder"),
-                            ("stack", "decoder")) or len(path) < 4:
+                            ("stack", "decoder"), ("stack", "shared")) \
+                or len(path) < 4:
             return False
         group, name = path[2], path[3]
         if group == "tmix":

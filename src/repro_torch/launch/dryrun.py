@@ -23,16 +23,17 @@ Mesh kinds:
     collectives are the step's own parameter all-gathers, gradient
     reduce-scatters and optimizer all-reduces, each over its group as the
     mesh sizes it, counted with the reference's ring factors. Its cell
-    computes every family but the hybrid one tensor-parallel over
-    ``model`` where the leaves' cut falls on heads, columns, experts or
-    the vocabulary (``distributed.tensor_parallel``): those collectives
-    are counted too (``per_axes``), and the activation term is the cell's
+    computes every family tensor-parallel over ``model`` where the
+    leaves' cut falls on heads, columns, experts or the vocabulary
+    (``distributed.tensor_parallel``): those collectives are counted too
+    (``per_axes``; zamba2's per-layer gather of ``w_in`` in the tape and
+    its reduce-scatter among them), and the activation term is the cell's
     own. It is an upper bound (``activations_upper_bound``) where a block
     repeats its work in every cell of a ``model`` group
     (``repeated_over_model``, the plan's ``Plan.repeated``: smollm's
     attention, whose 9 heads do not split; whisper-small's embedding and
-    logits, whose 51865 rows split over no axis; every block of the
-    hybrid family). A serve step is traced for
+    logits, whose 51865 rows split over no axis; zamba2-7b's Mamba2
+    blocks over 32, whose 112 heads do not split). A serve step is traced for
     one data cell's share of the batch at full model width, on a mesh of
     that cell's ``model`` axis; its collectives are the ones it issues
     over ``model`` (the a2a MoE's all-to-alls, ``flash_decode``'s

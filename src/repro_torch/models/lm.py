@@ -10,8 +10,7 @@ Every architecture exposes the same entry points, the reference's, for
   param_specs(cfg)                   declarative parameter tree
   input_specs(cfg, shape)            batch stand-ins per ShapeSpec
   loss_fn(cfg, run, ctx, params, batch)      -> (loss, metrics)
-  loss_segments(cfg, run, ctx, cell, params, batch)   the loss of every
-                                     family but the hybrid one on a
+  loss_segments(cfg, run, ctx, cell, params, batch)   the loss on a
                                      tape: a tensor-parallel step
                                      cell's, or INLINE
   cache_specs(cfg, shape)            decode-state tree
@@ -128,23 +127,20 @@ def _metrics(loss, nll, zl, aux):
 
 def loss_fn(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, batch):
     """Teacher-forced cross-entropy (plus the stack's auxiliary loss).
-    Returns (loss, metrics), both float32. Every family but the hybrid
-    one: ``loss_segments`` on ``tensor_parallel.INLINE`` (plain calls)."""
-    if cfg.family != "hybrid":
-        return loss_segments(cfg, run, ctx, tp.INLINE, params, batch)
-    x, aux = _backbone(cfg, run, ctx, params, batch, batch["tokens"])
-    return _metrics(*_total(*xent_loss(logits_fn(params["embed"], x, ctx),
-                                       batch["labels"]), (aux,)))
+    Returns (loss, metrics), both float32: ``loss_segments`` on
+    ``tensor_parallel.INLINE`` (plain calls)."""
+    return loss_segments(cfg, run, ctx, tp.INLINE, params, batch)
 
 
 def loss_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc,
                   params, batch):
-    """``loss_fn`` of every family but the hybrid one on the tape of
-    ``tc`` (a ``distributed.tensor_parallel.Cell``: a cell of the
-    partitioned training step, or ``INLINE``): the embedding, the stack
+    """``loss_fn`` on the tape of ``tc`` (a
+    ``distributed.tensor_parallel.Cell``: a cell of the partitioned
+    training step, or ``INLINE``): the embedding, the stack
     (``transformer.stack_segments``, the VLM's cross layers on the
     batch's ``image_embeds``; ``audio.stack_segments`` on its
-    ``frame_embeds``; ``rwkv.stack_segments``) and the loss head as local
+    ``frame_embeds``; ``rwkv.stack_segments``; ``mamba2.stack_segments``,
+    zamba2's Mamba2 layers and shared block) and the loss head as local
     segments and the collectives between them. Vocabulary-parallel where the
     vocabulary is model-local: the lookup a partial sum (rows outside
     the cell's give 0), the logits the cell's columns, each row's
@@ -170,6 +166,9 @@ def loss_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc,
                                     q_chunk=Q_CHUNK)
     elif cfg.family == "ssm":
         x, adds = RW.stack_segments(cfg, run, ctx, tc, w, x,
+                                    chunk=cfg.scan_chunk)
+    elif cfg.family == "hybrid":
+        x, adds = MB.stack_segments(cfg, run, ctx, tc, w, x, positions,
                                     chunk=cfg.scan_chunk)
     else:
         img = batch["image_embeds"].to(dt) if cfg.family == "vlm" else None

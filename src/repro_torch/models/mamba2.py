@@ -15,6 +15,16 @@ teacher-forced stack runs through ``scan_utils.grouped_scan`` (the run's
 remat and scan group); prefill and decode loop over the layer index, as
 the reference scans them without remat. The reference's ``lax.cond``
 around the shared block is a Python ``if`` on that index.
+
+A layer's training forward is written as segments (``layer_segments``):
+in a cell of the partitioned training step they run on the cell's tape,
+tensor-parallel over ``model`` (the Mamba2 block on the cell's SSD heads
+and its rows of ``w_out``, ``w_in`` gathered inside the tape; the shared
+block's attention on its heads and its MLP on its columns;
+``distributed.tensor_parallel``'s rules (a) and (c)); outside it
+(``layer_apply``, ``stack_apply``) on ``tensor_parallel.INLINE``, plain
+calls. Prefill and decode share the mixer (``_mixer``) and the gated
+norm with it.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models import attention as A
@@ -118,44 +129,60 @@ def _conv_step(x_t, conv_state, w, b):
     return out, full[:, 1:]
 
 
-def _in_proj(cfg, w, x):
-    """norm, in-projection and causal conv: (gate, xin, B, C, dt f32,
-    conv_in)."""
+def _pick(w, ranges):
+    """``w``'s last-dim ``ranges`` side by side: ``w`` itself where they
+    are all of it, in order."""
+    ends = [0] + [b for _, b in ranges]
+    if [a for a, _ in ranges] == ends[:-1] and ends[-1] == w.shape[-1]:
+        return w
+    return torch.cat([w[..., a:b] for a, b in ranges], dim=-1)
+
+
+def _mixer(cfg, w, h, lo: int, hi: int, *, chunk):
+    """The Mamba2 mixer of heads ``[lo, hi)`` (all H: the whole layer)
+    from the normed ``h``, its leaves read from ``w``: the in-projection
+    through their gate, x and dt columns of ``w_in`` and the B and C
+    columns, which every head shares; the depthwise causal conv on their
+    x channels and on B and C; SSD from the zero state. Returns (y *
+    silu(gate) (b, S, (hi - lo) P) in h's dtype, the SSD state, the conv
+    input)."""
     d_inner, H, Pd, N = dims(cfg)
-    dt_comp = x.dtype
-    h = rms_norm(x, w["ln"], cfg.norm_eps)
-    z = h @ w["w_in"].to(dt_comp)
-    gate, xin, B, C, dtr = _split_proj(cfg, z)
+    b, S, _ = h.shape
+    n = hi - lo
+    dt_comp = h.dtype
+    bc = 2 * d_inner + 2 * N
+    z = h @ _pick(w["w_in"], ((lo * Pd, hi * Pd),
+                              (d_inner + lo * Pd, d_inner + hi * Pd),
+                              (2 * d_inner, bc), (bc + lo, bc + hi))
+                  ).to(dt_comp)
+    gate, xin, B, C, dtr = torch.split(z, [n * Pd, n * Pd, N, N, n], dim=-1)
     conv_in = torch.cat([xin, B, C], dim=-1)
-    conv_out = F.silu(_causal_conv(conv_in, w["conv_w"].to(dt_comp),
-                                   w["conv_b"].to(dt_comp)))
-    xin, B, C = torch.split(conv_out, [d_inner, N, N], dim=-1)
-    dt = F.softplus(dtr.float() + w["dt_bias"].float())
-    return gate, xin, B, C, dt, conv_in
+    ch = ((lo * Pd, hi * Pd), (d_inner, d_inner + 2 * N))
+    conv_out = F.silu(_causal_conv(conv_in, _pick(w["conv_w"], ch).to(dt_comp),
+                                   _pick(w["conv_b"], ch).to(dt_comp)))
+    xin, B, C = torch.split(conv_out, [n * Pd, N, N], dim=-1)
+    dt = F.softplus(dtr.float() + w["dt_bias"][lo:hi].float())
+    y, ssm = ssd_chunked(xin.reshape(b, S, n, Pd), dt, B, C,
+                         w["A_log"][lo:hi], w["D"][lo:hi],
+                         torch.zeros((b, n, Pd, N), dtype=torch.float32,
+                                     device=h.device), chunk=chunk)
+    return y.reshape(b, S, n * Pd).to(dt_comp) * F.silu(gate), ssm, conv_in
 
 
-def _out_proj(cfg, w, y, gate, dt_comp):
-    y = rms_norm(y.to(dt_comp) * F.silu(gate), w["norm_gate"], cfg.norm_eps)
-    return y @ w["w_out"].to(dt_comp)
-
-
-def mamba_apply(cfg, ctx: ShardingCtx, w, x, *, chunk):
-    out, _ = mamba_prefill(cfg, ctx, w, x, chunk=chunk)
-    return out
+def _out_proj(cfg, yg, scale, w_out):
+    """The gated norm over all of d_inner and the out-projection."""
+    return rms_norm(yg, scale, cfg.norm_eps) @ w_out.to(yg.dtype)
 
 
 def mamba_prefill(cfg, ctx, w, x, *, chunk):
-    b, S, _ = x.shape
-    d_inner, H, Pd, N = dims(cfg)
+    S = x.shape[1]
     K = cfg.ssm_conv_width
-    gate, xin, B, C, dt, conv_in = _in_proj(cfg, w, x)
+    yg, ssm, conv_in = _mixer(cfg, w, rms_norm(x, w["ln"], cfg.norm_eps), 0,
+                              dims(cfg)[1], chunk=chunk)
     # the last K-1 conv inputs, zero-padded on the left when S < K-1
     conv_state = F.pad(conv_in, (0, 0, K - 1, 0))[:, -(K - 1):] \
         if S >= K - 1 else F.pad(conv_in, (0, 0, K - 1 - S, 0))
-    y, ssm = ssd_chunked(xin.reshape(b, S, H, Pd), dt, B, C, w["A_log"], w["D"],
-                         torch.zeros((b, H, Pd, N), dtype=torch.float32,
-                                     device=x.device), chunk=chunk)
-    out = _out_proj(cfg, w, y.reshape(b, S, d_inner), gate, x.dtype)
+    out = _out_proj(cfg, yg, w["norm_gate"], w["w_out"])
     # a copy: a view would keep the whole padded conv input alive with the
     # state (60 MB a layer at the serve's shape)
     state = {"ssm": ssm, "conv": conv_state.to(torch.bfloat16, copy=True)}
@@ -179,7 +206,8 @@ def mamba_decode(cfg, ctx, w, x, state):
     dt = F.softplus(dtr.float() + w["dt_bias"].float())
     y, ssm = ssd_step(xin.reshape(b, H, Pd), dt, B, C, w["A_log"], w["D"],
                       state["ssm"])
-    out = _out_proj(cfg, w, y.reshape(b, d_inner), gate, dt_comp)[:, None, :]
+    yg = y.reshape(b, d_inner).to(dt_comp) * F.silu(gate)
+    out = _out_proj(cfg, yg, w["norm_gate"], w["w_out"])[:, None, :]
     return out, {"ssm": ssm, "conv": conv_state.to(torch.bfloat16)}
 
 
@@ -214,6 +242,93 @@ def _is_attn_layer(cfg: ModelConfig, i: int) -> bool:
     return e > 0 and i % e == e - 1
 
 
+# the leaves the Mamba2 mixer reads on a cell's heads or channels that
+# are not cut over ``model``: they leave the replicated segment and enter
+# the cell's (rule (a)), so their gradients sum over the group
+ENTERED = ("conv_w", "conv_b", "dt_bias", "A_log", "D")
+
+
+def _mamba_half(cfg: ModelConfig, ctx: ShardingCtx, tc, wl, x, adds, chunk):
+    """The Mamba2 block on the tape of ``tc``, its leaves read by
+    ``wl()``. The replicated segment: the residual sum and ``ln``, with
+    ``w_in``, the ``ENTERED`` leaves and ``norm_gate``'s scale passed out
+    as they are. Where the blocks are model-local (``Plan.ssd``) the cell
+    gathers ``w_in`` (its even block at rest) over ``model`` inside the
+    tape, one all-gather whose transpose reduce-scatters the cells'
+    partial gradients, and the normed stream and the ``ENTERED`` leaves
+    enter; the cell's segment runs the mixer on its H/m heads (B and C
+    projected and convolved in every cell: replicated work) and takes
+    each row's sum of squares of its channels of y * silu(gate), which
+    exits and enters at once (rule (c)): the gated norm spans all of
+    d_inner. Then the norm with the scale's channels of the cell and its
+    rows of ``w_out``, through the exit. Returns (x, adds)."""
+    tape = tc.tape
+    local = tc.plan.ssd
+    d_inner, H, Pd, N = dims(cfg)
+    eps = cfg.norm_eps
+
+    def pre(x, *a):
+        x = T._resid(x, a)
+        w = wl()
+        return (x, rms_norm(x, w["ln"], eps), w["w_in"],
+                *(w[n] for n in ENTERED), w["norm_gate"])
+
+    x, h, w_in, *mix, scale = tape.run(pre, x, *adds)
+    lo, hi = tc.block(H) if local else (0, H)
+
+    def heads(h, w_in, *mix):
+        w = {**wl(), "w_in": w_in, **dict(zip(ENTERED, mix))}
+        yg, _, _ = _mixer(cfg, w, h, lo, hi, chunk=chunk)
+        if not local:
+            return (yg,)
+        return yg, torch.sum(torch.square(yg.float()), -1, keepdim=True)
+
+    if not local:
+        yg, = tape.run(heads, h, w_in, *mix)
+        part, = tape.run(lambda yg, s: (_out_proj(cfg, yg, s,
+                                                  wl()["w_out"]),), yg, scale)
+        return x, (part,)
+    yg, squares = tape.run(heads, tape.enter(h),
+                           tape.all_gather(w_in, tp.AXIS, 1, replicated=False),
+                           *(tape.enter(t) for t in mix))
+    squares = tape.total(squares)
+    cols = slice(lo * Pd, hi * Pd)
+
+    def out(yg, squares, s):
+        # rms_norm over all of d_inner, from the group's sum of squares
+        y = (yg.float() * torch.rsqrt(squares / d_inner + eps)
+             * s[cols].float()).to(yg.dtype)
+        return (y @ wl()["w_out"].to(yg.dtype),)
+
+    part, = tape.run(out, yg, squares, tape.enter(scale))
+    return x, (tape.exit(part),)
+
+
+def layer_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc, wl,
+                   ws, x, adds, positions, index: int, *, chunk):
+    """Layer ``index`` on the tape of ``tc`` (a
+    ``distributed.tensor_parallel.Cell``), its leaves read by ``wl()``:
+    the Mamba2 block, then, where ``_is_attn_layer`` holds, the
+    weight-tied shared block (``transformer.layer_segments`` on the
+    leaves ``ws()``: its attention and MLP halves, model-local by the
+    plan's ``attn`` and ``mlp``; its gradient accumulates over its
+    applications in each leaf's ``.grad``; attention in query chunks of
+    1024, ``transformer.block_apply``'s). Returns (x, adds)."""
+    x, adds = _mamba_half(cfg, ctx, tc, wl, x, adds, chunk)
+    if ws is not None and _is_attn_layer(cfg, index):
+        x, adds, _ = T.layer_segments(cfg, run, ctx, tc, ws, x, adds,
+                                      positions, 1024)
+    return x, adds
+
+
+def layer_apply(cfg, run, ctx, w, shared, x, positions, index: int, *, chunk):
+    """``layer_segments`` on ``tensor_parallel.INLINE``."""
+    x, adds = layer_segments(cfg, run, ctx, tp.INLINE, lambda: w,
+                             None if shared is None else lambda: shared, x,
+                             (), positions, index, chunk=chunk)
+    return T._resid(x, adds)
+
+
 def stack_apply(cfg, run: RunConfig, ctx, w, x, positions, *, chunk):
     """Full-sequence forward through ``scan_utils.grouped_scan``, as the
     reference's: the layer index is scanned beside the layers' weights,
@@ -223,10 +338,8 @@ def stack_apply(cfg, run: RunConfig, ctx, w, x, positions, *, chunk):
     shared = w.get("shared")
 
     def body(x, inp):
-        x = x + mamba_apply(cfg, ctx, inp["layer"], x, chunk=chunk)
-        if shared is not None and _is_attn_layer(cfg, int(inp["index"])):
-            x, _ = T.block_apply(cfg, run, ctx, shared, x, positions)
-        return x, None
+        return layer_apply(cfg, run, ctx, inp["layer"], shared, x, positions,
+                           int(inp["index"]), chunk=chunk), None
 
     # the index as Python ints (a range, sliced as the layers are): no
     # tensor is read back, so a trace on fake tensors can take the branch
@@ -234,6 +347,21 @@ def stack_apply(cfg, run: RunConfig, ctx, w, x, positions, *, chunk):
     x, _ = grouped_scan(body, x, xs, cfg.num_layers, run.scan_group,
                         run.remat == "block")
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def stack_segments(cfg, run, ctx, tc, w, x, positions, *, chunk):
+    """The stack on the tape of ``tc`` from the leaf ``x``, layer by
+    layer. Returns (x, adds). On ``INLINE``: ``stack_apply``, its scan
+    group and remat included."""
+    if tc is tp.INLINE:
+        return stack_apply(cfg, run, ctx, w, x, positions, chunk=chunk)[0], ()
+    ws = (lambda: w["shared"]) if "shared" in w else None
+    adds = ()
+    for i in range(cfg.num_layers):
+        x, adds = layer_segments(cfg, run, ctx, tc,
+                                 lambda i=i: P.layer(w["layers"], i), ws, x,
+                                 adds, positions, i, chunk=chunk)
+    return x, adds
 
 
 def hybrid_cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Dict:

@@ -15,15 +15,15 @@ the whole mesh. Each cell casts its parameter shards to the compute
 dtype and all-gathers each leaf over the mesh axes its spec cuts, but
 ``model`` for a model-local leaf (``distributed.tensor_parallel``: the
 attention's heads, the MLP's columns and rows, the experts and the
-vocabulary, rwkv6's WKV heads and channel-mix columns, where their cut
-falls on such units), and runs the model on its share of the batch (cut
-over the ``batch`` rule's axes; in microbatches, each cell's microbatch
-i is its block of the global microbatch i, as in the reference): every
-family but the hybrid one tensor-parallel over ``model`` on a
+vocabulary, rwkv6's WKV heads and channel-mix columns, zamba2's Mamba2
+``w_in`` and ``w_out``, where their cut falls on such units; the cell
+gathers ``w_in`` over ``model`` inside its tape), and runs the model on
+its share of the batch (cut over the ``batch`` rule's axes; in
+microbatches, each cell's microbatch i is its block of the global
+microbatch i, as in the reference) tensor-parallel over ``model`` on a
 ``tensor_parallel.Tape`` (``lm.loss_segments``), whose backward runs the
-collectives' transposes in the cell's code; the hybrid family at full
-width under autograd. Each cell keeps of each gradient
-the shard it owns, averaged over the cells that cut the batch (a
+collectives' transposes in the cell's code. Each cell keeps of each
+gradient the shard it owns, averaged over the cells that cut the batch (a
 reduce-scatter in the accumulation dtype): a model-local leaf's
 gradient is its own block already; the cells of one ``model`` group see
 the same batch rows, so over the other axes that do not cut the batch

@@ -17,7 +17,8 @@ the port carries over. Held:
 In the port alone: the parameters after 3 steps on (1, 1), (2, 1), (1, 2)
 and (2, 2) within 1e-5 of each other, relative to a leaf's largest value
 (a gradient summed over ``model``, or a block counted twice in the clip
-norm, moves them by far more); rwkv6 and zamba2 on (2, 1) against (1, 1);
+norm, moves them by far more); rwkv6 on (2, 1) and zamba2 on (2, 1), (1, 2)
+and (2, 2) against (1, 1);
 the flash launches of a partitioned step; each cell's bytes at rest
 against the dry-run's; checkpoints: the files of a partitioned trainer
 byte for byte those of its whole leaves at the same grid, restores
@@ -189,7 +190,7 @@ def relative_gap(a_tree, b_tree) -> float:
 @pytest.mark.parametrize("arch,meshes", [
     (ARCH, ((2, 1), (1, 2), (2, 2))),
     ("rwkv6-7b", ((2, 1),)),
-    ("zamba2-7b", ((2, 1),))])
+    ("zamba2-7b", ((2, 1), (1, 2), (2, 2)))])
 def test_parameters_do_not_depend_on_the_mesh(arch, meshes):
     """Clipping (the smoke's gradient norms are above 1) and the factored
     second moment on; 3 steps from one seed."""

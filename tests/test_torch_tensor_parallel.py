@@ -19,12 +19,16 @@ from 0, on (2, 2) and (1, 2), against the reference the same way: each
 cell computes with its own heads of the self and the cross attention,
 its MLP columns and its vocabulary rows.
 
-whisper-small's and rwkv6-7b's smoke configs on (2, 2) and (1, 2), the
-same way: whisper's encoder and decoder on each cell's heads (its
-encoder's output entering each decoder cross layer), MLP columns and
+whisper-small's, rwkv6-7b's and zamba2-7b's smoke configs on (2, 2) and
+(1, 2), the same way: whisper's encoder and decoder on each cell's heads
+(its encoder's output entering each decoder cross layer), MLP columns and
 vocabulary; rwkv6's time mix on each cell's WKV heads (its ``ln_x`` over
 all of ``d`` from the group's sum of squares), its channel mix on the
-cell's columns, the vocabulary.
+cell's columns, the vocabulary; zamba2's Mamba2 blocks on each cell's SSD
+heads (``w_in`` gathered inside the tape, the gated norm over all of
+``d_inner`` from the group's sum of squares) and rows of ``w_out``, its
+weight-tied shared block's attention on the cell's heads and its MLP on
+its columns, the vocabulary.
 
 In the port: the exact set of leaves each cell gathers over ``model``
 (``spmd.observe`` with labels), the flash calls' shapes in each cell (the
@@ -41,7 +45,11 @@ an entry whose backward does not sum; and five more: whisper's cross
 layer reading the encoder's output by closure, its entries without their
 psum; rwkv6's receptance gate multiplied ahead of the channel mix's exit
 (rule (a)), the sum of squares of ``ln_x`` exited with no entry after it
-(rule (c)), the bonus ``u`` read by closure in the cell's segment.
+(rule (c)), the bonus ``u`` read by closure in the cell's segment; and
+four of zamba2's: the gathered ``w_in``'s gradient sliced (each cell's
+partial, as where a cell reads the whole leaf by closure), ``conv_w``
+read by closure in the cell's segment, the gated norm's sum of squares
+exited with no entry after it, the shared block's norm after its entry.
 """
 
 from __future__ import annotations
@@ -59,11 +67,12 @@ from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.distributed import spmd  # noqa: E402
 from repro_torch.distributed import tensor_parallel as tp  # noqa: E402
-from repro_torch.distributed.sharding import (MeshArray, ShardingCtx,  # noqa: E402
-                                              gathered)
+from repro_torch.distributed.sharding import (MeshArray, MeshSharding,  # noqa: E402
+                                              ShardingCtx, gathered)
 from repro_torch.launch import dryrun, op_analysis  # noqa: E402
 from repro_torch.launch.programs import build_program  # noqa: E402
 from repro_torch.models import attention as A, lm, moe  # noqa: E402
+from repro_torch.models import mamba2 as MB  # noqa: E402
 from repro_torch.models import params as P  # noqa: E402
 from repro_torch.models import rwkv as RW  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -77,7 +86,7 @@ from test_torch_spmd import run_reference  # noqa: E402
 
 MOE = "olmoe-1b-7b"
 VLM = "llama-3.2-vision-11b"
-AUDIO, SSM = "whisper-small", "rwkv6-7b"
+AUDIO, SSM, HYBRID = "whisper-small", "rwkv6-7b", "zamba2-7b"
 CASES = (("dense", (2, 2)), ("dense", (1, 2)), ("dense", (1, 4)),
          ("a2a", (1, 2)), ("a2a", (2, 2)))
 
@@ -203,38 +212,56 @@ def test_moe_trainer_matches_reference_on_its_mesh(reference, impl,
 # --- what a cell gathers over model, and computes -------------------------------------
 
 
-def gathered_over_model(t) -> dict:
-    """{cell: the labels of the leaves it all-gathered over ``model``} in
-    one step of ``t``."""
-    seen = {}
+def gathered_over_model(t) -> tuple:
+    """({cell: the labels of the leaves it all-gathered over ``model``},
+    {cell: the shapes of the tensors its tape all-gathered over ``model``,
+    in order}) in one step of ``t``."""
+    seen, taped = {}, {}
 
     def note(op, out, n, cell, *, axes, label):
-        if op == "all-gather" and "model" in axes and label is not None:
-            seen.setdefault(cell, set()).add(label)
+        if op == "all-gather" and "model" in axes:
+            if label is None:
+                taped.setdefault(cell, []).append(tuple(out.shape))
+            else:
+                seen.setdefault(cell, set()).add(label)
 
     with spmd.observe(note):
         t.train(t.step_idx + 1)
-    return seen
+    return seen, taped
+
+
+def _w_in_gathers():
+    """zamba2's smoke: each cell gathers each layer's ``w_in`` (64 x 296)
+    in its tape, once a microbatch (one: 4 rows a data cell)."""
+    cfg = registry.get(HYBRID).smoke
+    d_inner, H, _, N = MB.dims(cfg)
+    return [(cfg.d_model, 2 * d_inner + 2 * N + H)] * cfg.num_layers
 
 
 @pytest.mark.parametrize("arch,want,repeated", [
     (MOE, {"stack.layers.moe.router"}, []),
     ("smollm-135m", {f"stack.layers.attn.{w}"
                      for w in ("wq", "wk", "wv", "wo")}, ["attention"]),
-    (VLM, set(), []), (AUDIO, set(), []), (SSM, set(), [])])
+    (VLM, set(), []), (AUDIO, set(), []), (SSM, set(), []),
+    (HYBRID, set(), [])])
 def test_cells_gather_over_model_only_the_leaves_they_repeat(arch, want,
                                                              repeated):
     """olmoe: only its router (which the routing needs whole); smollm: its
     attention (3 heads, 1 kv head do not split over 2 cells); the VLM,
-    whisper and rwkv6: nothing (their attention or time mix, MLPs or
-    channel mix and vocabulary split, and no other leaf is cut over
-    ``model``)."""
+    whisper, rwkv6 and zamba2: nothing (their attention, time mix or
+    Mamba2 blocks, MLPs or channel mix and vocabulary split, and no other
+    leaf is cut over ``model``). The step gathers no leaf over ``model``
+    for zamba2: its cells gather ``w_in`` inside their tapes, a layer at a
+    time, and nothing else."""
     b = registry.get(arch)
     t = Trainer(b.smoke, b.run.replace(**RUN), global_batch=BATCH,
                 seq_len=SEQ, seed=SEED, mesh=virtual(2, 2), device="cpu")
-    seen = gathered_over_model(t)
+    seen, got = gathered_over_model(t)
     assert {c: seen.get(c, set()) for c in range(4)} == {
         c: want for c in range(4)}
+    taped = _w_in_gathers() if arch == HYBRID else []
+    assert {c: got.get(c, []) for c in range(4)} == {
+        c: taped for c in range(4)}
     plan = t._step_fn.plan
     assert plan.repeated(b.smoke) == repeated
 
@@ -582,6 +609,7 @@ def test_vlm_planted_breaches_fail_the_reference_differential(
 # --- whisper and rwkv6 against the reference ------------------------------------------
 
 FAMILY_MESHES = ((2, 2), (1, 2))
+FAMILIES = (AUDIO, SSM, HYBRID)
 
 REF_FAMILIES = """
 import json
@@ -617,14 +645,14 @@ for arch in inp["archs"]:
 
 @pytest.fixture(scope="module")
 def family_reference():
-    """whisper's and rwkv6's smoke configs in the reference's trainer on
-    FAMILY_MESHES, keyed ``{arch}/{d}x{m}``."""
+    """whisper's, rwkv6's and zamba2's smoke configs in the reference's
+    trainer on FAMILY_MESHES, keyed ``{arch}/{d}x{m}``."""
     ref = run_reference(REF_FAMILIES, {
-        "archs": (AUDIO, SSM), "run": RUN, "meshes": FAMILY_MESHES,
+        "archs": FAMILIES, "run": RUN, "meshes": FAMILY_MESHES,
         "batch": BATCH, "seq": SEQ, "seed": SEED, "steps": STEPS}, 4)
     return {arch: {**{k.split("/", 1)[1]: v for k, v in ref.items()
                       if k.startswith(arch + "/")}}
-            for arch in (AUDIO, SSM)}
+            for arch in FAMILIES}
 
 
 def family_trainer(arch, mesh, run=None):
@@ -633,15 +661,17 @@ def family_trainer(arch, mesh, run=None):
                    seq_len=SEQ, seed=SEED, mesh=mesh, device="cpu")
 
 
-@pytest.mark.parametrize("arch", [AUDIO, SSM])
+@pytest.mark.parametrize("arch", FAMILIES)
 @pytest.mark.parametrize("mesh_shape", FAMILY_MESHES)
 def test_family_trainer_matches_reference_on_its_mesh(family_reference, arch,
                                                       mesh_shape):
     """Each cell computes with its own heads (whisper's encoder, decoder
-    and cross attention; rwkv6's WKV heads), MLP or channel-mix columns
-    and vocabulary rows: the shapes at rest, the losses of 3 steps, every
-    leaf after them and the first moments' gaps. rwkv6 on (1, 2): the
-    bundle's two microbatches."""
+    and cross attention; rwkv6's WKV heads; zamba2's SSD heads and its
+    shared block's attention), MLP or channel-mix columns and vocabulary
+    rows: the shapes at rest (zamba2's ``w_in`` the cell's even block of
+    its columns), the losses of 3 steps, every leaf after them and the
+    first moments' gaps. rwkv6 and zamba2 on (1, 2): the bundles' two
+    microbatches."""
     d, m = mesh_shape
     key = f"{d}x{m}"
     ref = family_reference[arch]
@@ -649,6 +679,7 @@ def test_family_trainer_matches_reference_on_its_mesh(family_reference, arch,
     plan = t._step_fn.plan
     assert plan.segmented and plan.attn and plan.mlp and plan.vocab
     assert plan.xattn == (arch == AUDIO)
+    assert plan.ssd == (arch == HYBRID)
     t.restore_state(carried(ref["init"]))
     assert [[list(s.shape) for s in x.shards] for x in leaves(t)] == \
         json.loads(str(ref[f"{key}/shapes"]))
@@ -663,21 +694,43 @@ def test_family_trainer_matches_reference_on_its_mesh(family_reference, arch,
     assert moment_gaps(t, ref[f"{key}/final"]) == []
 
 
-@pytest.mark.parametrize("arch", [AUDIO, SSM])
+@pytest.mark.parametrize("arch", FAMILIES)
 @pytest.mark.parametrize("m", [2, 4])
 def test_plan_makes_the_smoke_families_model_local(arch, m):
-    """whisper's (4 heads, d_ff 128, vocabulary 256) and rwkv6's (4 WKV
-    heads of 16, d_ff 128, vocabulary 256) smoke configs over ``model``
-    of 2 and 4: every group is the cell's own, nothing repeats; the
-    leaves that are not cut over ``model`` (norms, rwkv6's mixes, LoRAs,
-    decay, bonus, the channel mix's ``wr``) are not local."""
+    """whisper's (4 heads, d_ff 128, vocabulary 256), rwkv6's (4 WKV
+    heads of 16, d_ff 128, vocabulary 256) and zamba2's (8 SSD heads of
+    16, a shared block of 4 heads, d_ff 128, vocabulary 256) smoke
+    configs over ``model`` of 2 and 4: every group is the cell's own,
+    nothing repeats; the leaves that are not cut over ``model`` (norms,
+    rwkv6's mixes, LoRAs, decay, bonus, the channel mix's ``wr``, the
+    Mamba2 conv, decay, skip and dt bias) are not local. zamba2's 296
+    ``w_in`` columns (gate 128, x 128, B and C 16 each, dt 8) are cut
+    evenly: at 148 over 2, at 74, 148 and 222 over 4, inside the gate and
+    x blocks and on no head's border."""
     cfg = registry.get(arch).smoke
     plan, leaves_ = whole_plan(cfg, m)
     assert plan.segmented and plan.attn and plan.mlp and plan.vocab
     assert plan.xattn == (arch == AUDIO)
+    assert plan.ssd == (arch == HYBRID)
     assert plan.repeated(cfg) == []
     st = leaves_["stack"]
-    if arch == AUDIO:
+    if arch == HYBRID:
+        assert {n for n, v in st["layers"].items() if v} == set(tp.MAMBA)
+        assert all(all(st["shared"][g].values()) for g in ("attn", "mlp"))
+        assert not (st["shared"]["ln1"] or st["shared"]["ln2"])
+        d_inner, H, Pd, N = MB.dims(cfg)
+        mesh = dryrun._meta_mesh((2, m), ("data", "model"))
+        ts = lm.param_specs(cfg)["stack"]["layers"]["w_in"]
+        spec = ShardingCtx.for_mesh(mesh).spec(ts.logical, ts.shape)
+        n = ts.shape[-1]
+        assert n == 2 * d_inner + 2 * N + H == 296
+        at = MeshSharding(mesh, spec).devices_indices_map(ts.shape)
+        cols = [at[i][2] for i in range(m)]  # data cell 0's model cells
+        assert [(c.start, c.stop) for c in cols] == [
+            (i * n // m, (i + 1) * n // m) for i in range(m)]
+        assert all(c % Pd and c < 2 * d_inner for c in range(n // m, n,
+                                                             n // m))
+    elif arch == AUDIO:
         for part, groups in (("encoder", ("attn", "mlp")),
                              ("decoder", ("attn", "xattn", "mlp"))):
             assert all(all(st[part][g].values()) for g in groups)
@@ -704,18 +757,27 @@ def whole_plan(cfg, m: int, data: int = 2):
 
 @pytest.mark.parametrize("arch,m,repeated", [
     (AUDIO, 2, ["embedding and logits"]), (AUDIO, 4, ["embedding and logits"]),
-    (SSM, 2, []), (SSM, 4, []), (SSM, 128, ["time mix"])])
+    (SSM, 2, []), (SSM, 4, []), (SSM, 128, ["time mix"]),
+    (HYBRID, 2, []), (HYBRID, 4, []), (HYBRID, 16, []),
+    (HYBRID, 32, ["mamba2"])])
 def test_plan_of_the_full_families(arch, m, repeated):
     """At the published widths (specs only): whisper-small's 12 heads and
     3072 MLP columns split over 2 and 4, its vocabulary of 51865 over
     neither, so the embedding and logits repeat in every cell (GSPMD
     replicates them too); rwkv6-7b's 64 WKV heads, 14336 channel-mix
-    columns and 65536 rows split, and over 128 its heads do not."""
+    columns and 65536 rows split, and over 128 its heads do not;
+    zamba2-7b's 112 SSD heads and 14576 ``w_in`` columns split over 2, 4
+    and 16, its shared block's 32 heads, 14336 MLP columns and 32000 rows
+    over 32 too, but over 32 neither its SSD heads nor ``w_in`` do, so
+    the Mamba2 blocks repeat (``w_in`` and ``w_out`` gathered whole)."""
     cfg = registry.get(arch).model
     plan, leaves_ = whole_plan(cfg, m)
     assert plan.segmented and plan.repeated(cfg) == repeated
-    assert plan.vocab == (arch == SSM)
+    assert plan.vocab == (arch != AUDIO)
     assert leaves_["embed"]["embedding"] == plan.vocab
+    if arch == HYBRID:
+        assert plan.attn and plan.mlp and plan.ssd == (m != 32)
+        assert leaves_["stack"]["layers"]["w_in"] == plan.ssd
 
 
 @pytest.fixture
@@ -775,7 +837,49 @@ def test_rwkv6_wkv6_runs_on_each_cells_own_heads(counted_wkv6):
         4 * 1 * 2 * cfg.num_layers)
 
 
-# planted breaches of whisper's and rwkv6's halves
+@pytest.fixture
+def counted_ssd(counted_flash, monkeypatch):
+    """``counted_flash`` (each call's q shape), and the SSD kernel's place
+    taken by the plain forward, counted with its (x shape, B shape,
+    chunk), the model's scan sent through the kernel's Function, as on
+    the card. Returns (ssd calls, flash calls)."""
+    import functools
+
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+
+    calls = []
+
+    def fwd(x, dt, B, C, A_log, D, state, *, chunk):
+        calls.append((tuple(x.shape), tuple(B.shape), chunk))
+        return ssd_ref.ssd(x, dt, B, C, A_log, D, state, chunk=chunk)
+
+    monkeypatch.setattr(SK, "ssd_chunked", fwd)
+    monkeypatch.setattr(ssd_ops, "ssd", functools.partial(ssd_ops.ssd,
+                                                          use_kernel=True))
+    return calls, counted_flash
+
+
+def test_zamba2_ssd_and_flash_run_on_each_cells_own_heads(counted_ssd):
+    """zamba2 on (2, 2) with its bundle's run (bf16 compute, block remat,
+    microbatches of 4 rows a data cell: one): each cell's SSD on its data
+    cell's rows and its 4 of the 8 SSD heads, B and C whole, once a layer;
+    its shared block's attention on its 2 of the 4 heads, once an
+    application; each once forward and once in the tape's recompute."""
+    ssd_calls, flash_calls = counted_ssd
+    cfg = registry.get(HYBRID).smoke
+    t = family_trainer(HYBRID, virtual(2, 2), registry.get(HYBRID).run)
+    t.train(1)
+    rows = BATCH // 2
+    _, H, Pd, N = MB.dims(cfg)
+    assert ssd_calls == [((rows, SEQ, H // 2, Pd), (rows, SEQ, N),
+                          cfg.scan_chunk)] * (4 * 1 * 2 * cfg.num_layers)
+    assert flash_calls == [(rows, SEQ, cfg.num_heads // 2, cfg.head_dim)] * (
+        4 * 1 * 2 * MB.n_shared_applications(cfg))
+
+
+# planted breaches of whisper's, rwkv6's and zamba2's layers
 
 XATTN = T._xattn_half
 
@@ -841,10 +945,29 @@ def u_by_closure(cfg, ctx, w, xr, xk, xv, xg, ww, u, *, chunk):
                  chunk=chunk)
 
 
+ALL_GATHER = tp.Tape.all_gather
+
+
+def w_in_gradient_sliced(self, x, axis, dim=0, *, replicated=True):
+    """zamba2's gathered ``w_in`` taken as if every cell used it whole and
+    alike: its gradient's block sliced, not the cells' partial sums
+    reduce-scattered (what a cell reading the step's whole gathered leaf
+    by closure gets, whose gradient the step slices)."""
+    return ALL_GATHER(self, x, axis, dim, replicated=True)
+
+
+# zamba2's ``conv_w`` left out of the leaves that enter the cell's
+# segment: the mixer reads it by closure, on the cell's channels and B and
+# C, and its gradient is each cell's part, not summed
+conv_w_by_closure = tuple(n for n in MB.ENTERED if n != "conv_w")
+
+
 @pytest.mark.parametrize("arch,breach", [
     (AUDIO, "xattn_src_by_closure"), (AUDIO, "xattn_entry_without_psum"),
     (SSM, "cmix_gate_before_exit"), (SSM, "exit_without_entry"),
-    (SSM, "u_by_closure")])
+    (SSM, "u_by_closure"), (HYBRID, "w_in_gradient_sliced"),
+    (HYBRID, "conv_w_by_closure"), (HYBRID, "exit_without_entry"),
+    (HYBRID, "attn_half_norm_after_entry")])
 def test_family_planted_breaches_fail_the_reference_differential(
         family_reference, monkeypatch, arch, breach):
     ref = family_reference[arch]
@@ -853,7 +976,10 @@ def test_family_planted_breaches_fail_the_reference_differential(
               "xattn_entry_without_psum": (T, "_xattn_half"),
               "cmix_gate_before_exit": (RW, "_cmix_half"),
               "exit_without_entry": (tp.Tape, "total"),
-              "u_by_closure": (RW, "_tmix_heads")}[breach]
+              "u_by_closure": (RW, "_tmix_heads"),
+              "w_in_gradient_sliced": (tp.Tape, "all_gather"),
+              "conv_w_by_closure": (MB, "ENTERED"),
+              "attn_half_norm_after_entry": (T, "_attn_half")}[breach]
     monkeypatch.setattr(*target, globals()[breach])
     assert gaps_after(family_trainer(arch, virtual(1, 2)), ref, "1x2"), breach
 
@@ -888,11 +1014,17 @@ def test_dry_run_counts_the_model_axis_collectives():
     stream's, the encoder output's); rwkv6: each layer's time mix (the
     five streams', ``u``'s and ``ln_x``'s scale's entries, the sum of
     squares' exit and entry, the exit) and channel mix (an entry, an
-    exit); every step one exit of the embedding and three of the loss
-    head (the final norm's entry, the logsumexps' max and the sum of
-    their exponentials beside the label logits). The parameters'
-    all-gathers over ``model``: smollm's four attention leaves, olmoe's
-    router; whisper and rwkv6 none."""
+    exit); zamba2: each Mamba2 layer's entries (the normed stream's, the
+    five leaves of ``mamba2.ENTERED``, the gated norm's scale's), its sum
+    of squares' exit and entry and its exit, 10 all-reduces, and its
+    ``w_in`` gathered in the tape, one all-gather and, backward, one
+    reduce-scatter; each application of the shared block its attention's
+    and MLP's exits and entries, 4; so 10 L + 4 n_app + 4 in all; every
+    step one exit of the embedding and three of the loss head (the final
+    norm's entry, the logsumexps' max and the sum of their exponentials
+    beside the label logits). The parameters' all-gathers over
+    ``model``: smollm's four attention leaves, olmoe's router; whisper,
+    rwkv6 and zamba2 none (zamba2's L are its tapes' ``w_in``)."""
     L = registry.get("smollm-135m").smoke.num_layers
     per = cell_trace("smollm-135m")
     assert count(per, "all-reduce over model") == 2 * L + 4
@@ -916,6 +1048,13 @@ def test_dry_run_counts_the_model_axis_collectives():
     assert count(per, "all-reduce over model") == 12 * L + 4
     assert count(per, "all-gather over model") == 0
     assert count(per, "all-to-all over model") == 0
+    cfg = registry.get(HYBRID).smoke
+    L, n_app = cfg.num_layers, MB.n_shared_applications(cfg)
+    per = cell_trace(HYBRID)
+    assert count(per, "all-reduce over model") == 10 * L + 4 * n_app + 4
+    assert count(per, "all-gather over model") == L
+    assert count(per, "reduce-scatter over model") == L
+    assert count(per, "all-to-all over model") == 0
 
 
 def test_dry_run_activation_term_is_the_cells_own_where_nothing_repeats():
@@ -925,7 +1064,9 @@ def test_dry_run_activation_term_is_the_cells_own_where_nothing_repeats():
     and cross attention (8 kv heads), which split over the 4 of a (64, 4)
     mesh of the same 256 chips, where nothing of the VLM repeats.
     rwkv6-7b splits its 64 WKV heads, 14336 channel-mix columns and 65536
-    rows over 16; whisper-small's 12 heads do not split over 16 but do
+    rows over 16; so does zamba2-7b its 112 SSD heads, 14576 ``w_in``
+    columns, the shared block's 32 heads and 14336 MLP columns and its
+    32000 rows; whisper-small's 12 heads do not split over 16 but do
     over 4, and its vocabulary of 51865 over neither: its term stays an
     upper bound."""
     shape = ShapeSpec("t", "train", 4096, 256)
@@ -934,7 +1075,7 @@ def test_dry_run_activation_term_is_the_cells_own_where_nothing_repeats():
     for arch, grid, want in (
             (MOE, single, []), ("smollm-135m", single, ["attention"]),
             (VLM, single, ["attention", "cross attention"]),
-            (VLM, quad, []), (SSM, single, []),
+            (VLM, quad, []), (SSM, single, []), (HYBRID, single, []),
             (AUDIO, single, ["attention", "cross attention",
                              "embedding and logits"]),
             (AUDIO, quad, ["embedding and logits"])):
