@@ -70,7 +70,12 @@ steps unpartitioned, and an elastic round through a bento mount;
 ``train_mesh_olmoe``, after ``train_olmoe``: olmoe-1b-7b at 2 layers,
 each cell's own heads, experts and vocabulary, with the dense dispatch
 and the expert-parallel a2a, held against the same steps unpartitioned
-and the plain a2a's;
+and the plain a2a's; ``serve_mesh_smollm`` and ``serve_mesh_olmoe``,
+after ``serve_smollm`` and ``serve_olmoe_a2a``: the serve programs
+partitioned over a (2, 2) mesh on the serve phase's weights and prompt,
+each cell holding its shard of the weights and of the KV cache and
+computing on its own heads, experts and vocabulary, held in f32 at 2
+layers against the same serve unpartitioned;
 ``train_mesh_rwkv6``, after ``train_rwkv6``: rwkv6-7b at 2 layers,
 each cell's own WKV heads, channel-mix columns and vocabulary, held
 against the same steps unpartitioned; ``train_mesh_vlm``, after
@@ -175,9 +180,13 @@ SSD_TOL = 2e-4  # x max(1, max|ref|), for y and the state
 # frames) and at its training step (8 x 448 tokens); then a VLM cell's own
 # in train_mesh_vlm (16 of the q heads over 4 of the kv heads, 4 rows),
 # self and cross; a whisper cell's own in train_mesh_whisper (6 of
-# the 12 heads, 4 rows): the encoder's, the decoder's, the cross; last a
+# the 12 heads, 4 rows): the encoder's, the decoder's, the cross; a
 # zamba2 cell's own shared block in train_mesh_zamba2 (16 of the 32 heads,
-# 4 rows).
+# 4 rows); last a cell's own prefill attention in the partitioned serves:
+# olmoe-1b-7b's 8 of its 16 heads (serve_mesh_olmoe, 2 rows), all of
+# smollm-135m's 9 over 3 (serve_mesh_smollm, 2 rows: they do not split)
+# and olmoe-1b-7b's 4 of its 16 heads (serve_olmoe_a2a's (1, 4) mesh, 4
+# rows).
 FLASH_CASES = ((2, 256, 256, 4, 2, 64, True, 0, 0.0),
                (1, 512, 512, 8, 8, 128, True, 0, 0.0),
                (2, 256, 256, 4, 4, 64, False, 0, 0.0),
@@ -209,7 +218,10 @@ FLASH_CASES = ((2, 256, 256, 4, 2, 64, True, 0, 0.0),
                (4, 1500, 1500, 6, 6, 64, False, 0, 0.0),
                (4, 448, 448, 6, 6, 64, True, 0, 0.0),
                (4, 448, 1500, 6, 6, 64, False, 0, 0.0),
-               (4, 2048, 2048, 16, 16, 112, True, 0, 0.0))
+               (4, 2048, 2048, 16, 16, 112, True, 0, 0.0),
+               (2, 1024, 1024, 8, 8, 128, True, 0, 0.0),
+               (2, 1024, 1024, 9, 3, 64, True, 0, 0.0),
+               (4, 1024, 1024, 4, 4, 128, True, 0, 0.0))
 FLASH_HEADLINE = ((4, 1024, 1024, 32, 32, 112, True, 0, 0.0), "bfloat16")
 # atol = rtol, as the tests; the atol taken at the output's own scale where
 # that is below 1 (flash_within)
@@ -2865,10 +2877,13 @@ def _kernel_counts():
     return {"blockhash": BH, "wkv6": WKV, "ssd": SSD, "flash_attention": FA}
 
 
-def serve_profile(cfg, run, prm, tokens, ranges=(), extra=None) -> dict:
+def serve_profile(cfg, run, prm, tokens, ranges=(), extra=None,
+                  ctx=None, decode_steps: int = 8) -> dict:
     """Where the time goes in a serve (zamba2's, smollm's, olmoe's, the
-    VLM's and whisper's, whose stub embeddings come in ``extra``): one
-    prefill, then 8 decode steps, each under ``profile_device``; the
+    VLM's and whisper's, whose stub embeddings come in ``extra``; on a
+    mesh with ``ctx``, the partitioned serve's): one
+    prefill, then ``decode_steps`` decode steps, each under
+    ``profile_device``; the
     device's busy time is the sum of its kernels' and copies' own times,
     the ssd and flash kernels' time and launches are read from it, and
     each named range in ``ranges`` reads its calls and its span on the
@@ -2877,7 +2892,7 @@ def serve_profile(cfg, run, prm, tokens, ranges=(), extra=None) -> dict:
     from repro_torch.launch import serve
     from repro_torch.serve.step import make_decode_step, make_prefill_step
 
-    ctx = ShardingCtx.null()
+    ctx = ShardingCtx.null() if ctx is None else ctx
     prefill = make_prefill_step(cfg, run, ctx)
     decode = make_decode_step(cfg, run, ctx)
     prompt = tokens.shape[1]
@@ -2890,14 +2905,14 @@ def serve_profile(cfg, run, prm, tokens, ranges=(), extra=None) -> dict:
 
     def run_decode():
         tok, cache = state.pop("tok"), state.pop("cache")
-        for i in range(8):
+        for i in range(decode_steps):
             tok, cache = decode(prm, cache, {"tokens": tok[:, None],
                                              "pos": prompt + i})
             tok.cpu()
 
     profs = {"prefill": profile_device(run_prefill, ranges)}
-    state["cache"] = serve.pad_cache(cfg, state["cache"], 8)
-    profs["decode_8_steps"] = profile_device(run_decode, ranges)
+    state["cache"] = serve.pad_cache(cfg, state["cache"], decode_steps)
+    profs[f"decode_{decode_steps}_steps"] = profile_device(run_decode, ranges)
     trace = {}
     for name, prof in profs.items():
         by_name, wall = prof["by_name"], prof["wall_s"]
@@ -3258,7 +3273,9 @@ def phase_serve_smollm():
     before and read just after: the flash kernel launches once a layer in
     the prefill and never in a decode step. Then a 1000-token prompt, the
     same prefill through the plain attention in bf16 and with an f32 copy
-    of the weights, and a profiled prefill and 8 decode steps."""
+    of the weights, and a profiled prefill and 8 decode steps. Returns the
+    main path's flash launches, the weights and the prompt (for
+    serve_mesh_smollm)."""
     import torch
 
     from repro_torch.configs import registry
@@ -3361,6 +3378,7 @@ def phase_serve_smollm():
     plain_vs_f32_err, _ = _logits_err(logits_ref, logits32_ref)
     assert kernel_vs_f32_err <= 2 * plain_vs_f32_err, (kernel_vs_f32_err,
                                                        plain_vs_f32_err)
+    SERVE_F32_LOGITS["serve_smollm"] = logits32_ref.cpu()
     # and the kernel's bf16 logits against the plain version's within the
     # kernel's own bf16 tolerance at the logits' scale (phase
     # flash_attention_kernel holds the kernel itself at this shape)
@@ -3398,9 +3416,9 @@ def phase_serve_smollm():
          logits_bf16_kernel_vs_f32_err=kernel_vs_f32_err,
          logits_bf16_plain_vs_f32_err=plain_vs_f32_err, odd_prompt=odd,
          odd_prompt_launches=odd_launches, trace=trace)
-    del prm, tokens
     torch.cuda.empty_cache()
-    return main_launches["flash_attention"]
+    # the weights and prompt for serve_mesh_smollm
+    return main_launches["flash_attention"], prm, tokens
 
 
 def phase_train_smollm():
@@ -4241,7 +4259,7 @@ def phase_train_model(name):
     return main_launches, recompute_ms
 
 
-def logits_against_plain(cfg, run, prm, batch) -> dict:
+def logits_against_plain(cfg, run, prm, batch, keep=None) -> dict:
     """One prefill of ``batch`` through the kernels and through the plain
     versions (``through_plain``), in bf16 and with an f32 copy of the
     weights, each timed on the host clock. The f32 logits are held within
@@ -4279,6 +4297,8 @@ def logits_against_plain(cfg, run, prm, batch) -> dict:
     run32 = run.replace(compute_dtype="float32")
     logits32, prefill_f32_s = timed_prefill(prm32, run32)
     logits32_ref, _ = through_plain(lambda: timed_prefill(prm32, run32))
+    if keep is not None:  # for the partitioned serve of the same weights
+        SERVE_F32_LOGITS[keep] = logits32_ref.cpu()
     del prm32
     torch.cuda.empty_cache()
     f32_err, f32_scale = _logits_err(logits32, logits32_ref)
@@ -4378,7 +4398,8 @@ def phase_serve_olmoe():
     assert (tok2.cpu().numpy() == ids[:, 1]).all()
     del cache
 
-    chk = logits_against_plain(cfg, run, prm, {"tokens": tokens})
+    chk = logits_against_plain(cfg, run, prm, {"tokens": tokens},
+                               keep="serve_olmoe")
     trace = serve_profile(cfg, run, prm, tokens, ranges=MOE_RANGES)
     assert 0 < trace["prefill"]["flash_launches"] <= L, trace["prefill"]
     assert trace["decode_8_steps"]["flash_launches"] == 0
@@ -4555,8 +4576,10 @@ def phase_serve_cross(name):
 
 SPMD_SHAPE = (4, 512, 1024)  # the whole tensor: one (512, 1024) slice a cell
 # olmoe-1b-7b's prefill and decode under moe_impl="a2a" on a (data, model) =
-# (1, 4) mesh: 16 of its 64 experts a cell
-A2A = {"mesh": (1, 4), "decode_steps": 4}
+# (1, 4) mesh: 16 of its 64 experts a cell; ``cell_flash``: the flash
+# kernel's (q, k) in each cell's prefill layers (4 rows, 4 of the 16 heads)
+A2A = {"mesh": (1, 4), "decode_steps": 4,
+       "cell_flash": ((4, 1024, 4, 128), (4, 1024, 4, 128))}
 # decode_flash: a prompt whose first decode positions lie in the first of 4
 # cache shards (the 3 others fully masked), the cache padded to 4 shards
 DECODE_FLASH = {"mesh": (1, 4), "steps": 2,
@@ -4730,25 +4753,31 @@ def plain_a2a_moe(n_ranks: int, dropped: list):
 
 
 def a2a_logits_against_plain(cfg, run, a2a_ctx, prm, tokens, steps) -> dict:
-    """The a2a serve's logits, in bf16 and with an f32 copy of the
-    weights, held with logits_against_plain's bounds: f32 within 2e-2 x
+    """The a2a serve's logits from the programs serve_olmoe_a2a times:
+    serve/step's prefill and decode steps, partitioned over
+    ``a2a_ctx``'s mesh, in bf16 and with an f32 copy of the weights,
+    held with logits_against_plain's bounds: f32 within 2e-2 x
     max(1, max|plain|); bf16 no further from the f32 plain logits than
     twice the bf16 plain logits are, and within FLASH_TOL's bf16
     tolerance at the logits' scale of the bf16 plain logits wherever
     those stay within it of the f32 ones. The prefill is held against
-    the same model with every MoE layer through ``plain_a2a_moe`` (the
-    a2a path drops assignments where a rank's expert overflows its C
-    slots, the dense dispatch's group capacity does not: the dense
-    prefill computes another function). Each of ``steps`` decode steps
-    is held against the dense serve's step from the same cache: one
-    token a row, each rank routes 1 token, C = 8, nothing is dropped,
-    and the two compute the same function. Both dtypes are fed the f32
-    dense serve's greedy tokens."""
+    the same model unpartitioned with every MoE layer through
+    ``plain_a2a_moe`` (the a2a path drops assignments where a rank's
+    expert overflows its C slots, the dense dispatch's group capacity
+    does not: the dense prefill computes another function). Each of
+    ``steps`` decode steps is held against the dense serve's step from
+    the same cache (the dense serve's, cut over the mesh by the step):
+    one token a row, each rank routes 1 token, C = 8, nothing is
+    dropped, and the two compute the same function. Both dtypes are fed
+    the f32 dense serve's greedy tokens. Each step's greedy tokens (the
+    group's argmax over the cells' vocabulary columns) are held equal to
+    ``torch.argmax`` of its whole logits."""
     import torch
 
     from repro_torch.distributed.sharding import ShardingCtx
     from repro_torch.launch import serve
     from repro_torch.models import lm, moe_a2a, params as P
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
 
     null = ShardingCtx.null()
     B, prompt = tokens.shape
@@ -4756,13 +4785,21 @@ def a2a_logits_against_plain(cfg, run, a2a_ctx, prm, tokens, steps) -> dict:
     runs = {"bf16": (run, prm),
             "f32": (run.replace(compute_dtype="float32"), prm32)}
     real_a2a = moe_a2a.moe_a2a_apply
-    dropped = {}
+    dropped, decoders, greedy = {}, {}, []
+
+    def held_greedy(tok, logits):
+        greedy.append(bool(torch.equal(
+            tok.cpu(), logits.argmax(-1).to(torch.int32).cpu())))
+        return logits
+
     out, caches = {}, {}
     with torch.inference_mode():
         for name, (rn, params) in runs.items():
             a2a_run = rn.replace(moe_impl="a2a")
-            out["a2a_" + name], _ = lm.prefill_fn(cfg, a2a_run, a2a_ctx,
-                                                  params, {"tokens": tokens})
+            decoders[name] = make_decode_step(cfg, a2a_run, a2a_ctx)
+            tok, _, logits = make_prefill_step(cfg, a2a_run, a2a_ctx)(
+                params, {"tokens": tokens}, logits=True)
+            out["a2a_" + name] = held_greedy(tok, logits)
             dropped[name] = []
             moe_a2a.moe_a2a_apply = plain_a2a_moe(
                 a2a_ctx.mesh.devices.size, dropped[name])
@@ -4780,9 +4817,9 @@ def a2a_logits_against_plain(cfg, run, a2a_ctx, prm, tokens, steps) -> dict:
         for i in range(steps):
             batch = {"tokens": tok[:, None], "pos": prompt + i}
             for name, (rn, params) in runs.items():
-                out["a2a_" + name], _ = lm.decode_fn(
-                    cfg, rn.replace(moe_impl="a2a"), a2a_ctx, params,
-                    caches[name], batch)
+                tok, _, logits = decoders[name](params, caches[name], batch,
+                                                logits=True)
+                out["a2a_" + name] = held_greedy(tok, logits)
                 out["dense_" + name], caches[name] = lm.decode_fn(
                     cfg, rn, null, params, caches[name], batch)
             tok = out["dense_f32"].argmax(-1).to(torch.int32)
@@ -4794,7 +4831,9 @@ def a2a_logits_against_plain(cfg, run, a2a_ctx, prm, tokens, steps) -> dict:
         assert r["bf16_vs_f32_err"] <= 2 * r["plain_bf16_vs_f32_err"], rows
         assert r["bf16_err"] <= r["bf16_bound"] or \
             not r["bf16_bound_applies"], rows
-    return {"prefill_against_plain_a2a": rows[0],
+    assert all(greedy), greedy
+    return {"greedy_equal_to_argmax": greedy,
+            "prefill_against_plain_a2a": rows[0],
             "prefill_assignments_dropped_per_layer": dropped,
             "decode_steps_against_dense": rows[1:],
             "tolerance": {"f32": "2e-2 x max(1, max|plain|)",
@@ -4823,18 +4862,26 @@ def phase_serve_olmoe_a2a(prm, tokens):
     """olmoe-1b-7b, on serve_olmoe's bf16 weights, served with
     ``moe_impl="a2a"`` on a virtual (data, model) = (1, 4) mesh of the
     card (16 experts a cell) through serve/step's prefill and decode
-    steps: every kernel count set to 0 just before the prefill and 4
-    decode steps and read just after (flash: 16 a prefill, 0 a decode
-    step), each timed on the host clock warm, beside the dense dispatch's
-    (``ShardingCtx.null()``) on the same card. Then layer 0's MoE layer,
+    steps, partitioned over the mesh (each cell its 4 of the 16 heads):
+    every kernel count set to 0 just before the prefill and 4
+    decode steps and read just after (flash: 16 a cell's prefill, at the
+    cell's (q, k) shapes, 0 a decode step), each timed on the host clock
+    warm, beside the dense dispatch's (``ShardingCtx.null()``) on the
+    same card; the greedy ids beside the dense dispatch's are reported,
+    not held (bf16 near ties and the a2a's dropped assignments move
+    them). Then layer 0's MoE layer,
     on the normed embeddings of the prompt with an f32 copy of its
     weights, through ``impl="a2a"`` on the mesh and ``impl="dense"``:
     the reference's 2e-2 on y at every token neither path drops (the
     dense path's capacity of a 4096-token group, 640, is not reached
     here; the a2a path's, 160 a rank's 1024 tokens, may be: those tokens
-    are counted), and 1e-3 on aux. Then the served logits of the prefill
-    and of each decode step from the same cache
-    (``a2a_logits_against_plain``)."""
+    are counted), and 1e-3 on aux. Then the partitioned steps' logits of
+    the prefill and of each decode step from the same cache
+    (``a2a_logits_against_plain``), and last the f32 hold of the
+    partitioned serve on this mesh against the a2a serve unpartitioned at
+    SERVE_MESH_F32's depth (``mesh_serve_f32_hold``)."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs import registry
@@ -4882,11 +4929,14 @@ def phase_serve_olmoe_a2a(prm, tokens):
     serve_once(*runs["a2a"])  # warm
     for mod in kernels.values():
         mod.reset_launches()
-    ids_a2a, prefill_s, decode_s, launches = serve_once(*runs["a2a"])
+    with FlashShapes() as flash:
+        ids_a2a, prefill_s, decode_s, launches = serve_once(*runs["a2a"])
     main_launches = {k: mod.launches() for k, mod in kernels.items()}
+    cells = d * m
     assert main_launches == {"blockhash": 0, "wkv6": 0, "ssd": 0,
-                             "flash_attention": L}, main_launches
-    assert launches == (L, 0), launches
+                             "flash_attention": cells * L}, main_launches
+    assert launches == (cells * L, 0), launches
+    assert set(flash.pairs) == {A2A["cell_flash"]}, set(flash.pairs)
     assert ids_a2a.shape == (B, steps + 1)
     assert ((0 <= ids_a2a) & (ids_a2a < cfg.vocab_size)).all()
     ids_dense, dense_prefill_s, dense_decode_s, _ = serve_once(
@@ -4913,6 +4963,10 @@ def phase_serve_olmoe_a2a(prm, tokens):
     del w0, x, y_a2a, y_dense
     logits = a2a_logits_against_plain(cfg, bundle.run, a2a_ctx, prm, tokens,
                                       steps)
+    cut = dataclasses.replace(cfg, num_layers=SERVE_MESH_F32["layers"])
+    hold = mesh_serve_f32_hold(cut, bundle.run, mesh, cut_layers(prm, cut),
+                               tokens, "a2a", SERVE_MESH_F32["steps"])
+    assert hold["held"], hold
     emit("serve_olmoe_a2a", arch=cfg.name, mesh=list(A2A["mesh"]),
          device="virtual", experts_per_cell=cfg.num_experts // (d * m),
          batch=B, prompt=prompt, decode_steps=steps,
@@ -4922,6 +4976,7 @@ def phase_serve_olmoe_a2a(prm, tokens):
          main_path_launches=main_launches,
          flash_launches_per_prefill=launches[0],
          flash_launches_in_decode_steps=launches[1],
+         flash_cell_shapes=[list(q) for q in A2A["cell_flash"]],
          greedy_ids_equal_to_dense=float(
              (ids_a2a == ids_dense).float().mean()),
          layer0_y_max_abs_err_kept_tokens=kept_err,
@@ -4930,7 +4985,310 @@ def phase_serve_olmoe_a2a(prm, tokens):
          layer0_aux_a2a=aux_a2a.item(), layer0_aux_dense=aux_dense.item(),
          layer0_aux_abs_err=aux_err,
          tolerance="y 2e-2 at every kept token, aux 1e-3 (f32)",
-         logits=logits)
+         logits=logits, f32_hold=hold)
+    return main_launches["flash_attention"]
+
+
+# The serve programs partitioned over a virtual (2, 2) ("data", "model")
+# mesh of the card (serve.step), on a serve phase's own bf16 weights and
+# prompt, right after it: smollm-135m (its 9 heads over 3 kv heads do not
+# split over 2: each cell runs all of them on its 2 rows, and keeps its
+# sequence block of the cache) and olmoe-1b-7b (each cell its 8 of the 16
+# heads, 32 of the 64 experts, half the vocabulary), both whole, batch 4,
+# a 1024-token prompt and greedy tokens through launch/serve.generate: 8,
+# not the serve phases' 32 (SERVE_MESH_CUT: a partitioned decode step on
+# a virtual mesh costs 0.6-1.0 s of the host's time, its 4 cells taking
+# turns, and the smoke keeps to 660 s).
+# Each phase's ``cell_flash``: the flash kernel's q in each cell's prefill
+# layers; ``impls``: the MoE dispatches of its f32 hold, the decision
+# (each partitioned serve against the same depth unpartitioned, at
+# SERVE_MESH_F32's depth and decode steps).
+SERVE_MESH = {
+    "serve_mesh_smollm": {"serve": "serve_smollm", "arch": "smollm-135m",
+                          "impls": ("dense",),
+                          "cell_flash": (2, 1024, 9, 64)},
+    "serve_mesh_olmoe": {"serve": "serve_olmoe", "arch": "olmoe-1b-7b",
+                         "impls": ("dense", "a2a"),
+                         "cell_flash": (2, 1024, 8, 128)},
+}
+SERVE_MESH_SHAPE = (2, 2)  # (data, model)
+SERVE_MESH_GEN = 8
+SERVE_MESH_CUT = "gen 32 -> 8 (the smoke's seconds)"
+SERVE_MESH_F32 = {"layers": 2, "steps": 3}
+# the decode steps of the profile (the serve phases profile 8; a
+# partitioned step's host cost is several times theirs)
+SERVE_MESH_PROFILED_STEPS = 2
+SERVE_F32_LOGITS = {}  # a serve phase's f32 plain prefill logits, on the host
+SERVE_MESH_TOL = 1e-4  # x max(1, max|unpartitioned|): f32 logits and cache
+
+
+def cache_shard_gap(got, want) -> dict:
+    """A cell's bf16 cache shard against the unpartitioned cache's block
+    at the same index, both the rounding of an f32 value: each element
+    within SERVE_MESH_TOL x max(1, max|want|) plus one bf16 ulp of its
+    magnitude (a pair that straddles a rounding boundary), and such
+    flips rare (under 1 % of the elements), as the CPU tests hold it."""
+    import torch
+
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    mag = torch.maximum(got.abs(), want.abs()).clamp(min=1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    bound = SERVE_MESH_TOL * max(1.0, want.abs().max().item()) + ulp
+    return {"excess": (diff - bound).max().item(),
+            "differ_share": (diff > 0).float().mean().item()}
+
+
+def cut_layers(prm, cfg):
+    """A dense or MoE model's weights ``prm`` cut to ``cfg.num_layers``
+    layers (views of the first ones)."""
+    from repro_torch.models import params as P
+
+    return {**prm, "stack": {"layers": P.tree_map(
+        lambda t: t[:cfg.num_layers], prm["stack"]["layers"])}}
+
+
+def mesh_serve_f32_hold(cfg, run, mesh, prm, tokens, impl: str, steps: int
+                        ) -> dict:
+    """The partitioned serve (``serve.step`` over ``mesh``) against the
+    same model unpartitioned (``lm.prefill_fn``/``decode_fn``: with no
+    mesh for the dense dispatch, the a2a's own shard_map on ``mesh`` for
+    ``impl="a2a"``), in f32 compute on an f32 copy of ``prm``: the prefill
+    and ``steps`` decode steps, each decode step from the unpartitioned
+    cache laid out as the partitioned one's (a bf16 rounding flip in a
+    cache moves the next logits past the tolerance) and fed the
+    unpartitioned greedy tokens. Held: the logits within SERVE_MESH_TOL x
+    max(1, max|unpartitioned|), every cell's cache shard against the
+    unpartitioned cache's block (``cache_shard_gap``), the greedy ids
+    equal."""
+    import torch
+
+    from repro_torch.distributed.sharding import ShardingCtx, place
+    from repro_torch.launch import serve
+    from repro_torch.models import lm, params as P
+    from repro_torch.serve.step import (laid_out, make_decode_step,
+                                        make_prefill_step)
+
+    run32 = run.replace(compute_dtype="float32", moe_impl=impl)
+    ruleset = "moe_a2a" if impl == "a2a" else "baseline"
+    ctx = ShardingCtx.for_mesh(mesh, ruleset)
+    whole_ctx = ctx if impl == "a2a" else ShardingCtx.null()
+    prm32 = P.tree_map(lambda t: t.float(), prm)
+    mprm = laid_out(cfg, ctx, prm32)
+    prefill = make_prefill_step(cfg, run32, ctx)
+    decode = make_decode_step(cfg, run32, ctx)
+    B, prompt = tokens.shape
+    rows, worst = [], {"logits": 0.0, "cache_excess": -1.0,
+                       "cache_differ_share": 0.0}
+
+    def held(name, tok, cache, logits, want_logits, want_cache):
+        err = (logits.float() - want_logits.float()).abs().max().item()
+        scale = max(1.0, want_logits.abs().max().item())
+        gaps = []
+        for leaf in ("k", "v"):
+            for _pos, index, shard in cache[leaf].addressable_shards:
+                gaps.append(cache_shard_gap(shard, want_cache[leaf][index]))
+        row = {"at": name, "logits_err": err, "logits_scale": scale,
+               "cache_excess": max(g["excess"] for g in gaps),
+               "cache_differ_share": max(g["differ_share"] for g in gaps),
+               "ids_equal": bool(torch.equal(
+                   tok.cpu(), want_logits.argmax(-1).to(torch.int32).cpu()))}
+        worst["logits"] = max(worst["logits"], err / scale)
+        worst["cache_excess"] = max(worst["cache_excess"],
+                                    row["cache_excess"])
+        worst["cache_differ_share"] = max(worst["cache_differ_share"],
+                                          row["cache_differ_share"])
+        rows.append(row)
+
+    with torch.inference_mode():
+        want_logits, want_cache = lm.prefill_fn(cfg, run32, whole_ctx, prm32,
+                                                {"tokens": tokens})
+        tok, cache, logits = prefill(mprm, {"tokens": tokens}, logits=True)
+        held("prefill", tok, cache, logits, want_logits, want_cache)
+        want_cache = serve.pad_cache(cfg, want_cache, steps)
+        cache = serve.pad_cache(cfg, cache, steps)
+        for i in range(steps):
+            batch = {"tokens": want_logits.argmax(-1).to(torch.int32)[:, None],
+                     "pos": prompt + i}
+            fed = {leaf: place(want_cache[leaf], cache[leaf].sharding)
+                   for leaf in ("k", "v")}
+            tok, cache, logits = decode(mprm, fed, batch, logits=True)
+            want_logits, want_cache = lm.decode_fn(cfg, run32, whole_ctx,
+                                                   prm32, want_cache, batch)
+            held(f"decode{i}", tok, cache, logits, want_logits, want_cache)
+    del prm32, mprm, cache, fed, want_cache
+    torch.cuda.empty_cache()
+    ok = (worst["logits"] <= SERVE_MESH_TOL and worst["cache_excess"] <= 0
+          and worst["cache_differ_share"] <= 1e-2
+          and all(r["ids_equal"] for r in rows))
+    return {"impl": impl, "ruleset": ruleset, "layers": cfg.num_layers,
+            "decode_steps": steps, "held": ok, "worst": worst, "rows": rows}
+
+
+def phase_serve_mesh(name, prm, tokens):
+    """A dense or MoE model served partitioned over a virtual (2, 2) mesh
+    of the card (SERVE_MESH[name]), on its serve phase's bf16 weights and
+    prompt, whole: each cell holding its FSDP x model shard of every
+    weight leaf and its shard of the KV cache (MeshArrays; each cell's
+    bytes at rest held equal to the dry-run's argument bytes of the
+    prefill and decode programs), computing on its own heads, columns,
+    experts and vocabulary. The main path, through launch/serve.generate
+    with every kernel count set to 0 just before and read just after:
+    flash once a layer in each cell's prefill at the cell's shape, never
+    in a decode step. Then a warm prefill (its logits held by the serve
+    phase's rule: no further from the serve phase's f32 plain logits
+    than twice the unpartitioned bf16 logits are) and a profiled prefill
+    and 8 decode steps (the device's idle share), each beside the serve
+    phase's unpartitioned figures; last the f32 hold at f32_layers deep
+    (``mesh_serve_f32_hold``), the decision."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.sharding import MeshArray, ShardingCtx
+    from repro_torch.launch import dryrun, serve
+    from repro_torch.launch.mesh import make_elastic_mesh, make_mesh
+    from repro_torch.launch.programs import build_program
+    from repro_torch.models import params as P
+    from repro_torch.serve.step import (laid_out, make_decode_step,
+                                        make_prefill_step)
+
+    spec = SERVE_MESH[name]
+    unpart = EMITTED[spec["serve"]]
+    kernels = _kernel_counts()
+    FA = kernels["flash_attention"]
+    bundle = registry.get(spec["arch"])
+    cfg, run = bundle.model, bundle.run
+    dev = torch.device("cuda")
+    d, m = SERVE_MESH_SHAPE
+    cells = d * m
+    mesh = make_elastic_mesh(d, m, devices=[dev] * cells)
+    ctx = ShardingCtx.for_mesh(mesh)
+    B, prompt = tokens.shape
+    gen, L = SERVE_MESH_GEN, cfg.num_layers
+    base = torch.cuda.memory_allocated()
+
+    mprm = laid_out(cfg, ctx, prm)
+    assert all(isinstance(t, MeshArray) for t in P.leaves(mprm))
+    param_bytes = [sum(t.shards[p].numel() * t.shards[p].element_size()
+                       for t in P.leaves(mprm)) for p in range(cells)]
+    meta = make_mesh((d, m), ("data", "model"), [torch.device("meta")] * cells)
+    mctx = ShardingCtx.for_mesh(meta)
+
+    def dry_bytes(kind, seq, n_args):
+        prog = build_program(cfg, run, ShapeSpec(name, kind, seq, B), mctx)
+        return dryrun.argument_bytes(dataclasses.replace(
+            prog, args=prog.args[:n_args],
+            arg_shardings=prog.arg_shardings[:n_args]))
+
+    dry_prefill = dry_bytes("prefill", prompt, 1)
+    assert param_bytes == [dry_prefill] * cells, (param_bytes, dry_prefill)
+
+    # the main path, every count set to 0 just before and read just after
+    torch.cuda.reset_peak_memory_stats()
+    for mod in kernels.values():
+        mod.reset_launches()
+    with FlashShapes() as flash:
+        ids, times = serve.generate(cfg, run, mprm, {"tokens": tokens}, gen,
+                                    ctx)
+    main_launches = {k: mod.launches() for k, mod in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    assert main_launches == {"blockhash": 0, "wkv6": 0, "ssd": 0,
+                             "flash_attention": cells * L}, main_launches
+    assert set(flash.shapes) == {tuple(spec["cell_flash"])}, set(flash.shapes)
+    assert ids.shape == (B, gen) and ((0 <= ids) & (ids < cfg.vocab_size)).all()
+
+    # one prefill alone, then each decode step alone: its launches, and
+    # the cache at rest in each cell against the dry-run's decode program
+    prefill = make_prefill_step(cfg, run, ctx)
+    decode = make_decode_step(cfg, run, ctx)
+    torch.cuda.synchronize()
+    l0, t0 = FA.launches(), time.perf_counter()
+    tok, cache, logits = prefill(mprm, {"tokens": tokens}, logits=True)
+    torch.cuda.synchronize()
+    prefill_s, prefill_launches = time.perf_counter() - t0, FA.launches() - l0
+    assert prefill_launches == cells * L, prefill_launches
+    assert (tok.cpu().numpy() == ids[:, 0]).all()
+    cache = serve.pad_cache(cfg, cache, gen)
+    cache_bytes = [sum(cache[k].shards[p].numel() * 2 for k in ("k", "v"))
+                   for p in range(cells)]
+    dry_decode = dry_bytes("decode", prompt + gen, 2)
+    cell_bytes = [a + b for a, b in zip(param_bytes, cache_bytes)]
+    assert cell_bytes == [dry_decode] * cells, (cell_bytes, dry_decode)
+    step_launches = []
+    for i in range(2):
+        l0 = FA.launches()
+        tok, cache = decode(mprm, cache, {"tokens": tok[:, None],
+                                          "pos": prompt + i})
+        step_launches.append(FA.launches() - l0)
+        assert (tok.cpu().numpy() == ids[:, i + 1]).all()
+    assert step_launches == [0, 0], step_launches
+    del cache
+
+    # the bf16 logits, by the serve phase's rule
+    f32 = SERVE_F32_LOGITS[spec["serve"]].to(dev)
+    mesh_vs_f32 = (logits.float() - f32.float()).abs().max().item()
+    whole_vs_f32 = unpart["logits_bf16_kernel_vs_f32_err"]
+    assert mesh_vs_f32 <= 2 * whole_vs_f32, (mesh_vs_f32, whole_vs_f32)
+    del f32, logits
+
+    trace = serve_profile(cfg, run, mprm, tokens, ctx=ctx,
+                          decode_steps=SERVE_MESH_PROFILED_STEPS)
+    profiled = f"decode_{SERVE_MESH_PROFILED_STEPS}_steps"
+    assert 0 < trace["prefill"]["flash_launches"] <= cells * L
+    assert trace[profiled]["flash_launches"] == 0
+
+    # the decision: f32 at SERVE_MESH_F32's depth, against the same depth
+    # whole
+    cut = dataclasses.replace(cfg, num_layers=SERVE_MESH_F32["layers"])
+    cut_prm = cut_layers(prm, cut)
+    del mprm
+    torch.cuda.empty_cache()
+    holds = [mesh_serve_f32_hold(cut, run, mesh, cut_prm, tokens, impl,
+                                 SERVE_MESH_F32["steps"])
+             for impl in spec["impls"]]
+    for h in holds:
+        assert h["held"], h
+    ids_equal = float((ids[0] == np.asarray(
+        unpart["generated_ids_row0"][:gen])).mean())
+    whole_trace = unpart["trace"]
+    emit(name, arch=cfg.name, mesh=[d, m], device="virtual", layers=L,
+         dtype=run.compute_dtype, batch=B, prompt=prompt, gen=gen,
+         cut=SERVE_MESH_CUT, plan_repeated=make_prefill_step(
+             cfg, run, ctx).plan_at({"tokens": tokens}).repeated(cfg),
+         main_path_launches=main_launches,
+         flash_launches_per_prefill=prefill_launches,
+         flash_launches_per_decode_step=max(step_launches),
+         flash_cell_shape=list(spec["cell_flash"]),
+         cell_param_bytes=param_bytes, cell_cache_bytes=cache_bytes,
+         dryrun_argument_bytes={"prefill": dry_prefill,
+                                "decode": dry_decode},
+         prefill_ms=prefill_s * 1e3,
+         prefill_cold_ms=times["prefill_s"] * 1e3,
+         decode_ms_per_token=times["decode_s_per_token"] * 1e3,
+         peak_memory_bytes=peak, base_memory_bytes=base,
+         unpartitioned={"prefill_ms": unpart["prefill_ms"],
+                        "decode_ms_per_token": unpart["decode_ms_per_token"],
+                        "peak_memory_bytes": unpart["peak_memory_bytes"],
+                        "base_memory_bytes": unpart["base_memory_bytes"],
+                        "prefill_idle_share":
+                            whole_trace["prefill"]["device_idle_share"],
+                        "decode_idle_share":
+                            whole_trace["decode_8_steps"]["device_idle_share"]},
+         prefill_idle_share=trace["prefill"]["device_idle_share"],
+         decode_idle_share=trace[profiled]["device_idle_share"],
+         logits_bf16_mesh_vs_f32_err=mesh_vs_f32,
+         logits_bf16_whole_vs_f32_err=whole_vs_f32,
+         logits_bf16_rule="mesh vs f32 plain <= 2 x whole bf16 vs f32 plain",
+         generated_ids_row0=ids[0].tolist(),
+         ids_equal_to_unpartitioned_row0=ids_equal,
+         f32_hold=holds, f32_tolerance=f"{SERVE_MESH_TOL} x max(1, "
+         "max|unpartitioned|) logits; cache shards the same, plus one bf16 "
+         "ulp on under 1 % of the elements; ids equal", trace=trace)
+    del cut_prm
+    torch.cuda.empty_cache()
     return main_launches["flash_attention"]
 
 
@@ -6529,8 +6887,14 @@ def run_phases(t_start, card, traces) -> int:
     ssd_rows = timed("ssd_kernel", phase_ssd_kernel)
     flash_rows = timed("flash_attention_kernel", phase_flash_attention_kernel)
     zamba_launches = timed("serve_zamba2", phase_serve_zamba2)
-    flash_by_path = {"serve_zamba2": zamba_launches["flash_attention"],
-                     "serve_smollm": timed("serve_smollm", phase_serve_smollm)}
+    flash_by_path = {"serve_zamba2": zamba_launches["flash_attention"]}
+    flash_by_path["serve_smollm"], prm, tokens = timed("serve_smollm",
+                                                       phase_serve_smollm)
+    flash_by_path["serve_mesh_smollm"] = timed(
+        "serve_mesh_smollm", phase_serve_mesh, "serve_mesh_smollm", prm,
+        tokens)
+    del prm, tokens
+    torch.cuda.empty_cache()
     flash_by_path["train_smollm"], smollm_bwd_ms, trainer = timed(
         "train_smollm", phase_train_smollm)
     flash_by_path["pipeline"] = timed("pipeline", phase_pipeline, trainer)
@@ -6554,6 +6918,8 @@ def run_phases(t_start, card, traces) -> int:
                                                       phase_serve_olmoe)
     flash_by_path["serve_olmoe_a2a"] = timed(
         "serve_olmoe_a2a", phase_serve_olmoe_a2a, prm, tokens)
+    flash_by_path["serve_mesh_olmoe"] = timed(
+        "serve_mesh_olmoe", phase_serve_mesh, "serve_mesh_olmoe", prm, tokens)
     del prm, tokens  # the olmoe weights
     torch.cuda.empty_cache()
     trained["train_olmoe"] = timed("train_olmoe", phase_train_model,

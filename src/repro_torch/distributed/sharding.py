@@ -52,7 +52,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Sequence, Tuple
 
-from repro_torch.distributed.resharding import _chunk, normalize_index
+from repro_torch.distributed.resharding import (_chunk, normalize_index,
+                                                plan_target_shard)
 from repro_torch.launch.mesh import mesh_axis_sizes
 
 Candidates = Tuple[Tuple[str, ...], ...]  # ordered preference: each entry is a
@@ -312,3 +313,36 @@ def gathered(tree, device=None):
 
     return P.tree_map(lambda t: t.gather(device)
                       if isinstance(t, MeshArray) else t, tree)
+
+
+def resharded(x: MeshArray, sharding: MeshSharding, shape=None) -> MeshArray:
+    """``x`` laid out by ``sharding`` as a tensor of ``shape`` (``x``'s by
+    default; larger dims hold ``x`` at their start and zeros after it, a
+    pad). Each mesh position's tensor is made on its device from the
+    blocks of ``x`` that overlap it (``resharding.plan_target_shard``),
+    each taken from a position that holds it, the target's own where it
+    can: the whole tensor is never assembled anywhere."""
+    import torch
+
+    shape = x.shape if shape is None else tuple(int(d) for d in shape)
+    holders: Dict[tuple, list] = {}
+    for pos, index, _t in x.addressable_shards:
+        holders.setdefault(normalize_index(index, x.shape), []).append(pos)
+    blocks = list(holders)
+    devices = list(sharding.mesh.devices.flat)
+    shards = []
+    for pos, index in sharding.devices_indices_map(shape).items():
+        dst = normalize_index(index, shape)
+        dev = devices[pos]
+        out = torch.zeros([hi - lo for lo, hi in dst], dtype=x.dtype,
+                          device=dev)
+        for op in plan_target_shard(blocks, dst):
+            have = holders[blocks[op.src]]
+            src = pos if pos in have else next(
+                (p for p in have if x.shards[p].device == torch.device(dev)),
+                have[0])
+            out[tuple(slice(lo, hi) for lo, hi in op.dst_slice)].copy_(
+                x.shards[src][tuple(slice(lo, hi)
+                                    for lo, hi in op.src_slice)])
+        shards.append(out)
+    return MeshArray(shape, x.dtype, sharding, shards)

@@ -1,7 +1,8 @@
 """Tensor parallelism over the ``model`` axis inside the partitioned
-training step (``train.step``): which parameter leaves a cell computes
-with as its own ``model`` shard, and the tape that cuts a cell's forward
-at its collectives and walks its backward segment by segment.
+training step (``train.step``) and serve programs (``serve.step``):
+which parameter leaves a cell computes with as its own ``model`` shard,
+and the tape that cuts a cell's forward at its collectives and walks its
+backward segment by segment.
 
 The reference partitions its step under GSPMD with the ``BASELINE``
 ruleset, which puts ``heads``, ``kv_heads``, ``mlp``, ``vocab`` and
@@ -69,6 +70,10 @@ cells at each entry and over the entries in its ``.grad`` before the
 segment that made it runs its backward. A leaf that several segments
 read by closure (zamba2's weight-tied shared block, applied after every
 ``shared_attn_every``-th layer) sums their gradients in its ``.grad``.
+
+The partitioned serve programs (``serve.step``) run the dense and MoE
+families' layers with the same plan on a ``Forward`` tape: the same
+segments and collectives, forward only, nothing recorded.
 
 zamba2's Mamba2 in-projection ``w_in`` is one leaf whose columns hold
 the gate, x, B, C and dt side by side, so its even cut over ``model``
@@ -293,6 +298,10 @@ def _leaf(t):
     return t
 
 
+def _same(t):
+    return t
+
+
 def _accumulate(t: torch.Tensor, g: torch.Tensor) -> None:
     g = g.to(t.dtype)
     t.grad = g if t.grad is None else t.grad + g
@@ -319,6 +328,8 @@ class Tape:
     forward runs without a graph and stores its inputs, and its backward
     re-runs it first (PR 24's per-layer remat, per segment)."""
 
+    _leaf = staticmethod(_leaf)
+
     def __init__(self, remat: bool):
         self.remat = remat
         self.records: List[Any] = []
@@ -328,7 +339,7 @@ class Tape:
         the parameters by closure and issues no collective."""
         with spmd.local_segment(), torch.set_grad_enabled(not self.remat):
             outs = tuple(fn(*inputs))
-        leaves = tuple(_leaf(o) for o in outs)
+        leaves = tuple(self._leaf(o) for o in outs)
         self.records.append(_Segment(fn, inputs, leaves,
                                      None if self.remat else outs))
         return leaves
@@ -344,7 +355,7 @@ class Tape:
         gradient backward."""
         if _size(axis) == 1:
             return x
-        return self._collective(x, _leaf(x),
+        return self._collective(x, self._leaf(x),
                                 lambda g: spmd.psum(g, axis))
 
     def exit(self, x: torch.Tensor, axis=AXIS) -> torch.Tensor:
@@ -352,7 +363,7 @@ class Tape:
         replicated value): the gradient passes through as it is."""
         if _size(axis) == 1:
             return x
-        return self._collective(x, _leaf(spmd.psum(x.detach(), axis)),
+        return self._collective(x, self._leaf(spmd.psum(x.detach(), axis)),
                                 lambda g: g)
 
     def total(self, x: torch.Tensor, axis=AXIS) -> torch.Tensor:
@@ -366,7 +377,7 @@ class Tape:
                    concat_axis: int) -> torch.Tensor:
         """``spmd.all_to_all``; backward the reverse exchange."""
         y = spmd.all_to_all(x.detach(), axis, split_axis, concat_axis)
-        return self._collective(x, _leaf(y), lambda g: spmd.all_to_all(
+        return self._collective(x, self._leaf(y), lambda g: spmd.all_to_all(
             g, axis, concat_axis, split_axis))
 
     def all_gather(self, x: torch.Tensor, axis, dim: int = 0, *,
@@ -388,7 +399,7 @@ class Tape:
                                (spmd.axis_index(axis) + 1) * n)
             return spmd.psum_block(g, axis, tuple(index))
 
-        return self._collective(x, _leaf(y), transpose)
+        return self._collective(x, self._leaf(y), transpose)
 
     def pmax(self, x: torch.Tensor, axis=AXIS) -> torch.Tensor:
         """The group's elementwise max, no gradient."""
@@ -430,6 +441,29 @@ class Tape:
         if pairs:
             torch.autograd.backward([o for o, _ in pairs],
                                     [g for _, g in pairs])
+
+
+class Forward(Tape):
+    """One cell's forward alone (the partitioned serve, ``serve.step``):
+    each segment a plain call, inside which a collective still raises,
+    each collective its forward (an entry the identity, an exit and
+    ``total`` a psum, ``all_gather`` and ``all_to_all`` plain); nothing
+    is recorded and there is no backward."""
+
+    _leaf = staticmethod(_same)
+
+    def __init__(self):
+        super().__init__(remat=False)
+
+    def run(self, fn: Callable, *inputs) -> Tuple[Any, ...]:
+        with spmd.local_segment():
+            return tuple(fn(*inputs))
+
+    def _collective(self, src, dst, transpose):
+        return dst
+
+    def backward(self, loss: torch.Tensor) -> None:
+        raise TypeError("a forward tape records nothing to differentiate")
 
 
 def _size(axis) -> int:

@@ -33,14 +33,24 @@ Mesh kinds:
     (``repeated_over_model``, the plan's ``Plan.repeated``: smollm's
     attention, whose 9 heads do not split; whisper-small's embedding and
     logits, whose 51865 rows split over no axis; zamba2-7b's Mamba2
-    blocks over 32, whose 112 heads do not split). A serve step is traced for
+    blocks over 32, whose 112 heads do not split). The serve programs of
+    the dense and MoE families under the ``baseline`` and ``moe_a2a``
+    rules are partitioned too (``serve.step``): each is traced as its
+    first cell alone, on that cell's shards of the weights and of the KV
+    cache, its collectives counted the same way (the weights' gathers
+    over the data axes layer by layer, the tensor-parallel exits, the
+    cache's all-to-all in a prefill, a decode step's log-sum-exp
+    combine, the group's argmax), and its activation term is the cell's
+    own where no block repeats. Every other serve step (the VLM, audio,
+    ssm and hybrid families; the ``decode_flash`` ruleset) is traced for
     one data cell's share of the batch at full model width, on a mesh of
     that cell's ``model`` axis; its collectives are the ones it issues
     over ``model`` (the a2a MoE's all-to-alls, ``flash_decode``'s
     reductions), and one over the data axes (``flash_decode``'s gather of
     its output under ``decode_flash``), which that trace runs over one
-    cell and cannot count, is refused. A serve cell runs the model at
-    full width, so its activation term is an upper bound.
+    cell and cannot count, is refused. Such a cell runs the model at
+    full width, so its activation term is an upper bound, and the
+    collectives GSPMD would insert are named ``collectives_not_issued``.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-135m \\
@@ -82,8 +92,11 @@ NVLINK_BW = 450e9  # bytes/s each way
 MESHES = {"single": ((16, 16), ("data", "model")),
           "multi": ((2, 16, 16), ("pod", "data", "model"))}
 NOT_ISSUED = ("the collectives that GSPMD inserts into the reference's "
-              "partitioned serve programs: the port partitions its training "
-              "step only (ShardingCtx.constrain is the identity)")
+              "partitioned serve programs: the port partitions the serve "
+              "programs of the dense and MoE families under the baseline "
+              "and moe_a2a rules only; the VLM, audio, ssm and hybrid "
+              "families and the decode_flash ruleset serve the model whole "
+              "in each data cell (ShardingCtx.constrain is the identity)")
 
 
 def _meta_mesh(shape, axes):
@@ -187,7 +200,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, ruleset: str,
             ctx = ShardingCtx.for_mesh(_meta_mesh(grid, axes), ruleset)
             prog = build_program(cfg, run, shape, ctx)
             cell_shape = local_shape(cfg, shape, ctx)
-            if prog.cell is not None:  # the partitioned step: one cell
+            if prog.cell is not None:  # a partitioned program: one cell
                 cell_fn, cell_args = prog.cell
                 trace_prog = dataclasses.replace(
                     prog, fn=spmd.one_cell(cell_fn, ctx.mesh),
@@ -203,9 +216,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, ruleset: str,
         # the blocks whose work every cell of a model group repeats: the
         # partitioned step's (its tensor-parallel plan), every block of a
         # serve program on a mesh
-        plan = getattr(prog.fn, "plan", None)
         repeated = ([] if mesh_kind == "card" else
-                    plan.repeated(cfg) if plan is not None else
+                    prog.plan.repeated(cfg) if prog.plan is not None else
                     ["every block"])
         summary = op_analysis.analyze(trace_prog.fn, *trace_prog.args)
         if mesh_kind != "card" and any(

@@ -13,11 +13,14 @@ their outputs and launch nothing) on any host, which is what
 traces the plain path. A real run materialises tensors of the same
 shapes and dtypes.
 
-On a mesh the train program is the partitioned step (``train.step``):
-``fn`` takes the whole stand-ins and runs every mesh cell, and ``cell``
-holds what one device runs, the step's per-cell function and stand-ins
-of the first cell's shards, which ``launch.dryrun`` traces alone
-(``spmd.one_cell``).
+On a mesh the train program is the partitioned step (``train.step``),
+and so are the dense and MoE families' serve programs under the
+``baseline`` and ``moe_a2a`` rules (``serve.step.partitioned``): ``fn``
+takes the whole stand-ins and runs every mesh cell, ``cell`` holds what
+one device runs, the step's per-cell function and stand-ins of the
+first cell's shards, which ``launch.dryrun`` traces alone
+(``spmd.one_cell``), and ``plan`` its tensor-parallel plan. Every other
+serve program on a mesh runs the model whole (``cell`` None).
 
 A fake CUDA tensor would name the card itself, but PyTorch built without
 CUDA cannot trace one through indexing or autograd (both ask for the CUDA
@@ -29,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -38,7 +42,8 @@ from repro_torch.configs.base import ModelConfig, RunConfig, ShapeSpec
 from repro_torch.distributed.sharding import MeshSharding, ShardingCtx
 from repro_torch.models import lm, params as P
 from repro_torch.optim.adamw import adamw_init_specs
-from repro_torch.serve.step import make_decode_step, make_prefill_step
+from repro_torch.serve.step import (make_decode_step, make_prefill_step,
+                                    partitioned)
 from repro_torch.train.step import make_train_step
 
 
@@ -56,6 +61,8 @@ class Program:
     # a partitioned program: (one cell's function, stand-ins of the first
     # cell's shards of the arguments); None otherwise
     cell: Optional[Tuple[Callable, Tuple[Any, ...]]] = None
+    # a partitioned program's distributed.tensor_parallel.Plan
+    plan: Optional[Any] = None
 
 
 def _ns_tree(spec_tree, ctx: ShardingCtx):
@@ -72,6 +79,8 @@ def _first_cell(args, specs, mesh, mode):
     of the shards' shapes, so that a trace counts a shard's bytes, not
     the whole's."""
     def shard(t, spec):
+        if t.dim() == 0:  # a host scalar (the decode position), as it is
+            return t
         index = MeshSharding(mesh, spec).devices_indices_map(t.shape)[0]
         shape = [len(range(*sl.indices(d))) for sl, d in zip(index, t.shape)]
         with contextlib.nullcontext() if mode is None else mode:
@@ -85,6 +94,7 @@ def _decode_at_host_pos(step):
     """The port's decode step reads the position as a Python int (its
     masks and cache index stay on the host): a 0-d tensor position is
     read once here."""
+    @functools.wraps(step)  # its attributes too (a partitioned step's)
     def decode_step(params, cache, batch):
         pos = batch["pos"]
         if isinstance(pos, torch.Tensor):
@@ -122,7 +132,7 @@ def build_program(cfg: ModelConfig, run: RunConfig, shape: ShapeSpec,
         cell = None if ctx.mesh is None else (
             fn.cell, _first_cell(args, fn.in_specs(batch), ctx.mesh, mode))
         return Program("train_step", fn, args, out_shardings, (0, 1), meta,
-                       (ps, os_, bs), cell)
+                       (ps, os_, bs), cell, getattr(fn, "plan", None))
 
     # Serving: bf16 weights.
     params, ps = fake(pspecs, run.compute_dtype)
@@ -131,14 +141,21 @@ def build_program(cfg: ModelConfig, run: RunConfig, shape: ShapeSpec,
     out_shardings = (None, _ns_tree(cache_specs, ctx))
     if shape.kind == "prefill":
         fn = make_prefill_step(cfg, run, ctx)
-        return Program("prefill_step", fn, (params, batch), out_shardings,
-                       (), meta, (ps, bs))
-
-    assert shape.kind == "decode"
-    cache, cs = fake(cache_specs, run.compute_dtype)
-    fn = _decode_at_host_pos(make_decode_step(cfg, run, ctx))
-    return Program("serve_step", fn, (params, cache, batch), out_shardings,
-                   (1,), meta, (ps, cs, bs))
+        name, args, shardings, donate = ("prefill_step", (params, batch),
+                                         (ps, bs), ())
+    else:
+        assert shape.kind == "decode"
+        cache, cs = fake(cache_specs, run.compute_dtype)
+        fn = _decode_at_host_pos(make_decode_step(cfg, run, ctx))
+        name, args, shardings, donate = ("serve_step", (params, cache, batch),
+                                         (ps, cs, bs), (1,))
+    cell = plan = None
+    if partitioned(cfg, run, ctx):  # one spmd.shard_map over the mesh
+        cell = (fn.cell_at(*args),
+                _first_cell(args, fn.in_specs(*args), ctx.mesh, mode))
+        plan = fn.plan_at(*args)
+    return Program(name, fn, args, out_shardings, donate, meta, shardings,
+                   cell, plan)
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeSpec, ctx: ShardingCtx):

@@ -25,11 +25,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs import registry
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig, ShapeSpec
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import ShardingCtx
+from repro_torch.distributed.sharding import MeshArray, ShardingCtx, resharded
 from repro_torch.models import lm, params as P
-from repro_torch.serve.step import make_decode_step, make_prefill_step
+from repro_torch.serve.step import (laid_out, make_decode_step,
+                                    make_prefill_step, partitioned)
 
 
 def pad_cache(cfg: ModelConfig, cache, gen: int):
@@ -39,12 +40,23 @@ def pad_cache(cfg: ModelConfig, cache, gen: int):
     zero slots. A sliding-window ring buffer keeps its size, the cross
     attention's KV (the VLM's image KV, whisper's encoder KV) its length,
     and a recurrent state (rwkv6's, the Mamba2 layers') has no sequence
-    axis."""
+    axis. A partitioned serve's cache (``MeshArray`` leaves, laid out by
+    the baseline rules: ``serve.step.partitioned``) comes back laid out by
+    the decode program's specs on the same mesh, each cell's shard made
+    from the prefill's shards that overlap it (``sharding.resharded``):
+    the padded length moves the sequence blocks' edges."""
     def pad_seq(x):  # (..., S, H, D) -> (..., S + gen, H, D)
         return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, gen))
 
     if cfg.sliding_window > 0:
         return cache
+    if cfg.family in ("dense", "moe") and isinstance(cache["k"], MeshArray):
+        ctx = ShardingCtx.for_mesh(cache["k"].sharding.mesh)
+        L, B, S = cache["k"].shape[:3]
+        specs = lm.cache_specs(cfg, ShapeSpec("decode", "decode", S + gen, B))
+        return {name: resharded(cache[name], ctx.sharding(
+            specs[name].logical, specs[name].shape), specs[name].shape)
+            for name in ("k", "v")}
     if cfg.family in ("dense", "moe"):
         return {"k": pad_seq(cache["k"]), "v": pad_seq(cache["v"])}
     if cfg.family == "vlm":
@@ -76,15 +88,22 @@ def stub_embeds(cfg: ModelConfig, batch: int,
 
 
 def generate(cfg: ModelConfig, run: RunConfig, prm,
-             batch: Dict[str, torch.Tensor],
-             gen: int) -> Tuple[np.ndarray, Dict[str, float]]:
+             batch: Dict[str, torch.Tensor], gen: int,
+             ctx: Optional[ShardingCtx] = None
+             ) -> Tuple[np.ndarray, Dict[str, float]]:
     """Prefill ``batch`` (its ``tokens`` (B, S), and the VLM's
     ``image_embeds`` or whisper's ``frame_embeds``), then decode greedily
     until ``gen`` tokens are out. Returns the generated ids (B, gen) and
-    the host-clock times: each step ends when its tokens are on the host."""
-    ctx = ShardingCtx.null()
+    the host-clock times: each step ends when its tokens are on the host.
+    ``ctx`` (``ShardingCtx.null()`` by default): with a mesh the serve
+    steps are ``serve.step``'s for it, partitioned over it for the dense
+    and MoE families (``serve.step.partitioned``), whose weights are laid
+    out over it first where they are whole tensors."""
+    ctx = ShardingCtx.null() if ctx is None else ctx
     prefill = make_prefill_step(cfg, run, ctx)
     decode = make_decode_step(cfg, run, ctx)
+    if partitioned(cfg, run, ctx):
+        prm = laid_out(cfg, ctx, prm)
     prompt_len = batch["tokens"].shape[1]
 
     t0 = time.perf_counter()

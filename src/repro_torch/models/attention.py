@@ -12,11 +12,17 @@ through ``attention_dense``, as the reference computes it; its decode step
 against the cached encoder KV stays plain on every device.
 ``flash_decode`` is the sequence-sharded decode of the ``decode_flash``
 ruleset: torch ops inside ``distributed.spmd.shard_map``, as the
-reference writes it in ``jnp`` inside ``shard_map``.
+reference writes it in ``jnp`` inside ``shard_map``. A cell of the
+partitioned serve (``serve.step``) holds its shard of the KV cache as
+the rules cut it (``CacheCut``): ``cache_rest`` lays a prefill's k and v
+out so, ``cell_decode`` writes a token into it and attends over it, the
+partials of a sequence cut combined as ``flash_decode``'s are
+(``decode_partial``, ``combine_partials``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Optional
 
@@ -249,6 +255,47 @@ def decode_attention(q, cache_k, cache_v, pos: int, *, window=0, softcap=0.0):
     return out.reshape(B, 1, Hq, D)
 
 
+def decode_partial(q, cache_k, cache_v, pos: int, base: int, total: int, *,
+                   window=0, softcap=0.0):
+    """One block of a cache's slots, ``[base, base + n)`` of ``total``
+    (the cache's whole length), against one token's q (B,1,Hq,D): the
+    block's unnormalised output (B,Hkv,G,D), the log-sum-exp of its scores
+    and their exponentials' sum (B,Hkv,G), for ``combine_partials``."""
+    n, Hkv = cache_k.shape[1], cache_k.shape[2]
+    D = q.shape[-1]
+    qg = _split_groups(q, Hkv)[:, 0]
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, cache_k.to(q.dtype)).float()
+    s = s / math.sqrt(D)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    kpos = torch.arange(n, device=q.device) + base
+    if window > 0:
+        valid = kpos < min(pos + 1, total)
+    else:
+        valid = kpos <= pos
+    s = torch.where(valid[None, None, None], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    # guard all-masked shards
+    m_safe = torch.clamp(m, min=NEG_INF / 2)
+    e = torch.exp(s - m_safe)
+    denom = e.sum(dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", e.to(q.dtype), cache_v.to(q.dtype))
+    lse = m_safe[..., 0] + torch.log(torch.clamp(denom, min=1e-30))
+    return o, lse, denom
+
+
+def combine_partials(o, lse, denom, dtype, pmax, psum):
+    """The blocks' partials (``decode_partial``) combined over a group by
+    their log-sum-exp: ``pmax`` and ``psum`` its collectives. Returns the
+    attention output (B,Hkv,G,D) in ``dtype``."""
+    g_max = pmax(lse)
+    w = torch.exp(lse - g_max)  # (B,Hkv,G)
+    o = o * (w / torch.clamp(denom, min=1e-30))[..., None].to(dtype)
+    o = psum(o.float())
+    z = psum(w)
+    return (o / z[..., None]).to(dtype)
+
+
 def flash_decode(q, cache_k, cache_v, pos: int, mesh, *, axis="model",
                  softcap=0.0, window=0, q_replicated=True):
     """Sequence-sharded decode attention (flash-decoding), the reference's
@@ -256,19 +303,18 @@ def flash_decode(q, cache_k, cache_v, pos: int, mesh, *, axis="model",
 
     The KV cache is batch-sharded over the batch axes ("pod", "data") and
     seq-sharded over ``axis``; each shard computes a partial (out, lse)
-    and the results combine by the log-sum-exp trick through ``pmax`` and
-    ``psum``, one small collective instead of gathering the cache.
+    (``decode_partial``) and the results combine by the log-sum-exp trick
+    through ``pmax`` and ``psum`` (``combine_partials``), one small
+    collective instead of gathering the cache.
 
     ``q_replicated=True`` (the decode_flash ruleset): single-token
     activations are replicated over the batch axes, so each shard slices
     the batch rows of its cache shard, attends locally, and an
     ``all_gather`` replicates the output again.
     """
-    B, _, Hq, D = q.shape
     S = cache_k.shape[1]
     sizes = mesh_axis_sizes(mesh)
     shard_len = S // sizes[axis]
-    Hkv = cache_k.shape[2]
     batch_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
 
     def per_shard(q_, ck_, cv_):
@@ -280,32 +326,10 @@ def flash_decode(q, cache_k, cache_v, pos: int, mesh, *, axis="model",
             q_ = q_[bidx * b_loc:(bidx + 1) * b_loc]
         B_loc, _, Hq_, D_ = q_.shape  # per-shard shapes (batch is sharded)
         base = spmd.axis_index(axis) * shard_len
-        qg = _split_groups(q_, Hkv)[:, 0]
-        s = torch.einsum("bhgd,bkhd->bhgk", qg, ck_.to(q_.dtype)).float()
-        s = s / math.sqrt(D)
-        if softcap > 0:
-            s = softcap * torch.tanh(s / softcap)
-        kpos = torch.arange(shard_len, device=q_.device) + base
-        if window > 0:
-            valid = kpos < min(pos + 1, S)
-        else:
-            valid = kpos <= pos
-        s = torch.where(valid[None, None, None], s, NEG_INF)
-        m = s.amax(dim=-1, keepdim=True)
-        # guard all-masked shards
-        m_safe = torch.clamp(m, min=NEG_INF / 2)
-        e = torch.exp(s - m_safe)
-        denom = e.sum(dim=-1, keepdim=True)
-        o = torch.einsum("bhgk,bkhd->bhgd", e.to(q_.dtype), cv_.to(q_.dtype))
-        # LSE-combine across shards
-        lse = m_safe[..., 0] + torch.log(torch.clamp(denom[..., 0], min=1e-30))
-        g_max = spmd.pmax(lse, axis)
-        w = torch.exp(lse - g_max)  # (B,Hkv,G)
-        o = o * (w / torch.clamp(denom[..., 0], min=1e-30))[..., None].to(
-            q_.dtype)
-        o = spmd.psum(o.float(), axis)
-        z = spmd.psum(w, axis)
-        o = (o / z[..., None]).to(q_.dtype)
+        o = combine_partials(
+            *decode_partial(q_, ck_, cv_, pos, base, S, window=window,
+                            softcap=softcap), q_.dtype,
+            lambda t: spmd.pmax(t, axis), lambda t: spmd.psum(t, axis))
         o = o.reshape(B_loc, 1, Hq_, D_)
         if q_replicated and batch_axes:
             for a in reversed(batch_axes):  # tiny: (B,1,Hq,D)
@@ -317,6 +341,115 @@ def flash_decode(q, cache_k, cache_v, pos: int, mesh, *, axis="model",
     fn = spmd.shard_map(per_shard, mesh, in_specs=(spec_q, spec_kv, spec_kv),
                         out_specs=spec_q)
     return fn(q, cache_k, cache_v)
+
+
+# --- the KV cache in a cell of the partitioned serve -------------------------------
+# A cell of the partitioned serve (``serve.step``) computes on its batch
+# rows and, where the plan keeps attention model-local, on its own heads;
+# its shard of the cache rests as the rules cut it: the batch over the
+# data axes, and over ``model`` the sequence (``cache_seq``), else the kv
+# heads (``cache_heads``), else nothing. Its collectives go through the
+# cell's tape (``distributed.tensor_parallel.Forward``).
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheCut:
+    """Where a serve cell's cache shard lies over ``model``: ``dim`` the
+    dim of a layer's (B, S, Hkv, D) cache that ``model`` cuts (1 the
+    sequence, 2 the kv heads, None neither) into ``size`` blocks, of which
+    the cell holds block ``index``; ``local``: the cell computes with its
+    own kv heads (model-local attention), not with all of them."""
+
+    dim: Optional[int]
+    size: int
+    index: int
+    local: bool
+
+    def block(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The cell's block of ``t`` cut over ``model`` along ``dim``."""
+        n = t.shape[dim] // self.size
+        return t.narrow(dim, self.index * n, n)
+
+
+def cache_rest(tape, kv: torch.Tensor, cut: CacheCut) -> torch.Tensor:
+    """The cell's shard of a layer's cache at rest, from ``kv`` (B, S, H,
+    D): its batch rows over the whole sequence, its own kv heads where
+    attention is model-local, else all of them. Cut over the sequence, a
+    model-local cell's heads cross the group (each cell its sequence
+    block of every head: one all-to-all)."""
+    if cut.dim == 1:
+        if not cut.local:
+            return cut.block(kv, 1)
+        B, S, H, D = kv.shape
+        n = cut.size
+        blocks = kv.reshape(B, n, S // n, H, D).movedim(1, 0)
+        # each cell receives its sequence block of every cell's heads
+        got = tape.all_to_all(blocks, "model", 0, 2)  # (B, S/n, n, H, D)
+        return got.reshape(B, S // n, n * H, D)
+    if cut.dim == 2:
+        return kv if cut.local else cut.block(kv, 2)
+    return tape.all_gather(kv, "model", 2) if cut.local else kv
+
+
+def _heads_gathered(tape, cut: CacheCut, *ts):
+    """One token's tensors (B, 1, H_i, D) of the cell's heads, each with
+    every cell's heads in group order: one all-gather for all of them."""
+    sizes = [t.shape[2] for t in ts]
+    B, _, _, D = ts[0].shape
+    got = tape.all_gather(torch.cat(ts, dim=2), "model", 2)
+    got = got.reshape(B, 1, cut.size, sum(sizes), D)
+    return tuple(part.reshape(B, 1, cut.size * h, D)
+                 for part, h in zip(got.split(sizes, dim=3), sizes))
+
+
+def cell_decode(tape, q, k, v, cache_k, cache_v, pos: int, cut: CacheCut, *,
+                window=0, softcap=0.0):
+    """One token's attention in a serve cell against its cache shard: q
+    (B,1,Hq',D) and the new k, v (B,1,Hkv',D) of the cell's heads (its
+    own where attention is model-local, else all). The token is written
+    into the cache (at ``pos``, or ``pos`` mod the window in a ring) by the
+    cell whose block holds that slot, with every kv head; cut over the
+    sequence, each cell attends over its block and the group combines the
+    partials (``combine_partials``). Returns (the output of the cell's q
+    heads, the cache shard's k, v)."""
+    local = cut.local
+    if cut.dim == 1:
+        if local:  # one token: every head in every cell
+            q, k, v = _heads_gathered(tape, cut, q, k, v)
+        n = cache_k.shape[1]
+        total = n * cut.size
+        idx = pos % total if window > 0 else pos
+        if not 0 <= idx < total:
+            raise IndexError(f"decode position {pos} is past the KV cache "
+                             f"({total} slots); pad the cache for "
+                             f"generation")
+        base = cut.index * n
+        if base <= idx < base + n:
+            cache_k, cache_v = cache_update(cache_k, cache_v, k, v,
+                                            idx - base)
+        B, _, Hq, D = q.shape
+        o = combine_partials(
+            *decode_partial(q, cache_k, cache_v, pos, base, total,
+                            window=window, softcap=softcap), q.dtype,
+            tape.pmax, tape.exit).reshape(B, 1, Hq, D)
+        return (cut.block(o, 2) if local else o), cache_k, cache_v
+    if cut.dim == 2:
+        if not local:  # the cache's kv heads and their q heads
+            q, k, v = (cut.block(t, 2) for t in (q, k, v))
+        cache_k, cache_v = cache_update(cache_k, cache_v, k, v, pos,
+                                        window=window)
+        o = decode_attention(q, cache_k, cache_v, pos, window=window,
+                             softcap=softcap)
+        return (o if local else tape.all_gather(o, "model", 2)), \
+            cache_k, cache_v
+    if local:
+        k, v = _heads_gathered(tape, cut, k, v)
+    cache_k, cache_v = cache_update(cache_k, cache_v, k, v, pos,
+                                    window=window)
+    ck, cv = ((cut.block(cache_k, 2), cut.block(cache_v, 2)) if local
+              else (cache_k, cache_v))
+    o = decode_attention(q, ck, cv, pos, window=window, softcap=softcap)
+    return o, cache_k, cache_v
 
 
 # --- cross attention ------------------------------------------------------------

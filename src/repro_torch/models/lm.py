@@ -15,6 +15,10 @@ Every architecture exposes the same entry points, the reference's, for
                                      cell's, or INLINE
   cache_specs(cfg, shape)            decode-state tree
   prefill_fn(...) / decode_fn(...)   serving programs
+  prefill_segments(...) / decode_segments(...)   the dense and MoE
+                                     families' serving programs on a
+                                     tape: a partitioned serve cell's,
+                                     or INLINE
 """
 
 from __future__ import annotations
@@ -125,6 +129,17 @@ def _metrics(loss, nll, zl, aux):
     return loss, {"nll": nll, "z_loss": zl, "aux_loss": aux, "loss": loss}
 
 
+def _embedded(cfg: ModelConfig, ctx: ShardingCtx, tc, params, tokens, dt):
+    """(the cell's first vocabulary row or None, the tokens' embeddings)
+    on the tape of ``tc``: where the vocabulary is model-local a partial
+    lookup of the cell's rows and an exit."""
+    tape, plan = tc.tape, tc.plan
+    lo = tc.block(cfg.vocab_size)[0] if plan.vocab else None
+    x, = tape.run(lambda: (embed_tokens(params["embed"], tokens, ctx, dt,
+                                        vocab_lo=lo),))
+    return lo, (tape.exit(x) if plan.vocab else x)
+
+
 def loss_fn(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, batch):
     """Teacher-forced cross-entropy (plus the stack's auxiliary loss).
     Returns (loss, metrics), both float32: ``loss_segments`` on
@@ -153,11 +168,7 @@ def loss_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc,
     dt = compute_dtype(run)
     tokens, labels = batch["tokens"], batch["labels"]
     positions = _positions(tokens)
-    lo = tc.block(cfg.vocab_size)[0] if plan.vocab else None
-    x, = tape.run(lambda: (embed_tokens(params["embed"], tokens, ctx, dt,
-                                        vocab_lo=lo),))
-    if plan.vocab:
-        x = tape.exit(x)
+    lo, x = _embedded(cfg, ctx, tc, params, tokens, dt)
     w = params["stack"]
     auxes = []
     if cfg.family == "audio":
@@ -213,16 +224,17 @@ def cache_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict:
 
 
 def prefill_fn(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, batch):
-    """Full-sequence prefill. Returns (last_token_logits (B, V), cache)."""
+    """Full-sequence prefill. Returns (last_token_logits (B, V), cache):
+    for the dense and MoE families ``prefill_segments`` on
+    ``tensor_parallel.INLINE``."""
+    if cfg.family in ("dense", "moe"):
+        return prefill_segments(cfg, run, ctx, tp.INLINE, params, batch)
     dt = compute_dtype(run)
     tokens = batch["tokens"]
     x = embed_tokens(params["embed"], tokens, ctx, dt)
     positions = _positions(tokens)
     w = params["stack"]
-    if cfg.family in ("dense", "moe"):
-        x, cache = T.stack_prefill(cfg, run, ctx, w, x, positions,
-                                   q_chunk=Q_CHUNK)
-    elif cfg.family == "vlm":
+    if cfg.family == "vlm":
         img = batch["image_embeds"].to(dt)
         x, cache = T.stack_prefill(cfg, run, ctx, w, x, positions, img=img,
                                    q_chunk=Q_CHUNK)
@@ -242,20 +254,57 @@ def prefill_fn(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, batch
     return logits, cache
 
 
+def _last_logits(cfg: ModelConfig, ctx: ShardingCtx, tc, params, x, adds):
+    """The last token's logits (B, V) from the stack's last residual and
+    the terms still to add to it: the cell's vocabulary columns where the
+    vocabulary is model-local."""
+    def head(x, *a):
+        h = rms_norm(T._resid(x, a)[:, -1:], params["final_ln"], cfg.norm_eps)
+        return (logits_fn(params["embed"], h, ctx)[:, 0],)
+
+    return tc.tape.run(head, x, *adds)[0]
+
+
+def prefill_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc,
+                     params, batch, *, layer=None, cut=None):
+    """``prefill_fn`` of the dense and MoE families on the tape of ``tc``
+    (a cell of the partitioned serve, ``serve.step``, or ``INLINE``): the
+    embedding (a partial lookup and an exit where the vocabulary is
+    model-local), the stack (``transformer.prefill_segments``; layer
+    ``i``'s leaves ``layer(i)``, by default a slice of
+    ``params["stack"]``; ``cut`` the cell's ``attention.CacheCut``) and
+    the last token's logits. Returns (logits, cache): the cell's
+    vocabulary columns and cache shard in a serve cell."""
+    dt = compute_dtype(run)
+    tokens = batch["tokens"]
+    _, x = _embedded(cfg, ctx, tc, params, tokens, dt)
+    if layer is None:
+        def layer(i):
+            return P.layer(params["stack"]["layers"], i)
+    x, adds, cache = T.prefill_segments(cfg, run, ctx, tc, layer, x,
+                                        _positions(tokens), Q_CHUNK,
+                                        cfg.num_layers, cut=cut)
+    return _last_logits(cfg, ctx, tc, params, x, adds), cache
+
+
 def decode_fn(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, cache,
               batch):
     """One decode step. batch: {tokens (B,1), pos}: ``pos`` a Python int.
-    Returns (logits, cache).
+    Returns (logits, cache): for the dense and MoE families
+    ``decode_segments`` on ``tensor_parallel.INLINE``.
 
     The ``decode_flash`` ruleset on a mesh takes the sequence-sharded
     ``flash_decode`` in every self attention (rwkv6 has none); without a
     mesh the dense decode, as in the reference."""
+    if cfg.family in ("dense", "moe"):
+        return decode_segments(cfg, run, ctx, tp.INLINE, params, cache,
+                               batch)
     dt = compute_dtype(run)
     x = embed_tokens(params["embed"], batch["tokens"], ctx, dt)
     pos = batch["pos"]
     use_flash = run.sharding_rules == "decode_flash"
     w = params["stack"]
-    if cfg.family in ("dense", "moe", "vlm"):
+    if cfg.family == "vlm":
         x, cache = T.stack_decode(cfg, run, ctx, w, cache, x, pos,
                                   use_flash=use_flash)
     elif cfg.family == "ssm":
@@ -271,3 +320,19 @@ def decode_fn(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, cache,
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = logits_fn(params["embed"], x, ctx)[:, 0]
     return logits, cache
+
+
+def decode_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc,
+                    params, cache, batch, *, layer=None, cut=None):
+    """``decode_fn`` of the dense and MoE families on the tape of ``tc``,
+    as ``prefill_segments``: ``cache`` the whole cache, or the cell's
+    shard of it. Returns (logits, cache)."""
+    dt = compute_dtype(run)
+    _, x = _embedded(cfg, ctx, tc, params, batch["tokens"], dt)
+    if layer is None:
+        def layer(i):
+            return P.layer(params["stack"]["layers"], i)
+    x, adds, cache = T.decode_segments(
+        cfg, run, ctx, tc, layer, cache, x, batch["pos"], cfg.num_layers,
+        cut=cut, use_flash=run.sharding_rules == "decode_flash")
+    return _last_logits(cfg, ctx, tc, params, x, adds), cache

@@ -5,8 +5,11 @@ A block (attention + MLP, or attention + MoE layer): specs, the
 teacher-forced forward (``block_apply``: the segmented stack's layer, the
 same code as in a cell of the partitioned training step, on
 ``tensor_parallel.INLINE``), the prefill that also returns the block's
-(k, v), and one decode step against a KV cache; the zamba2 stack applies
-it as its weight-tied shared block. The dense and MoE stacks keep the
+(k, v), and one decode step against a KV cache (``block_prefill``,
+``block_decode``: the serve stack's layers, ``layer_prefill`` and
+``layer_decode``, the same code as in a cell of the partitioned serve, on
+``INLINE``); the zamba2 stack applies it as its weight-tied shared
+block. The dense and MoE stacks keep the
 reference's stacked ``(L, ...)`` parameters and run their layers through
 ``scan_utils.grouped_scan`` (remat per layer under ``run.remat ==
 "block"``). The VLM family stacks super-blocks of ``cross_attn_every``
@@ -18,7 +21,7 @@ checkpoint of its group, as the reference nests them.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -65,14 +68,6 @@ def _attention_out(cfg: ModelConfig, ctx: ShardingCtx, wa, h, positions,
     return matmul(o.reshape(B, S, -1), wa["wo"]), k, v
 
 
-def _mlp_residual(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x):
-    """The second half of a serving step: x + mlp(x) or x + moe(x)."""
-    h2 = rms_norm(x, w["ln2"], cfg.norm_eps)
-    if "moe" in w:
-        return x + M.moe_apply(cfg, ctx, w["moe"], h2, impl=run.moe_impl)[0]
-    return x + mlp_apply(w["mlp"], h2, ctx, cfg.act)
-
-
 def block_apply(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x,
                 positions, *, q_chunk: int = 1024):
     """Returns (x, aux_loss): the MoE layer's, or 0. The segmented
@@ -89,31 +84,19 @@ def block_decode(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x, ck,
                  cv, pos: int, *, use_flash: bool = False):
     """One-token decode through one block. x: (B,1,d); ck/cv: (B,Sc,Hkv,D);
     ``pos`` the token's position, a Python int. ``use_flash`` on a mesh:
-    the sequence-sharded ``flash_decode`` over the cache."""
-    B = x.shape[0]
-    posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    h = rms_norm(x, w["ln1"], cfg.norm_eps)
-    q = A.project_q(cfg, w["attn"], h, posv, ctx)
-    k, v = A.project_kv(cfg, w["attn"], h, posv, ctx)
-    ck, cv = A.cache_update(ck, cv, k, v, pos, window=cfg.sliding_window)
-    if use_flash and ctx.mesh is not None:
-        o = A.flash_decode(q, ck, cv, pos, ctx.mesh,
-                           softcap=cfg.attn_logit_softcap,
-                           window=cfg.sliding_window)
-    else:
-        o = A.decode_attention(q, ck, cv, pos, window=cfg.sliding_window,
-                               softcap=cfg.attn_logit_softcap)
-    o = matmul(o.reshape(B, 1, cfg.q_dim), w["attn"]["wo"])
-    x = _mlp_residual(cfg, run, ctx, w, x + o)
-    return x, ck, cv
+    the sequence-sharded ``flash_decode`` over the cache. The serve
+    stack's layer (``layer_decode``) on ``tensor_parallel.INLINE``."""
+    x, adds, ck, cv = layer_decode(cfg, run, ctx, tp.INLINE, lambda: w, x, (),
+                                   ck, cv, pos, use_flash=use_flash)
+    return _resid(x, adds), ck, cv
 
 
 def block_prefill(cfg, run, ctx, w, x, positions, *, q_chunk=1024):
-    """Like block_apply but also returns this layer's (k, v) for the cache."""
-    x, h = _normed(x, (), w["ln1"], cfg.norm_eps)
-    o, k, v = _attention_out(cfg, ctx, w["attn"], h, positions, q_chunk)
-    x = _mlp_residual(cfg, run, ctx, w, x + o)
-    return x, k, v
+    """Like block_apply but also returns this layer's (k, v) for the cache:
+    ``layer_prefill`` on ``tensor_parallel.INLINE``."""
+    x, adds, k, v = layer_prefill(cfg, run, ctx, tp.INLINE, lambda: w, x, (),
+                                  positions, q_chunk)
+    return _resid(x, adds), k, v
 
 
 # --- cross-attention block (VLM) ---------------------------------------------------
@@ -226,14 +209,10 @@ def stack_cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Dict:
 
 def _decode_layers(cfg, run, ctx, w, cache, x, pos: int, n: int, use_flash):
     """``n`` stacked self layers' decode step; their new (k, v) stacked."""
-    ks, vs = [], []
-    for i in range(n):
-        x, ck, cv = block_decode(cfg, run, ctx, P.layer(w, i), x,
-                                 cache["k"][i], cache["v"][i], pos,
-                                 use_flash=use_flash)
-        ks.append(ck)
-        vs.append(cv)
-    return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    x, adds, kv = decode_segments(cfg, run, ctx, tp.INLINE,
+                                  lambda i: P.layer(w, i), cache, x, pos, n,
+                                  use_flash=use_flash)
+    return _resid(x, adds), kv
 
 
 def stack_decode(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, cache,
@@ -263,30 +242,19 @@ def stack_prefill(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x,
     """Full-sequence forward that also builds the KV cache, each layer's
     (k, v) trimmed to the cache (a sliding window's ring layout) and
     stored in bfloat16; the VLM's image KV of each cross layer is the
-    image embeddings' projection, stored in bfloat16. Returns (x, cache)."""
-    eff = A.effective_cache_len(cfg, x.shape[1])
-
-    def trim(k):
-        if cfg.sliding_window > 0:
-            return A.ring_layout(k, cfg.sliding_window)
-        return k[:, -eff:] if eff < k.shape[1] else k
-
-    def prefill_layers(x, wl_tree, n):
-        ks, vs = [], []
-        for i in range(n):
-            x, k, v = block_prefill(cfg, run, ctx, P.layer(wl_tree, i), x,
-                                    positions, q_chunk=q_chunk)
-            ks.append(trim(k).to(torch.bfloat16))
-            vs.append(trim(v).to(torch.bfloat16))
-        return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
-
+    image embeddings' projection, stored in bfloat16. Returns (x, cache):
+    the dense and MoE stacks' ``prefill_segments`` on
+    ``tensor_parallel.INLINE``."""
     if cfg.family == "vlm":
         g, s = _vlm_groups(cfg)
         B, T = img.shape[:2]
         self_c, cross_c = [], []
         for j in range(g):
             wg = P.layer(w, j)
-            x, kv = prefill_layers(x, wg["self"], s)
+            x, adds, kv = prefill_segments(
+                cfg, run, ctx, tp.INLINE, lambda i: P.layer(wg["self"], i),
+                x, positions, q_chunk, s)
+            x = _resid(x, adds)
             self_c.append(kv)
             x = cross_block_apply(cfg, ctx, wg["cross"], x, img)
             xw = wg["cross"]["xattn"]
@@ -296,7 +264,10 @@ def stack_prefill(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x,
                 for name, wn in (("img_k", "wk"), ("img_v", "wv"))})
         return x, {"self": P.stack_layers(self_c),
                    "cross": P.stack_layers(cross_c)}
-    return prefill_layers(x, w["layers"], cfg.num_layers)
+    x, adds, cache = prefill_segments(cfg, run, ctx, tp.INLINE,
+                                      lambda i: P.layer(w["layers"], i), x,
+                                      positions, q_chunk, cfg.num_layers)
+    return _resid(x, adds), cache
 
 
 # --- the segmented stack: tensor parallelism over "model" ----------------------------
@@ -336,18 +307,24 @@ def _same(t):
 
 
 def _attn_half(cfg, ctx, tc, wl, x, adds, positions, q_chunk, *,
-               causal: bool = True):
+               causal: bool = True, kv: Optional[Callable] = None):
     """The attention half of a layer (``causal``: ``_attention_out``'s).
     Returns (x, adds): the residual stream and what the next segment adds
-    to it."""
+    to it; with ``kv`` (a serve's prefill) also the cell's k and v, each
+    passed through ``kv`` in the local segment: (x, adds, (k, v))."""
     tape = tc.tape
     local = tc.plan.attn
     x, h = tape.run(lambda x, *a: _normed(x, a, wl()["ln1"], cfg.norm_eps),
                     x, *adds)
-    part, = tape.run(lambda h: (_attention_out(
-        cfg, ctx, wl()["attn"], h, positions, q_chunk, causal)[0],),
-        tape.enter(h) if local else h)
-    return x, (tape.exit(part) if local else part,)
+
+    def work(h):
+        o, k, v = _attention_out(cfg, ctx, wl()["attn"], h, positions,
+                                 q_chunk, causal)
+        return (o,) if kv is None else (o, kv(k), kv(v))
+
+    part, *cache = tape.run(work, tape.enter(h) if local else h)
+    out = (tape.exit(part) if local else part,)
+    return (x, out) if kv is None else (x, out, tuple(cache))
 
 
 def _mlp_half(cfg, run, ctx, tc, wl, x, adds, *, act: Optional[str] = None):
@@ -516,15 +493,131 @@ def layer_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc, wl,
     ``wl()``. Returns (x, adds, aux): the residual stream, the terms
     still to add to it (``_resid``), the MoE layer's aux loss or None."""
     x, adds = _attn_half(cfg, ctx, tc, wl, x, adds, positions, q_chunk)
+    return _ffn_half(cfg, run, ctx, tc)(cfg, run, ctx, tc, wl, x, adds)
+
+
+def _ffn_half(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc):
+    """A dense or MoE layer's second half on the tape of ``tc``."""
     if not cfg.is_moe:
-        half = _mlp_half
-    elif tc is tp.INLINE:
-        half = _moe_whole
-    elif run.moe_impl == "a2a" and "model" in ctx.mesh.axis_names:
-        half = _a2a_half
+        return _mlp_half
+    if tc is tp.INLINE:
+        return _moe_whole
+    if run.moe_impl == "a2a" and "model" in ctx.mesh.axis_names:
+        return _a2a_half
+    return _moe_half
+
+
+# --- the serve stack's layers: prefill and decode on a tape ---------------------------
+# The dense and MoE serve programs, written once for both callers: in a
+# cell of the partitioned serve (``serve.step``) the layers run on a
+# ``distributed.tensor_parallel.Forward`` tape with the cell's own heads,
+# columns, experts and cache shard (``cut``, an ``attention.CacheCut``);
+# outside it (``stack_prefill``, ``stack_decode``, ``block_prefill``,
+# ``block_decode``) on ``tensor_parallel.INLINE`` with the whole cache
+# (``cut`` None). A forward tape records nothing, so a decode step's
+# cache write and attention run in the cell's own code, between the
+# collectives they need.
+
+
+def _cache_form(cfg: ModelConfig) -> Callable:
+    """A prefill's k or v as the cache keeps it: a sliding window's in its
+    ring layout, in bfloat16."""
+    def form(k):
+        if cfg.sliding_window > 0:
+            k = A.ring_layout(k, cfg.sliding_window)
+        return k.to(torch.bfloat16)
+
+    return form
+
+
+def layer_prefill(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc, wl,
+                  x, adds, positions, q_chunk: int, *, kv: Callable = _same,
+                  cut: Optional[A.CacheCut] = None):
+    """One dense or MoE layer's prefill on the tape of ``tc``, its leaves
+    read by ``wl()``: ``layer_segments``' halves, the attention's k and v
+    passed through ``kv`` (``_cache_form``) and, in a serve cell, laid out
+    as its cache shard (``attention.cache_rest``). Returns (x, adds, k,
+    v)."""
+    x, adds, (k, v) = _attn_half(cfg, ctx, tc, wl, x, adds, positions,
+                                 q_chunk, kv=kv)
+    if cut is not None:
+        k, v = A.cache_rest(tc.tape, k, cut), A.cache_rest(tc.tape, v, cut)
+    x, adds, _ = _ffn_half(cfg, run, ctx, tc)(cfg, run, ctx, tc, wl, x, adds)
+    return x, adds, k, v
+
+
+def layer_decode(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc, wl,
+                 x, adds, ck, cv, pos: int, *,
+                 cut: Optional[A.CacheCut] = None, use_flash: bool = False):
+    """One dense or MoE layer's decode step on the tape of ``tc`` against
+    its cache ``ck``, ``cv``: the whole cache (``cut`` None; ``use_flash``
+    on a mesh: ``flash_decode``) or a serve cell's shard of it
+    (``attention.cell_decode``). Returns (x, adds, ck, cv)."""
+    tape = tc.tape
+    local = tc.plan.attn
+    x, h = tape.run(lambda x, *a: _normed(x, a, wl()["ln1"], cfg.norm_eps),
+                    x, *adds)
+    B = x.shape[0]
+
+    def qkv(h):
+        posv = torch.full((B, 1), pos, dtype=torch.int32, device=h.device)
+        wa = wl()["attn"]
+        return (A.project_q(cfg, wa, h, posv, ctx),
+                *A.project_kv(cfg, wa, h, posv, ctx))
+
+    q, k, v = tape.run(qkv, tape.enter(h) if local else h)
+    window, softcap = cfg.sliding_window, cfg.attn_logit_softcap
+    if cut is not None:
+        o, ck, cv = A.cell_decode(tape, q, k, v, ck, cv, pos, cut,
+                                  window=window, softcap=softcap)
     else:
-        half = _moe_half
-    return half(cfg, run, ctx, tc, wl, x, adds)
+        ck, cv = A.cache_update(ck, cv, k, v, pos, window=window)
+        if use_flash and ctx.mesh is not None:
+            o = A.flash_decode(q, ck, cv, pos, ctx.mesh, softcap=softcap,
+                               window=window)
+        else:
+            o = A.decode_attention(q, ck, cv, pos, window=window,
+                                   softcap=softcap)
+    part, = tape.run(lambda o: (matmul(o.reshape(B, 1, -1),
+                                       wl()["attn"]["wo"]),), o)
+    adds = (tape.exit(part) if local else part,)
+    x, adds, _ = _ffn_half(cfg, run, ctx, tc)(cfg, run, ctx, tc, wl, x, adds)
+    return x, adds, ck, cv
+
+
+def prefill_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc,
+                     layer: Callable, x, positions, q_chunk: int, n: int, *,
+                     cut: Optional[A.CacheCut] = None):
+    """``n`` layers' prefill on the tape of ``tc``, layer ``i``'s leaves
+    ``layer(i)`` (taken once a layer: a serve cell gathers them there).
+    Returns (x, adds, cache): the cache's k and v stacked (L, ...), in a
+    serve cell its shard."""
+    adds, ks, vs = (), [], []
+    form = _cache_form(cfg)
+    for i in range(n):
+        wi = layer(i)
+        x, adds, k, v = layer_prefill(cfg, run, ctx, tc, lambda: wi, x, adds,
+                                      positions, q_chunk, kv=form, cut=cut)
+        ks.append(k)
+        vs.append(v)
+    return x, adds, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def decode_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc,
+                    layer: Callable, cache, x, pos: int, n: int, *,
+                    cut: Optional[A.CacheCut] = None,
+                    use_flash: bool = False):
+    """``n`` layers' decode step on the tape of ``tc`` (``layer`` as in
+    ``prefill_segments``). Returns (x, adds, the new cache)."""
+    adds, ks, vs = (), [], []
+    for i in range(n):
+        wi = layer(i)
+        x, adds, ck, cv = layer_decode(cfg, run, ctx, tc, lambda: wi, x, adds,
+                                       cache["k"][i], cache["v"][i], pos,
+                                       cut=cut, use_flash=use_flash)
+        ks.append(ck)
+        vs.append(cv)
+    return x, adds, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
 def cross_segments(cfg: ModelConfig, ctx: ShardingCtx, tc, wc, x, adds, img):

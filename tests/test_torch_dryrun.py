@@ -180,12 +180,17 @@ def test_cells_count_their_work_and_collectives():
 
 
 def test_a2a_program_counts_the_work_of_its_four_cells():
-    """olmoe-1b-7b's smoke prefill with the a2a MoE on a (1, 4) mesh: the
-    traced FLOPs are the dense-layer FLOPs (the same program with the MoE
-    layers' expert work counted apart) plus each MoE layer's work on all
-    4 ranks: a router product of every token and the expert FFNs over
-    every rank's buckets; each layer's two all-to-alls, one all-gather
-    and one all-reduce a device."""
+    """olmoe-1b-7b's smoke prefill with the a2a MoE on a (1, 4) mesh,
+    partitioned over it (``serve.step``): the traced FLOPs of its four
+    cells are the dense-layer FLOPs (the same program with the MoE
+    layers' expert work counted apart; each cell's heads and vocabulary
+    columns are a quarter of them) plus each MoE layer's work on all 4
+    ranks: a router product of every token and the expert FFNs over every
+    rank's buckets. A device's collectives: each layer's two all-to-alls
+    of the a2a and two that lay the cache's k and v out over the
+    sequence, the router's gather and the a2a's rejoin (all-gathers), the
+    attention's and the aux loss's exits (all-reduces); and once the
+    embedding's exit and the greedy token's two pmax."""
     b = registry.get("olmoe-1b-7b")
     cfg = b.smoke
     run = b.run.replace(moe_impl="a2a")
@@ -203,7 +208,7 @@ def test_a2a_program_counts_the_work_of_its_four_cells():
     dense_moe = L * _dense_moe_flops(cfg, T)
     assert s.dot_flops == dense_s.dot_flops - dense_moe + moe
     assert {op: d_["count"] for op, d_ in s.per_op.items()} == {
-        "all-to-all": 2 * L, "all-gather": L, "all-reduce": L}
+        "all-to-all": 4 * L, "all-gather": 2 * L, "all-reduce": 2 * L + 3}
 
 
 def _dense_moe_flops(cfg, T):
@@ -232,14 +237,14 @@ def test_mesh_cells_refuse_collectives_they_cannot_count(tmp_path):
     assert r["ok"] and r["n_chips"] == 1
 
 
-def test_single_mesh_cell_shards_arguments_and_traces_one_data_cell(
-        tmp_path):
-    """The 16 x 16 mesh: the arguments are the largest shards, the trace
-    one data cell's 2 sequences (32 / 16) at full width, its
-    activations flagged an upper bound."""
-    r = dryrun.run_cell("smollm-135m", "prefill_32k", "single", "baseline",
+def _single_mesh_cell(tmp_path, arch):
+    """(the 16 x 16 mesh's prefill_32k cell of ``arch``'s smoke config,
+    the card's), held alike: the arguments the largest shards, the trace
+    one data cell's 2 sequences (32 / 16), its activations flagged an
+    upper bound."""
+    r = dryrun.run_cell(arch, "prefill_32k", "single", "baseline",
                         str(tmp_path), smoke=True)
-    card = dryrun.run_cell("smollm-135m", "prefill_32k", "card", "baseline",
+    card = dryrun.run_cell(arch, "prefill_32k", "card", "baseline",
                            str(tmp_path), smoke=True)
     assert r["ok"] and r["n_chips"] == 256 and r["traced_batch"] == 2
     assert card["traced_batch"] == 32
@@ -247,11 +252,33 @@ def test_single_mesh_cell_shards_arguments_and_traces_one_data_cell(
     assert pb["activations_upper_bound"] and not cb["activations_upper_bound"]
     assert pb["arguments"] < cb["arguments"]
     assert r["ops"]["kernel_calls"] == card["ops"]["kernel_calls"]
-    assert r["collectives_not_issued"] and card["collectives_not_issued"] \
-        is None
-    with open(tmp_path / "smollm-135m__prefill_32k__single__baseline.json"
+    assert card["collectives_not_issued"] is None
+    with open(tmp_path / f"{arch}__prefill_32k__single__baseline.json"
               ) as f:
         assert json.load(f)["ok"]
+    return r
+
+
+def test_single_mesh_cell_shards_arguments_and_traces_one_data_cell(
+        tmp_path):
+    """The 16 x 16 mesh: the arguments are the largest shards, the trace
+    one data cell's 2 sequences (32 / 16), its activations flagged an
+    upper bound (smollm's attention repeats in every cell: its 3 heads do
+    not split). The prefill is partitioned (``serve.step``): the cell's
+    collectives are counted, none is left unissued."""
+    r = _single_mesh_cell(tmp_path, "smollm-135m")
+    assert r["collectives_not_issued"] is None
+    assert r["per_device_bytes"]["repeated_over_model"] == ["attention"]
+    assert r["ops"]["per_axes"]["all-gather over data"]["count"] > 0
+
+
+def test_single_mesh_whole_model_cell_names_the_unissued_collectives(
+        tmp_path):
+    """whisper-small's prefill on the 16 x 16 mesh serves the model whole
+    in its data cell: it names the collectives that GSPMD would insert."""
+    r = _single_mesh_cell(tmp_path, "whisper-small")
+    assert r["collectives_not_issued"] == dryrun.NOT_ISSUED
+    assert r["per_device_bytes"]["repeated_over_model"] == ["every block"]
 
 
 REF_ARG_BYTES = """

@@ -1,0 +1,456 @@
+"""The port's serve programs partitioned over a mesh (``serve.step``'s
+partitioned prefill and decode steps, ``launch.serve.pad_cache`` and
+``generate`` on a mesh), on virtual CPU meshes, against the reference's
+GSPMD serve programs on fake host devices.
+
+The reference runs in one subprocess on 4 fake host devices
+(``test_torch_spmd.run_reference``): ``jax.jit`` of its prefill step and
+decode step with the logits returned beside the next tokens
+(``lm.prefill_fn``, ``lm.decode_fn`` and the greedy head of
+``serve.step``), their arguments and the cache laid out by
+``launch.programs._ns_tree`` under ``ShardingCtx.for_mesh``. Cases: the
+smoke configs of smollm-135m, h2o-danube-3-4b (its sliding-window ring),
+olmoe-1b-7b (the dense dispatch under ``baseline``, and ``moe_impl="a2a"``
+under ``moe_a2a``) and llama4-scout (a shared expert), f32 compute, on
+(2, 2) and (1, 2); batch 4 x prompt 32, and prompt 27, where the
+sequence does not divide and the rules cut the cache's kv heads, or
+nothing; the weights drawn by the reference and carried over; the
+cache padded for 4 generated tokens (the reference re-lays it to the
+decode program's specs with ``jax.device_put``), then 3 decode steps fed
+the same tokens. Held at each step: every cell's cache shard indices,
+exactly (``devices_indices_map``); the logits within 1e-4 x max(1,
+max|ref|); every cache shard within that of the reference's device shard
+at the same mesh position, to one bfloat16 rounding, since both packages
+keep the cache in bfloat16 (``assert_same_rounding``); the next tokens,
+equal.
+
+In the port alone: the partitioned serve against the port's own
+unpartitioned serve in f32; ``generate`` on a virtual mesh giving the
+null context's ids; the flash calls of a prefill on each cell's heads
+(olmoe's smoke) and on all heads (smollm's, whose 3 heads do not split);
+no decode step gathers a tensor of a cache shard's size (``spmd.observe``)
+and ``pad_cache`` never assembles the whole cache; and three planted
+breaches, each refused by the reference differential: the attention's
+exit without its psum, the new token written into every cell's block,
+each cell's own argmax without the group's combine.
+"""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+from repro_torch.configs import registry  # noqa: E402
+from repro_torch.distributed import spmd  # noqa: E402
+from repro_torch.distributed.sharding import (MeshArray,  # noqa: E402
+                                              ShardingCtx, place)
+from repro_torch.distributed.resharding import normalize_index  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import attention as A  # noqa: E402
+from repro_torch.models import params as P  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.serve import step as S  # noqa: E402
+from test_torch_mesh_train import counted_flash, virtual  # noqa: E402,F401
+from test_torch_rwkv import assert_close  # noqa: E402
+from test_torch_spmd import run_reference  # noqa: E402
+from test_torch_zamba2 import assert_same_rounding  # noqa: E402
+
+SMOLLM, DANUBE = "smollm-135m", "h2o-danube-3-4b"
+OLMOE, SCOUT = "olmoe-1b-7b", "llama4-scout-17b-a16e"
+B, PROMPT, GEN, SEED = 4, 32, 4, 5
+STEPS = GEN - 1
+# (arch, moe_impl, (data, model), prompt)
+CASES = (
+    (SMOLLM, "dense", (2, 2), PROMPT), (SMOLLM, "dense", (1, 2), PROMPT),
+    (SMOLLM, "dense", (2, 2), 27),
+    (DANUBE, "dense", (2, 2), PROMPT), (DANUBE, "dense", (1, 2), PROMPT),
+    (OLMOE, "dense", (2, 2), PROMPT), (OLMOE, "dense", (1, 2), PROMPT),
+    (OLMOE, "dense", (2, 2), 27),
+    (OLMOE, "a2a", (2, 2), PROMPT), (OLMOE, "a2a", (1, 2), PROMPT),
+    (SCOUT, "dense", (2, 2), PROMPT), (SCOUT, "dense", (1, 2), PROMPT),
+)
+ARCHS = sorted({c[0] for c in CASES})
+
+
+def key(case) -> str:
+    arch, impl, (d, m), prompt = case
+    return f"{arch}/{impl}/{d}x{m}/{prompt}"
+
+
+REF_SERVE = """
+import json
+from repro.configs import registry
+from repro.configs.base import ShapeSpec
+from repro.distributed.sharding import ShardingCtx
+from repro.launch.mesh import make_host_mesh
+from repro.launch.programs import _ns_tree
+from repro.models import lm, params as P
+
+def shards(x, shape):
+    by_dev = {s.device: (np.asarray(s.data), s.index)
+              for s in x.addressable_shards}
+    out, idx = [], []
+    for dv in x.sharding.mesh.devices.flat:
+        data, index = by_dev[dv]
+        out.append(data.astype(np.float32))
+        idx.append([[0 if sl.start is None else sl.start,
+                     d if sl.stop is None else sl.stop]
+                    for sl, d in zip(index, shape)])
+    return out, json.dumps(idx)
+
+def keep(prefix, cache):
+    for name in ("k", "v"):
+        data, idx = shards(cache[name], cache[name].shape)
+        out[f"{prefix}/{name}/shards"] = data
+        out[f"{prefix}/{name}/indices"] = idx
+
+for arch in inp["archs"]:
+    cfg = registry.get(arch).smoke
+    out[f"{arch}/params"] = P.materialize(
+        lm.param_specs(cfg), jax.random.PRNGKey(inp["seed"]),
+        dtype="float32")
+
+for arch, impl, (d, m), prompt in inp["cases"]:
+    b = registry.get(arch)
+    cfg = b.smoke
+    run = b.run.replace(compute_dtype="float32", moe_impl=impl)
+    mesh = make_host_mesh(d, m)
+    ctx = ShardingCtx.for_mesh(mesh, "moe_a2a" if impl == "a2a" else
+                               "baseline")
+    key = f"{arch}/{impl}/{d}x{m}/{prompt}"
+    toks = inp["tokens"]
+    params = jax.device_put(out[f"{arch}/params"],
+                            _ns_tree(lm.param_specs(cfg), ctx))
+
+    def prefill(p, batch):
+        logits, cache = lm.prefill_fn(cfg, run, ctx, p, batch)
+        return jnp.argmax(logits, axis=-1).astype(jnp.int32), cache, logits
+
+    def decode(p, cache, batch):
+        logits, cache = lm.decode_fn(cfg, run, ctx, p, cache, batch)
+        return jnp.argmax(logits, axis=-1).astype(jnp.int32), cache, logits
+
+    pre_shape = ShapeSpec("p", "prefill", prompt, toks.shape[0])
+    dec_len = prompt + (0 if cfg.sliding_window else inp["gen"])
+    dec_shape = ShapeSpec("d", "decode", dec_len, toks.shape[0])
+    pre_ns = _ns_tree(lm.cache_specs(cfg, pre_shape), ctx)
+    dec_ns = _ns_tree(lm.cache_specs(cfg, dec_shape), ctx)
+    in_ns = _ns_tree(lm.input_specs(cfg, pre_shape), ctx)
+    with mesh:
+        tok, cache, logits = jax.jit(
+            prefill, out_shardings=(None, pre_ns, None))(
+            params, {"tokens": jax.device_put(toks[:, :prompt],
+                                              in_ns["tokens"])})
+    out[f"{key}/prefill/tok"], out[f"{key}/prefill/logits"] = tok, logits
+    keep(f"{key}/prefill", cache)
+    if not cfg.sliding_window:
+        padw = [(0, 0)] * 5
+        padw[2] = (0, inp["gen"])
+        cache = {name: np.pad(np.asarray(cache[name]), padw)
+                 for name in ("k", "v")}
+    cache = jax.device_put(cache, dec_ns)
+    keep(f"{key}/padded", cache)
+    step = jax.jit(decode, out_shardings=(None, dec_ns, None))
+    for i in range(inp["steps"]):
+        t = prompt + i
+        with mesh:
+            tok, cache, logits = step(params, cache, {
+                "tokens": jnp.asarray(toks[:, t:t + 1]),
+                "pos": jnp.int32(t)})
+        out[f"{key}/decode{i}/tok"] = tok
+        out[f"{key}/decode{i}/logits"] = logits
+        keep(f"{key}/decode{i}", cache)
+"""
+
+
+def tokens() -> np.ndarray:
+    return np.random.default_rng(SEED).integers(
+        0, 256, (B, PROMPT + STEPS), dtype=np.int32)
+
+
+@pytest.fixture(scope="module")
+def reference():
+    return run_reference(REF_SERVE, {
+        "archs": ARCHS, "cases": CASES, "seed": SEED, "tokens": tokens(),
+        "gen": GEN, "steps": STEPS}, 4)
+
+
+def setup(case, reference):
+    """(cfg, run, ctx, the reference's weights laid out over the case's
+    virtual mesh)."""
+    arch, impl, (d, m), _ = case
+    b = registry.get(arch)
+    run = b.run.replace(compute_dtype="float32", moe_impl=impl)
+    ctx = ShardingCtx.for_mesh(virtual(d, m),
+                               "moe_a2a" if impl == "a2a" else "baseline")
+    prm = P.from_reference(reference[f"{arch}/params"], "cpu")
+    return b.smoke, run, ctx, prm
+
+
+def serve_steps(cfg, run, ctx, prm, prompt, feed=None):
+    """The partitioned prefill, the cache padded for GEN tokens, and
+    STEPS decode steps fed the same tokens as the reference's: [(name,
+    next tokens, cache, logits)]. ``feed(name, cache)``: the cache that
+    the decode step after step ``name`` starts from, in place of the
+    step's own (a bfloat16 rounding flip in a cache moves the next
+    logits past 1e-4; each decode step is held from the same cache)."""
+    toks = torch.from_numpy(tokens())
+    prefill = S.make_prefill_step(cfg, run, ctx)
+    decode = S.make_decode_step(cfg, run, ctx)
+    if ctx.mesh is not None:
+        prm = S.laid_out(cfg, ctx, prm)
+    tok, cache, logits = prefill(prm, {"tokens": toks[:, :prompt]},
+                                 logits=True)
+    out = [("prefill", tok, cache, logits)]
+    cache = serve.pad_cache(cfg, cache, GEN)
+    out.append(("padded", None, cache, None))
+    for i in range(STEPS):
+        t = prompt + i
+        if feed is not None:
+            cache = feed(out[-1][0], cache)
+        tok, cache, logits = decode(prm, cache, {
+            "tokens": toks[:, t:t + 1], "pos": t}, logits=True)
+        out.append((f"decode{i}", tok, cache, logits))
+    return out
+
+
+def from_reference(reference, k):
+    """``serve_steps``' ``feed``: the reference's cache after the step,
+    each cell's shard its device's, laid out as the port's."""
+    def feed(name, cache):
+        return {leaf: MeshArray(
+            cache[leaf].shape, torch.bfloat16, cache[leaf].sharding,
+            [torch.from_numpy(w).to(torch.bfloat16)
+             for w in reference[f"{k}/{name}/{leaf}/shards"]])
+            for leaf in ("k", "v")}
+
+    return feed
+
+
+def gaps(steps, reference, k) -> list:
+    """What of ``steps`` (``serve_steps``) differs from the reference's
+    case ``k``: each failed hold's message."""
+    bad = []
+
+    def hold(fn, *args):
+        try:
+            fn(*args)
+        except AssertionError as e:
+            bad.append(str(e)[:200])
+
+    for name, tok, cache, logits in steps:
+        at = f"{k}/{name}"
+        for leaf in ("k", "v"):
+            got = cache[leaf]
+            if not isinstance(got, MeshArray):
+                bad.append(f"{at} {leaf}: not a MeshArray")
+                continue
+            want_idx = json.loads(str(reference[f"{at}/{leaf}/indices"]))
+            got_idx = [[list(p) for p in normalize_index(index, got.shape)]
+                       for _, index, _ in got.addressable_shards]
+            if got_idx != want_idx:
+                bad.append(f"{at} {leaf}: indices {got_idx} != {want_idx}")
+                continue
+            for pos, (g, w) in enumerate(zip(got.shards, reference[
+                    f"{at}/{leaf}/shards"], strict=True)):
+                hold(assert_same_rounding, g, w, f"{at} {leaf} cell {pos}")
+        if logits is None:
+            continue
+        hold(assert_close, logits, reference[f"{at}/logits"], 1e-4,
+             f"{at} logits")
+        if not np.array_equal(tok.numpy(), reference[f"{at}/tok"]):
+            bad.append(f"{at}: next tokens {tok.tolist()} != "
+                       f"{reference[f'{at}/tok'].tolist()}")
+    return bad
+
+
+@pytest.mark.parametrize("case", CASES, ids=key)
+def test_partitioned_serve_matches_reference_on_its_mesh(reference, case):
+    cfg, run, ctx, prm = setup(case, reference)
+    assert S.partitioned(cfg, run, ctx)
+    steps = serve_steps(cfg, run, ctx, prm, case[3],
+                        from_reference(reference, key(case)))
+    assert gaps(steps, reference, key(case)) == []
+    # the rules cut the cache's sequence where it divides, else its kv
+    # heads where they divide, else neither
+    spec = steps[0][2]["k"].sharding.spec
+    if case[3] == PROMPT:
+        assert spec[2:3] == ("model",), spec
+    elif cfg.num_kv_heads % 2 == 0:
+        assert spec[2:] == (None, "model"), spec
+    else:
+        assert "model" not in spec, spec
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c[1] == "dense"],
+                         ids=key)
+def test_partitioned_serve_matches_the_whole_one(reference, case):
+    """The partitioned steps against the port's own unpartitioned ones,
+    from the same weights and tokens, each decode step from the whole
+    serve's cache: logits within 1e-4 x max(1, max|whole|), each cache
+    gathered to one bfloat16 rounding, the same next tokens."""
+    cfg, run, ctx, prm = setup(case, reference)
+    want = serve_steps(cfg, run, ShardingCtx.null(), prm, case[3])
+    whole = {name: cache for name, _, cache, _ in want}
+
+    def feed(name, cache):  # the whole serve's cache, laid out as this one
+        return {leaf: place(whole[name][leaf], cache[leaf].sharding)
+                for leaf in ("k", "v")}
+
+    got = serve_steps(cfg, run, ctx, prm, case[3], feed)
+    for (name, tok, cache, logits), (_, wtok, wcache, wlogits) in zip(
+            got, want, strict=True):
+        for leaf in ("k", "v"):
+            assert_same_rounding(cache[leaf].gather(), wcache[leaf].float(),
+                                 f"{name} {leaf}")
+        if logits is not None:
+            assert_close(logits, wlogits, 1e-4, f"{name} logits")
+            assert torch.equal(tok, wtok), name
+
+
+@pytest.mark.parametrize("arch", [SMOLLM, OLMOE])
+def test_generate_on_a_virtual_mesh_gives_the_null_contexts_ids(reference,
+                                                                 arch):
+    cfg, run, ctx, prm = setup((arch, "dense", (2, 2), PROMPT), reference)
+    batch = {"tokens": torch.from_numpy(tokens()[:, :PROMPT])}
+    want, _ = serve.generate(cfg, run, prm, batch, 6)
+    got, times = serve.generate(cfg, run, prm, batch, 6, ctx)
+    assert got.shape == (B, 6) and np.array_equal(got, want)
+    assert times["prefill_s"] > 0
+
+
+@pytest.mark.parametrize("arch,heads", [(OLMOE, "cell"), (SMOLLM, "all")])
+def test_prefill_flash_calls_run_on_the_cells_heads(reference, counted_flash,
+                                                    arch, heads):
+    """Every cell of (2, 2) calls flash once a layer on its 2 rows: on its
+    own heads where they split over ``model`` (olmoe's 4 over 2), on all
+    of them where they do not (smollm's 3)."""
+    cfg, run, ctx, prm = setup((arch, "dense", (2, 2), PROMPT), reference)
+    prefill = S.make_prefill_step(cfg, run, ctx)
+    prefill(S.laid_out(cfg, ctx, prm),
+            {"tokens": torch.from_numpy(tokens()[:, :PROMPT])})
+    h = cfg.num_heads // (2 if heads == "cell" else 1)
+    assert S.make_prefill_step(cfg, run, ctx).plan_at(
+        {"tokens": torch.zeros(B, PROMPT)}).attn == (heads == "cell")
+    assert counted_flash == [(B // 2, PROMPT, h, cfg.head_dim)] * (
+        4 * cfg.num_layers)
+
+
+def test_no_cell_gathers_the_whole_cache(reference, monkeypatch):
+    """In every decode step each collective that is not a weight's gather
+    (those are labelled with the leaf's path) returns less than one
+    layer's cache shard; ``pad_cache`` re-lays the cache without
+    assembling it anywhere."""
+    case = (OLMOE, "dense", (2, 2), PROMPT)
+    cfg, run, ctx, prm = setup(case, reference)
+    prm = S.laid_out(cfg, ctx, prm)
+    toks = torch.from_numpy(tokens())
+    _, cache = S.make_prefill_step(cfg, run, ctx)(
+        prm, {"tokens": toks[:, :PROMPT]})
+
+    def refuse(*a, **kw):
+        raise AssertionError("a MeshArray assembled whole")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(MeshArray, "gather", refuse)
+        cache = serve.pad_cache(cfg, cache, GEN)
+    layer_shard = cache["k"].shards[0][0].numel()
+    seen = []
+
+    def note(op, out, g, cell, *, axes, label):
+        if label is None:
+            seen.append((op, out.numel()))
+
+    decode = S.make_decode_step(cfg, run, ctx)
+    with spmd.observe(note):
+        for i in range(STEPS):
+            decode(prm, cache, {"tokens": toks[:, PROMPT + i:PROMPT + i + 1],
+                                "pos": PROMPT + i})
+    assert seen and max(n for _, n in seen) < layer_shard, (layer_shard,
+                                                            seen)
+
+
+def _attention_exit_without_psum(monkeypatch):
+    real = T._attn_half
+
+    def breached(cfg, ctx, tc, *a, **kw):
+        tc.tape.exit = lambda x, axis="model": x
+        try:
+            return real(cfg, ctx, tc, *a, **kw)
+        finally:
+            del tc.tape.exit
+
+    monkeypatch.setattr(T, "_attn_half", breached)
+
+
+def _token_written_into_every_block(monkeypatch):
+    real = A.cell_decode
+
+    def breached(tape, q, k, v, ck, cv, pos, cut, **kw):
+        if cut.dim == 1:
+            kk, vv = ((tape.all_gather(t, "model", 2) for t in (k, v))
+                      if cut.local else (k, v))
+            ck, cv = A.cache_update(ck, cv, kk, vv, pos % ck.shape[1])
+        return real(tape, q, k, v, ck, cv, pos, cut, **kw)
+
+    monkeypatch.setattr(A, "cell_decode", breached)
+
+
+def _own_argmax(monkeypatch):
+    def breached(cfg, tc, logits):
+        lo = tc.block(cfg.vocab_size)[0] if tc.plan.vocab else 0
+        return (torch.argmax(logits, dim=-1) + lo).to(torch.int32)
+
+    monkeypatch.setattr(S, "_greedy", breached)
+
+
+@pytest.mark.parametrize("breach", [_attention_exit_without_psum,
+                                    _token_written_into_every_block,
+                                    _own_argmax])
+def test_planted_breaches_fail_the_reference_differential(reference,
+                                                          monkeypatch,
+                                                          breach):
+    case = (OLMOE, "dense", (2, 2), PROMPT)
+    cfg, run, ctx, prm = setup(case, reference)
+    breach(monkeypatch)
+    assert gaps(serve_steps(cfg, run, ctx, prm, PROMPT,
+                            from_reference(reference, key(case))),
+                reference, key(case))
+
+
+@pytest.mark.parametrize("arch,shape,mesh,ruleset,partitioned", [
+    (SMOLLM, "prefill_32k", "single", "baseline", True),
+    (DANUBE, "decode_32k", "multi", "baseline", True),
+    (OLMOE, "decode_32k", "single", "moe_a2a", True),
+    (SCOUT, "prefill_32k", "multi", "baseline", True),
+    (SMOLLM, "prefill_32k", "single", "decode_flash", False),
+    ("llama-3.2-vision-11b", "decode_32k", "single", "baseline", False),
+    ("whisper-small", "prefill_32k", "multi", "baseline", False),
+    ("rwkv6-7b", "decode_32k", "single", "baseline", False),
+    ("zamba2-7b", "prefill_32k", "single", "baseline", False)])
+def test_dryrun_traces_a_partitioned_serve_cell(tmp_path, arch, shape, mesh,
+                                                ruleset, partitioned):
+    """On the reference's meshes a dense or MoE serve cell under the
+    ``baseline`` or ``moe_a2a`` rules is traced as its first cell alone:
+    its collectives counted by axes, none left unissued; every other
+    family, and the ``decode_flash`` ruleset, still serves the model whole
+    in its data cell and names the collectives GSPMD would insert."""
+    from repro_torch.launch import dryrun
+
+    r = dryrun.run_cell(arch, shape, mesh, ruleset, str(tmp_path),
+                        smoke=True)
+    assert r["ok"], r.get("error")
+    axes = r["ops"]["per_axes"]
+    if partitioned:
+        assert r["collectives_not_issued"] is None
+        assert any(k.endswith("over model") for k in axes), axes
+        assert any("data" in k for k in axes), axes
+    else:
+        assert r["collectives_not_issued"] == dryrun.NOT_ISSUED
+        assert r["per_device_bytes"]["repeated_over_model"] == [
+            "every block"]
