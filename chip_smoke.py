@@ -75,7 +75,11 @@ after ``serve_smollm`` and ``serve_olmoe_a2a``: the serve programs
 partitioned over a (2, 2) mesh on the serve phase's weights and prompt,
 each cell holding its shard of the weights and of the KV cache and
 computing on its own heads, experts and vocabulary, held in f32 at 2
-layers against the same serve unpartitioned;
+layers against the same serve unpartitioned; ``serve_mesh_vlm`` and
+``serve_mesh_whisper``, after ``serve_vlm`` and ``serve_whisper``: the
+same for the cross-attention families, each cell also holding its kv
+heads' shard of the cross KV, the VLM held in f32 at one super-block (5
+layers), whisper-small whole;
 ``train_mesh_rwkv6``, after ``train_rwkv6``: rwkv6-7b at 2 layers,
 each cell's own WKV heads, channel-mix columns and vocabulary, held
 against the same steps unpartitioned; ``train_mesh_vlm``, after
@@ -102,6 +106,7 @@ CUDA device is present or when run outside a checkout.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import json
@@ -184,9 +189,11 @@ SSD_TOL = 2e-4  # x max(1, max|ref|), for y and the state
 # zamba2 cell's own shared block in train_mesh_zamba2 (16 of the 32 heads,
 # 4 rows); last a cell's own prefill attention in the partitioned serves:
 # olmoe-1b-7b's 8 of its 16 heads (serve_mesh_olmoe, 2 rows), all of
-# smollm-135m's 9 over 3 (serve_mesh_smollm, 2 rows: they do not split)
-# and olmoe-1b-7b's 4 of its 16 heads (serve_olmoe_a2a's (1, 4) mesh, 4
-# rows).
+# smollm-135m's 9 over 3 (serve_mesh_smollm, 2 rows: they do not split),
+# olmoe-1b-7b's 4 of its 16 heads (serve_olmoe_a2a's (1, 4) mesh, 4
+# rows), a VLM serve cell's 16 q heads over 4 kv heads (serve_mesh_vlm, 2
+# rows), self and cross, and a whisper serve cell's 6 of the 12 heads
+# (serve_mesh_whisper, 2 rows): the encoder's, the decoder's, the cross.
 FLASH_CASES = ((2, 256, 256, 4, 2, 64, True, 0, 0.0),
                (1, 512, 512, 8, 8, 128, True, 0, 0.0),
                (2, 256, 256, 4, 4, 64, False, 0, 0.0),
@@ -221,7 +228,12 @@ FLASH_CASES = ((2, 256, 256, 4, 2, 64, True, 0, 0.0),
                (4, 2048, 2048, 16, 16, 112, True, 0, 0.0),
                (2, 1024, 1024, 8, 8, 128, True, 0, 0.0),
                (2, 1024, 1024, 9, 3, 64, True, 0, 0.0),
-               (4, 1024, 1024, 4, 4, 128, True, 0, 0.0))
+               (4, 1024, 1024, 4, 4, 128, True, 0, 0.0),
+               (2, 1024, 1024, 16, 4, 128, True, 0, 0.0),
+               (2, 1024, 6404, 16, 4, 128, False, 0, 0.0),
+               (2, 1500, 1500, 6, 6, 64, False, 0, 0.0),
+               (2, 384, 384, 6, 6, 64, True, 0, 0.0),
+               (2, 384, 1500, 6, 6, 64, False, 0, 0.0))
 FLASH_HEADLINE = ((4, 1024, 1024, 32, 32, 112, True, 0, 0.0), "bfloat16")
 # atol = rtol, as the tests; the atol taken at the output's own scale where
 # that is below 1 (flash_within)
@@ -4449,9 +4461,12 @@ def phase_serve_cross(name):
     in the prefill (the VLM's self and cross layers; whisper's encoder
     layers and its decoder's self and cross attention) and never in a
     decode step. Then the prefill through the kernel and the plain
-    version (``logits_against_plain``), the same prefill with the gates at
-    0 (the VLM: the cross layers must move the logits by more than the
-    kernel's bf16 bound), and a profiled prefill and 8 decode steps."""
+    version (``logits_against_plain``, its f32 plain logits kept for the
+    partitioned serve), the same prefill with the gates at 0 (the VLM: the
+    cross layers must move the logits by more than the kernel's bf16
+    bound), and a profiled prefill and 8 decode steps. Returns the flash
+    launches, the weights and the batch (tokens and embeddings), which
+    the partitioned serve of the same model takes (``phase_serve_mesh``)."""
     import torch
 
     from repro_torch.configs import registry
@@ -4524,7 +4539,7 @@ def phase_serve_cross(name):
     seconds["steps"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    chk = logits_against_plain(cfg, run, prm, batch)
+    chk = logits_against_plain(cfg, run, prm, batch, keep=name)
     seconds["logits_against_plain"] = time.perf_counter() - t0
     moved = None
     if gates is not None:  # the cross layers move the logits
@@ -4563,9 +4578,7 @@ def phase_serve_cross(name):
          generated_ids_row0=ids[0].tolist(),
          logits_moved_by_the_gates=moved, **chk, trace=trace,
          seconds=seconds)
-    del prm, tokens, embeds, batch
-    torch.cuda.empty_cache()
-    return main_launches["flash_attention"]
+    return main_launches["flash_attention"], prm, batch
 
 
 # --- the mesh-parallel paths, on virtual meshes of the card -----------------------
@@ -4991,25 +5004,49 @@ def phase_serve_olmoe_a2a(prm, tokens):
 
 # The serve programs partitioned over a virtual (2, 2) ("data", "model")
 # mesh of the card (serve.step), on a serve phase's own bf16 weights and
-# prompt, right after it: smollm-135m (its 9 heads over 3 kv heads do not
-# split over 2: each cell runs all of them on its 2 rows, and keeps its
-# sequence block of the cache) and olmoe-1b-7b (each cell its 8 of the 16
-# heads, 32 of the 64 experts, half the vocabulary), both whole, batch 4,
-# a 1024-token prompt and greedy tokens through launch/serve.generate: 8,
-# not the serve phases' 32 (SERVE_MESH_CUT: a partitioned decode step on
-# a virtual mesh costs 0.6-1.0 s of the host's time, its 4 cells taking
-# turns, and the smoke keeps to 660 s).
-# Each phase's ``cell_flash``: the flash kernel's q in each cell's prefill
-# layers; ``impls``: the MoE dispatches of its f32 hold, the decision
-# (each partitioned serve against the same depth unpartitioned, at
-# SERVE_MESH_F32's depth and decode steps).
+# prompt (and stub embeddings), right after it: smollm-135m (its 9 heads
+# over 3 kv heads do not split over 2: each cell runs all of them on its 2
+# rows, and keeps its sequence block of the cache), olmoe-1b-7b (each cell
+# its 8 of the 16 heads, 32 of the 64 experts, half the vocabulary),
+# llama-3.2-vision-11b (16 of the 32 q heads over 4 of the 8 kv heads in
+# its self and cross layers, its image KV's 4 kv heads, half the
+# vocabulary) and whisper-small (6 of the 12 heads in its encoder, decoder
+# and cross attention, its cross KV's 6 heads; its 51865-row vocabulary
+# splits over no axis: each cell looks up and computes all the logits),
+# all whole, batch 4, their serve phase's prompt and greedy tokens through
+# launch/serve.generate: 8, not the serve phases' 32 (SERVE_MESH_CUT: a
+# partitioned decode step on a virtual mesh costs 0.6-1.0 s of the host's
+# time, its 4 cells taking turns, and the smoke keeps to its time limit).
+# Each phase's ``cell_flash``: the flash kernel's (q, k) in a cell's
+# prefill and how many launches each cell makes at it; ``impls``: the MoE
+# dispatches of its f32 hold, the decision (each partitioned serve against
+# the same depth unpartitioned, at ``f32_layers`` deep, default
+# SERVE_MESH_F32's; None: whole).
 SERVE_MESH = {
     "serve_mesh_smollm": {"serve": "serve_smollm", "arch": "smollm-135m",
                           "impls": ("dense",),
-                          "cell_flash": (2, 1024, 9, 64)},
+                          "cell_flash": {((2, 1024, 9, 64),
+                                          (2, 1024, 3, 64)): 30}},
     "serve_mesh_olmoe": {"serve": "serve_olmoe", "arch": "olmoe-1b-7b",
                          "impls": ("dense", "a2a"),
-                         "cell_flash": (2, 1024, 8, 128)},
+                         "cell_flash": {((2, 1024, 8, 128),
+                                         (2, 1024, 8, 128)): 16}},
+    # one super-block: 4 self layers and a cross layer (``_vlm_groups``
+    # takes no fewer)
+    "serve_mesh_vlm": {"serve": "serve_vlm", "arch": "llama-3.2-vision-11b",
+                       "impls": ("dense",), "f32_layers": 5,
+                       "cell_flash": {((2, 1024, 16, 128),
+                                       (2, 1024, 4, 128)): 32,
+                                      ((2, 1024, 16, 128),
+                                       (2, 6404, 4, 128)): 8}},
+    "serve_mesh_whisper": {"serve": "serve_whisper", "arch": "whisper-small",
+                           "impls": ("dense",), "f32_layers": None,
+                           "cell_flash": {((2, 1500, 6, 64),
+                                           (2, 1500, 6, 64)): 12,
+                                          ((2, 384, 6, 64),
+                                           (2, 384, 6, 64)): 12,
+                                          ((2, 384, 6, 64),
+                                           (2, 1500, 6, 64)): 12}},
 }
 SERVE_MESH_SHAPE = (2, 2)  # (data, model)
 SERVE_MESH_GEN = 8
@@ -5041,15 +5078,19 @@ def cache_shard_gap(got, want) -> dict:
 
 def cut_layers(prm, cfg):
     """A dense or MoE model's weights ``prm`` cut to ``cfg.num_layers``
-    layers (views of the first ones)."""
+    layers, the VLM's to its first ``cfg.num_layers // cross_attn_every``
+    super-blocks (views of the first ones)."""
     from repro_torch.models import params as P
 
-    return {**prm, "stack": {"layers": P.tree_map(
-        lambda t: t[:cfg.num_layers], prm["stack"]["layers"])}}
+    stack = prm["stack"]
+    n = (cfg.num_layers // cfg.cross_attn_every if cfg.family == "vlm"
+         else cfg.num_layers)
+    return {**prm, "stack": {k: P.tree_map(lambda t: t[:n], v)
+                             for k, v in stack.items()}}
 
 
-def mesh_serve_f32_hold(cfg, run, mesh, prm, tokens, impl: str, steps: int
-                        ) -> dict:
+def mesh_serve_f32_hold(cfg, run, mesh, prm, tokens, impl: str, steps: int,
+                        extra=None) -> dict:
     """The partitioned serve (``serve.step`` over ``mesh``) against the
     same model unpartitioned (``lm.prefill_fn``/``decode_fn``: with no
     mesh for the dense dispatch, the a2a's own shard_map on ``mesh`` for
@@ -5057,8 +5098,9 @@ def mesh_serve_f32_hold(cfg, run, mesh, prm, tokens, impl: str, steps: int
     and ``steps`` decode steps, each decode step from the unpartitioned
     cache laid out as the partitioned one's (a bf16 rounding flip in a
     cache moves the next logits past the tolerance) and fed the
-    unpartitioned greedy tokens. Held: the logits within SERVE_MESH_TOL x
-    max(1, max|unpartitioned|), every cell's cache shard against the
+    unpartitioned greedy tokens; ``extra``: the prefill's embeddings.
+    Held: the logits within SERVE_MESH_TOL x max(1, max|unpartitioned|),
+    every cell's shard of every cache leaf (the cross KV too) against the
     unpartitioned cache's block (``cache_shard_gap``), the greedy ids
     equal."""
     import torch
@@ -5084,10 +5126,9 @@ def mesh_serve_f32_hold(cfg, run, mesh, prm, tokens, impl: str, steps: int
     def held(name, tok, cache, logits, want_logits, want_cache):
         err = (logits.float() - want_logits.float()).abs().max().item()
         scale = max(1.0, want_logits.abs().max().item())
-        gaps = []
-        for leaf in ("k", "v"):
-            for _pos, index, shard in cache[leaf].addressable_shards:
-                gaps.append(cache_shard_gap(shard, want_cache[leaf][index]))
+        gaps = [cache_shard_gap(shard, want[index])
+                for got, want in zip(P.leaves(cache), P.leaves(want_cache))
+                for _pos, index, shard in got.addressable_shards]
         row = {"at": name, "logits_err": err, "logits_scale": scale,
                "cache_excess": max(g["excess"] for g in gaps),
                "cache_differ_share": max(g["differ_share"] for g in gaps),
@@ -5100,18 +5141,19 @@ def mesh_serve_f32_hold(cfg, run, mesh, prm, tokens, impl: str, steps: int
                                           row["cache_differ_share"])
         rows.append(row)
 
+    batch = {"tokens": tokens, **(extra or {})}
     with torch.inference_mode():
         want_logits, want_cache = lm.prefill_fn(cfg, run32, whole_ctx, prm32,
-                                                {"tokens": tokens})
-        tok, cache, logits = prefill(mprm, {"tokens": tokens}, logits=True)
+                                                batch)
+        tok, cache, logits = prefill(mprm, batch, logits=True)
         held("prefill", tok, cache, logits, want_logits, want_cache)
         want_cache = serve.pad_cache(cfg, want_cache, steps)
         cache = serve.pad_cache(cfg, cache, steps)
         for i in range(steps):
             batch = {"tokens": want_logits.argmax(-1).to(torch.int32)[:, None],
                      "pos": prompt + i}
-            fed = {leaf: place(want_cache[leaf], cache[leaf].sharding)
-                   for leaf in ("k", "v")}
+            fed = P.tree_map(lambda w, t: place(w, t.sharding), want_cache,
+                             cache)
             tok, cache, logits = decode(mprm, fed, batch, logits=True)
             want_logits, want_cache = lm.decode_fn(cfg, run32, whole_ctx,
                                                    prm32, want_cache, batch)
@@ -5125,22 +5167,24 @@ def mesh_serve_f32_hold(cfg, run, mesh, prm, tokens, impl: str, steps: int
             "decode_steps": steps, "held": ok, "worst": worst, "rows": rows}
 
 
-def phase_serve_mesh(name, prm, tokens):
-    """A dense or MoE model served partitioned over a virtual (2, 2) mesh
-    of the card (SERVE_MESH[name]), on its serve phase's bf16 weights and
-    prompt, whole: each cell holding its FSDP x model shard of every
-    weight leaf and its shard of the KV cache (MeshArrays; each cell's
-    bytes at rest held equal to the dry-run's argument bytes of the
-    prefill and decode programs), computing on its own heads, columns,
-    experts and vocabulary. The main path, through launch/serve.generate
-    with every kernel count set to 0 just before and read just after:
-    flash once a layer in each cell's prefill at the cell's shape, never
-    in a decode step. Then a warm prefill (its logits held by the serve
+def phase_serve_mesh(name, prm, tokens, extra=None):
+    """A model served partitioned over a virtual (2, 2) mesh of the card
+    (SERVE_MESH[name]), on its serve phase's bf16 weights, prompt and
+    stub embeddings (``extra``: the VLM's image, whisper's frame
+    embeddings), whole: each cell holding its FSDP x model shard of every
+    weight leaf and its shard of the KV cache and of the cross KV
+    (MeshArrays; each cell's bytes at rest held equal to the dry-run's
+    argument bytes of the prefill and decode programs), computing on its
+    own heads, columns, experts and vocabulary. The main path, through
+    launch/serve.generate with every kernel count set to 0 just before
+    and read just after: flash in each cell's prefill exactly as often as
+    ``cell_flash`` says at each of the cell's (q, k) shapes, never in a
+    decode step. Then a warm prefill (its logits held by the serve
     phase's rule: no further from the serve phase's f32 plain logits
     than twice the unpartitioned bf16 logits are) and a profiled prefill
-    and 8 decode steps (the device's idle share), each beside the serve
-    phase's unpartitioned figures; last the f32 hold at f32_layers deep
-    (``mesh_serve_f32_hold``), the decision."""
+    and 2 decode steps (the device's idle share), each beside the serve
+    phase's unpartitioned figures; last the f32 hold at ``f32_layers``
+    deep (``mesh_serve_f32_hold``), the decision."""
     import dataclasses
 
     import torch
@@ -5167,7 +5211,11 @@ def phase_serve_mesh(name, prm, tokens):
     mesh = make_elastic_mesh(d, m, devices=[dev] * cells)
     ctx = ShardingCtx.for_mesh(mesh)
     B, prompt = tokens.shape
+    extra = extra or {}
+    batch = {"tokens": tokens, **extra}
     gen, L = SERVE_MESH_GEN, cfg.num_layers
+    # flash launches a prefill: every cell's at each of its shapes
+    launches = cells * sum(spec["cell_flash"].values())
     base = torch.cuda.memory_allocated()
 
     mprm = laid_out(cfg, ctx, prm)
@@ -5191,13 +5239,14 @@ def phase_serve_mesh(name, prm, tokens):
     for mod in kernels.values():
         mod.reset_launches()
     with FlashShapes() as flash:
-        ids, times = serve.generate(cfg, run, mprm, {"tokens": tokens}, gen,
-                                    ctx)
+        ids, times = serve.generate(cfg, run, mprm, batch, gen, ctx)
     main_launches = {k: mod.launches() for k, mod in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
     assert main_launches == {"blockhash": 0, "wkv6": 0, "ssd": 0,
-                             "flash_attention": cells * L}, main_launches
-    assert set(flash.shapes) == {tuple(spec["cell_flash"])}, set(flash.shapes)
+                             "flash_attention": launches}, main_launches
+    pairs = collections.Counter(flash.pairs)
+    assert pairs == {p: cells * n for p, n in spec["cell_flash"].items()}, \
+        pairs
     assert ids.shape == (B, gen) and ((0 <= ids) & (ids < cfg.vocab_size)).all()
 
     # one prefill alone, then each decode step alone: its launches, and
@@ -5206,14 +5255,15 @@ def phase_serve_mesh(name, prm, tokens):
     decode = make_decode_step(cfg, run, ctx)
     torch.cuda.synchronize()
     l0, t0 = FA.launches(), time.perf_counter()
-    tok, cache, logits = prefill(mprm, {"tokens": tokens}, logits=True)
+    tok, cache, logits = prefill(mprm, batch, logits=True)
     torch.cuda.synchronize()
     prefill_s, prefill_launches = time.perf_counter() - t0, FA.launches() - l0
-    assert prefill_launches == cells * L, prefill_launches
+    assert prefill_launches == launches, prefill_launches
     assert (tok.cpu().numpy() == ids[:, 0]).all()
     cache = serve.pad_cache(cfg, cache, gen)
-    cache_bytes = [sum(cache[k].shards[p].numel() * 2 for k in ("k", "v"))
-                   for p in range(cells)]
+    assert all(isinstance(t, MeshArray) for t in P.leaves(cache))
+    cache_bytes = [sum(t.shards[p].numel() * t.shards[p].element_size()
+                       for t in P.leaves(cache)) for p in range(cells)]
     dry_decode = dry_bytes("decode", prompt + gen, 2)
     cell_bytes = [a + b for a, b in zip(param_bytes, cache_bytes)]
     assert cell_bytes == [dry_decode] * cells, (cell_bytes, dry_decode)
@@ -5234,20 +5284,21 @@ def phase_serve_mesh(name, prm, tokens):
     assert mesh_vs_f32 <= 2 * whole_vs_f32, (mesh_vs_f32, whole_vs_f32)
     del f32, logits
 
-    trace = serve_profile(cfg, run, mprm, tokens, ctx=ctx,
+    trace = serve_profile(cfg, run, mprm, tokens, ctx=ctx, extra=extra,
                           decode_steps=SERVE_MESH_PROFILED_STEPS)
     profiled = f"decode_{SERVE_MESH_PROFILED_STEPS}_steps"
-    assert 0 < trace["prefill"]["flash_launches"] <= cells * L
+    assert 0 < trace["prefill"]["flash_launches"] <= launches
     assert trace[profiled]["flash_launches"] == 0
 
-    # the decision: f32 at SERVE_MESH_F32's depth, against the same depth
-    # whole
-    cut = dataclasses.replace(cfg, num_layers=SERVE_MESH_F32["layers"])
-    cut_prm = cut_layers(prm, cut)
+    # the decision: f32 at f32_layers deep, against the same depth whole
+    f32_layers = spec.get("f32_layers", SERVE_MESH_F32["layers"])
+    cut = (cfg if f32_layers is None
+           else dataclasses.replace(cfg, num_layers=f32_layers))
+    cut_prm = prm if f32_layers is None else cut_layers(prm, cut)
     del mprm
     torch.cuda.empty_cache()
     holds = [mesh_serve_f32_hold(cut, run, mesh, cut_prm, tokens, impl,
-                                 SERVE_MESH_F32["steps"])
+                                 SERVE_MESH_F32["steps"], extra)
              for impl in spec["impls"]]
     for h in holds:
         assert h["held"], h
@@ -5261,7 +5312,8 @@ def phase_serve_mesh(name, prm, tokens):
          main_path_launches=main_launches,
          flash_launches_per_prefill=prefill_launches,
          flash_launches_per_decode_step=max(step_launches),
-         flash_cell_shape=list(spec["cell_flash"]),
+         flash_cell_shapes=[{"q": list(q), "k": list(k), "launches": n}
+                            for (q, k), n in spec["cell_flash"].items()],
          cell_param_bytes=param_bytes, cell_cache_bytes=cache_bytes,
          dryrun_argument_bytes={"prefill": dry_prefill,
                                 "decode": dry_decode},
@@ -5283,7 +5335,7 @@ def phase_serve_mesh(name, prm, tokens):
          logits_bf16_whole_vs_f32_err=whole_vs_f32,
          logits_bf16_rule="mesh vs f32 plain <= 2 x whole bf16 vs f32 plain",
          generated_ids_row0=ids[0].tolist(),
-         ids_equal_to_unpartitioned_row0=ids_equal,
+         ids_equal_to_unpartitioned_row0=ids_equal, f32_layers=cut.num_layers,
          f32_hold=holds, f32_tolerance=f"{SERVE_MESH_TOL} x max(1, "
          "max|unpartitioned|) logits; cache shards the same, plus one bf16 "
          "ulp on under 1 % of the elements; ids equal", trace=trace)
@@ -6926,10 +6978,18 @@ def run_phases(t_start, card, traces) -> int:
                                    "train_olmoe")
     flash_by_path["train_mesh_olmoe"] = timed("train_mesh_olmoe",
                                               phase_train_mesh_olmoe)
-    # the VLM, then whisper: each served, trained, and trained on a mesh
-    # against the training phase's state on the host
+    # the VLM, then whisper: each served, served partitioned on the same
+    # weights (freed before the training phase, whose peak leaves no room
+    # for them), trained, and trained on a mesh against the training
+    # phase's state on the host
     for name in SERVE_CROSS:
-        flash_by_path[name] = timed(name, phase_serve_cross, name)
+        flash_by_path[name], prm, batch = timed(name, phase_serve_cross, name)
+        served = name.replace("serve", "serve_mesh")
+        tokens = batch.pop("tokens")
+        flash_by_path[served] = timed(served, phase_serve_mesh, served, prm,
+                                      tokens, batch)
+        del prm, tokens, batch
+        torch.cuda.empty_cache()
         train = name.replace("serve", "train")
         trained[train] = timed(train, phase_train_model, train)
         mesh = mesh_of(train)

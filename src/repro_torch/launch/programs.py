@@ -14,8 +14,8 @@ traces the plain path. A real run materialises tensors of the same
 shapes and dtypes.
 
 On a mesh the train program is the partitioned step (``train.step``),
-and so are the dense and MoE families' serve programs under the
-``baseline`` and ``moe_a2a`` rules (``serve.step.partitioned``): ``fn``
+and so are the dense, MoE, VLM and audio families' serve programs under
+the ``baseline`` and ``moe_a2a`` rules (``serve.step.partitioned``): ``fn``
 takes the whole stand-ins and runs every mesh cell, ``cell`` holds what
 one device runs, the step's per-cell function and stand-ins of the
 first cell's shards, which ``launch.dryrun`` traces alone

@@ -42,35 +42,41 @@ def pad_cache(cfg: ModelConfig, cache, gen: int):
     and a recurrent state (rwkv6's, the Mamba2 layers') has no sequence
     axis. A partitioned serve's cache (``MeshArray`` leaves, laid out by
     the baseline rules: ``serve.step.partitioned``) comes back laid out by
-    the decode program's specs on the same mesh, each cell's shard made
-    from the prefill's shards that overlap it (``sharding.resharded``):
-    the padded length moves the sequence blocks' edges."""
+    the decode program's specs on the same mesh, each cell's shard of the
+    self k and v made from the prefill's shards that overlap it
+    (``sharding.resharded``): the padded length moves the sequence
+    blocks' edges; the cross KV's shards stay as they are."""
     def pad_seq(x):  # (..., S, H, D) -> (..., S + gen, H, D)
         return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, gen))
 
-    if cfg.sliding_window > 0:
+    # where the self k and v sit in the cache tree
+    key = {"vlm": "self", "hybrid": "attn"}.get(cfg.family)
+    if cfg.sliding_window > 0 or cfg.family == "ssm" or (
+            key is not None and key not in cache):
         return cache
-    if cfg.family in ("dense", "moe") and isinstance(cache["k"], MeshArray):
-        ctx = ShardingCtx.for_mesh(cache["k"].sharding.mesh)
-        L, B, S = cache["k"].shape[:3]
-        specs = lm.cache_specs(cfg, ShapeSpec("decode", "decode", S + gen, B))
-        return {name: resharded(cache[name], ctx.sharding(
-            specs[name].logical, specs[name].shape), specs[name].shape)
-            for name in ("k", "v")}
-    if cfg.family in ("dense", "moe"):
-        return {"k": pad_seq(cache["k"]), "v": pad_seq(cache["v"])}
+    kv = cache[key] if key else cache
+    k = kv["k"]
+    if isinstance(k, MeshArray):
+        ctx = ShardingCtx.for_mesh(k.sharding.mesh)
+        specs = lm.cache_specs(cfg, ShapeSpec("decode", "decode",
+                                              k.shape[-3] + gen, k.shape[-4]))
+        specs = specs[key] if key else specs
+
+        def grow(name):
+            spec = specs[name]
+            return resharded(kv[name], ctx.sharding(spec.logical, spec.shape),
+                             spec.shape)
+    else:
+        def grow(name):
+            return pad_seq(kv[name])
+
+    grown = {name: grow(name) for name in ("k", "v")}
     if cfg.family == "vlm":
-        return {"self": {"k": pad_seq(cache["self"]["k"]),
-                         "v": pad_seq(cache["self"]["v"])},
-                "cross": cache["cross"]}
-    if cfg.family == "audio":
-        return {"k": pad_seq(cache["k"]), "v": pad_seq(cache["v"]),
-                "ck": cache["ck"], "cv": cache["cv"]}
-    if cfg.family != "hybrid" or "attn" not in cache:
-        return cache
-    return {"mamba": cache["mamba"],
-            "attn": {"k": pad_seq(cache["attn"]["k"]),
-                     "v": pad_seq(cache["attn"]["v"])}}
+        return {"self": grown, "cross": cache["cross"]}
+    if cfg.family == "hybrid":
+        return {"mamba": cache["mamba"], "attn": grown}
+    return {**grown, **{name: cache[name] for name in ("ck", "cv")
+                        if name in cache}}
 
 
 def stub_embeds(cfg: ModelConfig, batch: int,
@@ -96,9 +102,11 @@ def generate(cfg: ModelConfig, run: RunConfig, prm,
     until ``gen`` tokens are out. Returns the generated ids (B, gen) and
     the host-clock times: each step ends when its tokens are on the host.
     ``ctx`` (``ShardingCtx.null()`` by default): with a mesh the serve
-    steps are ``serve.step``'s for it, partitioned over it for the dense
-    and MoE families (``serve.step.partitioned``), whose weights are laid
-    out over it first where they are whole tensors."""
+    steps are ``serve.step``'s for it, partitioned over it for the dense,
+    MoE, VLM and audio families (``serve.step.partitioned``), whose
+    weights are laid out over it first where they are whole tensors; the
+    VLM's and whisper's embeddings are cut over the data axes inside the
+    steps."""
     ctx = ShardingCtx.null() if ctx is None else ctx
     prefill = make_prefill_step(cfg, run, ctx)
     decode = make_decode_step(cfg, run, ctx)

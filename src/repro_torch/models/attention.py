@@ -464,16 +464,23 @@ def attention_full(q, k, v):
     return attention_dense(q, k, v, causal=False)
 
 
+def cross_kv(cfg: ModelConfig, w, enc):
+    """(k, v) (B, T, H_kv, D) of enc (B, T, d) on the kv heads of ``w``'s
+    columns: all of them, or a tensor-parallel cell's own. A serve
+    caches them; the reference projects them again beside the cross
+    attention, and so does the port."""
+    B, T = enc.shape[:2]
+    return tuple(matmul(enc, w[name]).reshape(B, T, -1, cfg.head_dim)
+                 for name in ("wk", "wv"))
+
+
 def cross_attention(cfg: ModelConfig, w, x, enc, ctx: ShardingCtx):
     """q from x (B,S,d); kv from enc (B,T,d). No causal mask, no rope.
     The heads are those of ``w``'s columns: all of them, or a
     tensor-parallel cell's own (then the output is a partial sum)."""
     B, S = x.shape[:2]
-    T = enc.shape[1]
-    D = cfg.head_dim
-    q = matmul(x, w["wq"]).reshape(B, S, -1, D)
-    k = matmul(enc, w["wk"]).reshape(B, T, -1, D)
-    v = matmul(enc, w["wv"]).reshape(B, T, -1, D)
+    q = matmul(x, w["wq"]).reshape(B, S, -1, cfg.head_dim)
+    k, v = cross_kv(cfg, w, enc)
     q = ctx.constrain(q, ("batch", "seq", "heads", "head_dim"))
     out = attention_full(q, k, v)
     return matmul(out.reshape(B, S, -1), w["wo"])
@@ -481,9 +488,11 @@ def cross_attention(cfg: ModelConfig, w, x, enc, ctx: ShardingCtx):
 
 def cross_decode(cfg: ModelConfig, w, x, ck, cv):
     """Decode-time cross attention against the precomputed encoder KV
-    (stored in bfloat16, cast back to the activations' dtype)."""
+    (stored in bfloat16, cast back to the activations' dtype). The heads
+    are those of ``w``'s columns and of ``ck``, ``cv``: all of them, or a
+    serve cell's own (then the output is a partial sum)."""
     dt = x.dtype
     B = x.shape[0]
-    q = matmul(x, w["wq"]).reshape(B, 1, cfg.num_heads, cfg.head_dim)
+    q = matmul(x, w["wq"]).reshape(B, 1, -1, cfg.head_dim)
     out = attention_dense(q, ck.to(dt), cv.to(dt), causal=False)
-    return matmul(out.reshape(B, 1, cfg.q_dim), w["wo"])
+    return matmul(out.reshape(B, 1, -1), w["wo"])

@@ -19,12 +19,17 @@ cross half the VLM's without its gates, on the encoder's output):
 run them on ``tensor_parallel.INLINE``; in a cell of the partitioned
 training step ``stack_segments`` runs them on the cell's tape,
 tensor-parallel over ``model``, the encoder's output entering each cross
-layer.
+layer. The serve programs, ``prefill_segments`` and ``decode_segments``,
+are the same halves (a decode step's self half
+``transformer.attn_decode_half``, its cross half over the cached cross
+KV): on ``INLINE`` for ``models.lm``'s ``prefill_fn`` and ``decode_fn``,
+in a cell of the partitioned serve (``serve.step``) on its heads, its
+cache shard and the cross KV of its kv heads.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -34,8 +39,7 @@ from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.models import attention as A
 from repro_torch.models import params as P
 from repro_torch.models import transformer as T
-from repro_torch.models.common import (matmul, mlp_apply, mlp_specs, rms_norm,
-                                       rms_norm_specs)
+from repro_torch.models.common import mlp_specs, rms_norm, rms_norm_specs
 from repro_torch.models.scan_utils import grouped_scan
 
 
@@ -98,31 +102,21 @@ def encode(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, frames):
     return rms_norm(x, w["enc_ln"], cfg.norm_eps)
 
 
-def _self_attend(cfg, ctx, w, x, positions, q_chunk):
-    """The decoder layer's causal self-attention half for prefill:
-    (x + attn, k, v)."""
-    h = rms_norm(x, w["ln1"], cfg.norm_eps)
-    o, k, v = T._attention_out(cfg, ctx, w["attn"], h, positions, q_chunk)
-    return x + o, k, v
-
-
-def _cross_mlp_segments(cfg, run, ctx, tc, wl, x, adds, enc):
-    """The decoder layer's cross half on the encoder states ``enc`` and
-    its gelu MLP half, on the tape of ``tc``. Returns (x, adds)."""
-    x, adds = T._xattn_half(cfg, ctx, tc, wl, x, adds, enc, "lnx")
+def _cross_mlp_segments(cfg, run, ctx, tc, wl, x, adds, enc, **kv):
+    """The decoder layer's cross half on the encoder states ``enc`` (or,
+    in a decode step, the cached cross KV ``(ck, cv)``) and its gelu MLP
+    half, on the tape of ``tc``. Returns (x, adds), with ``kv``
+    (``transformer._xattn_half``'s keyword) (x, adds, (ck, cv))."""
+    x, adds, *cache = T._xattn_half(cfg, ctx, tc, wl, x, adds, enc, "lnx",
+                                    **kv)
     x, adds, _ = T._mlp_half(cfg, run, ctx, tc, wl, x, adds, act="gelu")
-    return x, adds
+    return (x, adds, *cache)
 
 
 def _dec_segments(cfg, run, ctx, tc, wl, x, adds, enc, positions, q_chunk):
     """One decoder layer on the tape of ``tc``. Returns (x, adds)."""
     x, adds = T._attn_half(cfg, ctx, tc, wl, x, adds, positions, q_chunk)
     return _cross_mlp_segments(cfg, run, ctx, tc, wl, x, adds, enc)
-
-
-def _cross_mlp(cfg, ctx, w, x, enc):
-    return T._resid(*_cross_mlp_segments(cfg, None, ctx, tp.INLINE,
-                                         lambda: w, x, (), enc))
 
 
 def _dec_layer(cfg, run, ctx, w, x, enc, positions, *, q_chunk=1024):
@@ -182,50 +176,63 @@ def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Dict:
     return P.stack_tree(cfg.num_layers, {**self_kv, **cross})
 
 
-def prefill(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, tokens_x,
-            frames, positions, *, q_chunk=1024):
-    """Returns (x, cache): each decoder layer's self KV and its cross KV
-    (the encoder states' projection), all in bfloat16, stacked."""
-    enc = encode(cfg, run, ctx, w, frames)
-    B, T = enc.shape[:2]
-    x, layers = tokens_x, []
+def prefill_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc,
+                     stack, x, frames, positions, q_chunk: int, *,
+                     cut: Optional[A.CacheCut] = None):
+    """The prefill on the tape of ``tc``: the encoder on ``frames``
+    (``stack("encoder", i)`` layer ``i``'s leaves), ``enc_ln``
+    (``stack("enc_ln")``; the encoder's output whole in every cell once
+    the exits have summed it), then each decoder layer
+    (``stack("decoder", i)``): its self half, whose k and v form the
+    layer's self cache (in a serve cell its shard,
+    ``attention.cache_rest``), its cross half over the encoder's output,
+    which gives the cross KV of the cell's kv heads, and its MLP half.
+    Returns (x, adds, cache): each layer's self KV and cross KV in
+    bfloat16, stacked (L, ...)."""
+    B, S, _ = frames.shape
+    enc_positions = _positions(B, S, frames.device)
+    e, adds = frames, ()
+    for i in range(cfg.encoder_layers):
+        wi = stack("encoder", i)
+        e, adds = _enc_segments(cfg, run, ctx, tc, lambda: wi, e, adds,
+                                enc_positions)
+    ln = stack("enc_ln")
+    enc, = tc.tape.run(lambda e, *a: (rms_norm(T._resid(e, a), ln,
+                                               cfg.norm_eps),), e, *adds)
+    form = T._cache_form(cfg)
+    adds, layers = (), []
     for i in range(cfg.num_layers):
-        wl = P.layer(w["decoder"], i)
-        x, k, v = _self_attend(cfg, ctx, wl, x, positions, q_chunk)
-        x = _cross_mlp(cfg, ctx, wl, x, enc)
-        ck, cv = (matmul(enc, wl["xattn"][wn]).reshape(
-            B, T, cfg.num_kv_heads, cfg.head_dim) for wn in ("wk", "wv"))
-        layers.append({name: t.to(torch.bfloat16) for name, t in
-                       (("k", k), ("v", v), ("ck", ck), ("cv", cv))})
-    return x, P.stack_layers(layers)
+        wi = stack("decoder", i)
+        x, adds, (k, v) = T._attn_half(cfg, ctx, tc, lambda: wi, x, adds,
+                                       positions, q_chunk, kv=form)
+        if cut is not None:
+            k, v = A.cache_rest(tc.tape, k, cut), A.cache_rest(tc.tape, v, cut)
+        x, adds, (ck, cv) = _cross_mlp_segments(cfg, run, ctx, tc,
+                                                lambda: wi, x, adds, enc,
+                                                kv=T._bf16)
+        layers.append({"k": k, "v": v, "ck": ck, "cv": cv})
+    return x, adds, P.stack_layers(layers)
 
 
-def decode_step(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, cache,
-                x, pos: int, *, use_flash: bool = False):
-    """One-token decode at position ``pos`` (a Python int). Returns
-    (x, new_cache); the cross KV is kept as it is. ``use_flash``: the self
-    attention through ``flash_decode`` on a mesh, with no softcap or
-    window, as in the reference."""
-    B = x.shape[0]
-    posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    ks, vs = [], []
+def decode_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc,
+                    stack, cache, x, pos: int, *,
+                    cut: Optional[A.CacheCut] = None,
+                    use_flash: bool = False):
+    """One-token decode at position ``pos`` (a Python int) on the tape of
+    ``tc`` (``stack`` as in ``prefill_segments``): each decoder layer's
+    self half (``transformer.attn_decode_half``; ``use_flash``:
+    ``flash_decode`` on a mesh), its cross half over the cached cross KV,
+    which stays as it is, and its MLP half. Returns (x, adds, the new
+    cache)."""
+    adds, ks, vs = (), [], []
     for i in range(cfg.num_layers):
-        wl = P.layer(w["decoder"], i)
-        h = rms_norm(x, wl["ln1"], cfg.norm_eps)
-        q = A.project_q(cfg, wl["attn"], h, posv, ctx)
-        k, v = A.project_kv(cfg, wl["attn"], h, posv, ctx)
-        ck, cv = A.cache_update(cache["k"][i], cache["v"][i], k, v, pos)
-        if use_flash and ctx.mesh is not None:
-            o = A.flash_decode(q, ck, cv, pos, ctx.mesh)
-        else:
-            o = A.decode_attention(q, ck, cv, pos)
-        x = x + matmul(o.reshape(B, 1, cfg.q_dim), wl["attn"]["wo"])
-        hx = rms_norm(x, wl["lnx"], cfg.norm_eps)
-        x = x + A.cross_decode(cfg, wl["xattn"], hx, cache["ck"][i],
-                               cache["cv"][i])
-        h2 = rms_norm(x, wl["ln2"], cfg.norm_eps)
-        x = x + mlp_apply(wl["mlp"], h2, ctx, act="gelu")
+        wi, cl = stack("decoder", i), P.layer(cache, i)
+        x, adds, ck, cv = T.attn_decode_half(
+            cfg, ctx, tc, lambda: wi, x, adds, cl["k"], cl["v"], pos,
+            cut=cut, use_flash=use_flash)
+        x, adds = _cross_mlp_segments(cfg, run, ctx, tc, lambda: wi, x, adds,
+                                      (cl["ck"], cl["cv"]))
         ks.append(ck)
         vs.append(cv)
-    return x, {"k": torch.stack(ks), "v": torch.stack(vs),
-               "ck": cache["ck"], "cv": cache["cv"]}
+    return x, adds, {"k": torch.stack(ks), "v": torch.stack(vs),
+                     "ck": cache["ck"], "cv": cache["cv"]}

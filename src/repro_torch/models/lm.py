@@ -15,10 +15,10 @@ Every architecture exposes the same entry points, the reference's, for
                                      cell's, or INLINE
   cache_specs(cfg, shape)            decode-state tree
   prefill_fn(...) / decode_fn(...)   serving programs
-  prefill_segments(...) / decode_segments(...)   the dense and MoE
-                                     families' serving programs on a
-                                     tape: a partitioned serve cell's,
-                                     or INLINE
+  prefill_segments(...) / decode_segments(...)   the dense, MoE, VLM
+                                     and audio families' serving
+                                     programs on a tape: a partitioned
+                                     serve cell's, or INLINE
 """
 
 from __future__ import annotations
@@ -223,30 +223,25 @@ def cache_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict:
     raise ValueError(cfg.family)
 
 
+SEGMENTED_SERVE = ("dense", "moe", "vlm", "audio")
+
+
 def prefill_fn(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, batch):
     """Full-sequence prefill. Returns (last_token_logits (B, V), cache):
-    for the dense and MoE families ``prefill_segments`` on
+    for the dense, MoE, VLM and audio families ``prefill_segments`` on
     ``tensor_parallel.INLINE``."""
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in SEGMENTED_SERVE:
         return prefill_segments(cfg, run, ctx, tp.INLINE, params, batch)
     dt = compute_dtype(run)
     tokens = batch["tokens"]
     x = embed_tokens(params["embed"], tokens, ctx, dt)
     positions = _positions(tokens)
     w = params["stack"]
-    if cfg.family == "vlm":
-        img = batch["image_embeds"].to(dt)
-        x, cache = T.stack_prefill(cfg, run, ctx, w, x, positions, img=img,
-                                   q_chunk=Q_CHUNK)
-    elif cfg.family == "ssm":
+    if cfg.family == "ssm":
         x, cache = RW.stack_prefill(cfg, run, ctx, w, x, chunk=cfg.scan_chunk)
     elif cfg.family == "hybrid":
         x, cache = MB.stack_prefill(cfg, run, ctx, w, x, positions,
                                     chunk=cfg.scan_chunk)
-    elif cfg.family == "audio":
-        x, cache = AU.prefill(cfg, run, ctx, w, x,
-                              batch["frame_embeds"].to(dt), positions,
-                              q_chunk=Q_CHUNK)
     else:
         raise ValueError(cfg.family)
     x = rms_norm(x[:, -1:], params["final_ln"], cfg.norm_eps)
@@ -265,38 +260,65 @@ def _last_logits(cfg: ModelConfig, ctx: ShardingCtx, tc, params, x, adds):
     return tc.tape.run(head, x, *adds)[0]
 
 
+def stack_leaves(w):
+    """``stack(*path)`` over the stack's leaves ``w``: the subtree at
+    ``path``, a key for each dict and an index into each stacked axis
+    (``stack("layers", i)``; the VLM's ``stack("self", j, i)``,
+    ``stack("cross", j)``; whisper's ``stack("encoder", i)``,
+    ``stack("enc_ln")``, ``stack("decoder", i)``)."""
+    def stack(*path):
+        t = w
+        for k in path:
+            t = P.layer(t, k) if isinstance(k, int) else t[k]
+        return t
+
+    return stack
+
+
 def prefill_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc,
-                     params, batch, *, layer=None, cut=None):
-    """``prefill_fn`` of the dense and MoE families on the tape of ``tc``
-    (a cell of the partitioned serve, ``serve.step``, or ``INLINE``): the
-    embedding (a partial lookup and an exit where the vocabulary is
-    model-local), the stack (``transformer.prefill_segments``; layer
-    ``i``'s leaves ``layer(i)``, by default a slice of
-    ``params["stack"]``; ``cut`` the cell's ``attention.CacheCut``) and
-    the last token's logits. Returns (logits, cache): the cell's
-    vocabulary columns and cache shard in a serve cell."""
+                     params, batch, *, stack=None, cut=None):
+    """``prefill_fn`` of the dense, MoE, VLM and audio families on the
+    tape of ``tc`` (a cell of the partitioned serve, ``serve.step``, or
+    ``INLINE``): the embedding (a partial lookup and an exit where the
+    vocabulary is model-local), the stack (``transformer.prefill_segments``,
+    the VLM's ``transformer.vlm_prefill_segments`` over the batch's
+    ``image_embeds``, whisper's ``audio.prefill_segments`` over its
+    ``frame_embeds``; the leaves at a path ``stack(*path)``, by default
+    ``stack_leaves(params["stack"])``; ``cut`` the cell's
+    ``attention.CacheCut``) and the last token's logits. Returns
+    (logits, cache): the cell's vocabulary columns and cache shard in a
+    serve cell."""
     dt = compute_dtype(run)
     tokens = batch["tokens"]
     _, x = _embedded(cfg, ctx, tc, params, tokens, dt)
-    if layer is None:
-        def layer(i):
-            return P.layer(params["stack"]["layers"], i)
-    x, adds, cache = T.prefill_segments(cfg, run, ctx, tc, layer, x,
-                                        _positions(tokens), Q_CHUNK,
-                                        cfg.num_layers, cut=cut)
+    if stack is None:
+        stack = stack_leaves(params["stack"])
+    positions = _positions(tokens)
+    if cfg.family == "vlm":
+        x, adds, cache = T.vlm_prefill_segments(
+            cfg, run, ctx, tc, stack, x, positions,
+            batch["image_embeds"].to(dt), Q_CHUNK, cut=cut)
+    elif cfg.family == "audio":
+        x, adds, cache = AU.prefill_segments(
+            cfg, run, ctx, tc, stack, x, batch["frame_embeds"].to(dt),
+            positions, Q_CHUNK, cut=cut)
+    else:
+        x, adds, cache = T.prefill_segments(
+            cfg, run, ctx, tc, lambda i: stack("layers", i), x, positions,
+            Q_CHUNK, cfg.num_layers, cut=cut)
     return _last_logits(cfg, ctx, tc, params, x, adds), cache
 
 
 def decode_fn(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, cache,
               batch):
     """One decode step. batch: {tokens (B,1), pos}: ``pos`` a Python int.
-    Returns (logits, cache): for the dense and MoE families
+    Returns (logits, cache): for the dense, MoE, VLM and audio families
     ``decode_segments`` on ``tensor_parallel.INLINE``.
 
     The ``decode_flash`` ruleset on a mesh takes the sequence-sharded
     ``flash_decode`` in every self attention (rwkv6 has none); without a
     mesh the dense decode, as in the reference."""
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in SEGMENTED_SERVE:
         return decode_segments(cfg, run, ctx, tp.INLINE, params, cache,
                                batch)
     dt = compute_dtype(run)
@@ -304,17 +326,11 @@ def decode_fn(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, cache,
     pos = batch["pos"]
     use_flash = run.sharding_rules == "decode_flash"
     w = params["stack"]
-    if cfg.family == "vlm":
-        x, cache = T.stack_decode(cfg, run, ctx, w, cache, x, pos,
-                                  use_flash=use_flash)
-    elif cfg.family == "ssm":
+    if cfg.family == "ssm":
         x, cache = RW.stack_decode(cfg, run, ctx, w, cache, x)
     elif cfg.family == "hybrid":
         x, cache = MB.stack_decode(cfg, run, ctx, w, cache, x, pos,
                                    use_flash=use_flash)
-    elif cfg.family == "audio":
-        x, cache = AU.decode_step(cfg, run, ctx, w, cache, x, pos,
-                                  use_flash=use_flash)
     else:
         raise ValueError(cfg.family)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
@@ -323,16 +339,25 @@ def decode_fn(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, cache,
 
 
 def decode_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc,
-                    params, cache, batch, *, layer=None, cut=None):
-    """``decode_fn`` of the dense and MoE families on the tape of ``tc``,
-    as ``prefill_segments``: ``cache`` the whole cache, or the cell's
-    shard of it. Returns (logits, cache)."""
+                    params, cache, batch, *, stack=None, cut=None):
+    """``decode_fn`` of the dense, MoE, VLM and audio families on the
+    tape of ``tc``, as ``prefill_segments``: ``cache`` the whole cache,
+    or the cell's shard of it. Returns (logits, cache)."""
     dt = compute_dtype(run)
     _, x = _embedded(cfg, ctx, tc, params, batch["tokens"], dt)
-    if layer is None:
-        def layer(i):
-            return P.layer(params["stack"]["layers"], i)
-    x, adds, cache = T.decode_segments(
-        cfg, run, ctx, tc, layer, cache, x, batch["pos"], cfg.num_layers,
-        cut=cut, use_flash=run.sharding_rules == "decode_flash")
+    if stack is None:
+        stack = stack_leaves(params["stack"])
+    pos, use_flash = batch["pos"], run.sharding_rules == "decode_flash"
+    if cfg.family == "vlm":
+        x, adds, cache = T.vlm_decode_segments(
+            cfg, run, ctx, tc, stack, cache, x, pos, cut=cut,
+            use_flash=use_flash)
+    elif cfg.family == "audio":
+        x, adds, cache = AU.decode_segments(
+            cfg, run, ctx, tc, stack, cache, x, pos, cut=cut,
+            use_flash=use_flash)
+    else:
+        x, adds, cache = T.decode_segments(
+            cfg, run, ctx, tc, lambda i: stack("layers", i), cache, x, pos,
+            cfg.num_layers, cut=cut, use_flash=use_flash)
     return _last_logits(cfg, ctx, tc, params, x, adds), cache

@@ -16,7 +16,10 @@ reference's stacked ``(L, ...)`` parameters and run their layers through
 layers ([p-1 self layers, 1 gated cross-attention layer] x groups,
 llama-3.2 style): its self leaves are stacked twice, ``(groups, p-1,
 ...)``, and under block remat each self layer is checkpointed inside a
-checkpoint of its group, as the reference nests them.
+checkpoint of its group, as the reference nests them. Its serve
+programs are ``vlm_prefill_segments`` and ``vlm_decode_segments``: the
+self caches stacked ``(groups, p-1, ...)``, the cross KV ``(groups,
+...)``, as the reference's.
 """
 
 from __future__ import annotations
@@ -125,14 +128,6 @@ def cross_block_apply(cfg: ModelConfig, ctx: ShardingCtx, w, x, img):
     return _resid(x, adds)
 
 
-def cross_block_decode(cfg: ModelConfig, ctx: ShardingCtx, w, x, img_k, img_v):
-    h = rms_norm(x, w["ln1"], cfg.norm_eps)
-    x = x + _gated(w["gate_attn"], A.cross_decode(cfg, w["xattn"], h, img_k,
-                                                  img_v))
-    h2 = rms_norm(x, w["ln2"], cfg.norm_eps)
-    return x + _gated(w["gate_mlp"], mlp_apply(w["mlp"], h2, ctx, cfg.act))
-
-
 # --- stacks -----------------------------------------------------------------------
 
 
@@ -207,69 +202,6 @@ def stack_cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Dict:
     return P.stack_tree(cfg.num_layers, base)
 
 
-def _decode_layers(cfg, run, ctx, w, cache, x, pos: int, n: int, use_flash):
-    """``n`` stacked self layers' decode step; their new (k, v) stacked."""
-    x, adds, kv = decode_segments(cfg, run, ctx, tp.INLINE,
-                                  lambda i: P.layer(w, i), cache, x, pos, n,
-                                  use_flash=use_flash)
-    return _resid(x, adds), kv
-
-
-def stack_decode(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, cache,
-                 x, pos: int, *, use_flash: bool = False):
-    """One-token decode at position ``pos`` (a Python int). Returns
-    (x, new_cache); the VLM's image KV is kept as it is. ``use_flash``:
-    the self layers' attention through ``flash_decode`` on a mesh."""
-    if cfg.family == "vlm":
-        g, s = _vlm_groups(cfg)
-        new_self = []
-        for j in range(g):
-            wg, cg = P.layer(w, j), P.layer(cache["self"], j)
-            x, kv = _decode_layers(cfg, run, ctx, wg["self"], cg, x, pos, s,
-                                   use_flash)
-            new_self.append(kv)
-            cx = P.layer(cache["cross"], j)
-            x = cross_block_decode(cfg, ctx, wg["cross"], x, cx["img_k"],
-                                   cx["img_v"])
-        return x, {"self": P.stack_layers(new_self), "cross": cache["cross"]}
-    return _decode_layers(cfg, run, ctx, w["layers"], cache, x, pos,
-                          cfg.num_layers, use_flash)
-
-
-def stack_prefill(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x,
-                  positions, *, img: Optional[torch.Tensor] = None,
-                  q_chunk=1024):
-    """Full-sequence forward that also builds the KV cache, each layer's
-    (k, v) trimmed to the cache (a sliding window's ring layout) and
-    stored in bfloat16; the VLM's image KV of each cross layer is the
-    image embeddings' projection, stored in bfloat16. Returns (x, cache):
-    the dense and MoE stacks' ``prefill_segments`` on
-    ``tensor_parallel.INLINE``."""
-    if cfg.family == "vlm":
-        g, s = _vlm_groups(cfg)
-        B, T = img.shape[:2]
-        self_c, cross_c = [], []
-        for j in range(g):
-            wg = P.layer(w, j)
-            x, adds, kv = prefill_segments(
-                cfg, run, ctx, tp.INLINE, lambda i: P.layer(wg["self"], i),
-                x, positions, q_chunk, s)
-            x = _resid(x, adds)
-            self_c.append(kv)
-            x = cross_block_apply(cfg, ctx, wg["cross"], x, img)
-            xw = wg["cross"]["xattn"]
-            cross_c.append({
-                name: matmul(img, xw[wn]).reshape(
-                    B, T, cfg.num_kv_heads, cfg.head_dim).to(torch.bfloat16)
-                for name, wn in (("img_k", "wk"), ("img_v", "wv"))})
-        return x, {"self": P.stack_layers(self_c),
-                   "cross": P.stack_layers(cross_c)}
-    x, adds, cache = prefill_segments(cfg, run, ctx, tp.INLINE,
-                                      lambda i: P.layer(w["layers"], i), x,
-                                      positions, q_chunk, cfg.num_layers)
-    return _resid(x, adds), cache
-
-
 # --- the segmented stack: tensor parallelism over "model" ----------------------------
 # The dense, MoE and VLM training stacks, written once for both callers
 # (whisper's, ``models.audio``, reuses the halves): each
@@ -341,26 +273,42 @@ def _mlp_half(cfg, run, ctx, tc, wl, x, adds, *, act: Optional[str] = None):
     return x, (tape.exit(part) if local else part,), None
 
 
-def _xattn_half(cfg, ctx, tc, wl, x, adds, src, ln: str):
+def _xattn_half(cfg, ctx, tc, wl, x, adds, src, ln: str, *,
+                kv: Optional[Callable] = None):
     """The cross-attention half of a layer (its leaves ``wl()["xattn"]``,
     its norm ``wl()[ln]``): the norm ahead of the entry (rule (a)); q from
     the cell's heads of the entered stream, k and v from ``src`` on its
     kv heads, out through its rows of ``wo`` and the exit. ``src`` is a
     segment input: a batch input (the VLM's image embeddings, no
     gradient) as it is; an activation (whisper's encoder output) entered
-    where the half is model-local, so its gradient sums over the cells.
-    Returns (x, adds)."""
+    where the half is model-local, so its gradient sums over the cells;
+    or, in a decode step, the cached cross KV ``(ck, cv)`` of the cell's
+    kv heads (``attention.cross_decode``). Returns (x, adds); with ``kv``
+    (a serve's prefill) also the cross KV of the cell's kv heads, each
+    passed through ``kv`` in the local segment: (x, adds, (k, v))."""
     tape = tc.tape
     local = tc.plan.xattn
     x, h = tape.run(lambda x, *a: _normed(x, a, wl()[ln], cfg.norm_eps),
                     x, *adds)
+    cached = isinstance(src, tuple)
+    srcs = src if cached else (src,)
     if local:
         h = tape.enter(h)
-        if src.requires_grad:
-            src = tape.enter(src)
-    part, = tape.run(lambda h, src: (A.cross_attention(cfg, wl()["xattn"], h,
-                                                       src, ctx),), h, src)
-    return x, (tape.exit(part) if local else part,)
+        srcs = tuple(tape.enter(t) if t.requires_grad else t for t in srcs)
+
+    def work(h, *srcs):
+        wx = wl()["xattn"]
+        if cached:
+            return (A.cross_decode(cfg, wx, h, *srcs),)
+        o = A.cross_attention(cfg, wx, h, srcs[0], ctx)
+        if kv is None:
+            return (o,)
+        k, v = A.cross_kv(cfg, wx, srcs[0])
+        return o, kv(k), kv(v)
+
+    part, *cache = tape.run(work, h, *srcs)
+    out = (tape.exit(part) if local else part,)
+    return (x, out) if kv is None else (x, out, tuple(cache))
 
 
 def _moe_whole(cfg, run, ctx, tc, wl, x, adds):
@@ -508,15 +456,18 @@ def _ffn_half(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc):
 
 
 # --- the serve stack's layers: prefill and decode on a tape ---------------------------
-# The dense and MoE serve programs, written once for both callers: in a
-# cell of the partitioned serve (``serve.step``) the layers run on a
+# The dense, MoE and VLM serve programs (and whisper's, ``models.audio``,
+# from these halves), written once for both callers: in a cell of the
+# partitioned serve (``serve.step``) the layers run on a
 # ``distributed.tensor_parallel.Forward`` tape with the cell's own heads,
-# columns, experts and cache shard (``cut``, an ``attention.CacheCut``);
-# outside it (``stack_prefill``, ``stack_decode``, ``block_prefill``,
-# ``block_decode``) on ``tensor_parallel.INLINE`` with the whole cache
-# (``cut`` None). A forward tape records nothing, so a decode step's
-# cache write and attention run in the cell's own code, between the
-# collectives they need.
+# columns, experts and cache shard (``cut``, an ``attention.CacheCut``;
+# the cross KV of the cell's kv heads where the cross attention is
+# model-local, else all of them); outside it (``models.lm.prefill_fn``,
+# ``decode_fn``, ``block_prefill``, ``block_decode``) on
+# ``tensor_parallel.INLINE`` with the whole cache (``cut`` None). A
+# forward tape records nothing, so a decode step's cache write and
+# attention run in the cell's own code, between the collectives they
+# need.
 
 
 def _cache_form(cfg: ModelConfig) -> Callable:
@@ -530,14 +481,19 @@ def _cache_form(cfg: ModelConfig) -> Callable:
     return form
 
 
+def _bf16(t):
+    """A cross KV as the cache keeps it: in bfloat16."""
+    return t.to(torch.bfloat16)
+
+
 def layer_prefill(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc, wl,
                   x, adds, positions, q_chunk: int, *, kv: Callable = _same,
                   cut: Optional[A.CacheCut] = None):
-    """One dense or MoE layer's prefill on the tape of ``tc``, its leaves
-    read by ``wl()``: ``layer_segments``' halves, the attention's k and v
-    passed through ``kv`` (``_cache_form``) and, in a serve cell, laid out
-    as its cache shard (``attention.cache_rest``). Returns (x, adds, k,
-    v)."""
+    """One dense or MoE layer's (or a VLM self layer's) prefill on the
+    tape of ``tc``, its leaves read by ``wl()``: ``layer_segments``'
+    halves, the attention's k and v passed through ``kv``
+    (``_cache_form``) and, in a serve cell, laid out as its cache shard
+    (``attention.cache_rest``). Returns (x, adds, k, v)."""
     x, adds, (k, v) = _attn_half(cfg, ctx, tc, wl, x, adds, positions,
                                  q_chunk, kv=kv)
     if cut is not None:
@@ -546,13 +502,15 @@ def layer_prefill(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc, wl,
     return x, adds, k, v
 
 
-def layer_decode(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc, wl,
-                 x, adds, ck, cv, pos: int, *,
-                 cut: Optional[A.CacheCut] = None, use_flash: bool = False):
-    """One dense or MoE layer's decode step on the tape of ``tc`` against
-    its cache ``ck``, ``cv``: the whole cache (``cut`` None; ``use_flash``
-    on a mesh: ``flash_decode``) or a serve cell's shard of it
-    (``attention.cell_decode``). Returns (x, adds, ck, cv)."""
+def attn_decode_half(cfg: ModelConfig, ctx: ShardingCtx, tc, wl, x, adds, ck,
+                     cv, pos: int, *, cut: Optional[A.CacheCut] = None,
+                     use_flash: bool = False):
+    """The self-attention half of a decode step on the tape of ``tc``
+    against the layer's cache ``ck``, ``cv``: the norm, q, k and v of the
+    cell's heads, the token written into the whole cache (``cut`` None;
+    ``use_flash`` on a mesh: ``flash_decode``) or into a serve cell's
+    shard of it (``attention.cell_decode``) and attended over, ``wo`` and
+    the exit. Returns (x, adds, ck, cv)."""
     tape = tc.tape
     local = tc.plan.attn
     x, h = tape.run(lambda x, *a: _normed(x, a, wl()["ln1"], cfg.norm_eps),
@@ -580,19 +538,30 @@ def layer_decode(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc, wl,
                                    softcap=softcap)
     part, = tape.run(lambda o: (matmul(o.reshape(B, 1, -1),
                                        wl()["attn"]["wo"]),), o)
-    adds = (tape.exit(part) if local else part,)
+    return x, (tape.exit(part) if local else part,), ck, cv
+
+
+def layer_decode(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc, wl,
+                 x, adds, ck, cv, pos: int, *,
+                 cut: Optional[A.CacheCut] = None, use_flash: bool = False):
+    """One dense or MoE layer's (or a VLM self layer's) decode step on
+    the tape of ``tc``: the self-attention half (``attn_decode_half``)
+    and the MLP or MoE half. Returns (x, adds, ck, cv)."""
+    x, adds, ck, cv = attn_decode_half(cfg, ctx, tc, wl, x, adds, ck, cv, pos,
+                                       cut=cut, use_flash=use_flash)
     x, adds, _ = _ffn_half(cfg, run, ctx, tc)(cfg, run, ctx, tc, wl, x, adds)
     return x, adds, ck, cv
 
 
 def prefill_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc,
                      layer: Callable, x, positions, q_chunk: int, n: int, *,
-                     cut: Optional[A.CacheCut] = None):
-    """``n`` layers' prefill on the tape of ``tc``, layer ``i``'s leaves
+                     cut: Optional[A.CacheCut] = None, adds=()):
+    """``n`` layers' prefill on the tape of ``tc`` from the residual ``x``
+    and the terms ``adds`` still to add to it, layer ``i``'s leaves
     ``layer(i)`` (taken once a layer: a serve cell gathers them there).
     Returns (x, adds, cache): the cache's k and v stacked (L, ...), in a
     serve cell its shard."""
-    adds, ks, vs = (), [], []
+    ks, vs = [], []
     form = _cache_form(cfg)
     for i in range(n):
         wi = layer(i)
@@ -606,10 +575,11 @@ def prefill_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc,
 def decode_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc,
                     layer: Callable, cache, x, pos: int, n: int, *,
                     cut: Optional[A.CacheCut] = None,
-                    use_flash: bool = False):
-    """``n`` layers' decode step on the tape of ``tc`` (``layer`` as in
-    ``prefill_segments``). Returns (x, adds, the new cache)."""
-    adds, ks, vs = (), [], []
+                    use_flash: bool = False, adds=()):
+    """``n`` layers' decode step on the tape of ``tc`` (``layer`` and
+    ``adds`` as in ``prefill_segments``). Returns (x, adds, the new
+    cache)."""
+    ks, vs = [], []
     for i in range(n):
         wi = layer(i)
         x, adds, ck, cv = layer_decode(cfg, run, ctx, tc, lambda: wi, x, adds,
@@ -620,20 +590,72 @@ def decode_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc,
     return x, adds, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
-def cross_segments(cfg: ModelConfig, ctx: ShardingCtx, tc, wc, x, adds, img):
+def cross_segments(cfg: ModelConfig, ctx: ShardingCtx, tc, wc, x, adds, img,
+                   **kv):
     """The VLM's gated cross-attention layer on the tape of ``tc``, its
     leaves read by ``wc()``: the cross half (``_xattn_half``) over the
-    image embeddings ``img`` (batch input, no gradient); then
+    image embeddings ``img`` (batch input, no gradient), or in a decode
+    step over the cached image KV ``(img_k, img_v)``; then
     ``tanh(gate_attn)`` in a segment of its own after the exit (in the
     local segment each cell's gradient of the gate would be a partial sum
     that nothing adds up), the MLP half as a self layer's, and
-    ``tanh(gate_mlp)`` after its exit. Returns (x, adds)."""
+    ``tanh(gate_mlp)`` after its exit. Returns (x, adds), with ``kv``
+    (``_xattn_half``'s keyword) (x, adds, (k, v))."""
     tape = tc.tape
-    x, (part,) = _xattn_half(cfg, ctx, tc, wc, x, adds, img, "ln1")
+    x, (part,), *cache = _xattn_half(cfg, ctx, tc, wc, x, adds, img, "ln1",
+                                     **kv)
     o, = tape.run(lambda o: (_gated(wc()["gate_attn"], o),), part)
     x, (m,), _ = _mlp_half(cfg, None, ctx, tc, wc, x, (o,))
     m, = tape.run(lambda m: (_gated(wc()["gate_mlp"], m),), m)
-    return x, (m,)
+    return (x, (m,), *cache)
+
+
+def vlm_prefill_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx,
+                         tc, stack: Callable, x, positions, img,
+                         q_chunk: int, *, cut: Optional[A.CacheCut] = None):
+    """The VLM's prefill on the tape of ``tc``: each super-block's self
+    layers (``prefill_segments``; ``stack("self", j, i)`` the leaves of
+    group ``j``'s self layer ``i``), then its cross layer
+    (``cross_segments``, ``stack("cross", j)``) over the image embeddings
+    ``img``, which also gives the layer's image KV of the cell's kv heads
+    in bfloat16. Returns (x, adds, cache): the self caches stacked (g, s,
+    ...), the image KV (g, ...); in a serve cell their shards."""
+    g, s = _vlm_groups(cfg)
+    adds, self_c, cross_c = (), [], []
+    for j in range(g):
+        x, adds, kv = prefill_segments(
+            cfg, run, ctx, tc, lambda i: stack("self", j, i), x, positions,
+            q_chunk, s, cut=cut, adds=adds)
+        self_c.append(kv)
+        wc = stack("cross", j)
+        x, adds, (k, v) = cross_segments(cfg, ctx, tc, lambda: wc, x, adds,
+                                         img, kv=_bf16)
+        cross_c.append({"img_k": k, "img_v": v})
+    return x, adds, {"self": P.stack_layers(self_c),
+                     "cross": P.stack_layers(cross_c)}
+
+
+def vlm_decode_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx,
+                        tc, stack: Callable, cache, x, pos: int, *,
+                        cut: Optional[A.CacheCut] = None,
+                        use_flash: bool = False):
+    """The VLM's decode step on the tape of ``tc`` (``stack`` as in
+    ``vlm_prefill_segments``): each super-block's self layers
+    (``decode_segments``), then its cross layer over the cached image KV,
+    which stays as it is. Returns (x, adds, the new cache)."""
+    g, s = _vlm_groups(cfg)
+    adds, new_self = (), []
+    for j in range(g):
+        x, adds, kv = decode_segments(
+            cfg, run, ctx, tc, lambda i: stack("self", j, i),
+            P.layer(cache["self"], j), x, pos, s, cut=cut,
+            use_flash=use_flash, adds=adds)
+        new_self.append(kv)
+        wc, cx = stack("cross", j), P.layer(cache["cross"], j)
+        x, adds = cross_segments(cfg, ctx, tc, lambda: wc, x, adds,
+                                 (cx["img_k"], cx["img_v"]))
+    return x, adds, {"self": P.stack_layers(new_self),
+                     "cross": cache["cross"]}
 
 
 def stack_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc, w,

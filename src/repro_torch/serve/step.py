@@ -1,32 +1,39 @@
 """Serving programs: prefill and single-token decode (greedy head).
 
 Without a mesh the programs run the model whole on the tensors they are
-given. With a mesh the dense and MoE families (``family`` ``dense`` or
-``moe``) under the ``baseline`` or ``moe_a2a`` ruleset are partitioned
-over it, as the reference's serve programs are under GSPMD with those
-rules (``partitioned``): each program is one ``spmd.shard_map`` over the
-whole mesh, the parameters and the KV cache are ``sharding.MeshArray``s,
-each mesh cell holding its FSDP x model shard of every weight leaf and
-its shard of the cache as the rules cut it (the batch over the data
-axes; over ``model`` the sequence, else the kv heads, else nothing), and
-the tokens are cut over the ``batch`` rule's axes. Each cell gathers a
-layer's leaves over the axes their specs cut, but ``model`` for a
-model-local leaf (``distributed.tensor_parallel.plan_for``, the training
-step's plan), one layer at a time, and runs the model tensor-parallel
-over ``model`` on a ``tensor_parallel.Forward`` tape
-(``lm.prefill_segments``, ``lm.decode_segments``): the embedding a
-partial lookup of its vocabulary rows, the attention on its heads (its
-cache shard laid out by ``attention.cache_rest``, a decode step's
-attention by ``attention.cell_decode``), the MLP on its columns, the MoE
-on its experts (the token groups across the data cells, the a2a inside
-the cell), the logits its vocabulary columns and the greedy token the
-group's argmax. The outputs come back as ``MeshArray``s, the cache laid
-out by ``lm.cache_specs``' shardings.
+given. With a mesh the dense, MoE, VLM and audio families (``family``
+``dense``, ``moe``, ``vlm`` or ``audio``) under the ``baseline`` or
+``moe_a2a`` ruleset are partitioned over it, as the reference's serve
+programs are under GSPMD with those rules (``partitioned``): each
+program is one ``spmd.shard_map`` over the whole mesh, the parameters
+and the cache are ``sharding.MeshArray``s, each mesh cell holding its
+FSDP x model shard of every weight leaf and its shard of the cache as
+the rules cut it (a self-attention KV cache: the batch over the data
+axes; over ``model`` the sequence, else the kv heads, else nothing; the
+cross KV of the VLM's image layers and of whisper's decoder: the batch
+over the data axes, the image or encoder sequence whole, the kv heads
+over ``model`` where they divide), and the tokens and the VLM's image
+or whisper's frame embeddings are cut over the ``batch`` rule's axes.
+Each cell gathers the leaves of a layer (or of whisper's ``enc_ln``)
+over the axes their specs cut, but ``model`` for a model-local leaf
+(``distributed.tensor_parallel.plan_for``, the training step's plan),
+one layer at a time, and runs the model tensor-parallel over ``model``
+on a ``tensor_parallel.Forward`` tape (``lm.prefill_segments``,
+``lm.decode_segments``): the embedding a partial lookup of its
+vocabulary rows, the attention on its heads (its cache shard laid out
+by ``attention.cache_rest``, a decode step's attention by
+``attention.cell_decode``), the cross attention on its heads (its k and
+v from its own columns of ``wk`` and ``wv``: the cross KV shard, never
+gathered), the MLP on its columns, the MoE on its experts (the token
+groups across the data cells, the a2a inside the cell), the logits its
+vocabulary columns and the greedy token the group's argmax. The outputs
+come back as ``MeshArray``s, the cache laid out by ``lm.cache_specs``'
+shardings.
 
-Every other family and ruleset on a mesh (the VLM, whisper, rwkv6,
-zamba2; ``seqpar`` and ``decode_flash``) runs the model whole on whole
-tensors, its a2a MoE and ``flash_decode`` their own ``shard_map``s: that
-is the path for them, chosen by ``partitioned``, not a fallback.
+Every other family and ruleset on a mesh (rwkv6, zamba2; ``seqpar`` and
+``decode_flash``) runs the model whole on whole tensors, its
+``flash_decode`` its own ``shard_map``: that is the path for them,
+chosen by ``partitioned``, not a fallback.
 """
 
 from __future__ import annotations
@@ -48,9 +55,9 @@ from repro_torch.train.step import CellLayout, _names, _padded
 
 def partitioned(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx) -> bool:
     """Whether the serve programs of ``cfg`` run partitioned over
-    ``ctx.mesh``: the dense and MoE families under ``baseline`` or
-    ``moe_a2a`` (whose rules are ``BASELINE``)."""
-    return (ctx.mesh is not None and cfg.family in ("dense", "moe")
+    ``ctx.mesh``: the dense, MoE, VLM and audio families under
+    ``baseline`` or ``moe_a2a`` (whose rules are ``BASELINE``)."""
+    return (ctx.mesh is not None and cfg.family in lm.SEGMENTED_SERVE
             and ctx.rules is BASELINE
             and run.sharding_rules in ("baseline", "moe_a2a"))
 
@@ -111,11 +118,26 @@ class _Layout:
     param_specs: Any
     cache_specs: Any
     batch: Tuple  # the tokens' spec (the batch rule's)
+    embeds: Dict[str, Tuple]  # the prefill's image or frame embeddings'
     logits: Tuple
     cells: CellLayout
     plan: tp.Plan
     local: Any
     cut_dim: Optional[int]
+
+
+def _self_kv(cache):
+    """The self-attention k leaf of a cache tree (the VLM's under
+    ``self``)."""
+    return cache["self"]["k"] if "self" in cache else cache["k"]
+
+
+def _cross_kv(cache):
+    """The cross KV's k leaf of a cache tree, or None (no cross
+    attention)."""
+    if "cross" in cache:
+        return cache["cross"]["img_k"]
+    return cache.get("ck")
 
 
 def _layout(cfg: ModelConfig, ctx: ShardingCtx, B: int, S: int) -> _Layout:
@@ -130,18 +152,34 @@ def _layout(cfg: ModelConfig, ctx: ShardingCtx, B: int, S: int) -> _Layout:
                        _names(batch[0]) if batch else ())
     plan = tp.plan_for(cfg, pspecs, param_specs, cells.sizes,
                        cells.batch_axes)
-    cache_specs = specs(lm.cache_specs(cfg, ShapeSpec("serve", "decode", S,
-                                                      B)))
-    # (layers, cache_batch, cache_seq, cache_heads, head_dim)
-    entries = _padded(cache_specs["k"], 5)
-    if entries[1] != (batch[0] if batch else None):
-        raise NotImplementedError(f"a KV cache laid out as {cache_specs['k']} "
-                                  f"with the batch cut as {batch}")
-    cut_dim = next((dim for dim, e in ((1, entries[2]), (2, entries[3]))
+    shape = ShapeSpec("serve", "decode", S, B)
+    cache_tensors = lm.cache_specs(cfg, shape)
+    cache_specs = specs(cache_tensors)
+
+    def entries(pick):  # (..., batch, sequence, heads, head_dim)
+        return _padded(pick(cache_specs),
+                       len(pick(cache_tensors).shape))[-4:]
+
+    # the self cache: stacked (L, ...), the VLM's (groups, layers, ...)
+    kv = entries(_self_kv)
+    cross = (entries(_cross_kv) if _cross_kv(cache_tensors) is not None
+             else None)
+    for e in (kv, cross):
+        if e is not None and e[0] != (batch[0] if batch else None):
+            raise NotImplementedError(f"a cache laid out as {e} with the "
+                                      f"batch cut as {batch}")
+    if cross is not None and (tp.AXIS in _names(cross[2])) != plan.xattn:
+        # a cell's k and v of the cross attention are its cross KV shard
+        raise NotImplementedError(f"a cross KV laid out as {cross} with "
+                                  f"the cross attention model-local: "
+                                  f"{plan.xattn}")
+    cut_dim = next((dim for dim, e in ((1, kv[1]), (2, kv[2]))
                     if tp.AXIS in _names(e)), None)
     logits = (batch[0] if batch else None, tp.AXIS) if plan.vocab else batch
-    return _Layout(param_specs, cache_specs, batch, logits, cells, plan,
-                   tp.local_leaves(plan, pspecs), cut_dim)
+    inputs = specs(lm.input_specs(cfg, ShapeSpec("serve", "prefill", S, B)))
+    embeds = {k: v for k, v in inputs.items() if k != "tokens"}
+    return _Layout(param_specs, cache_specs, batch, embeds, logits, cells,
+                   plan, tp.local_leaves(plan, pspecs), cut_dim)
 
 
 def _gathered(lay: _Layout, tree, specs, local, label: str):
@@ -158,13 +196,22 @@ def _top(lay: _Layout, params) -> Dict:
                          k) for k in params if k != "stack"}
 
 
-def _layer(lay: _Layout, params, i: int) -> Dict:
-    """Layer ``i``'s leaves, gathered from the cell's shards of the
-    stacked leaves (``layers`` never cut): one layer at a time."""
-    return _gathered(
-        lay, P.layer(params["stack"]["layers"], i),
-        P.tree_map(lambda s: tuple(s)[1:], lay.param_specs["stack"]["layers"]),
-        lay.local["stack"]["layers"], f"stack.layers[{i}]")
+def _stack(lay: _Layout, params, *path) -> Dict:
+    """The leaves at ``path`` in ``params["stack"]`` (``lm.stack_leaves``'
+    paths: a key for each dict, an index into each stacked axis, which no
+    rule cuts), gathered from the cell's shards: one layer at a time."""
+    tree, specs, local = (params["stack"], lay.param_specs["stack"],
+                          lay.local["stack"])
+    label = "stack"
+    for k in path:
+        if isinstance(k, int):
+            tree = P.layer(tree, k)
+            specs = P.tree_map(lambda s: tuple(s)[1:], specs)
+            label += f"[{k}]"
+        else:
+            tree, specs, local = tree[k], specs[k], local[k]
+            label += f".{k}"
+    return _gathered(lay, tree, specs, local, label)
 
 
 def _greedy(cfg: ModelConfig, tc, logits):
@@ -196,7 +243,7 @@ def _partitioned(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx,
     def layout(args) -> _Layout:
         B, S = args[-1]["tokens"].shape
         if kind == "decode":
-            S = args[1]["k"].shape[2]
+            S = _self_kv(args[1]).shape[-3]
         key = (B, S)
         if key not in layouts:
             layouts[key] = _layout(cfg, ctx, B, S)
@@ -212,18 +259,18 @@ def _partitioned(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx,
                            lay.plan.attn)
             top = _top(lay, params)
 
-            def layer(i):
-                return _layer(lay, params, i)
+            def stack(*path):
+                return _stack(lay, params, *path)
 
             if kind == "prefill":
                 logits, cache = lm.prefill_segments(
-                    cfg, run, ctx, tc, top, batch, layer=layer, cut=cut)
+                    cfg, run, ctx, tc, top, batch, stack=stack, cut=cut)
             else:
                 pos = batch["pos"]
                 pos = int(pos) if isinstance(pos, torch.Tensor) else pos
                 logits, cache = lm.decode_segments(
                     cfg, run, ctx, tc, top, rest[0],
-                    {"tokens": batch["tokens"], "pos": pos}, layer=layer,
+                    {"tokens": batch["tokens"], "pos": pos}, stack=stack,
                     cut=cut)
             return _greedy(cfg, tc, logits), cache, logits
 
@@ -233,13 +280,14 @@ def _partitioned(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx,
         lay = layout(args)
         batch = {"tokens": lay.batch}
         if kind == "prefill":
-            return lay.param_specs, batch
+            return lay.param_specs, {**batch, **lay.embeds}
         return lay.param_specs, lay.cache_specs, {**batch, "pos": ()}
 
     def step(*args, logits: bool = False):
         lay = layout(args)
         batch = args[-1]
-        batch = {k: batch[k] for k in (("tokens",) if kind == "prefill"
+        batch = {k: batch[k] for k in (("tokens", *lay.embeds)
+                                       if kind == "prefill"
                                        else ("tokens", "pos"))}
         args = (*args[:-1], batch)
         fn = spmd.shard_map(cell_at(*args), mesh, in_specs=in_specs(*args),

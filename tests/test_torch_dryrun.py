@@ -274,9 +274,9 @@ def test_single_mesh_cell_shards_arguments_and_traces_one_data_cell(
 
 def test_single_mesh_whole_model_cell_names_the_unissued_collectives(
         tmp_path):
-    """whisper-small's prefill on the 16 x 16 mesh serves the model whole
-    in its data cell: it names the collectives that GSPMD would insert."""
-    r = _single_mesh_cell(tmp_path, "whisper-small")
+    """rwkv6-7b's prefill on the 16 x 16 mesh serves the model whole in
+    its data cell: it names the collectives that GSPMD would insert."""
+    r = _single_mesh_cell(tmp_path, "rwkv6-7b")
     assert r["collectives_not_issued"] == dryrun.NOT_ISSUED
     assert r["per_device_bytes"]["repeated_over_model"] == ["every block"]
 

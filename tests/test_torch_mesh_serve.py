@@ -14,10 +14,20 @@ olmoe-1b-7b (the dense dispatch under ``baseline``, and ``moe_impl="a2a"``
 under ``moe_a2a``) and llama4-scout (a shared expert), f32 compute, on
 (2, 2) and (1, 2); batch 4 x prompt 32, and prompt 27, where the
 sequence does not divide and the rules cut the cache's kv heads, or
-nothing; the weights drawn by the reference and carried over; the
+nothing; the VLM's smoke config (its gates drawn away from 0 in the
+reference's weights: at tanh(0) = 0 the cross layers would hide every
+fault) on (2, 2), (1, 2) and (1, 4), where its 2 kv heads do not split
+and the attention repeats, and at prompt 27; whisper's on (2, 2) and
+(1, 2), at prompt 27, and with a vocabulary of 255 rows, which splits
+over no axis (whisper-small's 51865 neither): its embedding and logits
+repeat in every cell. The VLM's image and whisper's frame embeddings
+are drawn by numpy from a seed at scale 0.02 and rounded to bfloat16 in
+both packages, cut over the data axes by ``lm.input_specs``' specs. The
+weights drawn by the reference and carried over; the
 cache padded for 4 generated tokens (the reference re-lays it to the
 decode program's specs with ``jax.device_put``), then 3 decode steps fed
-the same tokens. Held at each step: every cell's cache shard indices,
+the same tokens. Held at each step: every cell's shard indices of every
+cache leaf (the self k and v, the VLM's image KV, whisper's cross KV),
 exactly (``devices_indices_map``); the logits within 1e-4 x max(1,
 max|ref|); every cache shard within that of the reference's device shard
 at the same mesh position, to one bfloat16 rounding, since both packages
@@ -27,16 +37,21 @@ equal.
 In the port alone: the partitioned serve against the port's own
 unpartitioned serve in f32; ``generate`` on a virtual mesh giving the
 null context's ids; the flash calls of a prefill on each cell's heads
-(olmoe's smoke) and on all heads (smollm's, whose 3 heads do not split);
-no decode step gathers a tensor of a cache shard's size (``spmd.observe``)
-and ``pad_cache`` never assembles the whole cache; and three planted
-breaches, each refused by the reference differential: the attention's
-exit without its psum, the new token written into every cell's block,
-each cell's own argmax without the group's combine.
+(olmoe's smoke; the VLM's self and cross layers, whisper's encoder,
+decoder and cross attention) and on all heads (smollm's, whose 3 heads
+do not split); no decode step gathers a tensor of a cache shard's size
+(``spmd.observe``) and ``pad_cache`` never assembles the whole cache;
+and six planted breaches, each refused by the reference differential:
+the attention's exit without its psum, the new token written into
+every cell's block, each cell's own argmax without the group's combine,
+the cross KV written with every kv head in every cell, the cross
+attention's exit in a decode step without its psum, and whisper's
+encoder output taken before its last exit's sum.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 
 import numpy as np
@@ -56,15 +71,18 @@ from repro_torch.models import params as P  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve import step as S  # noqa: E402
 from test_torch_mesh_train import counted_flash, virtual  # noqa: E402,F401
+from test_torch_tensor_parallel import counted_cross_flash  # noqa: E402,F401
 from test_torch_rwkv import assert_close  # noqa: E402
 from test_torch_spmd import run_reference  # noqa: E402
 from test_torch_zamba2 import assert_same_rounding  # noqa: E402
 
 SMOLLM, DANUBE = "smollm-135m", "h2o-danube-3-4b"
 OLMOE, SCOUT = "olmoe-1b-7b", "llama4-scout-17b-a16e"
+VLM, WHISPER = "llama-3.2-vision-11b", "whisper-small"
 B, PROMPT, GEN, SEED = 4, 32, 4, 5
 STEPS = GEN - 1
-# (arch, moe_impl, (data, model), prompt)
+ODD_VOCAB = 255  # whisper's: split over no axis, as whisper-small's 51865
+# (arch, moe_impl, (data, model), prompt[, vocabulary])
 CASES = (
     (SMOLLM, "dense", (2, 2), PROMPT), (SMOLLM, "dense", (1, 2), PROMPT),
     (SMOLLM, "dense", (2, 2), 27),
@@ -73,13 +91,71 @@ CASES = (
     (OLMOE, "dense", (2, 2), 27),
     (OLMOE, "a2a", (2, 2), PROMPT), (OLMOE, "a2a", (1, 2), PROMPT),
     (SCOUT, "dense", (2, 2), PROMPT), (SCOUT, "dense", (1, 2), PROMPT),
+    (VLM, "dense", (2, 2), PROMPT), (VLM, "dense", (1, 2), PROMPT),
+    (VLM, "dense", (1, 4), PROMPT), (VLM, "dense", (2, 2), 27),
+    (WHISPER, "dense", (2, 2), PROMPT), (WHISPER, "dense", (1, 2), PROMPT),
+    (WHISPER, "dense", (2, 2), 27),
+    (WHISPER, "dense", (2, 2), PROMPT, ODD_VOCAB),
 )
-ARCHS = sorted({c[0] for c in CASES})
+
+
+def variant(case) -> str:
+    """The case's model: its arch, and its vocabulary where it is set."""
+    return case[0] + "".join(f"/vocab{v}" for v in case[4:])
+
+
+VARIANTS = sorted({(variant(c), c[0], (c[4:] or (0,))[0]) for c in CASES})
 
 
 def key(case) -> str:
-    arch, impl, (d, m), prompt = case
-    return f"{arch}/{impl}/{d}x{m}/{prompt}"
+    arch, impl, (d, m), prompt = case[:4]
+    return f"{variant(case)}/{impl}/{d}x{m}/{prompt}"
+
+
+def config(case):
+    """The case's smoke config (its vocabulary replaced where set)."""
+    cfg = registry.get(case[0]).smoke
+    return dataclasses.replace(cfg, vocab_size=case[4]) if case[4:] else cfg
+
+
+def embeds() -> dict:
+    """Each arch's stub embeddings (the VLM's image, whisper's frame
+    embeddings), drawn at scale 0.02 from the seed in float32; both
+    packages round them to bfloat16."""
+    rng = np.random.default_rng(SEED + 1)
+    out = {}
+    for arch in sorted({c[0] for c in CASES}):
+        cfg = registry.get(arch).smoke
+        n = {"vlm": cfg.num_image_tokens, "audio": cfg.encoder_seq}.get(
+            cfg.family)
+        if n is not None:
+            name = "image_embeds" if cfg.family == "vlm" else "frame_embeds"
+            out[arch] = {name: (0.02 * rng.standard_normal(
+                (B, n, cfg.d_model))).astype(np.float32)}
+    return out
+
+
+def by_path(tree, prefix=""):
+    """(dotted path, leaf) of every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from by_path(v, f"{prefix}{k}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def at_path(tree, path):
+    for k in path.split("."):
+        tree = tree[k]
+    return tree
+
+
+def with_leaves(tree, fn, prefix=""):
+    """``tree`` with each leaf ``fn(path, leaf)``."""
+    if isinstance(tree, dict):
+        return {k: with_leaves(v, fn, f"{prefix}{k}.")
+                for k, v in tree.items()}
+    return fn(prefix[:-1], tree)
 
 
 REF_SERVE = """
@@ -103,29 +179,62 @@ def shards(x, shape):
                     for sl, d in zip(index, shape)])
     return out, json.dumps(idx)
 
+import dataclasses
+
+def leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaves(v, f"{prefix}{k}.")
+    else:
+        yield prefix[:-1], tree
+
 def keep(prefix, cache):
-    for name in ("k", "v"):
-        data, idx = shards(cache[name], cache[name].shape)
-        out[f"{prefix}/{name}/shards"] = data
-        out[f"{prefix}/{name}/indices"] = idx
+    for path, leaf in leaves(cache):
+        data, idx = shards(leaf, leaf.shape)
+        out[f"{prefix}/{path}/shards"] = data
+        out[f"{prefix}/{path}/indices"] = idx
 
-for arch in inp["archs"]:
+def padded(tree, name=None):
+    # only the self k and v grow, on their sequence axis (third from last)
+    if isinstance(tree, dict):
+        return {k: padded(v, k) for k, v in tree.items()}
+    x = np.asarray(tree)
+    if name not in ("k", "v"):
+        return x
+    padw = [(0, 0)] * x.ndim
+    padw[-3] = (0, inp["gen"])
+    return np.pad(x, padw)
+
+def config(arch, vocab):
     cfg = registry.get(arch).smoke
-    out[f"{arch}/params"] = P.materialize(
-        lm.param_specs(cfg), jax.random.PRNGKey(inp["seed"]),
-        dtype="float32")
+    return dataclasses.replace(cfg, vocab_size=vocab) if vocab else cfg
 
-for arch, impl, (d, m), prompt in inp["cases"]:
+rng = np.random.default_rng(inp["seed"])
+for name, arch, vocab in inp["variants"]:
+    cfg = config(arch, vocab)
+    params = P.materialize(lm.param_specs(cfg),
+                           jax.random.PRNGKey(inp["seed"]), dtype="float32")
+    if cfg.family == "vlm":  # the gates drawn away from 0
+        cross = params["stack"]["cross"]
+        for gate in ("gate_attn", "gate_mlp"):
+            shape = np.shape(cross[gate])
+            cross[gate] = (rng.uniform(0.5, 1.5, shape) * rng.choice(
+                [-1, 1], shape)).astype(np.float32)
+    out[f"{name}/params"] = params
+
+for (arch, impl, (d, m), prompt, vocab), name, key in zip(
+        inp["cases"], inp["names"], inp["keys"]):
     b = registry.get(arch)
-    cfg = b.smoke
+    cfg = config(arch, vocab)
     run = b.run.replace(compute_dtype="float32", moe_impl=impl)
     mesh = make_host_mesh(d, m)
     ctx = ShardingCtx.for_mesh(mesh, "moe_a2a" if impl == "a2a" else
                                "baseline")
-    key = f"{arch}/{impl}/{d}x{m}/{prompt}"
-    toks = inp["tokens"]
-    params = jax.device_put(out[f"{arch}/params"],
+    toks = inp["tokens"] % cfg.vocab_size
+    params = jax.device_put(out[f"{name}/params"],
                             _ns_tree(lm.param_specs(cfg), ctx))
+    stub = {k: jnp.asarray(v).astype(jnp.bfloat16)
+            for k, v in inp["embeds"].get(arch, {}).items()}
 
     def prefill(p, batch):
         logits, cache = lm.prefill_fn(cfg, run, ctx, p, batch)
@@ -144,15 +253,12 @@ for arch, impl, (d, m), prompt in inp["cases"]:
     with mesh:
         tok, cache, logits = jax.jit(
             prefill, out_shardings=(None, pre_ns, None))(
-            params, {"tokens": jax.device_put(toks[:, :prompt],
-                                              in_ns["tokens"])})
+            params, jax.device_put({"tokens": toks[:, :prompt], **stub},
+                                   in_ns))
     out[f"{key}/prefill/tok"], out[f"{key}/prefill/logits"] = tok, logits
     keep(f"{key}/prefill", cache)
     if not cfg.sliding_window:
-        padw = [(0, 0)] * 5
-        padw[2] = (0, inp["gen"])
-        cache = {name: np.pad(np.asarray(cache[name]), padw)
-                 for name in ("k", "v")}
+        cache = padded(cache)
     cache = jax.device_put(cache, dec_ns)
     keep(f"{key}/padded", cache)
     step = jax.jit(decode, out_shardings=(None, dec_ns, None))
@@ -169,6 +275,8 @@ for arch, impl, (d, m), prompt in inp["cases"]:
 
 
 def tokens() -> np.ndarray:
+    """The prompts and the tokens fed to the decode steps (a case takes
+    them modulo its vocabulary)."""
     return np.random.default_rng(SEED).integers(
         0, 256, (B, PROMPT + STEPS), dtype=np.int32)
 
@@ -176,20 +284,23 @@ def tokens() -> np.ndarray:
 @pytest.fixture(scope="module")
 def reference():
     return run_reference(REF_SERVE, {
-        "archs": ARCHS, "cases": CASES, "seed": SEED, "tokens": tokens(),
-        "gen": GEN, "steps": STEPS}, 4)
+        "variants": VARIANTS,
+        "cases": [(*c[:4], (c[4:] or (0,))[0]) for c in CASES],
+        "names": [variant(c) for c in CASES], "keys": [key(c) for c in CASES],
+        "embeds": embeds(), "seed": SEED, "tokens": tokens(), "gen": GEN,
+        "steps": STEPS}, 4)
 
 
 def setup(case, reference):
     """(cfg, run, ctx, the reference's weights laid out over the case's
     virtual mesh)."""
-    arch, impl, (d, m), _ = case
+    arch, impl, (d, m), _ = case[:4]
     b = registry.get(arch)
     run = b.run.replace(compute_dtype="float32", moe_impl=impl)
     ctx = ShardingCtx.for_mesh(virtual(d, m),
                                "moe_a2a" if impl == "a2a" else "baseline")
-    prm = P.from_reference(reference[f"{arch}/params"], "cpu")
-    return b.smoke, run, ctx, prm
+    prm = P.from_reference(reference[f"{variant(case)}/params"], "cpu")
+    return config(case), run, ctx, prm
 
 
 def serve_steps(cfg, run, ctx, prm, prompt, feed=None):
@@ -199,13 +310,13 @@ def serve_steps(cfg, run, ctx, prm, prompt, feed=None):
     the decode step after step ``name`` starts from, in place of the
     step's own (a bfloat16 rounding flip in a cache moves the next
     logits past 1e-4; each decode step is held from the same cache)."""
-    toks = torch.from_numpy(tokens())
+    toks = torch.from_numpy(tokens()) % cfg.vocab_size
     prefill = S.make_prefill_step(cfg, run, ctx)
     decode = S.make_decode_step(cfg, run, ctx)
     if ctx.mesh is not None:
         prm = S.laid_out(cfg, ctx, prm)
-    tok, cache, logits = prefill(prm, {"tokens": toks[:, :prompt]},
-                                 logits=True)
+    tok, cache, logits = prefill(prm, {"tokens": toks[:, :prompt],
+                                       **stub_embeds(cfg)}, logits=True)
     out = [("prefill", tok, cache, logits)]
     cache = serve.pad_cache(cfg, cache, GEN)
     out.append(("padded", None, cache, None))
@@ -219,15 +330,23 @@ def serve_steps(cfg, run, ctx, prm, prompt, feed=None):
     return out
 
 
+def stub_embeds(cfg) -> dict:
+    """``embeds()`` of the arch whose smoke config ``cfg`` is (its
+    vocabulary aside), in bfloat16."""
+    arch = next(c[0] for c in CASES
+                if registry.get(c[0]).smoke.name == cfg.name)
+    return {k: torch.from_numpy(v).to(torch.bfloat16)
+            for k, v in embeds().get(arch, {}).items()}
+
+
 def from_reference(reference, k):
     """``serve_steps``' ``feed``: the reference's cache after the step,
     each cell's shard its device's, laid out as the port's."""
     def feed(name, cache):
-        return {leaf: MeshArray(
-            cache[leaf].shape, torch.bfloat16, cache[leaf].sharding,
+        return with_leaves(cache, lambda path, t: MeshArray(
+            t.shape, torch.bfloat16, t.sharding,
             [torch.from_numpy(w).to(torch.bfloat16)
-             for w in reference[f"{k}/{name}/{leaf}/shards"]])
-            for leaf in ("k", "v")}
+             for w in reference[f"{k}/{name}/{path}/shards"]]))
 
     return feed
 
@@ -245,8 +364,7 @@ def gaps(steps, reference, k) -> list:
 
     for name, tok, cache, logits in steps:
         at = f"{k}/{name}"
-        for leaf in ("k", "v"):
-            got = cache[leaf]
+        for leaf, got in by_path(cache):
             if not isinstance(got, MeshArray):
                 bad.append(f"{at} {leaf}: not a MeshArray")
                 continue
@@ -276,15 +394,27 @@ def test_partitioned_serve_matches_reference_on_its_mesh(reference, case):
     steps = serve_steps(cfg, run, ctx, prm, case[3],
                         from_reference(reference, key(case)))
     assert gaps(steps, reference, key(case)) == []
-    # the rules cut the cache's sequence where it divides, else its kv
-    # heads where they divide, else neither
-    spec = steps[0][2]["k"].sharding.spec
-    if case[3] == PROMPT:
-        assert spec[2:3] == ("model",), spec
-    elif cfg.num_kv_heads % 2 == 0:
-        assert spec[2:] == (None, "model"), spec
+    # the rules cut the self cache's sequence where it divides, else its
+    # kv heads where they divide, else neither; the cross KV's kv heads
+    # where they divide
+    m = case[2][1]
+    spec = last4(S._self_kv(steps[0][2]))
+    if case[3] % m == 0:
+        assert spec[1:3] == ("model", None), spec
+    elif cfg.num_kv_heads % m == 0:
+        assert spec[1:3] == (None, "model"), spec
     else:
         assert "model" not in spec, spec
+    ck = S._cross_kv(steps[0][2])
+    if ck is not None:
+        heads = "model" if cfg.num_kv_heads % m == 0 else None
+        assert last4(ck)[1:3] == (None, heads), last4(ck)
+
+
+def last4(t: MeshArray) -> tuple:
+    """The spec entries of a cache leaf's (batch, sequence, heads,
+    head_dim) dims."""
+    return (tuple(t.sharding.spec) + (None,) * t.ndim)[t.ndim - 4:t.ndim]
 
 
 @pytest.mark.parametrize("case", [c for c in CASES if c[1] == "dense"],
@@ -299,25 +429,26 @@ def test_partitioned_serve_matches_the_whole_one(reference, case):
     whole = {name: cache for name, _, cache, _ in want}
 
     def feed(name, cache):  # the whole serve's cache, laid out as this one
-        return {leaf: place(whole[name][leaf], cache[leaf].sharding)
-                for leaf in ("k", "v")}
+        return with_leaves(cache, lambda path, t: place(
+            at_path(whole[name], path), t.sharding))
 
     got = serve_steps(cfg, run, ctx, prm, case[3], feed)
     for (name, tok, cache, logits), (_, wtok, wcache, wlogits) in zip(
             got, want, strict=True):
-        for leaf in ("k", "v"):
-            assert_same_rounding(cache[leaf].gather(), wcache[leaf].float(),
+        for leaf, t in by_path(cache):
+            assert_same_rounding(t.gather(), at_path(wcache, leaf).float(),
                                  f"{name} {leaf}")
         if logits is not None:
             assert_close(logits, wlogits, 1e-4, f"{name} logits")
             assert torch.equal(tok, wtok), name
 
 
-@pytest.mark.parametrize("arch", [SMOLLM, OLMOE])
+@pytest.mark.parametrize("arch", [SMOLLM, OLMOE, VLM, WHISPER])
 def test_generate_on_a_virtual_mesh_gives_the_null_contexts_ids(reference,
                                                                  arch):
     cfg, run, ctx, prm = setup((arch, "dense", (2, 2), PROMPT), reference)
-    batch = {"tokens": torch.from_numpy(tokens()[:, :PROMPT])}
+    batch = {"tokens": torch.from_numpy(tokens()[:, :PROMPT]),
+             **stub_embeds(cfg)}
     want, _ = serve.generate(cfg, run, prm, batch, 6)
     got, times = serve.generate(cfg, run, prm, batch, 6, ctx)
     assert got.shape == (B, 6) and np.array_equal(got, want)
@@ -341,17 +472,50 @@ def test_prefill_flash_calls_run_on_the_cells_heads(reference, counted_flash,
         4 * cfg.num_layers)
 
 
-def test_no_cell_gathers_the_whole_cache(reference, monkeypatch):
-    """In every decode step each collective that is not a weight's gather
-    (those are labelled with the leaf's path) returns less than one
-    layer's cache shard; ``pad_cache`` re-lays the cache without
-    assembling it anywhere."""
-    case = (OLMOE, "dense", (2, 2), PROMPT)
+@pytest.mark.parametrize("arch", [VLM, WHISPER])
+def test_cross_families_prefill_flash_calls_run_on_the_cells_heads(
+        reference, counted_cross_flash, arch):
+    """Every cell of (2, 2) calls flash on its 2 rows, its 2 of the 4 q
+    heads and its kv heads: the VLM's self layers (causal) and cross
+    layers (over the image tokens), whisper's encoder (bidirectional, over
+    the frames), its decoder's self (causal) and cross attention (over
+    the encoder's output); a decode step calls none."""
+    cfg, run, ctx, prm = setup((arch, "dense", (2, 2), PROMPT), reference)
+    prm = S.laid_out(cfg, ctx, prm)
+    tok, cache = S.make_prefill_step(cfg, run, ctx)(prm, {
+        "tokens": torch.from_numpy(tokens()[:, :PROMPT]),
+        **stub_embeds(cfg)})
+    rows, h, kv, D = B // 2, cfg.num_heads // 2, cfg.num_kv_heads // 2, \
+        cfg.head_dim
+    q = (rows, PROMPT, h, D)
+    self_call = (q, (rows, PROMPT, kv, D), True)
+    if cfg.family == "vlm":
+        g, s = T._vlm_groups(cfg)
+        cross = (q, (rows, cfg.num_image_tokens, kv, D), False)
+        want = [self_call] * (4 * g * s) + [cross] * (4 * g)
+    else:
+        n = cfg.encoder_seq
+        enc = ((rows, n, h, D), (rows, n, kv, D), False)
+        cross = (q, (rows, n, kv, D), False)
+        want = [enc] * (4 * cfg.encoder_layers) + [self_call, cross] * (
+            4 * cfg.num_layers)
+    assert sorted(counted_cross_flash) == sorted(want)
+    S.make_decode_step(cfg, run, ctx)(prm, serve.pad_cache(cfg, cache, 1), {
+        "tokens": tok[:, None], "pos": PROMPT})
+    assert len(counted_cross_flash) == len(want)
+
+
+def decode_collectives(case, reference, monkeypatch):
+    """(the largest tensor a collective returned in STEPS decode steps
+    of ``case``'s partitioned serve, but a weight's gather (those are
+    labelled with the leaf's path), the smallest shard that a cell holds
+    of one layer's cache leaf), the cache padded by ``pad_cache`` with
+    ``MeshArray.gather`` refused."""
     cfg, run, ctx, prm = setup(case, reference)
     prm = S.laid_out(cfg, ctx, prm)
     toks = torch.from_numpy(tokens())
     _, cache = S.make_prefill_step(cfg, run, ctx)(
-        prm, {"tokens": toks[:, :PROMPT]})
+        prm, {"tokens": toks[:, :PROMPT], **stub_embeds(cfg)})
 
     def refuse(*a, **kw):
         raise AssertionError("a MeshArray assembled whole")
@@ -359,7 +523,8 @@ def test_no_cell_gathers_the_whole_cache(reference, monkeypatch):
     with monkeypatch.context() as mp:
         mp.setattr(MeshArray, "gather", refuse)
         cache = serve.pad_cache(cfg, cache, GEN)
-    layer_shard = cache["k"].shards[0][0].numel()
+    layer_shard = min(t.shards[0].numel() // int(np.prod(t.shape[:-4]))
+                      for _, t in by_path(cache))
     seen = []
 
     def note(op, out, g, cell, *, axes, label):
@@ -371,8 +536,28 @@ def test_no_cell_gathers_the_whole_cache(reference, monkeypatch):
         for i in range(STEPS):
             decode(prm, cache, {"tokens": toks[:, PROMPT + i:PROMPT + i + 1],
                                 "pos": PROMPT + i})
-    assert seen and max(n for _, n in seen) < layer_shard, (layer_shard,
-                                                            seen)
+    assert seen, "no collective in a decode step"
+    return max(n for _, n in seen), layer_shard
+
+
+def test_no_cell_gathers_the_whole_cache(reference, monkeypatch):
+    """In every decode step each collective that is not a weight's gather
+    returns less than one layer's cache shard; ``pad_cache`` re-lays the
+    cache without assembling it anywhere."""
+    largest, layer_shard = decode_collectives(
+        (OLMOE, "dense", (2, 2), PROMPT), reference, monkeypatch)
+    assert largest < layer_shard, (largest, layer_shard)
+
+
+@pytest.mark.parametrize("arch", [VLM, WHISPER])
+def test_no_cell_gathers_a_cache_or_the_cross_kv(reference, monkeypatch,
+                                                 arch):
+    """The cross families as ``test_no_cell_gathers_the_whole_cache``:
+    less than one layer's shard of the self cache or of the cross KV,
+    whichever is smaller; ``pad_cache`` assembles neither."""
+    largest, layer_shard = decode_collectives(
+        (arch, "dense", (2, 2), PROMPT), reference, monkeypatch)
+    assert largest < layer_shard, (largest, layer_shard)
 
 
 def _attention_exit_without_psum(monkeypatch):
@@ -409,6 +594,78 @@ def _own_argmax(monkeypatch):
     monkeypatch.setattr(S, "_greedy", breached)
 
 
+def _cross_kv_in_every_cell(monkeypatch):
+    real = T._xattn_half
+
+    def breached(cfg, ctx, tc, *a, kv=None, **kw):
+        out = real(cfg, ctx, tc, *a, kv=kv, **kw)
+        if kv is None or not tc.plan.xattn:
+            return out
+        x, adds, (k, v) = out
+        return x, adds, tuple(tc.tape.all_gather(t, "model", 2)
+                              for t in (k, v))
+
+    monkeypatch.setattr(T, "_xattn_half", breached)
+
+
+def _cross_decode_exit_without_psum(monkeypatch):
+    real = T._xattn_half
+
+    def breached(cfg, ctx, tc, wl, x, adds, src, *a, **kw):
+        if not isinstance(src, tuple):  # a prefill's
+            return real(cfg, ctx, tc, wl, x, adds, src, *a, **kw)
+        tc.tape.exit = lambda x, axis="model": x
+        try:
+            return real(cfg, ctx, tc, wl, x, adds, src, *a, **kw)
+        finally:
+            del tc.tape.exit
+
+    monkeypatch.setattr(T, "_xattn_half", breached)
+
+
+def _encoder_output_before_its_last_sum(monkeypatch):
+    from repro_torch.models import audio as AU
+
+    real = AU._enc_segments
+
+    def breached(cfg, run, ctx, tc, *a, **kw):
+        tape = tc.tape
+        tape.enc_layers = getattr(tape, "enc_layers", 0) + 1
+        if tape.enc_layers < cfg.encoder_layers:
+            return real(cfg, run, ctx, tc, *a, **kw)
+        exits, sound = [], tape.exit
+
+        def exit(x, axis="model"):  # the MLP half's, the layer's last
+            exits.append(x)
+            return sound(x, axis) if len(exits) == 1 else x
+
+        tape.exit = exit
+        try:
+            return real(cfg, run, ctx, tc, *a, **kw)
+        finally:
+            del tape.exit
+
+    monkeypatch.setattr(AU, "_enc_segments", breached)
+
+
+@pytest.mark.parametrize("breach,arch", [
+    (_cross_kv_in_every_cell, VLM), (_cross_kv_in_every_cell, WHISPER),
+    (_cross_decode_exit_without_psum, VLM),
+    (_cross_decode_exit_without_psum, WHISPER),
+    (_encoder_output_before_its_last_sum, WHISPER)])
+def test_cross_planted_breaches_fail_the_reference_differential(
+        reference, monkeypatch, breach, arch):
+    """Each breach of the cross families' partitioned serve is refused by
+    the reference differential that the sound code passes
+    (``test_partitioned_serve_matches_reference_on_its_mesh``)."""
+    case = (arch, "dense", (2, 2), PROMPT)
+    cfg, run, ctx, prm = setup(case, reference)
+    breach(monkeypatch)
+    assert gaps(serve_steps(cfg, run, ctx, prm, PROMPT,
+                            from_reference(reference, key(case))),
+                reference, key(case))
+
+
 @pytest.mark.parametrize("breach", [_attention_exit_without_psum,
                                     _token_written_into_every_block,
                                     _own_argmax])
@@ -429,17 +686,20 @@ def test_planted_breaches_fail_the_reference_differential(reference,
     (OLMOE, "decode_32k", "single", "moe_a2a", True),
     (SCOUT, "prefill_32k", "multi", "baseline", True),
     (SMOLLM, "prefill_32k", "single", "decode_flash", False),
-    ("llama-3.2-vision-11b", "decode_32k", "single", "baseline", False),
-    ("whisper-small", "prefill_32k", "multi", "baseline", False),
+    ("llama-3.2-vision-11b", "decode_32k", "single", "baseline", True),
+    ("llama-3.2-vision-11b", "prefill_32k", "multi", "baseline", True),
+    ("whisper-small", "prefill_32k", "multi", "baseline", True),
+    ("whisper-small", "decode_32k", "single", "baseline", True),
     ("rwkv6-7b", "decode_32k", "single", "baseline", False),
     ("zamba2-7b", "prefill_32k", "single", "baseline", False)])
 def test_dryrun_traces_a_partitioned_serve_cell(tmp_path, arch, shape, mesh,
                                                 ruleset, partitioned):
-    """On the reference's meshes a dense or MoE serve cell under the
-    ``baseline`` or ``moe_a2a`` rules is traced as its first cell alone:
-    its collectives counted by axes, none left unissued; every other
-    family, and the ``decode_flash`` ruleset, still serves the model whole
-    in its data cell and names the collectives GSPMD would insert."""
+    """On the reference's meshes a dense, MoE, VLM or whisper serve cell
+    under the ``baseline`` or ``moe_a2a`` rules is traced as its first
+    cell alone: its collectives counted by axes, none left unissued;
+    rwkv6 and zamba2, and the ``decode_flash`` ruleset, still serve the
+    model whole in their data cell and name the collectives GSPMD would
+    insert."""
     from repro_torch.launch import dryrun
 
     r = dryrun.run_cell(arch, shape, mesh, ruleset, str(tmp_path),
