@@ -79,7 +79,12 @@ layers against the same serve unpartitioned; ``serve_mesh_vlm`` and
 ``serve_mesh_whisper``, after ``serve_vlm`` and ``serve_whisper``: the
 same for the cross-attention families, each cell also holding its kv
 heads' shard of the cross KV, the VLM held in f32 at one super-block (5
-layers), whisper-small whole;
+layers), whisper-small whole; ``serve_mesh_rwkv6``, after
+``serve_trace``, and ``serve_mesh_zamba2``, after ``serve_zamba2``: the
+same for the recurrent families, each cell holding its heads' shard of
+the WKV or SSD state, its even block of zamba2's conv state and its
+shard of zamba2's shared-block KV cache, held in f32 at 2 layers
+(rwkv6) and 6 (zamba2, one shared-block application);
 ``train_mesh_rwkv6``, after ``train_rwkv6``: rwkv6-7b at 2 layers,
 each cell's own WKV heads, channel-mix columns and vocabulary, held
 against the same steps unpartitioned; ``train_mesh_vlm``, after
@@ -149,10 +154,11 @@ SOURCES = ("blockhash", "wkv6", "ssd", "flash_attention")  # csrc/<name>.cu
 # (B, S, H, K, V, chunk): the three shapes of tests/test_kernels.py's WKV6
 # sweep, then the serve's full width (rwkv6-7b: 64 heads of 64, chunk 32,
 # batch 4, prompt 1024), then a cell's own in train_mesh_rwkv6 (its 4
-# rows of 2048 tokens, 32 of the 64 heads).
+# rows of 2048 tokens, 32 of the 64 heads) and in serve_mesh_rwkv6's
+# prefill (its 2 rows of the prompt, 32 of the 64 heads).
 WKV6_SHAPES = ((2, 64, 3, 16, 16, 16), (1, 128, 2, 32, 32, 32),
                (1, 64, 1, 8, 8, 64), (4, 1024, 64, 64, 64, 32),
-               (4, 2048, 32, 64, 64, 32))
+               (4, 2048, 32, 64, 64, 32), (2, 1024, 32, 64, 64, 32))
 WKV6_HEADLINE = ((4, 1024, 64, 64, 64, 32), "bfloat16")
 WKV6_TOL = 1e-4  # x max(1, max|ref|), for y and the state
 SERVE = {"arch": "rwkv6-7b", "batch": 4, "prompt": 1024, "gen": 32}
@@ -160,10 +166,11 @@ SERVE = {"arch": "rwkv6-7b", "batch": 4, "prompt": 1024, "gen": 32}
 # (b, S, H, P, N, chunk): the three shapes of tests/test_kernels.py's SSD
 # sweep, then the serve's full width (zamba2-7b: 112 heads, P = N = 64,
 # chunk 128, batch 4, prompt 1024), then a cell's own in train_mesh_zamba2
-# (its 4 rows of 2048 tokens, 56 of the 112 heads).
+# (its 4 rows of 2048 tokens, 56 of the 112 heads) and in
+# serve_mesh_zamba2's prefill (its 2 rows of the prompt, 56 heads).
 SSD_SHAPES = ((2, 128, 3, 16, 8, 32), (1, 256, 2, 64, 64, 128),
               (1, 64, 1, 8, 8, 64), (4, 1024, 112, 64, 64, 128),
-              (4, 2048, 56, 64, 64, 128))
+              (4, 2048, 56, 64, 64, 128), (2, 1024, 56, 64, 64, 128))
 SSD_HEADLINE = ((4, 1024, 112, 64, 64, 128), "bfloat16")
 SSD_TOL = 2e-4  # x max(1, max|ref|), for y and the state
 # (B, Sq, Skv, Hq, Hkv, D, causal, window, softcap): the five shapes of
@@ -192,8 +199,10 @@ SSD_TOL = 2e-4  # x max(1, max|ref|), for y and the state
 # smollm-135m's 9 over 3 (serve_mesh_smollm, 2 rows: they do not split),
 # olmoe-1b-7b's 4 of its 16 heads (serve_olmoe_a2a's (1, 4) mesh, 4
 # rows), a VLM serve cell's 16 q heads over 4 kv heads (serve_mesh_vlm, 2
-# rows), self and cross, and a whisper serve cell's 6 of the 12 heads
-# (serve_mesh_whisper, 2 rows): the encoder's, the decoder's, the cross.
+# rows), self and cross, a whisper serve cell's 6 of the 12 heads
+# (serve_mesh_whisper, 2 rows): the encoder's, the decoder's, the cross,
+# and a zamba2 serve cell's shared block, 16 of its 32 heads
+# (serve_mesh_zamba2, 2 rows).
 FLASH_CASES = ((2, 256, 256, 4, 2, 64, True, 0, 0.0),
                (1, 512, 512, 8, 8, 128, True, 0, 0.0),
                (2, 256, 256, 4, 4, 64, False, 0, 0.0),
@@ -233,7 +242,8 @@ FLASH_CASES = ((2, 256, 256, 4, 2, 64, True, 0, 0.0),
                (2, 1024, 6404, 16, 4, 128, False, 0, 0.0),
                (2, 1500, 1500, 6, 6, 64, False, 0, 0.0),
                (2, 384, 384, 6, 6, 64, True, 0, 0.0),
-               (2, 384, 1500, 6, 6, 64, False, 0, 0.0))
+               (2, 384, 1500, 6, 6, 64, False, 0, 0.0),
+               (2, 1024, 1024, 16, 16, 112, True, 0, 0.0))
 FLASH_HEADLINE = ((4, 1024, 1024, 32, 32, 112, True, 0, 0.0), "bfloat16")
 # atol = rtol, as the tests; the atol taken at the output's own scale where
 # that is below 1 (flash_within)
@@ -2324,6 +2334,7 @@ def phase_serve_rwkv6():
     bf16_vs_f32_err, _ = logits_err(logits, logits32)
     # the kernel moves the bf16 logits less than bf16 itself moves them
     assert bf16_err < bf16_vs_f32_err, (bf16_err, bf16_vs_f32_err)
+    SERVE_F32_LOGITS["serve_rwkv6"] = logits32.cpu()  # serve_mesh_rwkv6's
     del prm32, cache32, cache32_ref, logits_ref, logits32_ref
     torch.cuda.empty_cache()
 
@@ -2935,7 +2946,7 @@ def serve_profile(cfg, run, prm, tokens, ranges=(), extra=None,
         if ranges:
             part["ranges"] = prof["ranges"]
         kinds = device_kinds(by_name)
-        for kname in ("ssd", "flash"):
+        for kname in ("ssd", "flash", "wkv6"):
             kind = kinds.get(kname, {"us": 0.0, "count": 0})
             part[f"{kname}_us"] = kind["us"]
             part[f"{kname}_launches"] = kind["count"]
@@ -2958,7 +2969,9 @@ def phase_serve_zamba2():
     1000-token prefill (both kernels at lengths no block divides), the
     same prefill through the plain versions, in bf16 and in f32, the smoke
     config on the card against the CPU path (which the CPU tests hold to
-    the reference), and a profiled prefill and 8 decode steps."""
+    the reference), and a profiled prefill and 8 decode steps. Returns
+    the main path's launches, the weights and the prompt
+    (serve_mesh_zamba2's)."""
     import functools
 
     import torch
@@ -3134,6 +3147,7 @@ def phase_serve_zamba2():
     bf16_vs_f32_err, _ = logits_err(logits, logits32)
     # the kernels move the bf16 logits less than bf16 itself moves them
     assert bf16_err < bf16_vs_f32_err, (bf16_err, bf16_vs_f32_err)
+    SERVE_F32_LOGITS["serve_zamba2"] = logits32.cpu()  # serve_mesh_zamba2's
     del prm32, cache32, cache32_ref, logits_ref, logits32_ref
     torch.cuda.empty_cache()
 
@@ -3197,7 +3211,7 @@ def phase_serve_zamba2():
          smoke_card_vs_cpu_err=smoke_err, rerun_ids_equal=True,
          cache_pad_probe=pad_probe, odd_prompt=odd,
          odd_prompt_launches=list(odd_launches), trace=trace)
-    return main_launches
+    return main_launches, prm, tokens
 
 
 # --- the dense stack and the trainer (models/transformer -> kernels/flash_attention,
@@ -5013,40 +5027,62 @@ def phase_serve_olmoe_a2a(prm, tokens):
 # vocabulary) and whisper-small (6 of the 12 heads in its encoder, decoder
 # and cross attention, its cross KV's 6 heads; its 51865-row vocabulary
 # splits over no axis: each cell looks up and computes all the logits),
-# all whole, batch 4, their serve phase's prompt and greedy tokens through
+# rwkv6-7b (each cell's time mix on 32 of the 64 WKV heads, from and into
+# its shard of the WKV state, its channel mix on half the columns, half
+# the vocabulary; the token shifts whole) and zamba2-7b (each cell's
+# Mamba2 blocks on 56 of the 112 SSD heads, its even block of 3648 of the
+# conv state's 7296 channels, its shared block on 16 of the 32 heads and
+# its shard of that block's KV cache, half the vocabulary), all whole,
+# batch 4, their serve phase's prompt and greedy tokens through
 # launch/serve.generate: 8, not the serve phases' 32 (SERVE_MESH_CUT: a
 # partitioned decode step on a virtual mesh costs 0.6-1.0 s of the host's
 # time, its 4 cells taking turns, and the smoke keeps to its time limit).
-# Each phase's ``cell_flash``: the flash kernel's (q, k) in a cell's
-# prefill and how many launches each cell makes at it; ``impls``: the MoE
-# dispatches of its f32 hold, the decision (each partitioned serve against
-# the same depth unpartitioned, at ``f32_layers`` deep, default
-# SERVE_MESH_F32's; None: whole).
+# Each phase's ``cell_launches``: for each model kernel, each of its
+# shapes in a cell's prefill (flash: (q, k); WKV6: r's; SSD: x's) and how
+# many launches each cell makes at it; ``impls``: the MoE dispatches of
+# its f32 hold, the decision (each partitioned serve against the same
+# depth unpartitioned, at ``f32_layers`` deep, default SERVE_MESH_F32's;
+# None: whole); ``f32_err``: the serve phase's field of its bf16 logits'
+# distance from its f32 logits (SERVE_F32_LOGITS); ``trace``: the phase
+# whose line holds the unpartitioned serve's profile, where it is not the
+# serve phase's own ``trace``.
 SERVE_MESH = {
     "serve_mesh_smollm": {"serve": "serve_smollm", "arch": "smollm-135m",
                           "impls": ("dense",),
-                          "cell_flash": {((2, 1024, 9, 64),
-                                          (2, 1024, 3, 64)): 30}},
+                          "cell_launches": {"flash_attention": {
+                              ((2, 1024, 9, 64), (2, 1024, 3, 64)): 30}}},
     "serve_mesh_olmoe": {"serve": "serve_olmoe", "arch": "olmoe-1b-7b",
                          "impls": ("dense", "a2a"),
-                         "cell_flash": {((2, 1024, 8, 128),
-                                         (2, 1024, 8, 128)): 16}},
+                         "cell_launches": {"flash_attention": {
+                             ((2, 1024, 8, 128), (2, 1024, 8, 128)): 16}}},
     # one super-block: 4 self layers and a cross layer (``_vlm_groups``
     # takes no fewer)
     "serve_mesh_vlm": {"serve": "serve_vlm", "arch": "llama-3.2-vision-11b",
                        "impls": ("dense",), "f32_layers": 5,
-                       "cell_flash": {((2, 1024, 16, 128),
-                                       (2, 1024, 4, 128)): 32,
-                                      ((2, 1024, 16, 128),
-                                       (2, 6404, 4, 128)): 8}},
+                       "cell_launches": {"flash_attention": {
+                           ((2, 1024, 16, 128), (2, 1024, 4, 128)): 32,
+                           ((2, 1024, 16, 128), (2, 6404, 4, 128)): 8}}},
     "serve_mesh_whisper": {"serve": "serve_whisper", "arch": "whisper-small",
                            "impls": ("dense",), "f32_layers": None,
-                           "cell_flash": {((2, 1500, 6, 64),
-                                           (2, 1500, 6, 64)): 12,
-                                          ((2, 384, 6, 64),
-                                           (2, 384, 6, 64)): 12,
-                                          ((2, 384, 6, 64),
-                                           (2, 1500, 6, 64)): 12}},
+                           "cell_launches": {"flash_attention": {
+                               ((2, 1500, 6, 64), (2, 1500, 6, 64)): 12,
+                               ((2, 384, 6, 64), (2, 384, 6, 64)): 12,
+                               ((2, 384, 6, 64), (2, 1500, 6, 64)): 12}}},
+    "serve_mesh_rwkv6": {"serve": "serve_rwkv6", "arch": "rwkv6-7b",
+                         "impls": ("dense",), "trace": "serve_trace",
+                         "f32_err": "logits_bf16_vs_f32_err",
+                         "cell_launches": {"wkv6": {
+                             (2, 1024, 32, 64): 32}}},
+    # 6 layers: the fewest that hold an application of the shared block
+    # (after layer 5)
+    "serve_mesh_zamba2": {"serve": "serve_zamba2", "arch": "zamba2-7b",
+                          "impls": ("dense",), "f32_layers": 6,
+                          "f32_err": "logits_bf16_vs_f32_err",
+                          "cell_launches": {
+                              "ssd": {(2, 1024, 56, 64): 81},
+                              "flash_attention": {
+                                  ((2, 1024, 16, 112),
+                                   (2, 1024, 16, 112)): 13}}},
 }
 SERVE_MESH_SHAPE = (2, 2)  # (data, model)
 SERVE_MESH_GEN = 8
@@ -5077,15 +5113,17 @@ def cache_shard_gap(got, want) -> dict:
 
 
 def cut_layers(prm, cfg):
-    """A dense or MoE model's weights ``prm`` cut to ``cfg.num_layers``
-    layers, the VLM's to its first ``cfg.num_layers // cross_attn_every``
-    super-blocks (views of the first ones)."""
+    """A model's weights ``prm`` cut to ``cfg.num_layers`` layers, the
+    VLM's to its first ``cfg.num_layers // cross_attn_every``
+    super-blocks (views of the first ones); zamba2's shared block, which
+    no layer axis stacks, whole."""
     from repro_torch.models import params as P
 
     stack = prm["stack"]
     n = (cfg.num_layers // cfg.cross_attn_every if cfg.family == "vlm"
          else cfg.num_layers)
-    return {**prm, "stack": {k: P.tree_map(lambda t: t[:n], v)
+    return {**prm, "stack": {k: v if k == "shared" else
+                             P.tree_map(lambda t: t[:n], v)
                              for k, v in stack.items()}}
 
 
@@ -5100,9 +5138,11 @@ def mesh_serve_f32_hold(cfg, run, mesh, prm, tokens, impl: str, steps: int,
     cache moves the next logits past the tolerance) and fed the
     unpartitioned greedy tokens; ``extra``: the prefill's embeddings.
     Held: the logits within SERVE_MESH_TOL x max(1, max|unpartitioned|),
-    every cell's shard of every cache leaf (the cross KV too) against the
-    unpartitioned cache's block (``cache_shard_gap``), the greedy ids
-    equal."""
+    every cell's shard of every bf16 cache leaf (the KV cache, the cross
+    KV, the conv state) against the unpartitioned cache's block
+    (``cache_shard_gap``), of every f32 leaf (the WKV and SSD states, an
+    f32 run's token shifts) within SERVE_MESH_TOL x max(1, max|block|)
+    with no rounding term, the greedy ids equal."""
     import torch
 
     from repro_torch.distributed.sharding import ShardingCtx, place
@@ -5121,17 +5161,26 @@ def mesh_serve_f32_hold(cfg, run, mesh, prm, tokens, impl: str, steps: int,
     decode = make_decode_step(cfg, run32, ctx)
     B, prompt = tokens.shape
     rows, worst = [], {"logits": 0.0, "cache_excess": -1.0,
-                       "cache_differ_share": 0.0}
+                       "cache_differ_share": 0.0, "state": 0.0}
+
+    def state_gap(shard, want):  # an f32 leaf's, relative
+        return ((shard.float() - want.float()).abs().max()
+                / max(1.0, want.abs().max().item())).item()
 
     def held(name, tok, cache, logits, want_logits, want_cache):
         err = (logits.float() - want_logits.float()).abs().max().item()
         scale = max(1.0, want_logits.abs().max().item())
-        gaps = [cache_shard_gap(shard, want[index])
-                for got, want in zip(P.leaves(cache), P.leaves(want_cache))
-                for _pos, index, shard in got.addressable_shards]
+        shards = [(shard, want[index]) for got, want in zip(
+            P.leaves(cache), P.leaves(want_cache))
+            for _pos, index, shard in got.addressable_shards]
+        gaps = [cache_shard_gap(g, w) for g, w in shards
+                if g.dtype == torch.bfloat16] or [
+            {"excess": -1.0, "differ_share": 0.0}]
         row = {"at": name, "logits_err": err, "logits_scale": scale,
                "cache_excess": max(g["excess"] for g in gaps),
                "cache_differ_share": max(g["differ_share"] for g in gaps),
+               "state_rel_err": max([state_gap(g, w) for g, w in shards
+                                     if g.dtype != torch.bfloat16] or [0.0]),
                "ids_equal": bool(torch.equal(
                    tok.cpu(), want_logits.argmax(-1).to(torch.int32).cpu()))}
         worst["logits"] = max(worst["logits"], err / scale)
@@ -5139,6 +5188,7 @@ def mesh_serve_f32_hold(cfg, run, mesh, prm, tokens, impl: str, steps: int,
                                     row["cache_excess"])
         worst["cache_differ_share"] = max(worst["cache_differ_share"],
                                           row["cache_differ_share"])
+        worst["state"] = max(worst["state"], row["state_rel_err"])
         rows.append(row)
 
     batch = {"tokens": tokens, **(extra or {})}
@@ -5162,6 +5212,7 @@ def mesh_serve_f32_hold(cfg, run, mesh, prm, tokens, impl: str, steps: int,
     torch.cuda.empty_cache()
     ok = (worst["logits"] <= SERVE_MESH_TOL and worst["cache_excess"] <= 0
           and worst["cache_differ_share"] <= 1e-2
+          and worst["state"] <= SERVE_MESH_TOL
           and all(r["ids_equal"] for r in rows))
     return {"impl": impl, "ruleset": ruleset, "layers": cfg.num_layers,
             "decode_steps": steps, "held": ok, "worst": worst, "rows": rows}
@@ -5172,19 +5223,20 @@ def phase_serve_mesh(name, prm, tokens, extra=None):
     (SERVE_MESH[name]), on its serve phase's bf16 weights, prompt and
     stub embeddings (``extra``: the VLM's image, whisper's frame
     embeddings), whole: each cell holding its FSDP x model shard of every
-    weight leaf and its shard of the KV cache and of the cross KV
-    (MeshArrays; each cell's bytes at rest held equal to the dry-run's
-    argument bytes of the prefill and decode programs), computing on its
-    own heads, columns, experts and vocabulary. The main path, through
-    launch/serve.generate with every kernel count set to 0 just before
-    and read just after: flash in each cell's prefill exactly as often as
-    ``cell_flash`` says at each of the cell's (q, k) shapes, never in a
-    decode step. Then a warm prefill (its logits held by the serve
-    phase's rule: no further from the serve phase's f32 plain logits
-    than twice the unpartitioned bf16 logits are) and a profiled prefill
-    and 2 decode steps (the device's idle share), each beside the serve
-    phase's unpartitioned figures; last the f32 hold at ``f32_layers``
-    deep (``mesh_serve_f32_hold``), the decision."""
+    weight leaf and its shard of every cache leaf (the KV cache, the
+    cross KV, the recurrent states; MeshArrays; each cell's bytes at rest
+    held equal to the dry-run's argument bytes of the prefill and decode
+    programs), computing on its own heads, columns, experts and
+    vocabulary. The main path, through launch/serve.generate with every
+    kernel count set to 0 just before and read just after: each model
+    kernel in each cell's prefill exactly as often as ``cell_launches``
+    says at each of the cell's shapes, never in a decode step. Then a
+    warm prefill (its logits held by the serve phase's rule: no further
+    from the serve phase's f32 logits than twice the unpartitioned bf16
+    logits are) and a profiled prefill and 2 decode steps (the device's
+    idle share), each beside the serve phase's unpartitioned figures;
+    last the f32 hold at ``f32_layers`` deep (``mesh_serve_f32_hold``),
+    the decision. Returns the main path's launches by kernel."""
     import dataclasses
 
     import torch
@@ -5202,7 +5254,6 @@ def phase_serve_mesh(name, prm, tokens, extra=None):
     spec = SERVE_MESH[name]
     unpart = EMITTED[spec["serve"]]
     kernels = _kernel_counts()
-    FA = kernels["flash_attention"]
     bundle = registry.get(spec["arch"])
     cfg, run = bundle.model, bundle.run
     dev = torch.device("cuda")
@@ -5214,8 +5265,10 @@ def phase_serve_mesh(name, prm, tokens, extra=None):
     extra = extra or {}
     batch = {"tokens": tokens, **extra}
     gen, L = SERVE_MESH_GEN, cfg.num_layers
-    # flash launches a prefill: every cell's at each of its shapes
-    launches = cells * sum(spec["cell_flash"].values())
+    # each kernel's launches a prefill: every cell's at each of its shapes
+    cell_launches = spec["cell_launches"]
+    launches = {k: cells * sum(cell_launches.get(k, {}).values())
+                for k in kernels}
     base = torch.cuda.memory_allocated()
 
     mprm = laid_out(cfg, ctx, prm)
@@ -5238,26 +5291,34 @@ def phase_serve_mesh(name, prm, tokens, extra=None):
     torch.cuda.reset_peak_memory_stats()
     for mod in kernels.values():
         mod.reset_launches()
-    with FlashShapes() as flash:
+    with contextlib.ExitStack() as stack:
+        seen = {k: stack.enter_context(LaunchShapes(kernels[k],
+                                                    KERNEL_OPS[k]))
+                for k in cell_launches}
         ids, times = serve.generate(cfg, run, mprm, batch, gen, ctx)
     main_launches = {k: mod.launches() for k, mod in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
-    assert main_launches == {"blockhash": 0, "wkv6": 0, "ssd": 0,
-                             "flash_attention": launches}, main_launches
-    pairs = collections.Counter(flash.pairs)
-    assert pairs == {p: cells * n for p, n in spec["cell_flash"].items()}, \
-        pairs
+    assert main_launches == launches, (main_launches, launches)
+    for k, shapes in seen.items():  # flash's by (q, k), the others' by r, x
+        got = collections.Counter(shapes.pairs if k == "flash_attention"
+                                  else shapes.shapes)
+        assert got == {p: cells * n for p, n in cell_launches[k].items()}, \
+            (k, got)
     assert ids.shape == (B, gen) and ((0 <= ids) & (ids < cfg.vocab_size)).all()
 
     # one prefill alone, then each decode step alone: its launches, and
     # the cache at rest in each cell against the dry-run's decode program
     prefill = make_prefill_step(cfg, run, ctx)
     decode = make_decode_step(cfg, run, ctx)
+    def counts():
+        return {k: mod.launches() for k, mod in kernels.items()}
+
     torch.cuda.synchronize()
-    l0, t0 = FA.launches(), time.perf_counter()
+    l0, t0 = counts(), time.perf_counter()
     tok, cache, logits = prefill(mprm, batch, logits=True)
     torch.cuda.synchronize()
-    prefill_s, prefill_launches = time.perf_counter() - t0, FA.launches() - l0
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = {k: n - l0[k] for k, n in counts().items()}
     assert prefill_launches == launches, prefill_launches
     assert (tok.cpu().numpy() == ids[:, 0]).all()
     cache = serve.pad_cache(cfg, cache, gen)
@@ -5269,10 +5330,10 @@ def phase_serve_mesh(name, prm, tokens, extra=None):
     assert cell_bytes == [dry_decode] * cells, (cell_bytes, dry_decode)
     step_launches = []
     for i in range(2):
-        l0 = FA.launches()
+        l0 = counts()
         tok, cache = decode(mprm, cache, {"tokens": tok[:, None],
                                           "pos": prompt + i})
-        step_launches.append(FA.launches() - l0)
+        step_launches.append(sum(n - l0[k] for k, n in counts().items()))
         assert (tok.cpu().numpy() == ids[:, i + 1]).all()
     assert step_launches == [0, 0], step_launches
     del cache
@@ -5280,15 +5341,19 @@ def phase_serve_mesh(name, prm, tokens, extra=None):
     # the bf16 logits, by the serve phase's rule
     f32 = SERVE_F32_LOGITS[spec["serve"]].to(dev)
     mesh_vs_f32 = (logits.float() - f32.float()).abs().max().item()
-    whole_vs_f32 = unpart["logits_bf16_kernel_vs_f32_err"]
+    whole_vs_f32 = unpart[spec.get("f32_err",
+                                   "logits_bf16_kernel_vs_f32_err")]
     assert mesh_vs_f32 <= 2 * whole_vs_f32, (mesh_vs_f32, whole_vs_f32)
     del f32, logits
 
     trace = serve_profile(cfg, run, mprm, tokens, ctx=ctx, extra=extra,
                           decode_steps=SERVE_MESH_PROFILED_STEPS)
     profiled = f"decode_{SERVE_MESH_PROFILED_STEPS}_steps"
-    assert 0 < trace["prefill"]["flash_launches"] <= launches
-    assert trace[profiled]["flash_launches"] == 0
+    for k, kind in (("flash_attention", "flash"), ("ssd", "ssd"),
+                    ("wkv6", "wkv6")):
+        assert 0 < trace["prefill"][f"{kind}_launches"] <= launches[k] \
+            or launches[k] == trace["prefill"][f"{kind}_launches"] == 0, k
+        assert trace[profiled][f"{kind}_launches"] == 0, k
 
     # the decision: f32 at f32_layers deep, against the same depth whole
     f32_layers = spec.get("f32_layers", SERVE_MESH_F32["layers"])
@@ -5304,16 +5369,19 @@ def phase_serve_mesh(name, prm, tokens, extra=None):
         assert h["held"], h
     ids_equal = float((ids[0] == np.asarray(
         unpart["generated_ids_row0"][:gen])).mean())
-    whole_trace = unpart["trace"]
+    whole_trace = (EMITTED[spec["trace"]] if "trace" in spec
+                   else unpart["trace"])
     emit(name, arch=cfg.name, mesh=[d, m], device="virtual", layers=L,
          dtype=run.compute_dtype, batch=B, prompt=prompt, gen=gen,
          cut=SERVE_MESH_CUT, plan_repeated=make_prefill_step(
              cfg, run, ctx).plan_at({"tokens": tokens}).repeated(cfg),
          main_path_launches=main_launches,
-         flash_launches_per_prefill=prefill_launches,
-         flash_launches_per_decode_step=max(step_launches),
-         flash_cell_shapes=[{"q": list(q), "k": list(k), "launches": n}
-                            for (q, k), n in spec["cell_flash"].items()],
+         launches_per_prefill=prefill_launches,
+         launches_per_decode_step=max(step_launches),
+         cell_shapes={k: [{"shape": [list(t) for t in p] if k ==
+                           "flash_attention" else list(p), "launches": n}
+                          for p, n in v.items()]
+                      for k, v in cell_launches.items()},
          cell_param_bytes=param_bytes, cell_cache_bytes=cache_bytes,
          dryrun_argument_bytes={"prefill": dry_prefill,
                                 "decode": dry_decode},
@@ -5337,11 +5405,12 @@ def phase_serve_mesh(name, prm, tokens, extra=None):
          generated_ids_row0=ids[0].tolist(),
          ids_equal_to_unpartitioned_row0=ids_equal, f32_layers=cut.num_layers,
          f32_hold=holds, f32_tolerance=f"{SERVE_MESH_TOL} x max(1, "
-         "max|unpartitioned|) logits; cache shards the same, plus one bf16 "
-         "ulp on under 1 % of the elements; ids equal", trace=trace)
+         "max|unpartitioned|) logits and f32 state shards; bf16 cache "
+         "shards the same, plus one bf16 ulp on under 1 % of the elements; "
+         "ids equal", trace=trace)
     del cut_prm
     torch.cuda.empty_cache()
-    return main_launches["flash_attention"]
+    return main_launches
 
 
 def decode_flash_check(cfg, run, prm, extra=None) -> dict:
@@ -6934,17 +7003,24 @@ def run_phases(t_start, card, traces) -> int:
     fs_launches["ckpt_model"] = timed("ckpt_model", phase_ckpt_model, prm,
                                       tokens, logits)
     timed("serve_trace", phase_serve_trace, prm, tokens)
+    rwkv_mesh = timed("serve_mesh_rwkv6", phase_serve_mesh,
+                      "serve_mesh_rwkv6", prm, tokens)
     del prm, tokens  # the rwkv6 weights (the f32 copy went in its phase)
     torch.cuda.empty_cache()
     ssd_rows = timed("ssd_kernel", phase_ssd_kernel)
     flash_rows = timed("flash_attention_kernel", phase_flash_attention_kernel)
-    zamba_launches = timed("serve_zamba2", phase_serve_zamba2)
-    flash_by_path = {"serve_zamba2": zamba_launches["flash_attention"]}
+    zamba_launches, prm, tokens = timed("serve_zamba2", phase_serve_zamba2)
+    zamba_mesh = timed("serve_mesh_zamba2", phase_serve_mesh,
+                       "serve_mesh_zamba2", prm, tokens)
+    del prm, tokens  # the zamba2 weights
+    torch.cuda.empty_cache()
+    flash_by_path = {"serve_zamba2": zamba_launches["flash_attention"],
+                     "serve_mesh_zamba2": zamba_mesh["flash_attention"]}
     flash_by_path["serve_smollm"], prm, tokens = timed("serve_smollm",
                                                        phase_serve_smollm)
     flash_by_path["serve_mesh_smollm"] = timed(
         "serve_mesh_smollm", phase_serve_mesh, "serve_mesh_smollm", prm,
-        tokens)
+        tokens)["flash_attention"]
     del prm, tokens
     torch.cuda.empty_cache()
     flash_by_path["train_smollm"], smollm_bwd_ms, trainer = timed(
@@ -6971,7 +7047,8 @@ def run_phases(t_start, card, traces) -> int:
     flash_by_path["serve_olmoe_a2a"] = timed(
         "serve_olmoe_a2a", phase_serve_olmoe_a2a, prm, tokens)
     flash_by_path["serve_mesh_olmoe"] = timed(
-        "serve_mesh_olmoe", phase_serve_mesh, "serve_mesh_olmoe", prm, tokens)
+        "serve_mesh_olmoe", phase_serve_mesh, "serve_mesh_olmoe", prm,
+        tokens)["flash_attention"]
     del prm, tokens  # the olmoe weights
     torch.cuda.empty_cache()
     trained["train_olmoe"] = timed("train_olmoe", phase_train_model,
@@ -6987,7 +7064,7 @@ def run_phases(t_start, card, traces) -> int:
         served = name.replace("serve", "serve_mesh")
         tokens = batch.pop("tokens")
         flash_by_path[served] = timed(served, phase_serve_mesh, served, prm,
-                                      tokens, batch)
+                                      tokens, batch)["flash_attention"]
         del prm, tokens, batch
         torch.cuda.empty_cache()
         train = name.replace("serve", "train")
@@ -7048,6 +7125,7 @@ def run_phases(t_start, card, traces) -> int:
         "replaces": "src/repro/kernels/wkv6/kernel.py:72",
         "launches": wkv_launches,
         "launches_by_path": {"serve_rwkv6": wkv_launches,
+                             "serve_mesh_rwkv6": rwkv_mesh["wkv6"],
                              "train_rwkv6": rwkv_train["wkv6"],
                              "train_mesh_rwkv6": wkv_mesh_launches},
         "recompute_bwd": recompute("wkv6"),
@@ -7065,6 +7143,7 @@ def run_phases(t_start, card, traces) -> int:
         "replaces": "src/repro/kernels/ssd/kernel.py:69",
         "launches": zamba_launches["ssd"],
         "launches_by_path": {"serve_zamba2": zamba_launches["ssd"],
+                             "serve_mesh_zamba2": zamba_mesh["ssd"],
                              "train_zamba2": zamba_train["ssd"],
                              "train_mesh_zamba2": zamba_mesh_launches["ssd"]},
         "recompute_bwd": recompute("ssd"),

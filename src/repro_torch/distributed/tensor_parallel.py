@@ -71,9 +71,9 @@ segment that made it runs its backward. A leaf that several segments
 read by closure (zamba2's weight-tied shared block, applied after every
 ``shared_attn_every``-th layer) sums their gradients in its ``.grad``.
 
-The partitioned serve programs (``serve.step``) run the dense, MoE,
-VLM and audio families' layers with the same plan on a ``Forward`` tape:
-the same segments and collectives, forward only, nothing recorded.
+The partitioned serve programs (``serve.step``) run every family's
+layers with the same plan on a ``Forward`` tape: the same segments and
+collectives, forward only, nothing recorded.
 
 zamba2's Mamba2 in-projection ``w_in`` is one leaf whose columns hold
 the gate, x, B, C and dt side by side, so its even cut over ``model``

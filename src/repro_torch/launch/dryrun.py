@@ -34,16 +34,17 @@ Mesh kinds:
     attention, whose 9 heads do not split; whisper-small's embedding and
     logits, whose 51865 rows split over no axis; zamba2-7b's Mamba2
     blocks over 32, whose 112 heads do not split). The serve programs of
-    the dense, MoE, VLM and audio families under the ``baseline`` and
-    ``moe_a2a`` rules are partitioned too (``serve.step``): each is
-    traced as its first cell alone, on that cell's shards of the weights,
-    of the KV cache and of the cross KV, its collectives counted the same
-    way (the weights' gathers over the data axes layer by layer, the
-    tensor-parallel exits, the cache's all-to-all in a prefill, a decode
-    step's log-sum-exp combine, the group's argmax), and its activation
-    term is the cell's own where no block repeats. Every other serve
-    step (the ssm and hybrid families; the ``decode_flash`` ruleset) is
-    traced for one data cell's share of the batch at full model width,
+    every family under the ``baseline`` and ``moe_a2a`` rules are
+    partitioned too (``serve.step``): each is traced as its first cell
+    alone, on that cell's shards of the weights, of the KV cache, of the
+    cross KV and of the recurrent states, its collectives counted the
+    same way (the weights' gathers over the data axes layer by layer, the
+    tensor-parallel exits and totals, zamba2's gathers of ``w_in`` and,
+    in a decode step, of the conv state, the cache's all-to-all in a
+    prefill, a decode step's log-sum-exp combine, the group's argmax),
+    and its activation term is the cell's own where no block repeats.
+    Every other serve step (the ``seqpar`` and ``decode_flash`` rulesets)
+    is traced for one data cell's share of the batch at full model width,
     on a mesh of that cell's ``model`` axis; its collectives are the ones
     it issues over ``model`` (the a2a MoE's all-to-alls,
     ``flash_decode``'s reductions), and one over the data axes
@@ -93,10 +94,9 @@ MESHES = {"single": ((16, 16), ("data", "model")),
           "multi": ((2, 16, 16), ("pod", "data", "model"))}
 NOT_ISSUED = ("the collectives that GSPMD inserts into the reference's "
               "partitioned serve programs: the port partitions the serve "
-              "programs of the dense, MoE, VLM and audio families under "
-              "the baseline and moe_a2a rules only; the ssm and hybrid "
-              "families and the decode_flash ruleset serve the model whole "
-              "in each data cell (ShardingCtx.constrain is the identity)")
+              "programs under the baseline and moe_a2a rules only; the "
+              "seqpar and decode_flash rulesets serve the model whole in "
+              "each data cell (ShardingCtx.constrain is the identity)")
 
 
 def _meta_mesh(shape, axes):

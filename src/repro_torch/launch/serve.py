@@ -43,9 +43,10 @@ def pad_cache(cfg: ModelConfig, cache, gen: int):
     axis. A partitioned serve's cache (``MeshArray`` leaves, laid out by
     the baseline rules: ``serve.step.partitioned``) comes back laid out by
     the decode program's specs on the same mesh, each cell's shard of the
-    self k and v made from the prefill's shards that overlap it
-    (``sharding.resharded``): the padded length moves the sequence
-    blocks' edges; the cross KV's shards stay as they are."""
+    self k and v (zamba2's shared block's too) made from the prefill's
+    shards that overlap it (``sharding.resharded``): the padded length
+    moves the sequence blocks' edges; the cross KV's and the recurrent
+    states' shards stay as they are."""
     def pad_seq(x):  # (..., S, H, D) -> (..., S + gen, H, D)
         return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, gen))
 
@@ -102,11 +103,11 @@ def generate(cfg: ModelConfig, run: RunConfig, prm,
     until ``gen`` tokens are out. Returns the generated ids (B, gen) and
     the host-clock times: each step ends when its tokens are on the host.
     ``ctx`` (``ShardingCtx.null()`` by default): with a mesh the serve
-    steps are ``serve.step``'s for it, partitioned over it for the dense,
-    MoE, VLM and audio families (``serve.step.partitioned``), whose
-    weights are laid out over it first where they are whole tensors; the
-    VLM's and whisper's embeddings are cut over the data axes inside the
-    steps."""
+    steps are ``serve.step``'s for it, partitioned over it under the
+    ``baseline`` and ``moe_a2a`` rules (``serve.step.partitioned``),
+    whose weights are laid out over it first where they are whole
+    tensors; the VLM's and whisper's embeddings are cut over the data
+    axes inside the steps."""
     ctx = ShardingCtx.null() if ctx is None else ctx
     prefill = make_prefill_step(cfg, run, ctx)
     decode = make_decode_step(cfg, run, ctx)

@@ -358,12 +358,15 @@ class CacheCut:
     dim of a layer's (B, S, Hkv, D) cache that ``model`` cuts (1 the
     sequence, 2 the kv heads, None neither) into ``size`` blocks, of which
     the cell holds block ``index``; ``local``: the cell computes with its
-    own kv heads (model-local attention), not with all of them."""
+    own kv heads (model-local attention), not with all of them; ``conv``:
+    ``model`` cuts the channels of a Mamba2 layer's (B, K-1, channels)
+    conv state into ``size`` even blocks (``models.mamba2``)."""
 
     dim: Optional[int]
     size: int
     index: int
     local: bool
+    conv: bool = False
 
     def block(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """The cell's block of ``t`` cut over ``model`` along ``dim``."""

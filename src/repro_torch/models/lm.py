@@ -15,10 +15,9 @@ Every architecture exposes the same entry points, the reference's, for
                                      cell's, or INLINE
   cache_specs(cfg, shape)            decode-state tree
   prefill_fn(...) / decode_fn(...)   serving programs
-  prefill_segments(...) / decode_segments(...)   the dense, MoE, VLM
-                                     and audio families' serving
-                                     programs on a tape: a partitioned
-                                     serve cell's, or INLINE
+  prefill_segments(...) / decode_segments(...)   the serving programs
+                                     on a tape: a partitioned serve
+                                     cell's, or INLINE
 """
 
 from __future__ import annotations
@@ -223,30 +222,10 @@ def cache_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict:
     raise ValueError(cfg.family)
 
 
-SEGMENTED_SERVE = ("dense", "moe", "vlm", "audio")
-
-
 def prefill_fn(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, batch):
     """Full-sequence prefill. Returns (last_token_logits (B, V), cache):
-    for the dense, MoE, VLM and audio families ``prefill_segments`` on
-    ``tensor_parallel.INLINE``."""
-    if cfg.family in SEGMENTED_SERVE:
-        return prefill_segments(cfg, run, ctx, tp.INLINE, params, batch)
-    dt = compute_dtype(run)
-    tokens = batch["tokens"]
-    x = embed_tokens(params["embed"], tokens, ctx, dt)
-    positions = _positions(tokens)
-    w = params["stack"]
-    if cfg.family == "ssm":
-        x, cache = RW.stack_prefill(cfg, run, ctx, w, x, chunk=cfg.scan_chunk)
-    elif cfg.family == "hybrid":
-        x, cache = MB.stack_prefill(cfg, run, ctx, w, x, positions,
-                                    chunk=cfg.scan_chunk)
-    else:
-        raise ValueError(cfg.family)
-    x = rms_norm(x[:, -1:], params["final_ln"], cfg.norm_eps)
-    logits = logits_fn(params["embed"], x, ctx)[:, 0]
-    return logits, cache
+    ``prefill_segments`` on ``tensor_parallel.INLINE``."""
+    return prefill_segments(cfg, run, ctx, tp.INLINE, params, batch)
 
 
 def _last_logits(cfg: ModelConfig, ctx: ShardingCtx, tc, params, x, adds):
@@ -277,14 +256,15 @@ def stack_leaves(w):
 
 def prefill_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc,
                      params, batch, *, stack=None, cut=None):
-    """``prefill_fn`` of the dense, MoE, VLM and audio families on the
-    tape of ``tc`` (a cell of the partitioned serve, ``serve.step``, or
-    ``INLINE``): the embedding (a partial lookup and an exit where the
-    vocabulary is model-local), the stack (``transformer.prefill_segments``,
-    the VLM's ``transformer.vlm_prefill_segments`` over the batch's
+    """``prefill_fn`` on the tape of ``tc`` (a cell of the partitioned
+    serve, ``serve.step``, or ``INLINE``): the embedding (a partial
+    lookup and an exit where the vocabulary is model-local), the stack
+    (``transformer.prefill_segments``, the VLM's
+    ``transformer.vlm_prefill_segments`` over the batch's
     ``image_embeds``, whisper's ``audio.prefill_segments`` over its
-    ``frame_embeds``; the leaves at a path ``stack(*path)``, by default
-    ``stack_leaves(params["stack"])``; ``cut`` the cell's
+    ``frame_embeds``, ``rwkv.prefill_segments``,
+    ``mamba2.prefill_segments``; the leaves at a path ``stack(*path)``,
+    by default ``stack_leaves(params["stack"])``; ``cut`` the cell's
     ``attention.CacheCut``) and the last token's logits. Returns
     (logits, cache): the cell's vocabulary columns and cache shard in a
     serve cell."""
@@ -302,6 +282,13 @@ def prefill_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc,
         x, adds, cache = AU.prefill_segments(
             cfg, run, ctx, tc, stack, x, batch["frame_embeds"].to(dt),
             positions, Q_CHUNK, cut=cut)
+    elif cfg.family == "ssm":
+        x, adds, cache = RW.prefill_segments(cfg, run, ctx, tc, stack, x,
+                                             chunk=cfg.scan_chunk)
+    elif cfg.family == "hybrid":
+        x, adds, cache = MB.prefill_segments(cfg, run, ctx, tc, stack, x,
+                                             positions, chunk=cfg.scan_chunk,
+                                             cut=cut)
     else:
         x, adds, cache = T.prefill_segments(
             cfg, run, ctx, tc, lambda i: stack("layers", i), x, positions,
@@ -312,37 +299,20 @@ def prefill_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc,
 def decode_fn(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, cache,
               batch):
     """One decode step. batch: {tokens (B,1), pos}: ``pos`` a Python int.
-    Returns (logits, cache): for the dense, MoE, VLM and audio families
-    ``decode_segments`` on ``tensor_parallel.INLINE``.
+    Returns (logits, cache): ``decode_segments`` on
+    ``tensor_parallel.INLINE``.
 
     The ``decode_flash`` ruleset on a mesh takes the sequence-sharded
     ``flash_decode`` in every self attention (rwkv6 has none); without a
     mesh the dense decode, as in the reference."""
-    if cfg.family in SEGMENTED_SERVE:
-        return decode_segments(cfg, run, ctx, tp.INLINE, params, cache,
-                               batch)
-    dt = compute_dtype(run)
-    x = embed_tokens(params["embed"], batch["tokens"], ctx, dt)
-    pos = batch["pos"]
-    use_flash = run.sharding_rules == "decode_flash"
-    w = params["stack"]
-    if cfg.family == "ssm":
-        x, cache = RW.stack_decode(cfg, run, ctx, w, cache, x)
-    elif cfg.family == "hybrid":
-        x, cache = MB.stack_decode(cfg, run, ctx, w, cache, x, pos,
-                                   use_flash=use_flash)
-    else:
-        raise ValueError(cfg.family)
-    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    logits = logits_fn(params["embed"], x, ctx)[:, 0]
-    return logits, cache
+    return decode_segments(cfg, run, ctx, tp.INLINE, params, cache, batch)
 
 
 def decode_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc,
                     params, cache, batch, *, stack=None, cut=None):
-    """``decode_fn`` of the dense, MoE, VLM and audio families on the
-    tape of ``tc``, as ``prefill_segments``: ``cache`` the whole cache,
-    or the cell's shard of it. Returns (logits, cache)."""
+    """``decode_fn`` on the tape of ``tc``, as ``prefill_segments``:
+    ``cache`` the whole cache, or the cell's shard of it. Returns
+    (logits, cache)."""
     dt = compute_dtype(run)
     _, x = _embedded(cfg, ctx, tc, params, batch["tokens"], dt)
     if stack is None:
@@ -356,6 +326,13 @@ def decode_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc,
         x, adds, cache = AU.decode_segments(
             cfg, run, ctx, tc, stack, cache, x, pos, cut=cut,
             use_flash=use_flash)
+    elif cfg.family == "ssm":
+        x, adds, cache = RW.decode_segments(cfg, run, ctx, tc, stack, cache,
+                                            x)
+    elif cfg.family == "hybrid":
+        x, adds, cache = MB.decode_segments(cfg, run, ctx, tc, stack, cache,
+                                            x, pos, cut=cut,
+                                            use_flash=use_flash)
     else:
         x, adds, cache = T.decode_segments(
             cfg, run, ctx, tc, lambda i: stack("layers", i), cache, x, pos,

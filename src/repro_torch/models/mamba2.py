@@ -23,8 +23,13 @@ and its rows of ``w_out``, ``w_in`` gathered inside the tape; the shared
 block's attention on its heads and its MLP on its columns;
 ``distributed.tensor_parallel``'s rules (a) and (c)); outside it
 (``layer_apply``, ``stack_apply``) on ``tensor_parallel.INLINE``, plain
-calls. Prefill and decode share the mixer (``_mixer``) and the gated
-norm with it.
+calls. The serve programs (``prefill_segments``, ``decode_segments``)
+are the same halves, each also giving its part of the cache: on
+``INLINE`` for ``models.lm``'s ``prefill_fn`` and ``decode_fn``, in a
+cell of the partitioned serve (``serve.step``) on its heads and columns,
+from and into its shard of the cache (the SSD state of its heads, its
+even block of the conv state's channels, the shared block's k and v as
+the dense cache is cut). A decode step's mixer is ``_mixer_step``.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.distributed import spmd
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.kernels.ssd import ops as ssd_ops
@@ -104,12 +110,6 @@ def mamba_specs(cfg: ModelConfig) -> Dict:
     }
 
 
-def _split_proj(cfg: ModelConfig, z):
-    d_inner, H, Pd, N = dims(cfg)
-    gate, xin, B, C, dt = torch.split(z, [d_inner, d_inner, N, N, H], dim=-1)
-    return gate, xin, B, C, dt
-
-
 def _causal_conv(x, w, b):
     """Depthwise causal conv. x: (b,S,ch); w: (K,ch)."""
     K = w.shape[0]
@@ -120,13 +120,6 @@ def _causal_conv(x, w, b):
         xi = F.pad(x, (0, 0, shift, 0))[:, :S] if shift else x
         out = out + xi * w[i][None, None, :]
     return out + b[None, None, :]
-
-
-def _conv_step(x_t, conv_state, w, b):
-    """x_t: (b,ch); conv_state: (b,K-1,ch) holding previous inputs."""
-    full = torch.cat([conv_state, x_t[:, None, :]], dim=1)  # (b,K,ch)
-    out = torch.einsum("bkc,kc->bc", full, w) + b[None, :]
-    return out, full[:, 1:]
 
 
 def _pick(w, ranges):
@@ -169,46 +162,55 @@ def _mixer(cfg, w, h, lo: int, hi: int, *, chunk):
     return y.reshape(b, S, n * Pd).to(dt_comp) * F.silu(gate), ssm, conv_in
 
 
+def _mixer_step(cfg, w, h, lo: int, hi: int, ssm, conv):
+    """One token of the Mamba2 mixer of heads ``[lo, hi)`` from the
+    normed ``h`` (b, 1, d), its leaves read from ``w``: the token's conv
+    input on every channel (the x of all heads, B and C: each cell keeps
+    its block of the shifted conv state, whatever heads it runs) from
+    ``w_in``'s x, B and C columns, beside the heads' gate and dt columns;
+    the depthwise conv of the heads' x channels and of B and C over
+    ``conv`` (b, K-1, d_inner + 2N), the previous inputs of every
+    channel, and the token's; ``ssd_step`` from the heads' state ``ssm``.
+    Returns (y * silu(gate) (b, 1, (hi - lo) P) in h's dtype, the SSD
+    state, the shifted conv state (b, K-1, d_inner + 2N))."""
+    d_inner, H, Pd, N = dims(cfg)
+    b = h.shape[0]
+    n = hi - lo
+    dt_comp = h.dtype
+    bc = 2 * d_inner + 2 * N
+    z = h[:, 0] @ _pick(w["w_in"], ((lo * Pd, hi * Pd), (d_inner, bc),
+                                    (bc + lo, bc + hi))).to(dt_comp)
+    gate, conv_in, dtr = torch.split(z, [n * Pd, d_inner + 2 * N, n], dim=-1)
+    full = torch.cat([conv.to(dt_comp), conv_in[:, None, :]], dim=1)
+    ch = ((lo * Pd, hi * Pd), (d_inner, d_inner + 2 * N))
+    conv_out = F.silu(torch.einsum("bkc,kc->bc", _pick(full, ch),
+                                   _pick(w["conv_w"], ch).to(dt_comp))
+                      + _pick(w["conv_b"], ch).to(dt_comp)[None, :])
+    xin, B, C = torch.split(conv_out, [n * Pd, N, N], dim=-1)
+    dt = F.softplus(dtr.float() + w["dt_bias"][lo:hi].float())
+    y, ssm = ssd_step(xin.reshape(b, n, Pd), dt, B, C, w["A_log"][lo:hi],
+                      w["D"][lo:hi], ssm)
+    yg = y.reshape(b, n * Pd).to(dt_comp) * F.silu(gate)
+    return yg[:, None, :], ssm, full[:, 1:]
+
+
 def _out_proj(cfg, yg, scale, w_out):
     """The gated norm over all of d_inner and the out-projection."""
     return rms_norm(yg, scale, cfg.norm_eps) @ w_out.to(yg.dtype)
 
 
-def mamba_prefill(cfg, ctx, w, x, *, chunk):
-    S = x.shape[1]
+def _conv_rest(cfg, conv_in, cut):
+    """The conv state at rest: the last K-1 conv inputs of ``conv_in``
+    (b, S, d_inner + 2N; a prefill's, or a decode step's shifted state),
+    zero-padded on the left where S < K-1; in a serve cell whose conv
+    state ``model`` cuts (``cut.conv``) its even block of the channels. A
+    bfloat16 copy: a view would keep the whole conv input alive with the
+    state (60 MB a layer at the serve's shape)."""
     K = cfg.ssm_conv_width
-    yg, ssm, conv_in = _mixer(cfg, w, rms_norm(x, w["ln"], cfg.norm_eps), 0,
-                              dims(cfg)[1], chunk=chunk)
-    # the last K-1 conv inputs, zero-padded on the left when S < K-1
-    conv_state = F.pad(conv_in, (0, 0, K - 1, 0))[:, -(K - 1):] \
-        if S >= K - 1 else F.pad(conv_in, (0, 0, K - 1 - S, 0))
-    out = _out_proj(cfg, yg, w["norm_gate"], w["w_out"])
-    # a copy: a view would keep the whole padded conv input alive with the
-    # state (60 MB a layer at the serve's shape)
-    state = {"ssm": ssm, "conv": conv_state.to(torch.bfloat16, copy=True)}
-    return ctx.constrain(out, ("batch", "seq", "embed")), state
-
-
-def mamba_decode(cfg, ctx, w, x, state):
-    """x: (b,1,d); state: {ssm (b,H,P,N), conv (b,K-1,ch)}."""
-    b = x.shape[0]
-    d_inner, H, Pd, N = dims(cfg)
-    dt_comp = x.dtype
-    h = rms_norm(x, w["ln"], cfg.norm_eps)[:, 0]
-    z = h @ w["w_in"].to(dt_comp)
-    gate, xin, B, C, dtr = _split_proj(cfg, z)
-    conv_in = torch.cat([xin, B, C], dim=-1)
-    conv_out, conv_state = _conv_step(conv_in, state["conv"].to(dt_comp),
-                                      w["conv_w"].to(dt_comp),
-                                      w["conv_b"].to(dt_comp))
-    conv_out = F.silu(conv_out)
-    xin, B, C = torch.split(conv_out, [d_inner, N, N], dim=-1)
-    dt = F.softplus(dtr.float() + w["dt_bias"].float())
-    y, ssm = ssd_step(xin.reshape(b, H, Pd), dt, B, C, w["A_log"], w["D"],
-                      state["ssm"])
-    yg = y.reshape(b, d_inner).to(dt_comp) * F.silu(gate)
-    out = _out_proj(cfg, yg, w["norm_gate"], w["w_out"])[:, None, :]
-    return out, {"ssm": ssm, "conv": conv_state.to(torch.bfloat16)}
+    tail = F.pad(conv_in[:, -(K - 1):], (0, 0, K - 1, 0))[:, -(K - 1):]
+    if cut is not None and cut.conv:
+        tail = cut.block(tail, 2)
+    return tail.to(torch.bfloat16, copy=True)
 
 
 def mamba_state_specs(cfg: ModelConfig, batch: int) -> Dict:
@@ -248,7 +250,8 @@ def _is_attn_layer(cfg: ModelConfig, i: int) -> bool:
 ENTERED = ("conv_w", "conv_b", "dt_bias", "A_log", "D")
 
 
-def _mamba_half(cfg: ModelConfig, ctx: ShardingCtx, tc, wl, x, adds, chunk):
+def _mamba_half(cfg: ModelConfig, ctx: ShardingCtx, tc, wl, x, adds, chunk, *,
+                state=None, serve: bool = False, cut=None):
     """The Mamba2 block on the tape of ``tc``, its leaves read by
     ``wl()``. The replicated segment: the residual sum and ``ln``, with
     ``w_in``, the ``ENTERED`` leaves and ``norm_gate``'s scale passed out
@@ -261,11 +264,22 @@ def _mamba_half(cfg: ModelConfig, ctx: ShardingCtx, tc, wl, x, adds, chunk):
     each row's sum of squares of its channels of y * silu(gate), which
     exits and enters at once (rule (c)): the gated norm spans all of
     d_inner. Then the norm with the scale's channels of the cell and its
-    rows of ``w_out``, through the exit. Returns (x, adds)."""
+    rows of ``w_out``, through the exit. Returns (x, adds).
+
+    A serve's prefill (``serve``) or decode step (``state``: the layer's
+    state, a serve cell's shard of it) also returns the SSD state of the
+    cell's heads and the conv state at rest: (x, adds, ssm, conv). The
+    conv state's even block of channels (``cut.conv``: ``model`` cuts it)
+    is not the cell's heads' x, B and C: a prefill computes the conv
+    input of every channel for the last K-1 tokens from the gathered
+    ``w_in``, a decode step gathers the conv state over ``model`` inside
+    the tape (``_mixer_step``; the one cache leaf a cell gathers) and
+    keeps its block of the shifted one."""
     tape = tc.tape
     local = tc.plan.ssd
     d_inner, H, Pd, N = dims(cfg)
-    eps = cfg.norm_eps
+    K, eps = cfg.ssm_conv_width, cfg.norm_eps
+    serve = serve or state is not None
 
     def pre(x, *a):
         x = T._resid(x, a)
@@ -275,22 +289,40 @@ def _mamba_half(cfg: ModelConfig, ctx: ShardingCtx, tc, wl, x, adds, chunk):
 
     x, h, w_in, *mix, scale = tape.run(pre, x, *adds)
     lo, hi = tc.block(H) if local else (0, H)
+    conv = ()
+    if state is not None:
+        conv = (state["conv"],)
+        if cut is not None and cut.conv:  # every cell's channels
+            with spmd.labelled("conv"):
+                conv = (tape.all_gather(conv[0], tp.AXIS, 2),)
 
-    def heads(h, w_in, *mix):
+    def heads(h, w_in, *rest):
+        mix, conv = rest[:len(ENTERED)], rest[len(ENTERED):]
         w = {**wl(), "w_in": w_in, **dict(zip(ENTERED, mix))}
-        yg, _, _ = _mixer(cfg, w, h, lo, hi, chunk=chunk)
+        if state is not None:
+            yg, ssm, shifted = _mixer_step(cfg, w, h, lo, hi, state["ssm"],
+                                           conv[0])
+            kept = (ssm, _conv_rest(cfg, shifted, cut))
+        else:
+            yg, ssm, conv_in = _mixer(cfg, w, h, lo, hi, chunk=chunk)
+            if serve and local:  # every channel's conv input, K-1 tokens
+                conv_in = h[:, -(K - 1):] @ w_in[
+                    :, d_inner:2 * d_inner + 2 * N].to(h.dtype)
+            kept = (ssm, _conv_rest(cfg, conv_in, cut)) if serve else ()
         if not local:
-            return (yg,)
-        return yg, torch.sum(torch.square(yg.float()), -1, keepdim=True)
+            return (yg, *kept)
+        return (yg, *kept, torch.sum(torch.square(yg.float()), -1,
+                                     keepdim=True))
 
     if not local:
-        yg, = tape.run(heads, h, w_in, *mix)
+        yg, *kept = tape.run(heads, h, w_in, *mix, *conv)
         part, = tape.run(lambda yg, s: (_out_proj(cfg, yg, s,
                                                   wl()["w_out"]),), yg, scale)
-        return x, (part,)
-    yg, squares = tape.run(heads, tape.enter(h),
-                           tape.all_gather(w_in, tp.AXIS, 1, replicated=False),
-                           *(tape.enter(t) for t in mix))
+        return (x, (part,), *kept)
+    yg, *kept, squares = tape.run(
+        heads, tape.enter(h), tape.all_gather(w_in, tp.AXIS, 1,
+                                              replicated=False),
+        *(tape.enter(t) for t in mix), *conv)
     squares = tape.total(squares)
     cols = slice(lo * Pd, hi * Pd)
 
@@ -301,7 +333,7 @@ def _mamba_half(cfg: ModelConfig, ctx: ShardingCtx, tc, wl, x, adds, chunk):
         return (y @ wl()["w_out"].to(yg.dtype),)
 
     part, = tape.run(out, yg, squares, tape.enter(scale))
-    return x, (tape.exit(part),)
+    return (x, (tape.exit(part),), *kept)
 
 
 def layer_segments(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc, wl,
@@ -373,48 +405,74 @@ def hybrid_cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Dict:
     return specs
 
 
-def stack_prefill(cfg, run: RunConfig, ctx, w, x, positions, *, chunk):
-    """Returns (x, {"mamba": per-layer states stacked (L, ...), "attn": the
-    shared block's k, v per application (napp, B, cache, Hkv, D) bf16})."""
-    shared = w.get("shared")
-    S = x.shape[1]
+def _shared_form(cfg: ModelConfig, S: int):
+    """A prefill's k or v of the shared block as its cache keeps it: the
+    last ``effective_cache_len`` tokens, in bfloat16, as the reference
+    writes them."""
     eff = A.effective_cache_len(cfg, S)
-    states, ks, vs = [], [], []
+    return lambda k: k[:, -eff:].to(torch.bfloat16)
+
+
+def prefill_segments(cfg, run: RunConfig, ctx, tc, stack, x, positions, *,
+                     chunk, cut=None):
+    """The prefill on the tape of ``tc`` (a cell of the partitioned
+    serve, ``serve.step``, or ``INLINE``): each layer's Mamba2 block
+    (``stack("layers", i)`` its leaves), then, where ``_is_attn_layer``
+    holds, the weight-tied shared block (``transformer.layer_prefill`` on
+    ``stack("shared")``, taken at each application: a serve cell gathers
+    it there), whose k and v form the application's cache (in a serve
+    cell its shard, ``attention.cache_rest`` by ``cut``, a
+    ``attention.CacheCut``, which also says whether ``model`` cuts the
+    conv state). Returns (x, adds, cache): {"mamba": the layers' SSD and
+    conv states stacked (L, ...), "attn": the shared block's k, v per
+    application (napp, B, cache, Hkv, D) bf16}; in a serve cell its
+    shard."""
+    form = _shared_form(cfg, x.shape[1])
+    adds, states, ks, vs = (), [], [], []
     for i in range(cfg.num_layers):
-        dx, st = mamba_prefill(cfg, ctx, P.layer(w["layers"], i), x, chunk=chunk)
-        x = x + dx
-        states.append(st)
-        if shared is not None and _is_attn_layer(cfg, i):
-            x, k, v = T.block_prefill(cfg, run, ctx, shared, x, positions)
-            ks.append(k[:, -eff:].to(torch.bfloat16))
-            vs.append(v[:, -eff:].to(torch.bfloat16))
+        wi = stack("layers", i)
+        x, adds, ssm, conv = _mamba_half(cfg, ctx, tc, lambda: wi, x, adds,
+                                         chunk, serve=True, cut=cut)
+        states.append({"ssm": ssm, "conv": conv})
+        if _is_attn_layer(cfg, i):
+            ws = stack("shared")
+            x, adds, k, v = T.layer_prefill(cfg, run, ctx, tc, lambda: ws, x,
+                                            adds, positions, 1024, kv=form,
+                                            cut=cut)
+            ks.append(k)
+            vs.append(v)
     cache = {"mamba": P.stack_layers(states)}
-    if n_shared_applications(cfg):
+    if ks:
         cache["attn"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
-    return x, cache
+    return x, adds, cache
 
 
-def stack_decode(cfg, run: RunConfig, ctx, w, cache, x, pos: int, *,
-                 use_flash: bool = False):
-    """One token through the stack; ``pos`` is its position, a Python int.
-    Returns (x, the new cache). ``use_flash``: the shared attention through
-    ``flash_decode`` on a mesh."""
-    shared = w.get("shared")
-    states, ks, vs = [], [], []
+def decode_segments(cfg, run: RunConfig, ctx, tc, stack, cache, x, pos: int,
+                    *, cut=None, use_flash: bool = False):
+    """One token at position ``pos`` (a Python int) on the tape of ``tc``
+    from ``cache`` (the whole cache, or a serve cell's shard of it;
+    ``stack`` and ``cut`` as in ``prefill_segments``): each layer's Mamba2
+    block from its state, the shared block's self attention against its
+    application's cache (``transformer.layer_decode``; ``use_flash``:
+    ``flash_decode`` on a mesh). Returns (x, adds, the new cache)."""
+    adds, states, ks, vs = (), [], [], []
     for i in range(cfg.num_layers):
-        dx, st = mamba_decode(cfg, ctx, P.layer(w["layers"], i), x,
-                              P.layer(cache["mamba"], i))
-        x = x + dx
-        states.append(st)
-        if shared is not None and _is_attn_layer(cfg, i):
+        wi = stack("layers", i)
+        x, adds, ssm, conv = _mamba_half(cfg, ctx, tc, lambda: wi, x, adds,
+                                         0, state=P.layer(cache["mamba"], i),
+                                         cut=cut)
+        states.append({"ssm": ssm, "conv": conv})
+        if _is_attn_layer(cfg, i):
             app = i // cfg.shared_attn_every
-            x, ck, cv = T.block_decode(cfg, run, ctx, shared, x,
-                                       cache["attn"]["k"][app],
-                                       cache["attn"]["v"][app], pos,
-                                       use_flash=use_flash)
+            ws = stack("shared")
+            x, adds, ck, cv = T.layer_decode(
+                cfg, run, ctx, tc, lambda: ws, x, adds,
+                cache["attn"]["k"][app], cache["attn"]["v"][app], pos,
+                cut=cut, use_flash=use_flash)
             ks.append(ck)
             vs.append(cv)
     out = {"mamba": P.stack_layers(states)}
-    if "attn" in cache:
+    if ks:
         out["attn"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
-    return x, out
+    return x, adds, out
+

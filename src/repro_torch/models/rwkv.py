@@ -18,7 +18,13 @@ in a cell of the partitioned training step they run on the cell's tape,
 tensor-parallel over ``model`` (the time mix on the cell's WKV heads,
 the channel mix on its columns; ``distributed.tensor_parallel``'s rules
 (a) and (c)); outside it (``layer_apply``) on
-``tensor_parallel.INLINE``, plain calls.
+``tensor_parallel.INLINE``, plain calls. The serve programs are the same
+halves (``layer_serve``: ``prefill_segments``, ``decode_segments``), each
+also giving its part of the layer's state: on ``INLINE`` for
+``models.lm``'s ``prefill_fn`` and ``decode_fn``, in a cell of the
+partitioned serve (``serve.step``) on its heads and columns, from and
+into its shard of the state (the WKV state of its heads; the token
+shifts whole).
 """
 
 from __future__ import annotations
@@ -153,11 +159,13 @@ def _tmix_streams(w, x, xx, eps: float):
 
 
 def _tmix_heads(cfg: ModelConfig, ctx: ShardingCtx, w, xr, xk, xv, xg, ww,
-                u, *, chunk):
+                u, *, chunk, wkv=None):
     """WKV6 on the heads of ``w``'s columns (all of them, or a
     tensor-parallel cell's own, whose ``ww`` and ``u`` the caller cuts
-    alike), from the zero state. Returns (y, g, state): y (B, S, H K) in
-    the activations' dtype, the gate g on the same channels."""
+    alike): the chunked scan from the zero state, or, given their state
+    ``wkv`` (B, H, K, K), one token's recurrence ``wkv6_step`` (a decode
+    step). Returns (y, g, state): y (B, S, H K) in the activations'
+    dtype, the gate g on the same channels."""
     B, S, _ = xr.shape
     K = cfg.wkv_head_dim
     H = w["wr"].shape[1] // K
@@ -167,22 +175,14 @@ def _tmix_heads(cfg: ModelConfig, ctx: ShardingCtx, w, xr, xk, xv, xg, ww,
     v = _split_heads(xv @ w["wv"].to(dt), H, K)
     g = F.silu(xg @ w["wg"].to(dt))
     ww = _split_heads(ww, H, K)
+    if wkv is not None:
+        y, state = wkv6_step(r[:, 0], k[:, 0], v[:, 0], ww[:, 0], u, wkv)
+        return y.reshape(B, 1, H * K).to(dt), g, state
     r = ctx.constrain(r, ("batch", "seq_inner", "heads", "head_dim"))
     k = ctx.constrain(k, ("batch", "seq_inner", "heads", "head_dim"))
     state = torch.zeros((B, H, K, K), dtype=torch.float32, device=xr.device)
     y, state = wkv6_chunked(r, k, v, ww, u, state, chunk=chunk)
     return y.reshape(B, S, H * K).to(dt), g, state
-
-
-def time_mix_apply(cfg: ModelConfig, ctx: ShardingCtx, w, x, xx, *, chunk):
-    """x: (B,S,d); xx: token-shifted x; the scan from the zero state.
-    Returns (out, state)."""
-    y, g, state = _tmix_heads(cfg, ctx, w, *_tmix_streams(w, x, xx,
-                                                          cfg.norm_eps),
-                              w["u"], chunk=chunk)
-    y = rms_norm(y, w["ln_x"], cfg.norm_eps)  # stand-in for per-head groupnorm
-    out = (y * g) @ w["wo"].to(x.dtype)
-    return ctx.constrain(out, ("batch", "seq", "embed")), state
 
 
 def _cmix_streams(w, x, xx, eps: float):
@@ -208,18 +208,13 @@ def _rgate(w, xr):
     return torch.sigmoid(xr @ w["wr"].to(xr.dtype))
 
 
-def channel_mix_apply(cfg: ModelConfig, ctx: ShardingCtx, w, x, xx):
-    xk, xr = _cmix_streams(w, x, xx, cfg.norm_eps)
-    v = _cmix_value(ctx, w, xk)
-    return ctx.constrain(_rgate(w, xr) * v, ("batch", "seq", "embed"))
-
-
 def _shift(x):
     """xx_t = x_{t-1} (zeros at t=0)."""
     return F.pad(x, (0, 0, 1, 0))[:, :-1]
 
 
-def _tmix_half(cfg: ModelConfig, ctx: ShardingCtx, tc, wl, x, adds, chunk):
+def _tmix_half(cfg: ModelConfig, ctx: ShardingCtx, tc, wl, x, adds, chunk,
+               *, state=None, serve: bool = False):
     """The time mix on the tape of ``tc``, its leaves read by
     ``wl()["tmix"]``. The replicated segment: the residual sum, the
     token shift, the norms, the mixes with their LoRA and the decay (rule
@@ -229,38 +224,52 @@ def _tmix_half(cfg: ModelConfig, ctx: ShardingCtx, tc, wl, x, adds, chunk):
     cell's segment runs WKV6 on its H/m heads and takes each row's sum of
     squares of its channels of y, which exits and enters at once (rule
     (c)): ``ln_x`` normalises over all of ``d``. Then the norm, the gate
-    and the cell's rows of ``wo``, through the exit. Returns (x, adds)."""
+    and the cell's rows of ``wo``, through the exit. Returns (x, adds).
+
+    A serve's prefill (``serve``) or decode step (``state``: the layer's
+    state, the cell's shard of it, whose ``last_tmix`` is the token
+    shift and whose ``wkv`` holds the cell's heads) also returns the
+    WKV state of the cell's heads and ``last_tmix``, the last token of
+    the summed residual: (x, adds, wkv, last_tmix)."""
     tape = tc.tape
     local = tc.plan.attn
     K, d, eps = cfg.wkv_head_dim, cfg.d_model, cfg.norm_eps
+    serve = serve or state is not None
 
     def w():
         return wl()["tmix"]
 
     def pre(x, *a):
         x = T._resid(x, a)
-        return (x, *_tmix_streams(w(), x, _shift(x), eps), w()["u"],
+        xx = (_shift(x) if state is None
+              else state["last_tmix"][:, None, :].to(x.dtype))
+        last = (x[:, -1],) if serve else ()
+        return (x, *last, *_tmix_streams(w(), x, xx, eps), w()["u"],
                 w()["ln_x"])
 
     x, *streams, u, scale = tape.run(pre, x, *adds)
+    last = (streams.pop(0),) if serve else ()
     lo, hi = tc.block(_num_heads(cfg)) if local else (0, _num_heads(cfg))
     cols = slice(lo * K, hi * K)
+    step = {} if state is None else {"wkv": state["wkv"]}  # a decode's
 
     def heads(xr, xk, xv, xg, ww, u):
-        y, g, _ = _tmix_heads(cfg, ctx, w(), xr, xk, xv, xg, ww[..., cols],
-                              u[lo:hi], chunk=chunk)
+        y, g, st = _tmix_heads(cfg, ctx, w(), xr, xk, xv, xg, ww[..., cols],
+                               u[lo:hi], chunk=chunk, **step)
+        kept = (st,) if serve else ()
         if not local:
-            return y, g
-        return y, g, torch.sum(torch.square(y.float()), -1, keepdim=True)
+            return (y, g, *kept)
+        return (y, g, *kept,
+                torch.sum(torch.square(y.float()), -1, keepdim=True))
 
     if not local:
-        y, g = tape.run(heads, *streams, u)
+        y, g, *kept = tape.run(heads, *streams, u)
         part, = tape.run(lambda y, g, s: ((rms_norm(y, s, eps) * g)
                                           @ w()["wo"].to(y.dtype),),
                          y, g, scale)
-        return x, (part,)
-    y, g, squares = tape.run(heads, *(tape.enter(t) for t in streams),
-                             tape.enter(u))
+        return (x, (part,), *kept, *last)
+    y, g, *kept, squares = tape.run(heads, *(tape.enter(t) for t in streams),
+                                    tape.enter(u))
     squares = tape.total(squares)
 
     def out(y, g, squares, s):
@@ -270,35 +279,41 @@ def _tmix_half(cfg: ModelConfig, ctx: ShardingCtx, tc, wl, x, adds, chunk):
         return ((ynorm * g) @ w()["wo"].to(y.dtype),)
 
     part, = tape.run(out, y, g, squares, tape.enter(scale))
-    return x, (tape.exit(part),)
+    return (x, (tape.exit(part),), *kept, *last)
 
 
-def _cmix_half(cfg: ModelConfig, ctx: ShardingCtx, tc, wl, x, adds):
+def _cmix_half(cfg: ModelConfig, ctx: ShardingCtx, tc, wl, x, adds, *,
+               last=None, serve: bool = False):
     """The channel mix on the tape of ``tc``, its leaves read by
     ``wl()["cmix"]``: the replicated segment (the residual sum, the
     shift, the norms, the mixes and the receptance gate, whose ``wr`` is
     not cut over ``model``), xk entering the cell's columns of ``wk`` and
     rows of ``wv`` where those are model-local, the exit, and the gate
     multiplying the exited sum in a segment of its own (rule (a)).
-    Returns (x, adds)."""
+    Returns (x, adds). A serve's prefill (``serve``) or decode step
+    (``last``: the layer's ``last_cmix``, the token shift) also returns
+    ``last_cmix``, the last token of the residual with the time mix's
+    exit summed into it: (x, adds, last_cmix)."""
     tape = tc.tape
     local = tc.plan.mlp
+    serve = serve or last is not None
 
     def w():
         return wl()["cmix"]
 
     def pre(x, *a):
         x = T._resid(x, a)
-        xk, xr = _cmix_streams(w(), x, _shift(x), cfg.norm_eps)
-        return x, xk, _rgate(w(), xr)
+        xx = _shift(x) if last is None else last[:, None, :].to(x.dtype)
+        xk, xr = _cmix_streams(w(), x, xx, cfg.norm_eps)
+        return (x, xk, _rgate(w(), xr), *((x[:, -1],) if serve else ()))
 
-    x, xk, rgate = tape.run(pre, x, *adds)
+    x, xk, rgate, *kept = tape.run(pre, x, *adds)
     part, = tape.run(lambda xk: (_cmix_value(ctx, w(), xk),),
                      tape.enter(xk) if local else xk)
     y, = tape.run(lambda r, v: (ctx.constrain(r * v, ("batch", "seq",
                                                       "embed")),),
                   rgate, tape.exit(part) if local else part)
-    return x, (y,)
+    return (x, (y,), *kept)
 
 
 def layer_segments(cfg: ModelConfig, run, ctx: ShardingCtx, tc, wl, x, adds,
@@ -318,44 +333,38 @@ def layer_apply(cfg, run, ctx, w, x, *, chunk):
     return T._resid(x, adds)
 
 
+def layer_serve(cfg: ModelConfig, run, ctx: ShardingCtx, tc, wl, x, adds, *,
+                chunk, state=None):
+    """One layer's prefill (``state`` None: the scan from the zero state)
+    or decode step (from ``state``, the layer's state or a serve cell's
+    shard of it) on the tape of ``tc``, its leaves read by ``wl()``: the
+    time mix and the channel mix of ``layer_segments``, each also giving
+    its part of the layer's new state. Returns (x, adds, state): the WKV
+    state of the cell's heads (all of them on ``INLINE``), ``last_tmix``
+    and ``last_cmix`` whole."""
+    x, adds, wkv, last_tmix = _tmix_half(cfg, ctx, tc, wl, x, adds, chunk,
+                                         state=state, serve=True)
+    x, adds, last_cmix = _cmix_half(
+        cfg, ctx, tc, wl, x, adds,
+        last=None if state is None else state["last_cmix"], serve=True)
+    return x, adds, {"wkv": wkv, "last_tmix": last_tmix,
+                     "last_cmix": last_cmix}
+
+
 def layer_prefill(cfg, run, ctx, w, x, *, chunk):
-    """Like layer_apply but returns decode state (wkv state + last-token xs)."""
-    xx = _shift(x)
-    y, wkv_state = time_mix_apply(cfg, ctx, w["tmix"], x, xx, chunk=chunk)
-    last_tmix = x[:, -1]
-    x = x + y
-    xx2 = _shift(x)
-    last_cmix = x[:, -1]
-    x = x + channel_mix_apply(cfg, ctx, w["cmix"], x, xx2)
-    state = {"wkv": wkv_state, "last_tmix": last_tmix, "last_cmix": last_cmix}
-    return x, state
+    """Like layer_apply but returns decode state (wkv state + last-token
+    xs): ``layer_serve`` on ``tensor_parallel.INLINE``."""
+    x, adds, state = layer_serve(cfg, run, ctx, tp.INLINE, lambda: w, x, (),
+                                 chunk=chunk)
+    return T._resid(x, adds), state
 
 
 def layer_decode(cfg, run, ctx, w, x, state):
-    """x: (B,1,d); state: {wkv (B,H,K,V), last_tmix (B,d), last_cmix (B,d)}."""
-    B, _, d = x.shape
-    H, K = _num_heads(cfg), cfg.wkv_head_dim
-    xt = x[:, 0]
-    xx = state["last_tmix"][:, None, :].to(x.dtype)
-    wt = w["tmix"]
-    h = rms_norm(x, wt["ln"], cfg.norm_eps)
-    hh = rms_norm(xx, wt["ln"], cfg.norm_eps)
-    xr, xk, xv, xw, xg = _ddlerp(wt, h, hh)
-    dt = x.dtype
-    r = _split_heads(xr @ wt["wr"].to(dt), H, K)[:, 0]
-    k = _split_heads(xk @ wt["wk"].to(dt), H, K)[:, 0]
-    v = _split_heads(xv @ wt["wv"].to(dt), H, K)[:, 0]
-    g = F.silu(xg @ wt["wg"].to(dt))
-    ww = _split_heads(_decay(wt, xw), H, K)[:, 0]
-    y, wkv = wkv6_step(r, k, v, ww, wt["u"], state["wkv"])
-    y = y.reshape(B, 1, d).to(dt)
-    y = rms_norm(y, wt["ln_x"], cfg.norm_eps)
-    x = x + (y * g) @ wt["wo"].to(dt)
-    # channel mix
-    xx2 = state["last_cmix"][:, None, :].to(x.dtype)
-    new_last_cmix = x[:, 0]
-    x = x + channel_mix_apply(cfg, ctx, w["cmix"], x, xx2)
-    return x, {"wkv": wkv, "last_tmix": xt, "last_cmix": new_last_cmix}
+    """x: (B,1,d); state: {wkv (B,H,K,V), last_tmix (B,d), last_cmix (B,d)}:
+    ``layer_serve`` on ``tensor_parallel.INLINE``."""
+    x, adds, state = layer_serve(cfg, run, ctx, tp.INLINE, lambda: w, x, (),
+                                 chunk=0, state=state)
+    return T._resid(x, adds), state
 
 
 # --- stacked -------------------------------------------------------------------------
@@ -404,19 +413,30 @@ def stack_segments(cfg, run, ctx, tc, w, x, *, chunk):
     return x, adds
 
 
-def stack_prefill(cfg, run, ctx, w, x, *, chunk):
-    states = []
+def prefill_segments(cfg, run, ctx, tc, stack, x, *, chunk):
+    """The prefill on the tape of ``tc`` (a cell of the partitioned
+    serve, ``serve.step``, or ``INLINE``), layer ``i``'s leaves
+    ``stack("layers", i)`` (taken once a layer: a serve cell gathers them
+    there). Returns (x, adds, state): the layers' states stacked (L, ...),
+    in a serve cell its shard (the WKV state of its heads)."""
+    adds, states = (), []
     for i in range(cfg.num_layers):
-        x, st = layer_prefill(cfg, run, ctx, P.layer(w["layers"], i), x,
-                              chunk=chunk)
+        wi = stack("layers", i)
+        x, adds, st = layer_serve(cfg, run, ctx, tc, lambda: wi, x, adds,
+                                  chunk=chunk)
         states.append(st)
-    return x, P.stack_layers(states)
+    return x, adds, P.stack_layers(states)
 
 
-def stack_decode(cfg, run, ctx, w, state, x):
-    states = []
+def decode_segments(cfg, run, ctx, tc, stack, state, x):
+    """One decode step on the tape of ``tc`` from ``state`` (the whole
+    state, or a serve cell's shard of it; ``stack`` as in
+    ``prefill_segments``). Returns (x, adds, the new state)."""
+    adds, states = (), []
     for i in range(cfg.num_layers):
-        x, st = layer_decode(cfg, run, ctx, P.layer(w["layers"], i), x,
-                             P.layer(state, i))
+        wi = stack("layers", i)
+        x, adds, st = layer_serve(cfg, run, ctx, tc, lambda: wi, x, adds,
+                                  chunk=0, state=P.layer(state, i))
         states.append(st)
-    return x, P.stack_layers(states)
+    return x, adds, P.stack_layers(states)
+

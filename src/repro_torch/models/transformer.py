@@ -5,11 +5,10 @@ A block (attention + MLP, or attention + MoE layer): specs, the
 teacher-forced forward (``block_apply``: the segmented stack's layer, the
 same code as in a cell of the partitioned training step, on
 ``tensor_parallel.INLINE``), the prefill that also returns the block's
-(k, v), and one decode step against a KV cache (``block_prefill``,
-``block_decode``: the serve stack's layers, ``layer_prefill`` and
-``layer_decode``, the same code as in a cell of the partitioned serve, on
-``INLINE``); the zamba2 stack applies it as its weight-tied shared
-block. The dense and MoE stacks keep the
+(k, v), and one decode step against a KV cache (``layer_prefill`` and
+``layer_decode``: the serve stack's layers, the same code in a cell of
+the partitioned serve and on ``INLINE``); the zamba2 stack applies it as
+its weight-tied shared block. The dense and MoE stacks keep the
 reference's stacked ``(L, ...)`` parameters and run their layers through
 ``scan_utils.grouped_scan`` (remat per layer under ``run.remat ==
 "block"``). The VLM family stacks super-blocks of ``cross_attn_every``
@@ -81,25 +80,6 @@ def block_apply(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x,
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
-
-
-def block_decode(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, w, x, ck,
-                 cv, pos: int, *, use_flash: bool = False):
-    """One-token decode through one block. x: (B,1,d); ck/cv: (B,Sc,Hkv,D);
-    ``pos`` the token's position, a Python int. ``use_flash`` on a mesh:
-    the sequence-sharded ``flash_decode`` over the cache. The serve
-    stack's layer (``layer_decode``) on ``tensor_parallel.INLINE``."""
-    x, adds, ck, cv = layer_decode(cfg, run, ctx, tp.INLINE, lambda: w, x, (),
-                                   ck, cv, pos, use_flash=use_flash)
-    return _resid(x, adds), ck, cv
-
-
-def block_prefill(cfg, run, ctx, w, x, positions, *, q_chunk=1024):
-    """Like block_apply but also returns this layer's (k, v) for the cache:
-    ``layer_prefill`` on ``tensor_parallel.INLINE``."""
-    x, adds, k, v = layer_prefill(cfg, run, ctx, tp.INLINE, lambda: w, x, (),
-                                  positions, q_chunk)
-    return _resid(x, adds), k, v
 
 
 # --- cross-attention block (VLM) ---------------------------------------------------
@@ -457,17 +437,17 @@ def _ffn_half(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc):
 
 # --- the serve stack's layers: prefill and decode on a tape ---------------------------
 # The dense, MoE and VLM serve programs (and whisper's, ``models.audio``,
-# from these halves), written once for both callers: in a cell of the
-# partitioned serve (``serve.step``) the layers run on a
+# from these halves, and zamba2's shared block, ``models.mamba2``),
+# written once for both callers: in a cell of the partitioned serve
+# (``serve.step``) the layers run on a
 # ``distributed.tensor_parallel.Forward`` tape with the cell's own heads,
 # columns, experts and cache shard (``cut``, an ``attention.CacheCut``;
 # the cross KV of the cell's kv heads where the cross attention is
 # model-local, else all of them); outside it (``models.lm.prefill_fn``,
-# ``decode_fn``, ``block_prefill``, ``block_decode``) on
-# ``tensor_parallel.INLINE`` with the whole cache (``cut`` None). A
-# forward tape records nothing, so a decode step's cache write and
-# attention run in the cell's own code, between the collectives they
-# need.
+# ``decode_fn``) on ``tensor_parallel.INLINE`` with the whole cache
+# (``cut`` None). A forward tape records nothing, so a decode step's
+# cache write and attention run in the cell's own code, between the
+# collectives they need.
 
 
 def _cache_form(cfg: ModelConfig) -> Callable:

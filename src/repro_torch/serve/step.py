@@ -1,20 +1,22 @@
 """Serving programs: prefill and single-token decode (greedy head).
 
 Without a mesh the programs run the model whole on the tensors they are
-given. With a mesh the dense, MoE, VLM and audio families (``family``
-``dense``, ``moe``, ``vlm`` or ``audio``) under the ``baseline`` or
-``moe_a2a`` ruleset are partitioned over it, as the reference's serve
-programs are under GSPMD with those rules (``partitioned``): each
-program is one ``spmd.shard_map`` over the whole mesh, the parameters
-and the cache are ``sharding.MeshArray``s, each mesh cell holding its
-FSDP x model shard of every weight leaf and its shard of the cache as
-the rules cut it (a self-attention KV cache: the batch over the data
-axes; over ``model`` the sequence, else the kv heads, else nothing; the
-cross KV of the VLM's image layers and of whisper's decoder: the batch
-over the data axes, the image or encoder sequence whole, the kv heads
-over ``model`` where they divide), and the tokens and the VLM's image
-or whisper's frame embeddings are cut over the ``batch`` rule's axes.
-Each cell gathers the leaves of a layer (or of whisper's ``enc_ln``)
+given. With a mesh every family under the ``baseline`` or ``moe_a2a``
+ruleset is partitioned over it, as the reference's serve programs are
+under GSPMD with those rules (``partitioned``): each program is one
+``spmd.shard_map`` over the whole mesh, the parameters and the cache are
+``sharding.MeshArray``s, each mesh cell holding its FSDP x model shard of
+every weight leaf and its shard of every cache leaf as the rules cut it
+(``lm.cache_specs``' specs; the batch over the data axes throughout): a
+self-attention KV cache (zamba2's shared block's too) over ``model`` by
+the sequence, else the kv heads, else nothing; the cross KV of the VLM's
+image layers and of whisper's decoder by the kv heads where they divide;
+rwkv6's WKV state and the Mamba2 layers' SSD state by their heads, where
+they divide (the block then runs on the cell's heads); the Mamba2 conv
+state by an even block of its channels; rwkv6's token shifts whole. The
+tokens and the VLM's image or whisper's frame embeddings are cut over
+the ``batch`` rule's axes. Each cell gathers the leaves of a layer (or
+of whisper's ``enc_ln``, or zamba2's shared block at each application)
 over the axes their specs cut, but ``model`` for a model-local leaf
 (``distributed.tensor_parallel.plan_for``, the training step's plan),
 one layer at a time, and runs the model tensor-parallel over ``model``
@@ -24,16 +26,19 @@ vocabulary rows, the attention on its heads (its cache shard laid out
 by ``attention.cache_rest``, a decode step's attention by
 ``attention.cell_decode``), the cross attention on its heads (its k and
 v from its own columns of ``wk`` and ``wv``: the cross KV shard, never
-gathered), the MLP on its columns, the MoE on its experts (the token
-groups across the data cells, the a2a inside the cell), the logits its
-vocabulary columns and the greedy token the group's argmax. The outputs
-come back as ``MeshArray``s, the cache laid out by ``lm.cache_specs``'
-shardings.
+gathered), rwkv6's time mix and zamba2's Mamba2 blocks on their heads
+from and into their state shards (the conv state gathered over
+``model`` in a decode step, the one cache leaf a cell gathers), the MLP
+and rwkv6's channel mix on their columns, the MoE on its experts (the
+token groups across the data cells, the a2a inside the cell), the
+logits its vocabulary columns and the greedy token the group's argmax.
+The outputs come back as ``MeshArray``s, the cache laid out by
+``lm.cache_specs``' shardings.
 
-Every other family and ruleset on a mesh (rwkv6, zamba2; ``seqpar`` and
-``decode_flash``) runs the model whole on whole tensors, its
-``flash_decode`` its own ``shard_map``: that is the path for them,
-chosen by ``partitioned``, not a fallback.
+The ``seqpar`` and ``decode_flash`` rulesets on a mesh run the model
+whole on whole tensors, ``decode_flash``'s ``flash_decode`` its own
+``shard_map``: that is the path for them, chosen by ``partitioned``, not
+a fallback.
 """
 
 from __future__ import annotations
@@ -55,10 +60,9 @@ from repro_torch.train.step import CellLayout, _names, _padded
 
 def partitioned(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx) -> bool:
     """Whether the serve programs of ``cfg`` run partitioned over
-    ``ctx.mesh``: the dense, MoE, VLM and audio families under
-    ``baseline`` or ``moe_a2a`` (whose rules are ``BASELINE``)."""
-    return (ctx.mesh is not None and cfg.family in lm.SEGMENTED_SERVE
-            and ctx.rules is BASELINE
+    ``ctx.mesh``: every family under ``baseline`` or ``moe_a2a`` (whose
+    rules are ``BASELINE``)."""
+    return (ctx.mesh is not None and ctx.rules is BASELINE
             and run.sharding_rules in ("baseline", "moe_a2a"))
 
 
@@ -112,8 +116,10 @@ def laid_out(cfg: ModelConfig, ctx: ShardingCtx, params):
 @dataclasses.dataclass
 class _Layout:
     """A partitioned serve program's layout over the mesh, for a batch of
-    ``B`` rows and a cache of ``S`` slots: the specs of its arguments and
-    outputs, the cells' ``CellLayout`` and the tensor-parallel plan."""
+    ``B`` rows and a self-attention cache of ``S`` slots: the specs of its
+    arguments and outputs, the cells' ``CellLayout``, the tensor-parallel
+    plan and where ``model`` cuts the cache (``attention.CacheCut``'s
+    ``dim`` and ``conv``)."""
 
     param_specs: Any
     cache_specs: Any
@@ -124,12 +130,17 @@ class _Layout:
     plan: tp.Plan
     local: Any
     cut_dim: Optional[int]
+    conv: bool
 
 
 def _self_kv(cache):
     """The self-attention k leaf of a cache tree (the VLM's under
-    ``self``)."""
-    return cache["self"]["k"] if "self" in cache else cache["k"]
+    ``self``, zamba2's shared block's under ``attn``), or None (rwkv6's
+    state, zamba2 without a shared block)."""
+    for key in ("self", "attn"):
+        if key in cache:
+            return cache[key]["k"]
+    return cache.get("k")
 
 
 def _cross_kv(cache):
@@ -138,6 +149,15 @@ def _cross_kv(cache):
     if "cross" in cache:
         return cache["cross"]["img_k"]
     return cache.get("ck")
+
+
+# each recurrent state with heads: the plan's flag for the block that
+# computes it on the cell's heads
+_STATE_HEADS = {"wkv": "attn", "ssm": "ssd"}
+
+
+def _model_cut(entry) -> bool:
+    return tp.AXIS in _names(entry)
 
 
 def _layout(cfg: ModelConfig, ctx: ShardingCtx, B: int, S: int) -> _Layout:
@@ -155,31 +175,49 @@ def _layout(cfg: ModelConfig, ctx: ShardingCtx, B: int, S: int) -> _Layout:
     shape = ShapeSpec("serve", "decode", S, B)
     cache_tensors = lm.cache_specs(cfg, shape)
     cache_specs = specs(cache_tensors)
+    convs = []
 
-    def entries(pick):  # (..., batch, sequence, heads, head_dim)
-        return _padded(pick(cache_specs),
-                       len(pick(cache_tensors).shape))[-4:]
+    def check(ts, spec, path):
+        spec = _padded(spec, len(ts.shape))
+        by_axis = dict(zip(ts.logical, spec))
+        if by_axis.get("batch", by_axis.get("cache_batch")) != (
+                batch[0] if batch else None):
+            raise NotImplementedError(f"a cache leaf {path} laid out as "
+                                      f"{spec} with the batch cut as "
+                                      f"{batch}")
+        name = path.split(".")[-1]
+        flag = _STATE_HEADS.get(name)
+        if flag and _model_cut(by_axis["heads"]) != getattr(plan, flag):
+            # a cell's heads of the block are its shard of the state
+            raise NotImplementedError(f"a state {path} laid out as {spec} "
+                                      f"with the block model-local: "
+                                      f"{getattr(plan, flag)}")
+        if name == "conv":
+            convs.append(_model_cut(by_axis["mlp"]))
 
-    # the self cache: stacked (L, ...), the VLM's (groups, layers, ...)
-    kv = entries(_self_kv)
-    cross = (entries(_cross_kv) if _cross_kv(cache_tensors) is not None
-             else None)
-    for e in (kv, cross):
-        if e is not None and e[0] != (batch[0] if batch else None):
-            raise NotImplementedError(f"a cache laid out as {e} with the "
-                                      f"batch cut as {batch}")
-    if cross is not None and (tp.AXIS in _names(cross[2])) != plan.xattn:
+    P.tree_map(check, cache_tensors, cache_specs, tp.paths(cache_tensors))
+
+    def entries(leaf):  # (..., batch, sequence, heads, head_dim)
+        ts = leaf(cache_tensors)
+        return _padded(leaf(cache_specs), len(ts.shape))[-4:]
+
+    cut_dim = None
+    if _self_kv(cache_tensors) is not None:
+        kv = entries(_self_kv)
+        cut_dim = next((dim for dim, e in ((1, kv[1]), (2, kv[2]))
+                        if _model_cut(e)), None)
+    if _cross_kv(cache_tensors) is not None and \
+            _model_cut(entries(_cross_kv)[2]) != plan.xattn:
         # a cell's k and v of the cross attention are its cross KV shard
-        raise NotImplementedError(f"a cross KV laid out as {cross} with "
-                                  f"the cross attention model-local: "
-                                  f"{plan.xattn}")
-    cut_dim = next((dim for dim, e in ((1, kv[1]), (2, kv[2]))
-                    if tp.AXIS in _names(e)), None)
+        raise NotImplementedError(f"a cross KV laid out as "
+                                  f"{entries(_cross_kv)} with the cross "
+                                  f"attention model-local: {plan.xattn}")
     logits = (batch[0] if batch else None, tp.AXIS) if plan.vocab else batch
     inputs = specs(lm.input_specs(cfg, ShapeSpec("serve", "prefill", S, B)))
     embeds = {k: v for k, v in inputs.items() if k != "tokens"}
     return _Layout(param_specs, cache_specs, batch, embeds, logits, cells,
-                   plan, tp.local_leaves(plan, pspecs), cut_dim)
+                   plan, tp.local_leaves(plan, pspecs), cut_dim,
+                   any(convs))
 
 
 def _gathered(lay: _Layout, tree, specs, local, label: str):
@@ -242,8 +280,9 @@ def _partitioned(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx,
 
     def layout(args) -> _Layout:
         B, S = args[-1]["tokens"].shape
-        if kind == "decode":
-            S = _self_kv(args[1]).shape[-3]
+        if kind == "decode":  # the self-attention cache's slots, if any
+            kv = _self_kv(args[1])
+            S = 1 if kv is None else kv.shape[-3]
         key = (B, S)
         if key not in layouts:
             layouts[key] = _layout(cfg, ctx, B, S)
@@ -256,7 +295,7 @@ def _partitioned(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx,
             batch = rest[-1]
             tc = tp.Cell(tp.Forward(), lay.plan)
             cut = CacheCut(lay.cut_dim, lay.plan.size, tc.index(),
-                           lay.plan.attn)
+                           lay.plan.attn, lay.conv)
             top = _top(lay, params)
 
             def stack(*path):

@@ -237,14 +237,14 @@ def test_mesh_cells_refuse_collectives_they_cannot_count(tmp_path):
     assert r["ok"] and r["n_chips"] == 1
 
 
-def _single_mesh_cell(tmp_path, arch):
-    """(the 16 x 16 mesh's prefill_32k cell of ``arch``'s smoke config,
-    the card's), held alike: the arguments the largest shards, the trace
-    one data cell's 2 sequences (32 / 16), its activations flagged an
-    upper bound."""
-    r = dryrun.run_cell(arch, "prefill_32k", "single", "baseline",
+def _single_mesh_cell(tmp_path, arch, ruleset="baseline"):
+    """(the 16 x 16 mesh's prefill_32k cell of ``arch``'s smoke config
+    under ``ruleset``, the card's), held alike: the arguments the largest
+    shards, the trace one data cell's 2 sequences (32 / 16), its
+    activations flagged an upper bound."""
+    r = dryrun.run_cell(arch, "prefill_32k", "single", ruleset,
                         str(tmp_path), smoke=True)
-    card = dryrun.run_cell(arch, "prefill_32k", "card", "baseline",
+    card = dryrun.run_cell(arch, "prefill_32k", "card", ruleset,
                            str(tmp_path), smoke=True)
     assert r["ok"] and r["n_chips"] == 256 and r["traced_batch"] == 2
     assert card["traced_batch"] == 32
@@ -253,7 +253,7 @@ def _single_mesh_cell(tmp_path, arch):
     assert pb["arguments"] < cb["arguments"]
     assert r["ops"]["kernel_calls"] == card["ops"]["kernel_calls"]
     assert card["collectives_not_issued"] is None
-    with open(tmp_path / f"{arch}__prefill_32k__single__baseline.json"
+    with open(tmp_path / f"{arch}__prefill_32k__single__{ruleset}.json"
               ) as f:
         assert json.load(f)["ok"]
     return r
@@ -274,9 +274,10 @@ def test_single_mesh_cell_shards_arguments_and_traces_one_data_cell(
 
 def test_single_mesh_whole_model_cell_names_the_unissued_collectives(
         tmp_path):
-    """rwkv6-7b's prefill on the 16 x 16 mesh serves the model whole in
-    its data cell: it names the collectives that GSPMD would insert."""
-    r = _single_mesh_cell(tmp_path, "rwkv6-7b")
+    """smollm-135m's prefill on the 16 x 16 mesh under the ``seqpar``
+    rules serves the model whole in its data cell: it names the
+    collectives that GSPMD would insert."""
+    r = _single_mesh_cell(tmp_path, "smollm-135m", "seqpar")
     assert r["collectives_not_issued"] == dryrun.NOT_ISSUED
     assert r["per_device_bytes"]["repeated_over_model"] == ["every block"]
 

@@ -20,18 +20,23 @@ fault) on (2, 2), (1, 2) and (1, 4), where its 2 kv heads do not split
 and the attention repeats, and at prompt 27; whisper's on (2, 2) and
 (1, 2), at prompt 27, and with a vocabulary of 255 rows, which splits
 over no axis (whisper-small's 51865 neither): its embedding and logits
-repeat in every cell. The VLM's image and whisper's frame embeddings
-are drawn by numpy from a seed at scale 0.02 and rounded to bfloat16 in
-both packages, cut over the data axes by ``lm.input_specs``' specs. The
-weights drawn by the reference and carried over; the
-cache padded for 4 generated tokens (the reference re-lays it to the
-decode program's specs with ``jax.device_put``), then 3 decode steps fed
-the same tokens. Held at each step: every cell's shard indices of every
-cache leaf (the self k and v, the VLM's image KV, whisper's cross KV),
+repeat in every cell; rwkv6's on (2, 2), (1, 2) and (1, 4); zamba2's on
+(2, 2), (1, 2), (1, 4) and at prompt 27, where the SSD pads, and with
+``ssm_head_dim`` 64: its 2 SSD heads split over no axis of (1, 4), so the
+Mamba2 blocks repeat while the conv state's 160 channels split. The
+VLM's image and whisper's frame embeddings are drawn by numpy from a
+seed at scale 0.02 and rounded to bfloat16 in both packages, cut over
+the data axes by ``lm.input_specs``' specs. The weights drawn by the
+reference and carried over; the cache padded for 4 generated tokens (the
+reference re-lays it to the decode program's specs with
+``jax.device_put``), then 3 decode steps fed the same tokens. Held at
+each step: every cell's shard indices of every cache leaf (the self k
+and v, the VLM's image KV, whisper's cross KV, the recurrent states),
 exactly (``devices_indices_map``); the logits within 1e-4 x max(1,
-max|ref|); every cache shard within that of the reference's device shard
-at the same mesh position, to one bfloat16 rounding, since both packages
-keep the cache in bfloat16 (``assert_same_rounding``); the next tokens,
+max|ref|); every cache shard against the reference's device shard at the
+same mesh position: a bfloat16 leaf to one rounding
+(``assert_same_rounding``), an f32 one (the WKV and SSD states, an f32
+run's token shifts) within 1e-4 x max(1, max|ref|); the next tokens,
 equal.
 
 In the port alone: the partitioned serve against the port's own
@@ -39,14 +44,18 @@ unpartitioned serve in f32; ``generate`` on a virtual mesh giving the
 null context's ids; the flash calls of a prefill on each cell's heads
 (olmoe's smoke; the VLM's self and cross layers, whisper's encoder,
 decoder and cross attention) and on all heads (smollm's, whose 3 heads
-do not split); no decode step gathers a tensor of a cache shard's size
-(``spmd.observe``) and ``pad_cache`` never assembles the whole cache;
-and six planted breaches, each refused by the reference differential:
-the attention's exit without its psum, the new token written into
-every cell's block, each cell's own argmax without the group's combine,
-the cross KV written with every kv head in every cell, the cross
-attention's exit in a decode step without its psum, and whisper's
-encoder output taken before its last exit's sum.
+do not split), rwkv6's WKV6 and zamba2's SSD and flash calls on each
+cell's heads; no decode step gathers a tensor of a cache shard's size
+(``spmd.observe``) but zamba2's conv state, and ``pad_cache`` never
+assembles the whole cache; and ten planted breaches, each refused by the
+reference differential: the attention's exit without its psum, the new
+token written into every cell's block, each cell's own argmax without
+the group's combine, the cross KV written with every kv head in every
+cell, the cross attention's exit in a decode step without its psum,
+whisper's encoder output taken before its last exit's sum, rwkv6's
+decode ``ln_x`` and zamba2's decode gated norm over the cell's channels
+alone, rwkv6's ``last_cmix`` taken before the time mix's exit is summed,
+and zamba2's conv state written as the cell's heads' channels.
 """
 
 from __future__ import annotations
@@ -61,17 +70,22 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
 from repro_torch.configs import registry  # noqa: E402
+from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.distributed import spmd  # noqa: E402
 from repro_torch.distributed.sharding import (MeshArray,  # noqa: E402
                                               ShardingCtx, place)
 from repro_torch.distributed.resharding import normalize_index  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import mamba2 as MB  # noqa: E402
 from repro_torch.models import params as P  # noqa: E402
+from repro_torch.models import rwkv as RW  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve import step as S  # noqa: E402
 from test_torch_mesh_train import counted_flash, virtual  # noqa: E402,F401
-from test_torch_tensor_parallel import counted_cross_flash  # noqa: E402,F401
+from test_torch_tensor_parallel import (counted_cross_flash,  # noqa: E402,F401
+                                        counted_ssd, counted_wkv6)
 from test_torch_rwkv import assert_close  # noqa: E402
 from test_torch_spmd import run_reference  # noqa: E402
 from test_torch_zamba2 import assert_same_rounding  # noqa: E402
@@ -79,10 +93,15 @@ from test_torch_zamba2 import assert_same_rounding  # noqa: E402
 SMOLLM, DANUBE = "smollm-135m", "h2o-danube-3-4b"
 OLMOE, SCOUT = "olmoe-1b-7b", "llama4-scout-17b-a16e"
 VLM, WHISPER = "llama-3.2-vision-11b", "whisper-small"
+RWKV, ZAMBA = "rwkv6-7b", "zamba2-7b"
 B, PROMPT, GEN, SEED = 4, 32, 4, 5
 STEPS = GEN - 1
 ODD_VOCAB = 255  # whisper's: split over no axis, as whisper-small's 51865
-# (arch, moe_impl, (data, model), prompt[, vocabulary])
+# zamba2's: 2 SSD heads, which do not split over (1, 4), while the conv
+# state's 160 channels do
+WIDE_HEADS = {"ssm_head_dim": 64}
+# (arch, moe_impl, (data, model), prompt[, vocabulary or the config's
+# fields replaced])
 CASES = (
     (SMOLLM, "dense", (2, 2), PROMPT), (SMOLLM, "dense", (1, 2), PROMPT),
     (SMOLLM, "dense", (2, 2), 27),
@@ -96,15 +115,31 @@ CASES = (
     (WHISPER, "dense", (2, 2), PROMPT), (WHISPER, "dense", (1, 2), PROMPT),
     (WHISPER, "dense", (2, 2), 27),
     (WHISPER, "dense", (2, 2), PROMPT, ODD_VOCAB),
+    (RWKV, "dense", (2, 2), PROMPT), (RWKV, "dense", (1, 2), PROMPT),
+    (RWKV, "dense", (1, 4), PROMPT),
+    (ZAMBA, "dense", (2, 2), PROMPT), (ZAMBA, "dense", (1, 2), PROMPT),
+    (ZAMBA, "dense", (1, 4), PROMPT), (ZAMBA, "dense", (2, 2), 27),
+    (ZAMBA, "dense", (1, 4), PROMPT, WIDE_HEADS),
 )
 
 
+def replaced(case) -> dict:
+    """The case's config fields replaced: none, its vocabulary, or
+    ``WIDE_HEADS``."""
+    extra = (case[4:] or ({},))[0]
+    return extra if isinstance(extra, dict) else {"vocab_size": extra}
+
+
 def variant(case) -> str:
-    """The case's model: its arch, and its vocabulary where it is set."""
-    return case[0] + "".join(f"/vocab{v}" for v in case[4:])
+    """The case's model: its arch, and each field replaced (a vocabulary
+    as ``vocab<n>``)."""
+    return case[0] + "".join(
+        f"/{'vocab' if k == 'vocab_size' else k}{v}"
+        for k, v in sorted(replaced(case).items()))
 
 
-VARIANTS = sorted({(variant(c), c[0], (c[4:] or (0,))[0]) for c in CASES})
+VARIANTS = [(name, arch, dict(fields)) for name, arch, fields in sorted(
+    {(variant(c), c[0], tuple(sorted(replaced(c).items()))) for c in CASES})]
 
 
 def key(case) -> str:
@@ -113,9 +148,8 @@ def key(case) -> str:
 
 
 def config(case):
-    """The case's smoke config (its vocabulary replaced where set)."""
-    cfg = registry.get(case[0]).smoke
-    return dataclasses.replace(cfg, vocab_size=case[4]) if case[4:] else cfg
+    """The case's smoke config (its fields replaced where set)."""
+    return dataclasses.replace(registry.get(case[0]).smoke, **replaced(case))
 
 
 def embeds() -> dict:
@@ -205,13 +239,12 @@ def padded(tree, name=None):
     padw[-3] = (0, inp["gen"])
     return np.pad(x, padw)
 
-def config(arch, vocab):
-    cfg = registry.get(arch).smoke
-    return dataclasses.replace(cfg, vocab_size=vocab) if vocab else cfg
+def config(arch, fields):
+    return dataclasses.replace(registry.get(arch).smoke, **fields)
 
 rng = np.random.default_rng(inp["seed"])
-for name, arch, vocab in inp["variants"]:
-    cfg = config(arch, vocab)
+for name, arch, fields in inp["variants"]:
+    cfg = config(arch, fields)
     params = P.materialize(lm.param_specs(cfg),
                            jax.random.PRNGKey(inp["seed"]), dtype="float32")
     if cfg.family == "vlm":  # the gates drawn away from 0
@@ -222,10 +255,10 @@ for name, arch, vocab in inp["variants"]:
                 [-1, 1], shape)).astype(np.float32)
     out[f"{name}/params"] = params
 
-for (arch, impl, (d, m), prompt, vocab), name, key in zip(
+for (arch, impl, (d, m), prompt, fields), name, key in zip(
         inp["cases"], inp["names"], inp["keys"]):
     b = registry.get(arch)
-    cfg = config(arch, vocab)
+    cfg = config(arch, fields)
     run = b.run.replace(compute_dtype="float32", moe_impl=impl)
     mesh = make_host_mesh(d, m)
     ctx = ShardingCtx.for_mesh(mesh, "moe_a2a" if impl == "a2a" else
@@ -285,7 +318,7 @@ def tokens() -> np.ndarray:
 def reference():
     return run_reference(REF_SERVE, {
         "variants": VARIANTS,
-        "cases": [(*c[:4], (c[4:] or (0,))[0]) for c in CASES],
+        "cases": [(*c[:4], replaced(c)) for c in CASES],
         "names": [variant(c) for c in CASES], "keys": [key(c) for c in CASES],
         "embeds": embeds(), "seed": SEED, "tokens": tokens(), "gen": GEN,
         "steps": STEPS}, 4)
@@ -341,14 +374,26 @@ def stub_embeds(cfg) -> dict:
 
 def from_reference(reference, k):
     """``serve_steps``' ``feed``: the reference's cache after the step,
-    each cell's shard its device's, laid out as the port's."""
+    each cell's shard its device's, laid out as the port's, in the
+    port's dtype of each leaf (the f32 recurrent states of an f32 run)."""
     def feed(name, cache):
         return with_leaves(cache, lambda path, t: MeshArray(
-            t.shape, torch.bfloat16, t.sharding,
-            [torch.from_numpy(w).to(torch.bfloat16)
+            t.shape, t.dtype, t.sharding,
+            [torch.from_numpy(w).to(t.dtype)
              for w in reference[f"{k}/{name}/{path}/shards"]]))
 
     return feed
+
+
+def same_leaf(got, want, what):
+    """A cache leaf held as its dtype says: a bfloat16 leaf (a KV cache,
+    the conv state) to one rounding (``assert_same_rounding``), any other
+    (the f32 recurrent states, and the token shifts of an f32 run) within
+    1e-4 x max(1, max|want|)."""
+    if got.dtype == torch.bfloat16:
+        assert_same_rounding(got, want, what)
+    else:
+        assert_close(got, want, 1e-4, what)
 
 
 def gaps(steps, reference, k) -> list:
@@ -376,7 +421,7 @@ def gaps(steps, reference, k) -> list:
                 continue
             for pos, (g, w) in enumerate(zip(got.shards, reference[
                     f"{at}/{leaf}/shards"], strict=True)):
-                hold(assert_same_rounding, g, w, f"{at} {leaf} cell {pos}")
+                hold(same_leaf, g, w, f"{at} {leaf} cell {pos}")
         if logits is None:
             continue
         hold(assert_close, logits, reference[f"{at}/logits"], 1e-4,
@@ -396,15 +441,26 @@ def test_partitioned_serve_matches_reference_on_its_mesh(reference, case):
     assert gaps(steps, reference, key(case)) == []
     # the rules cut the self cache's sequence where it divides, else its
     # kv heads where they divide, else neither; the cross KV's kv heads
-    # where they divide
+    # where they divide; a recurrent state's heads where they divide, the
+    # conv state's channels where they divide, the token shifts never
     m = case[2][1]
-    spec = last4(S._self_kv(steps[0][2]))
-    if case[3] % m == 0:
-        assert spec[1:3] == ("model", None), spec
-    elif cfg.num_kv_heads % m == 0:
-        assert spec[1:3] == (None, "model"), spec
-    else:
-        assert "model" not in spec, spec
+    kv = S._self_kv(steps[0][2])
+    if kv is not None:
+        spec = last4(kv)
+        if case[3] % m == 0:
+            assert spec[1:3] == ("model", None), spec
+        elif cfg.num_kv_heads % m == 0:
+            assert spec[1:3] == (None, "model"), spec
+        else:
+            assert "model" not in spec, spec
+    for path, t in by_path(steps[0][2]):
+        spec = tuple(t.sharding.spec) + (None,) * t.ndim
+        dim = {"wkv": 2, "ssm": 2, "conv": 3}.get(path.split(".")[-1])
+        if dim is not None:
+            assert (spec[dim] == "model") == (t.shape[dim] % m == 0), \
+                (path, spec)
+        elif path.split(".")[-1].startswith("last_"):
+            assert "model" not in spec, (path, spec)
     ck = S._cross_kv(steps[0][2])
     if ck is not None:
         heads = "model" if cfg.num_kv_heads % m == 0 else None
@@ -436,14 +492,14 @@ def test_partitioned_serve_matches_the_whole_one(reference, case):
     for (name, tok, cache, logits), (_, wtok, wcache, wlogits) in zip(
             got, want, strict=True):
         for leaf, t in by_path(cache):
-            assert_same_rounding(t.gather(), at_path(wcache, leaf).float(),
-                                 f"{name} {leaf}")
+            same_leaf(t.gather(), at_path(wcache, leaf).float(),
+                      f"{name} {leaf}")
         if logits is not None:
             assert_close(logits, wlogits, 1e-4, f"{name} logits")
             assert torch.equal(tok, wtok), name
 
 
-@pytest.mark.parametrize("arch", [SMOLLM, OLMOE, VLM, WHISPER])
+@pytest.mark.parametrize("arch", [SMOLLM, OLMOE, VLM, WHISPER, RWKV, ZAMBA])
 def test_generate_on_a_virtual_mesh_gives_the_null_contexts_ids(reference,
                                                                  arch):
     cfg, run, ctx, prm = setup((arch, "dense", (2, 2), PROMPT), reference)
@@ -506,11 +562,11 @@ def test_cross_families_prefill_flash_calls_run_on_the_cells_heads(
 
 
 def decode_collectives(case, reference, monkeypatch):
-    """(the largest tensor a collective returned in STEPS decode steps
-    of ``case``'s partitioned serve, but a weight's gather (those are
-    labelled with the leaf's path), the smallest shard that a cell holds
-    of one layer's cache leaf), the cache padded by ``pad_cache`` with
-    ``MeshArray.gather`` refused."""
+    """(each collective's label and the shape of the tensor it returned
+    in STEPS decode steps of ``case``'s partitioned serve: a weight's
+    gather labelled with the leaf's path, the conv state's ``conv``, any
+    other None (zamba2's gather of ``w_in`` in the tape too); the cache
+    padded by ``pad_cache`` with ``MeshArray.gather`` refused)."""
     cfg, run, ctx, prm = setup(case, reference)
     prm = S.laid_out(cfg, ctx, prm)
     toks = torch.from_numpy(tokens())
@@ -523,13 +579,10 @@ def decode_collectives(case, reference, monkeypatch):
     with monkeypatch.context() as mp:
         mp.setattr(MeshArray, "gather", refuse)
         cache = serve.pad_cache(cfg, cache, GEN)
-    layer_shard = min(t.shards[0].numel() // int(np.prod(t.shape[:-4]))
-                      for _, t in by_path(cache))
     seen = []
 
     def note(op, out, g, cell, *, axes, label):
-        if label is None:
-            seen.append((op, out.numel()))
+        seen.append((label, tuple(out.shape)))
 
     decode = S.make_decode_step(cfg, run, ctx)
     with spmd.observe(note):
@@ -537,15 +590,24 @@ def decode_collectives(case, reference, monkeypatch):
             decode(prm, cache, {"tokens": toks[:, PROMPT + i:PROMPT + i + 1],
                                 "pos": PROMPT + i})
     assert seen, "no collective in a decode step"
-    return max(n for _, n in seen), layer_shard
+    return seen, cache
+
+
+def largest_and_layer_shard(seen, cache):
+    """(the largest tensor an unlabelled collective returned, the
+    smallest shard that a cell holds of one layer's cache leaf)."""
+    layer_shard = min(t.shards[0].numel() // int(np.prod(t.shape[:-4]))
+                      for _, t in by_path(cache))
+    return max(int(np.prod(n)) for label, n in seen if label is None), \
+        layer_shard
 
 
 def test_no_cell_gathers_the_whole_cache(reference, monkeypatch):
     """In every decode step each collective that is not a weight's gather
     returns less than one layer's cache shard; ``pad_cache`` re-lays the
     cache without assembling it anywhere."""
-    largest, layer_shard = decode_collectives(
-        (OLMOE, "dense", (2, 2), PROMPT), reference, monkeypatch)
+    largest, layer_shard = largest_and_layer_shard(*decode_collectives(
+        (OLMOE, "dense", (2, 2), PROMPT), reference, monkeypatch))
     assert largest < layer_shard, (largest, layer_shard)
 
 
@@ -555,9 +617,86 @@ def test_no_cell_gathers_a_cache_or_the_cross_kv(reference, monkeypatch,
     """The cross families as ``test_no_cell_gathers_the_whole_cache``:
     less than one layer's shard of the self cache or of the cross KV,
     whichever is smaller; ``pad_cache`` assembles neither."""
-    largest, layer_shard = decode_collectives(
-        (arch, "dense", (2, 2), PROMPT), reference, monkeypatch)
+    largest, layer_shard = largest_and_layer_shard(*decode_collectives(
+        (arch, "dense", (2, 2), PROMPT), reference, monkeypatch))
     assert largest < layer_shard, (largest, layer_shard)
+
+
+@pytest.mark.parametrize("arch", [RWKV, ZAMBA])
+def test_no_cell_gathers_a_state_or_the_shared_kv(reference, monkeypatch,
+                                                  arch):
+    """The recurrent families as ``test_no_cell_gathers_the_whole_cache``:
+    each collective of a decode step that is neither a weight's gather
+    (zamba2's ``w_in`` gathered over ``model`` in the tape among them)
+    nor the conv state's returns less than one layer's shard of any cache
+    leaf that ``model`` cuts (rwkv6's WKV state; zamba2's SSD state and
+    its shared block's k and v); the conv state, the one cache leaf a
+    cell gathers, is gathered by every cell once a layer, each time one
+    layer's conv state of the cell's rows; ``pad_cache`` assembles
+    nothing."""
+    case = (arch, "dense", (2, 2), PROMPT)
+    cfg = config(case)
+    seen, cache = decode_collectives(case, reference, monkeypatch)
+    specs = lm.cache_specs(cfg, ShapeSpec("d", "decode", PROMPT + GEN, B))
+    cut = {path: t for path, t in by_path(cache)
+           if "model" in str(t.sharding.spec) and not path.endswith("conv")}
+    assert cut, "no cache leaf cut over model"
+    # a stacked leaf's layers: its leading "layers" dims
+    layers = {path: int(np.prod([n for n, name in zip(
+        at_path(specs, path).shape, at_path(specs, path).logical)
+        if name == "layers"])) for path in cut}
+    layer_shard = min(t.shards[0].numel() // layers[path]
+                      for path, t in cut.items())
+    w_in = (lm.param_specs(cfg)["stack"]["layers"]["w_in"].shape[1:]
+            if cfg.family == "hybrid" else None)
+    largest = max(int(np.prod(n)) for label, n in seen
+                  if label is None and n != w_in)
+    assert largest < layer_shard, (largest, layer_shard)
+    conv = [n for label, n in seen if label == "conv"]
+    if cfg.family == "hybrid":
+        _, H, Pd, N = MB.dims(cfg)
+        one = (B // 2, cfg.ssm_conv_width - 1, H * Pd + 2 * N)
+        # each of the 4 cells, each step, each layer
+        assert conv == [one] * (4 * STEPS * cfg.num_layers), conv
+        assert [n for label, n in seen if n == w_in] == [w_in] * (
+            4 * STEPS * cfg.num_layers)
+    else:
+        assert conv == []
+    assert {label for label, _ in seen} <= {None, "conv", "embed",
+                                            "final_ln"} | {
+        label for label, _ in seen
+        if label is not None and label.startswith("stack")}
+
+
+@pytest.mark.parametrize("arch", [RWKV, ZAMBA])
+def test_recurrent_families_kernel_calls_run_on_the_cells_heads(
+        reference, counted_wkv6, counted_ssd, arch):
+    """Every cell of (2, 2) calls its family's kernels in a prefill on its
+    2 rows and its own heads: rwkv6's WKV6 once a layer on 2 of the 4 WKV
+    heads; zamba2's SSD once a layer on 4 of the 8 SSD heads (B and C
+    whole) and flash once a shared-block application on 2 of its 4
+    heads; a decode step calls none."""
+    cfg, run, ctx, prm = setup((arch, "dense", (2, 2), PROMPT), reference)
+    prm = S.laid_out(cfg, ctx, prm)
+    ssd_calls, flash_calls = counted_ssd
+    tok, cache = S.make_prefill_step(cfg, run, ctx)(prm, {
+        "tokens": torch.from_numpy(tokens()[:, :PROMPT])})
+    rows, L = B // 2, cfg.num_layers
+    if cfg.family == "ssm":
+        K = cfg.wkv_head_dim
+        want = ([((rows, PROMPT, cfg.d_model // K // 2, K),
+                  cfg.scan_chunk)] * (4 * L), [], [])
+    else:
+        _, H, Pd, N = MB.dims(cfg)
+        want = ([], [((rows, PROMPT, H // 2, Pd), (rows, PROMPT, N),
+                      cfg.scan_chunk)] * (4 * L),
+                [(rows, PROMPT, cfg.num_heads // 2, cfg.head_dim)] * (
+                    4 * MB.n_shared_applications(cfg)))
+    got = (list(counted_wkv6), list(ssd_calls), list(flash_calls))
+    assert got == want
+    S.make_decode_step(cfg, run, ctx)(prm, serve.pad_cache(cfg, cache, 1), {
+        "tokens": tok[:, None], "pos": PROMPT})
+    assert (list(counted_wkv6), list(ssd_calls), list(flash_calls)) == got
 
 
 def _attention_exit_without_psum(monkeypatch):
@@ -621,6 +760,79 @@ def _cross_decode_exit_without_psum(monkeypatch):
             del tc.tape.exit
 
     monkeypatch.setattr(T, "_xattn_half", breached)
+
+
+def _decode_total_skipped(module, name):
+    """A breach: ``module.name`` (a half on a tape) in a decode step
+    (``state`` or ``last`` given) with ``Tape.total`` the identity: each
+    cell's sum of squares of its own channels alone."""
+    def breach(monkeypatch):
+        real = getattr(module, name)
+
+        def breached(cfg, ctx, tc, *a, **kw):
+            if kw.get("state") is None:
+                return real(cfg, ctx, tc, *a, **kw)
+            tc.tape.total = lambda x, axis="model": x
+            try:
+                return real(cfg, ctx, tc, *a, **kw)
+            finally:
+                del tc.tape.total
+
+        monkeypatch.setattr(module, name, breached)
+
+    breach.__name__ = f"_{name}_decode_norm_over_the_cells_channels"
+    return breach
+
+
+def _last_cmix_before_the_time_mix(monkeypatch):
+    real = RW._cmix_half
+
+    def breached(cfg, ctx, tc, wl, x, adds, **kw):
+        out = real(cfg, ctx, tc, wl, x, adds, **kw)
+        if len(out) < 3:
+            return out
+        return (*out[:2], x[:, -1])  # the residual before the exit's sum
+
+    monkeypatch.setattr(RW, "_cmix_half", breached)
+
+
+def _conv_of_the_cells_heads(monkeypatch):
+    real = MB._conv_rest
+
+    def breached(cfg, conv, cut):
+        if cut is None or not cut.conv:
+            return real(cfg, conv, cut)
+        d_inner, H, Pd, N = MB.dims(cfg)
+        n = H // cut.size
+        lo = cut.index * n
+        mine = MB._pick(conv, ((lo * Pd, (lo + n) * Pd),
+                               (d_inner, d_inner + 2 * N)))
+        # as many of those channels as the block holds
+        return real(cfg, mine, None)[..., :conv.shape[-1] // cut.size]
+
+    monkeypatch.setattr(MB, "_conv_rest", breached)
+
+
+@pytest.mark.parametrize("breach,arch", [
+    (_decode_total_skipped(RW, "_tmix_half"), RWKV),
+    (_last_cmix_before_the_time_mix, RWKV),
+    (_conv_of_the_cells_heads, ZAMBA),
+    (_decode_total_skipped(MB, "_mamba_half"), ZAMBA)],
+    ids=lambda b: getattr(b, "__name__", b))
+def test_recurrent_planted_breaches_fail_the_reference_differential(
+        reference, monkeypatch, breach, arch):
+    """Each breach of rwkv6's and zamba2's partitioned serve is refused by
+    the reference differential that the sound code passes: rwkv6's
+    decode ``ln_x`` and zamba2's decode gated norm over the cell's
+    channels alone (no ``Tape.total``), rwkv6's ``last_cmix`` taken
+    before the time mix's exit is summed, zamba2's conv state written as
+    the cell's heads' x, B and C channels instead of its even block."""
+    case = (arch, "dense", (2, 2), PROMPT)
+    cfg, run, ctx, prm = setup(case, reference)
+    breach(monkeypatch)
+    assert gaps(serve_steps(cfg, run, ctx, prm, PROMPT,
+                            from_reference(reference, key(case))),
+                reference, key(case))
 
 
 def _encoder_output_before_its_last_sum(monkeypatch):
@@ -690,16 +902,16 @@ def test_planted_breaches_fail_the_reference_differential(reference,
     ("llama-3.2-vision-11b", "prefill_32k", "multi", "baseline", True),
     ("whisper-small", "prefill_32k", "multi", "baseline", True),
     ("whisper-small", "decode_32k", "single", "baseline", True),
-    ("rwkv6-7b", "decode_32k", "single", "baseline", False),
-    ("zamba2-7b", "prefill_32k", "single", "baseline", False)])
+    ("rwkv6-7b", "decode_32k", "single", "baseline", True),
+    ("zamba2-7b", "prefill_32k", "single", "baseline", True),
+    (SMOLLM, "prefill_32k", "single", "seqpar", False)])
 def test_dryrun_traces_a_partitioned_serve_cell(tmp_path, arch, shape, mesh,
                                                 ruleset, partitioned):
-    """On the reference's meshes a dense, MoE, VLM or whisper serve cell
-    under the ``baseline`` or ``moe_a2a`` rules is traced as its first
-    cell alone: its collectives counted by axes, none left unissued;
-    rwkv6 and zamba2, and the ``decode_flash`` ruleset, still serve the
-    model whole in their data cell and name the collectives GSPMD would
-    insert."""
+    """On the reference's meshes a serve cell of any family under the
+    ``baseline`` or ``moe_a2a`` rules is traced as its first cell alone:
+    its collectives counted by axes, none left unissued; the
+    ``decode_flash`` and ``seqpar`` rulesets still serve the model whole
+    in their data cell and name the collectives GSPMD would insert."""
     from repro_torch.launch import dryrun
 
     r = dryrun.run_cell(arch, shape, mesh, ruleset, str(tmp_path),
