@@ -85,6 +85,13 @@ same for the recurrent families, each cell holding its heads' shard of
 the WKV or SSD state, its even block of zamba2's conv state and its
 shard of zamba2's shared-block KV cache, held in f32 at 2 layers
 (rwkv6) and 6 (zamba2, one shared-block application);
+``serve_mesh_flash_smollm`` and ``serve_mesh_flash_olmoe``, after
+``serve_mesh_smollm`` and ``serve_mesh_olmoe``: the same models served
+on the same mesh under the ``decode_flash`` rules, each decode step 2-D
+tensor parallel on the cell's weight shards with no weight gathered (the
+features over ``data``, the cell's rows and sequence block with every kv
+head in its attention), the prefill on the cell's rows, held in f32 at 2
+layers;
 ``train_mesh_rwkv6``, after ``train_rwkv6``: rwkv6-7b at 2 layers,
 each cell's own WKV heads, channel-mix columns and vocabulary, held
 against the same steps unpartitioned; ``train_mesh_vlm``, after
@@ -2934,7 +2941,7 @@ def serve_profile(cfg, run, prm, tokens, ranges=(), extra=None,
             tok.cpu()
 
     profs = {"prefill": profile_device(run_prefill, ranges)}
-    state["cache"] = serve.pad_cache(cfg, state["cache"], decode_steps)
+    state["cache"] = serve.pad_cache(cfg, state["cache"], decode_steps, ctx)
     profs[f"decode_{decode_steps}_steps"] = profile_device(run_decode, ranges)
     trace = {}
     for name, prof in profs.items():
@@ -5045,7 +5052,19 @@ def phase_serve_olmoe_a2a(prm, tokens):
 # None: whole); ``f32_err``: the serve phase's field of its bf16 logits'
 # distance from its f32 logits (SERVE_F32_LOGITS); ``trace``: the phase
 # whose line holds the unpartitioned serve's profile, where it is not the
-# serve phase's own ``trace``.
+# serve phase's own ``trace``; ``rules``: the serve's ruleset, baseline
+# where unset. Under ``decode_flash`` (serve_mesh_flash_smollm and
+# serve_mesh_flash_olmoe, right after serve_mesh_smollm and
+# serve_mesh_olmoe, on the same weights and prompt): a decode step 2-D
+# tensor parallel on each cell's weight shards, no weight gathered (held:
+# 0 of a step's collectives a weight's gather), the residual stream's
+# features over data, every kv head and the cell's rows and sequence
+# block in its attention; the prefill on the cell's 2 rows, its weights
+# gathered over data a layer at a time, its attention on its own q heads
+# and the kv heads they read (olmoe's 8 of 16), on all of them where the
+# q heads do not split (smollm's 9); ``baseline``: the phase of the same
+# model under the baseline rules, whose figures its line repeats beside
+# its own.
 SERVE_MESH = {
     "serve_mesh_smollm": {"serve": "serve_smollm", "arch": "smollm-135m",
                           "impls": ("dense",),
@@ -5055,6 +5074,16 @@ SERVE_MESH = {
                          "impls": ("dense", "a2a"),
                          "cell_launches": {"flash_attention": {
                              ((2, 1024, 8, 128), (2, 1024, 8, 128)): 16}}},
+    "serve_mesh_flash_smollm": {
+        "serve": "serve_smollm", "arch": "smollm-135m", "impls": ("dense",),
+        "rules": "decode_flash", "baseline": "serve_mesh_smollm",
+        "cell_launches": {"flash_attention": {
+            ((2, 1024, 9, 64), (2, 1024, 3, 64)): 30}}},
+    "serve_mesh_flash_olmoe": {
+        "serve": "serve_olmoe", "arch": "olmoe-1b-7b", "impls": ("dense",),
+        "rules": "decode_flash", "baseline": "serve_mesh_olmoe",
+        "cell_launches": {"flash_attention": {
+            ((2, 1024, 8, 128), (2, 1024, 8, 128)): 16}}},
     # one super-block: 4 self layers and a cross layer (``_vlm_groups``
     # takes no fewer)
     "serve_mesh_vlm": {"serve": "serve_vlm", "arch": "llama-3.2-vision-11b",
@@ -5136,8 +5165,10 @@ def mesh_serve_f32_hold(cfg, run, mesh, prm, tokens, impl: str, steps: int,
     and ``steps`` decode steps, each decode step from the unpartitioned
     cache laid out as the partitioned one's (a bf16 rounding flip in a
     cache moves the next logits past the tolerance) and fed the
-    unpartitioned greedy tokens; ``extra``: the prefill's embeddings.
-    Held: the logits within SERVE_MESH_TOL x max(1, max|unpartitioned|),
+    unpartitioned greedy tokens; ``extra``: the prefill's embeddings;
+    the partitioned serve under ``run.sharding_rules`` (the a2a's under
+    ``moe_a2a``), whose decode_flash cache takes as many more slots as
+    keep its length a multiple of ``model``. Held: the logits within SERVE_MESH_TOL x max(1, max|unpartitioned|),
     every cell's shard of every bf16 cache leaf (the KV cache, the cross
     KV, the conv state) against the unpartitioned cache's block
     (``cache_shard_gap``), of every f32 leaf (the WKV and SSD states, an
@@ -5147,12 +5178,13 @@ def mesh_serve_f32_hold(cfg, run, mesh, prm, tokens, impl: str, steps: int,
 
     from repro_torch.distributed.sharding import ShardingCtx, place
     from repro_torch.launch import serve
+    from repro_torch.launch.mesh import mesh_axis_sizes
     from repro_torch.models import lm, params as P
     from repro_torch.serve.step import (laid_out, make_decode_step,
                                         make_prefill_step)
 
     run32 = run.replace(compute_dtype="float32", moe_impl=impl)
-    ruleset = "moe_a2a" if impl == "a2a" else "baseline"
+    ruleset = "moe_a2a" if impl == "a2a" else run.sharding_rules
     ctx = ShardingCtx.for_mesh(mesh, ruleset)
     whole_ctx = ctx if impl == "a2a" else ShardingCtx.null()
     prm32 = P.tree_map(lambda t: t.float(), prm)
@@ -5160,6 +5192,10 @@ def mesh_serve_f32_hold(cfg, run, mesh, prm, tokens, impl: str, steps: int,
     prefill = make_prefill_step(cfg, run32, ctx)
     decode = make_decode_step(cfg, run32, ctx)
     B, prompt = tokens.shape
+    pad = steps
+    if ruleset == "decode_flash":  # the slots split over model
+        m = mesh_axis_sizes(mesh)["model"]
+        pad = -(-(prompt + steps) // m) * m - prompt
     rows, worst = [], {"logits": 0.0, "cache_excess": -1.0,
                        "cache_differ_share": 0.0, "state": 0.0}
 
@@ -5197,8 +5233,8 @@ def mesh_serve_f32_hold(cfg, run, mesh, prm, tokens, impl: str, steps: int,
                                                 batch)
         tok, cache, logits = prefill(mprm, batch, logits=True)
         held("prefill", tok, cache, logits, want_logits, want_cache)
-        want_cache = serve.pad_cache(cfg, want_cache, steps)
-        cache = serve.pad_cache(cfg, cache, steps)
+        want_cache = serve.pad_cache(cfg, want_cache, pad)
+        cache = serve.pad_cache(cfg, cache, pad, ctx)
         for i in range(steps):
             batch = {"tokens": want_logits.argmax(-1).to(torch.int32)[:, None],
                      "pos": prompt + i}
@@ -5236,13 +5272,17 @@ def phase_serve_mesh(name, prm, tokens, extra=None):
     logits are) and a profiled prefill and 2 decode steps (the device's
     idle share), each beside the serve phase's unpartitioned figures;
     last the f32 hold at ``f32_layers`` deep (``mesh_serve_f32_hold``),
-    the decision. Returns the main path's launches by kernel."""
+    the decision. A decode step's collectives a cell and among them the
+    weights' gathers (``spmd.observe``: those labelled with a leaf's
+    path) are counted; under ``decode_flash`` none may be a weight's.
+    Returns the main path's launches by kernel."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs import registry
     from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import spmd
     from repro_torch.distributed.sharding import MeshArray, ShardingCtx
     from repro_torch.launch import dryrun, serve
     from repro_torch.launch.mesh import make_elastic_mesh, make_mesh
@@ -5255,12 +5295,13 @@ def phase_serve_mesh(name, prm, tokens, extra=None):
     unpart = EMITTED[spec["serve"]]
     kernels = _kernel_counts()
     bundle = registry.get(spec["arch"])
-    cfg, run = bundle.model, bundle.run
+    rules = spec.get("rules", "baseline")
+    cfg, run = bundle.model, bundle.run.replace(sharding_rules=rules)
     dev = torch.device("cuda")
     d, m = SERVE_MESH_SHAPE
     cells = d * m
     mesh = make_elastic_mesh(d, m, devices=[dev] * cells)
-    ctx = ShardingCtx.for_mesh(mesh)
+    ctx = ShardingCtx.for_mesh(mesh, rules)
     B, prompt = tokens.shape
     extra = extra or {}
     batch = {"tokens": tokens, **extra}
@@ -5276,7 +5317,7 @@ def phase_serve_mesh(name, prm, tokens, extra=None):
     param_bytes = [sum(t.shards[p].numel() * t.shards[p].element_size()
                        for t in P.leaves(mprm)) for p in range(cells)]
     meta = make_mesh((d, m), ("data", "model"), [torch.device("meta")] * cells)
-    mctx = ShardingCtx.for_mesh(meta)
+    mctx = ShardingCtx.for_mesh(meta, rules)
 
     def dry_bytes(kind, seq, n_args):
         prog = build_program(cfg, run, ShapeSpec(name, kind, seq, B), mctx)
@@ -5321,22 +5362,36 @@ def phase_serve_mesh(name, prm, tokens, extra=None):
     prefill_launches = {k: n - l0[k] for k, n in counts().items()}
     assert prefill_launches == launches, prefill_launches
     assert (tok.cpu().numpy() == ids[:, 0]).all()
-    cache = serve.pad_cache(cfg, cache, gen)
+    cache = serve.pad_cache(cfg, cache, gen, ctx)
     assert all(isinstance(t, MeshArray) for t in P.leaves(cache))
     cache_bytes = [sum(t.shards[p].numel() * t.shards[p].element_size()
                        for t in P.leaves(cache)) for p in range(cells)]
     dry_decode = dry_bytes("decode", prompt + gen, 2)
     cell_bytes = [a + b for a, b in zip(param_bytes, cache_bytes)]
     assert cell_bytes == [dry_decode] * cells, (cell_bytes, dry_decode)
-    step_launches = []
+    step_launches, collectives = [], []
+
+    def note(op, out, group, cell, *, axes, label):
+        if cell == 0:  # every cell issues the same ones
+            collectives.append((op, ",".join(axes), label))
+
     for i in range(2):
         l0 = counts()
-        tok, cache = decode(mprm, cache, {"tokens": tok[:, None],
-                                          "pos": prompt + i})
+        with spmd.observe(note) if i == 0 else contextlib.nullcontext():
+            tok, cache = decode(mprm, cache, {"tokens": tok[:, None],
+                                              "pos": prompt + i})
         step_launches.append(sum(n - l0[k] for k, n in counts().items()))
         assert (tok.cpu().numpy() == ids[:, i + 1]).all()
     assert step_launches == [0, 0], step_launches
     del cache
+    # a weight's gather is labelled with its leaf's path (zamba2's conv
+    # state, a cache leaf, with "conv")
+    weight_gathers = sum(label not in (None, "conv")
+                         for _, _, label in collectives)
+    if rules == "decode_flash":
+        assert weight_gathers == 0, collectives
+    decode_collectives = dict(collections.Counter(
+        f"{op} over {axes}" for op, axes, _ in collectives))
 
     # the bf16 logits, by the serve phase's rule
     f32 = SERVE_F32_LOGITS[spec["serve"]].to(dev)
@@ -5371,8 +5426,10 @@ def phase_serve_mesh(name, prm, tokens, extra=None):
         unpart["generated_ids_row0"][:gen])).mean())
     whole_trace = (EMITTED[spec["trace"]] if "trace" in spec
                    else unpart["trace"])
+    baseline = EMITTED.get(spec.get("baseline"), {})
     emit(name, arch=cfg.name, mesh=[d, m], device="virtual", layers=L,
-         dtype=run.compute_dtype, batch=B, prompt=prompt, gen=gen,
+         rules=rules, dtype=run.compute_dtype, batch=B, prompt=prompt,
+         gen=gen,
          cut=SERVE_MESH_CUT, plan_repeated=make_prefill_step(
              cfg, run, ctx).plan_at({"tokens": tokens}).repeated(cfg),
          main_path_launches=main_launches,
@@ -5399,6 +5456,17 @@ def phase_serve_mesh(name, prm, tokens, extra=None):
                             whole_trace["decode_8_steps"]["device_idle_share"]},
          prefill_idle_share=trace["prefill"]["device_idle_share"],
          decode_idle_share=trace[profiled]["device_idle_share"],
+         decode_step_collectives=len(collectives),
+         decode_step_collectives_by_axes=decode_collectives,
+         decode_step_weight_gathers=weight_gathers,
+         baseline_mesh=baseline and {
+             "phase": spec["baseline"],
+             **{k: baseline[k] for k in (
+                 "prefill_ms", "decode_ms_per_token", "peak_memory_bytes",
+                 "base_memory_bytes", "prefill_idle_share",
+                 "decode_idle_share", "decode_step_collectives",
+                 "decode_step_weight_gathers", "cell_param_bytes",
+                 "cell_cache_bytes")}},
          logits_bf16_mesh_vs_f32_err=mesh_vs_f32,
          logits_bf16_whole_vs_f32_err=whole_vs_f32,
          logits_bf16_rule="mesh vs f32 plain <= 2 x whole bf16 vs f32 plain",
@@ -7018,9 +7086,9 @@ def run_phases(t_start, card, traces) -> int:
                      "serve_mesh_zamba2": zamba_mesh["flash_attention"]}
     flash_by_path["serve_smollm"], prm, tokens = timed("serve_smollm",
                                                        phase_serve_smollm)
-    flash_by_path["serve_mesh_smollm"] = timed(
-        "serve_mesh_smollm", phase_serve_mesh, "serve_mesh_smollm", prm,
-        tokens)["flash_attention"]
+    for served in ("serve_mesh_smollm", "serve_mesh_flash_smollm"):
+        flash_by_path[served] = timed(served, phase_serve_mesh, served, prm,
+                                      tokens)["flash_attention"]
     del prm, tokens
     torch.cuda.empty_cache()
     flash_by_path["train_smollm"], smollm_bwd_ms, trainer = timed(
@@ -7046,9 +7114,9 @@ def run_phases(t_start, card, traces) -> int:
                                                       phase_serve_olmoe)
     flash_by_path["serve_olmoe_a2a"] = timed(
         "serve_olmoe_a2a", phase_serve_olmoe_a2a, prm, tokens)
-    flash_by_path["serve_mesh_olmoe"] = timed(
-        "serve_mesh_olmoe", phase_serve_mesh, "serve_mesh_olmoe", prm,
-        tokens)["flash_attention"]
+    for served in ("serve_mesh_olmoe", "serve_mesh_flash_olmoe"):
+        flash_by_path[served] = timed(served, phase_serve_mesh, served, prm,
+                                      tokens)["flash_attention"]
     del prm, tokens  # the olmoe weights
     torch.cuda.empty_cache()
     trained["train_olmoe"] = timed("train_olmoe", phase_train_model,

@@ -73,7 +73,14 @@ read by closure (zamba2's weight-tied shared block, applied after every
 
 The partitioned serve programs (``serve.step``) run every family's
 layers with the same plan on a ``Forward`` tape: the same segments and
-collectives, forward only, nothing recorded.
+collectives, forward only, nothing recorded. Under the ``decode_flash``
+rules, which cut ``wk`` and ``wv`` over no axis but the features', the
+dense and MoE serve's attention is model-local by its q heads alone
+(``Plan.qheads``: every cell projects every kv head and attends with
+those its q heads read), and a decode step is 2-D (``Plan.decode_2d``):
+no leaf gathered, the residual stream cut by features over the axes
+that cut the weights' ``fsdp`` dim, each product's partial sums exited
+over the axes that cut its contracted dim.
 
 zamba2's Mamba2 in-projection ``w_in`` is one leaf whose columns hold
 the gate, x, B, C and dt side by side, so its even cut over ``model``
@@ -122,6 +129,18 @@ class Plan:
     experts: bool = False
     vocab: bool = False
     batch_axes: Tuple[str, ...] = ()  # the mesh axes that cut the batch
+    # the decode_flash rules, which cut ``wk`` and ``wv`` over no axis but
+    # the features': ``wq``'s columns and ``wo``'s rows (``bq``) cut over
+    # ``model`` (``qcols``); attention model-local by its q heads, every
+    # kv head in every cell (``qheads``: the q heads divide by the axis,
+    # and each cell's read whole kv heads or one kv head's part)
+    qcols: bool = False
+    qheads: bool = False
+    # a decode_flash decode step: 2-D tensor parallel, no leaf gathered
+    # (``serve.step``); the residual stream's features cut over
+    # ``features`` (the mesh axes that cut the weights' ``fsdp`` dim)
+    decode_2d: bool = False
+    features: Tuple[str, ...] = ()
 
     def repeated(self, cfg) -> List[str]:
         """The blocks whose work repeats in every cell of a ``model``
@@ -130,7 +149,7 @@ class Plan:
             return []
         ssm = cfg.family == "ssm"
         out = ["mamba2"] if cfg.family == "hybrid" and not self.ssd else []
-        if not self.attn:
+        if not (self.attn or self.qheads or self.decode_2d):
             out.append("time mix" if ssm else "attention")
         if cfg.family in ("vlm", "audio") and not self.xattn:
             out.append("cross attention")
@@ -184,6 +203,7 @@ def _local(pspecs, param_specs, prefix, want: Dict[str, str]) -> bool:
 
 ATTN = {"wq": "heads", "wk": "kv_heads", "wv": "kv_heads", "wo": "heads",
         "bq": "heads", "bk": "kv_heads", "bv": "kv_heads"}
+QCOLS = {"wq": "heads", "wo": "heads", "bq": "heads"}
 MLP = {"w_gate": "mlp", "w_up": "mlp", "w_down": "mlp"}
 EXPERTS = {"w_gate": "experts", "w_up": "experts", "w_down": "experts"}
 TMIX = {"wr": "heads", "wk": "heads", "wv": "heads", "wg": "heads",
@@ -194,9 +214,12 @@ VOCAB = {"embedding": "vocab", "unembed": "vocab"}
 
 
 def plan_for(cfg, pspecs, param_specs, sizes: Dict[str, int],
-             batch_axes: Tuple[str, ...]) -> Plan:
+             batch_axes: Tuple[str, ...], *, qheads: bool = False) -> Plan:
     """The plan for ``cfg``'s parameters (``pspecs``, the ``TensorSpec``
-    tree) laid out by ``param_specs`` over a mesh of axis ``sizes``."""
+    tree) laid out by ``param_specs`` over a mesh of axis ``sizes``.
+    ``qheads``: the dense and MoE serve under the decode_flash rules,
+    whose attention may be model-local by its q heads alone
+    (``Plan.qheads``)."""
     m = sizes.get(AXIS, 1)
     if m == 1:
         return Plan(segmented=True, batch_axes=batch_axes)
@@ -235,9 +258,13 @@ def plan_for(cfg, pspecs, param_specs, sizes: Dict[str, int],
             xattn=heads and local(("cross", "xattn"), ATTN),
             mlp=local(("self", "mlp"), MLP) and local(("cross", "mlp"), MLP),
             vocab=vocab)
+    qcols = qheads and local(("layers", "attn"), QCOLS)
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
     return Plan(
         segmented=True, size=m, batch_axes=batch_axes,
         attn=heads and local(("layers", "attn"), ATTN),
+        qcols=qcols, qheads=qcols and hq % m == 0 and (
+            hkv % m == 0 or m % hkv == 0),
         mlp=local(("layers", "mlp"), MLP),
         shared=local(("layers", "moe", "shared"), MLP),
         experts=local(("layers", "moe"), EXPERTS),
@@ -265,7 +292,7 @@ def local_leaves(plan: Plan, pspecs):
         if group == "cmix":
             return plan.mlp and name in CMIX
         if group == "attn":
-            return plan.attn
+            return plan.attn or plan.qheads
         if group == "xattn":
             return plan.xattn
         if group == "mlp":
@@ -496,6 +523,23 @@ class Cell:
         k = n // self.plan.size
         lo = self.index() * k
         return lo, lo + k
+
+    def kv_heads(self, cfg) -> Tuple[int, int]:
+        """``[lo, hi)`` of the kv heads that this cell's q heads read,
+        where attention is model-local by its q heads (``Plan.qheads``)."""
+        lo, hi = self.block(cfg.num_heads)
+        group = cfg.num_heads // cfg.num_kv_heads
+        return lo // group, (hi - 1) // group + 1
+
+    def feature_block(self, t: torch.Tensor) -> torch.Tensor:
+        """This cell's block of ``t``'s last dim, the model's features,
+        where a decode_flash decode step cuts them (``Plan.features``);
+        ``t`` whole where nothing does."""
+        axes = self.plan.features
+        if not axes:
+            return t
+        n = t.shape[-1] // spmd.axis_size(axes)
+        return t.narrow(-1, spmd.axis_index(axes) * n, n)
 
 
 # the layer code outside a step cell: no leaf model-local, no collective

@@ -34,24 +34,28 @@ Mesh kinds:
     attention, whose 9 heads do not split; whisper-small's embedding and
     logits, whose 51865 rows split over no axis; zamba2-7b's Mamba2
     blocks over 32, whose 112 heads do not split). The serve programs of
-    every family under the ``baseline`` and ``moe_a2a`` rules are
-    partitioned too (``serve.step``): each is traced as its first cell
-    alone, on that cell's shards of the weights, of the KV cache, of the
-    cross KV and of the recurrent states, its collectives counted the
-    same way (the weights' gathers over the data axes layer by layer, the
+    every family under the ``baseline`` and ``moe_a2a`` rules, and of the
+    dense and MoE families under ``decode_flash``, are partitioned too
+    (``serve.step``): each is traced as its first cell alone, on that
+    cell's shards of the weights, of the KV cache, of the cross KV and of
+    the recurrent states, its collectives counted the same way (the
+    weights' gathers over the data axes layer by layer, the
     tensor-parallel exits and totals, zamba2's gathers of ``w_in`` and,
     in a decode step, of the conv state, the cache's all-to-all in a
-    prefill, a decode step's log-sum-exp combine, the group's argmax),
-    and its activation term is the cell's own where no block repeats.
-    Every other serve step (the ``seqpar`` and ``decode_flash`` rulesets)
-    is traced for one data cell's share of the batch at full model width,
-    on a mesh of that cell's ``model`` axis; its collectives are the ones
-    it issues over ``model`` (the a2a MoE's all-to-alls,
-    ``flash_decode``'s reductions), and one over the data axes
-    (``flash_decode``'s gather of its output under ``decode_flash``),
-    which that trace runs over one cell and cannot count, is refused. Such a cell runs the model at
-    full width, so its activation term is an upper bound, and the
-    collectives GSPMD would insert are named ``collectives_not_issued``.
+    prefill, a decode step's log-sum-exp combine, the group's argmax; a
+    ``decode_flash`` decode step gathers no weight: its exits over the
+    data axes and its gathers of q and of the attention output), and its
+    activation term is the cell's own where no block repeats. Every
+    other serve step (the ``seqpar`` ruleset, and the other families
+    under ``decode_flash``) is traced for one data cell's share of the
+    batch at full model width, on a mesh of that cell's ``model`` axis;
+    its collectives are the ones it issues over ``model`` (the a2a MoE's
+    all-to-alls, ``flash_decode``'s reductions), and one over the data
+    axes (``flash_decode``'s gather of its output under
+    ``decode_flash``), which that trace runs over one cell and cannot
+    count, is refused. Such a cell runs the model at full width, so its
+    activation term is an upper bound, and the collectives GSPMD would
+    insert are named ``collectives_not_issued``.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-135m \\
@@ -94,9 +98,11 @@ MESHES = {"single": ((16, 16), ("data", "model")),
           "multi": ((2, 16, 16), ("pod", "data", "model"))}
 NOT_ISSUED = ("the collectives that GSPMD inserts into the reference's "
               "partitioned serve programs: the port partitions the serve "
-              "programs under the baseline and moe_a2a rules only; the "
-              "seqpar and decode_flash rulesets serve the model whole in "
-              "each data cell (ShardingCtx.constrain is the identity)")
+              "programs under the baseline and moe_a2a rules, and the "
+              "dense and MoE families' under decode_flash; the seqpar "
+              "ruleset, and the VLM, whisper, rwkv6 and zamba2 under "
+              "decode_flash, serve the model whole in each data cell "
+              "(ShardingCtx.constrain is the identity)")
 
 
 def _meta_mesh(shape, axes):

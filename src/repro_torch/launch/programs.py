@@ -15,13 +15,14 @@ shapes and dtypes.
 
 On a mesh the train program is the partitioned step (``train.step``),
 and so are the serve programs under the ``baseline`` and ``moe_a2a``
-rules (``serve.step.partitioned``): ``fn``
-takes the whole stand-ins and runs every mesh cell, ``cell`` holds what
-one device runs, the step's per-cell function and stand-ins of the
-first cell's shards, which ``launch.dryrun`` traces alone
-(``spmd.one_cell``), and ``plan`` its tensor-parallel plan. The serve
-programs of the ``seqpar`` and ``decode_flash`` rules on a mesh run the
-model whole (``cell`` None).
+rules, and the dense and MoE families' under ``decode_flash``
+(``serve.step.partitioned``): ``fn`` takes the whole stand-ins and runs
+every mesh cell, ``cell`` holds what one device runs, the step's
+per-cell function and stand-ins of the first cell's shards, which
+``launch.dryrun`` traces alone (``spmd.one_cell``), and ``plan`` its
+tensor-parallel plan. The other serve programs on a mesh (the ``seqpar``
+rules; the other families under ``decode_flash``) run the model whole
+(``cell`` None).
 
 A fake CUDA tensor would name the card itself, but PyTorch built without
 CUDA cannot trace one through indexing or autograd (both ask for the CUDA

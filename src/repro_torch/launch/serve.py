@@ -33,7 +33,8 @@ from repro_torch.serve.step import (laid_out, make_decode_step,
                                     make_prefill_step, partitioned)
 
 
-def pad_cache(cfg: ModelConfig, cache, gen: int):
+def pad_cache(cfg: ModelConfig, cache, gen: int,
+              ctx: Optional[ShardingCtx] = None):
     """Room for ``gen`` generated tokens in the prompt-sized KV cache that
     prefill returns, as ``repro/launch/serve.py`` pads it: the sequence
     axis (third from last) of every self-attention k and v grows by ``gen``
@@ -41,12 +42,14 @@ def pad_cache(cfg: ModelConfig, cache, gen: int):
     attention's KV (the VLM's image KV, whisper's encoder KV) its length,
     and a recurrent state (rwkv6's, the Mamba2 layers') has no sequence
     axis. A partitioned serve's cache (``MeshArray`` leaves, laid out by
-    the baseline rules: ``serve.step.partitioned``) comes back laid out by
-    the decode program's specs on the same mesh, each cell's shard of the
-    self k and v (zamba2's shared block's too) made from the prefill's
-    shards that overlap it (``sharding.resharded``): the padded length
-    moves the sequence blocks' edges; the cross KV's and the recurrent
-    states' shards stay as they are."""
+    the rules of ``ctx``, the serve's context: ``serve.step.partitioned``;
+    the baseline rules where it is None) comes back laid out by the
+    decode program's specs under those rules on the cache's own mesh,
+    each cell's shard of the self k and v (zamba2's shared block's too)
+    made from the prefill's shards that overlap it
+    (``sharding.resharded``): the padded length moves the sequence blocks'
+    edges; the cross KV's and the recurrent states' shards stay as they
+    are."""
     def pad_seq(x):  # (..., S, H, D) -> (..., S + gen, H, D)
         return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, gen))
 
@@ -58,7 +61,7 @@ def pad_cache(cfg: ModelConfig, cache, gen: int):
     kv = cache[key] if key else cache
     k = kv["k"]
     if isinstance(k, MeshArray):
-        ctx = ShardingCtx.for_mesh(k.sharding.mesh)
+        ctx = ShardingCtx(k.sharding.mesh, (ctx or ShardingCtx.null()).rules)
         specs = lm.cache_specs(cfg, ShapeSpec("decode", "decode",
                                               k.shape[-3] + gen, k.shape[-4]))
         specs = specs[key] if key else specs
@@ -104,10 +107,11 @@ def generate(cfg: ModelConfig, run: RunConfig, prm,
     the host-clock times: each step ends when its tokens are on the host.
     ``ctx`` (``ShardingCtx.null()`` by default): with a mesh the serve
     steps are ``serve.step``'s for it, partitioned over it under the
-    ``baseline`` and ``moe_a2a`` rules (``serve.step.partitioned``),
-    whose weights are laid out over it first where they are whole
-    tensors; the VLM's and whisper's embeddings are cut over the data
-    axes inside the steps."""
+    ``baseline`` and ``moe_a2a`` rules, and the dense and MoE families'
+    under ``decode_flash`` (``serve.step.partitioned``), whose weights
+    are laid out over it first where they are whole tensors; the VLM's
+    and whisper's embeddings are cut over the data axes inside the
+    steps."""
     ctx = ShardingCtx.null() if ctx is None else ctx
     prefill = make_prefill_step(cfg, run, ctx)
     decode = make_decode_step(cfg, run, ctx)
@@ -117,7 +121,7 @@ def generate(cfg: ModelConfig, run: RunConfig, prm,
 
     t0 = time.perf_counter()
     tok, cache = prefill(prm, batch)
-    cache = pad_cache(cfg, cache, gen)
+    cache = pad_cache(cfg, cache, gen, ctx)
     out_tokens = [tok.cpu().numpy()]
     t_prefill = time.perf_counter() - t0
 

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -61,34 +61,32 @@ def attn_specs(cfg: ModelConfig, *, cross: bool = False) -> Dict[str, P.TensorSp
 def project_q(cfg: ModelConfig, w, x, positions, ctx: ShardingCtx, *, rope=True):
     """q (B, S, H, D): H the heads of ``wq``'s columns, all of them or a
     tensor-parallel cell's own (``distributed.tensor_parallel``)."""
-    dt = x.dtype
-    q = matmul(x, w["wq"])
-    if "bq" in w:
-        q = q + w["bq"].to(dt)
-    B, S = x.shape[:2]
-    q = q.reshape(B, S, w["wq"].shape[1] // cfg.head_dim, cfg.head_dim)
-    if rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
+    q = heads_of(cfg, biased(matmul(x, w["wq"]), w, "bq"), positions, rope)
     return ctx.constrain(q, ("batch", "seq_inner", "heads", "head_dim"))
 
 
 def project_kv(cfg: ModelConfig, w, x, positions, ctx: ShardingCtx, *, rope=True):
     """k, v (B, S, Hkv, D): Hkv the heads of ``wk``'s columns."""
-    dt = x.dtype
-    k = matmul(x, w["wk"])
-    v = matmul(x, w["wv"])
-    if "bk" in w:
-        k = k + w["bk"].to(dt)
-        v = v + w["bv"].to(dt)
-    B, S = x.shape[:2]
-    hkv = w["wk"].shape[1] // cfg.head_dim
-    k = k.reshape(B, S, hkv, cfg.head_dim)
-    v = v.reshape(B, S, hkv, cfg.head_dim)
-    if rope:
-        k = apply_rope(k, positions, cfg.rope_theta)
+    k = heads_of(cfg, biased(matmul(x, w["wk"]), w, "bk"), positions, rope)
+    v = heads_of(cfg, biased(matmul(x, w["wv"]), w, "bv"), positions, False)
     k = ctx.constrain(k, ("batch", "seq_inner", "kv_heads", "head_dim"))
     v = ctx.constrain(v, ("batch", "seq_inner", "kv_heads", "head_dim"))
     return k, v
+
+
+def biased(y: torch.Tensor, w, name: str) -> torch.Tensor:
+    """A projection ``y`` plus the bias ``w[name]``, where ``w`` has one,
+    in ``y``'s dtype."""
+    return y + w[name].to(y.dtype) if name in w else y
+
+
+def heads_of(cfg: ModelConfig, y: torch.Tensor, positions, rope: bool
+             ) -> torch.Tensor:
+    """A projection (B, S, H x D) as heads (B, S, H, D), roped at
+    ``positions`` with ``rope``."""
+    B, S = y.shape[:2]
+    y = y.reshape(B, S, y.shape[-1] // cfg.head_dim, cfg.head_dim)
+    return apply_rope(y, positions, cfg.rope_theta) if rope else y
 
 
 # --- core attention math ---------------------------------------------------------
@@ -360,13 +358,17 @@ class CacheCut:
     the cell holds block ``index``; ``local``: the cell computes with its
     own kv heads (model-local attention), not with all of them; ``conv``:
     ``model`` cuts the channels of a Mamba2 layer's (B, K-1, channels)
-    conv state into ``size`` even blocks (``models.mamba2``)."""
+    conv state into ``size`` even blocks (``models.mamba2``); ``rows``:
+    in a decode_flash decode step, whose activations hold every row, the
+    mesh axes that cut the cache's rows (``cell_decode`` attends on the
+    cell's rows and gathers the output over them)."""
 
     dim: Optional[int]
     size: int
     index: int
     local: bool
     conv: bool = False
+    rows: Tuple[str, ...] = ()
 
     def block(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """The cell's block of ``t`` cut over ``model`` along ``dim``."""
@@ -379,10 +381,11 @@ def cache_rest(tape, kv: torch.Tensor, cut: CacheCut) -> torch.Tensor:
     D): its batch rows over the whole sequence, its own kv heads where
     attention is model-local, else all of them. Cut over the sequence, a
     model-local cell's heads cross the group (each cell its sequence
-    block of every head: one all-to-all)."""
+    block of every head: one all-to-all); else the block is a copy, so
+    that the layer's whole ``kv`` is freed after the layer."""
     if cut.dim == 1:
         if not cut.local:
-            return cut.block(kv, 1)
+            return cut.block(kv, 1).clone()
         B, S, H, D = kv.shape
         n = cut.size
         blocks = kv.reshape(B, n, S // n, H, D).movedim(1, 0)
@@ -413,8 +416,25 @@ def cell_decode(tape, q, k, v, cache_k, cache_v, pos: int, cut: CacheCut, *,
     into the cache (at ``pos``, or ``pos`` mod the window in a ring) by the
     cell whose block holds that slot, with every kv head; cut over the
     sequence, each cell attends over its block and the group combines the
-    partials (``combine_partials``). Returns (the output of the cell's q
-    heads, the cache shard's k, v)."""
+    partials (``combine_partials``). Where ``cut.rows`` cut the cache's
+    rows and q, k, v hold every row (decode_flash), the cell attends on
+    its rows and the output is gathered over ``cut.rows``, as
+    ``flash_decode`` with ``q_replicated`` does. Returns (the output of
+    the cell's q heads, the cache shard's k, v)."""
+    if not cut.rows:
+        return _shard_decode(tape, q, k, v, cache_k, cache_v, pos, cut,
+                             window=window, softcap=softcap)
+    n = cache_k.shape[0]
+    lo = spmd.axis_index(cut.rows) * n
+    o, cache_k, cache_v = _shard_decode(
+        tape, *(t.narrow(0, lo, n) for t in (q, k, v)), cache_k, cache_v,
+        pos, cut, window=window, softcap=softcap)
+    return tape.all_gather(o, cut.rows, 0), cache_k, cache_v
+
+
+def _shard_decode(tape, q, k, v, cache_k, cache_v, pos: int, cut: CacheCut,
+                  *, window=0, softcap=0.0):
+    """``cell_decode`` on q, k, v of the cache shard's rows."""
     local = cut.local
     if cut.dim == 1:
         if local:  # one token: every head in every cell

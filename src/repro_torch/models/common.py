@@ -13,11 +13,21 @@ from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.models import params as P
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float, *,
+             mean_square: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """RMS norm over the last dim. ``mean_square``: where ``x`` and
+    ``scale`` are a block of the features (a cell of a decode_flash
+    decode step), each row's mean square over all of them (float32)."""
     dt = x.dtype
     x = x.float()
-    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    var = (torch.mean(torch.square(x), dim=-1, keepdim=True)
+           if mean_square is None else mean_square)
     return ((x * torch.rsqrt(var + eps)) * scale.float()).to(dt)
+
+
+def sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """Each row's sum of squares over the last dim, in float32."""
+    return torch.sum(torch.square(x.float()), dim=-1, keepdim=True)
 
 
 def rms_norm_specs(d: int) -> P.TensorSpec:
@@ -74,10 +84,16 @@ def mlp_apply(w: Dict, x: torch.Tensor, ctx: ShardingCtx,
     gate = matmul(x, w["w_gate"])
     up = matmul(x, w["w_up"])
     gate = ctx.constrain(gate, ("batch", "seq_inner", "mlp")[: gate.ndim])
-    # jax.nn.gelu defaults to the tanh approximation
-    h = (F.silu(gate) if act == "silu" else F.gelu(gate, approximate="tanh")) * up
-    out = matmul(h, w["w_down"])
+    out = matmul(gated(gate, up, act), w["w_down"])
     return ctx.constrain(out, ("batch", "seq", "embed")[: out.ndim])
+
+
+def gated(gate: torch.Tensor, up: torch.Tensor, act: str = "silu"
+          ) -> torch.Tensor:
+    """act(gate) * up: the MLP's hidden layer."""
+    # jax.nn.gelu defaults to the tanh approximation
+    return (F.silu(gate) if act == "silu"
+            else F.gelu(gate, approximate="tanh")) * up
 
 
 # --- Embedding / logits / loss ---------------------------------------------------

@@ -231,12 +231,22 @@ def prefill_fn(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, params, batch
 def _last_logits(cfg: ModelConfig, ctx: ShardingCtx, tc, params, x, adds):
     """The last token's logits (B, V) from the stack's last residual and
     the terms still to add to it: the cell's vocabulary columns where the
-    vocabulary is model-local."""
+    vocabulary is model-local. In a decode_flash decode step
+    (``Plan.decode_2d``) the norm and the product of the cell's block of
+    the features, the partial logits summed over the feature axes."""
+    tape, plan = tc.tape, tc.plan
+    if plan.decode_2d:
+        _, h = T._normed_on(tc, x, adds, lambda: params["final_ln"],
+                            cfg.norm_eps)
+        lg, = tape.run(lambda h: (logits_fn(params["embed"], h[:, -1:],
+                                            ctx)[:, 0],), h)
+        return tape.exit(lg, plan.features)
+
     def head(x, *a):
         h = rms_norm(T._resid(x, a)[:, -1:], params["final_ln"], cfg.norm_eps)
         return (logits_fn(params["embed"], h, ctx)[:, 0],)
 
-    return tc.tape.run(head, x, *adds)[0]
+    return tape.run(head, x, *adds)[0]
 
 
 def stack_leaves(w):

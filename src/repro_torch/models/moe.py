@@ -191,6 +191,41 @@ def route_logits(cfg: ModelConfig, logits, group: int):
     return w, ids, slot, keep, aux * cfg.router_aux_loss
 
 
+def experts_up(cfg: ModelConfig, wts, x, w, ids, slot, keep, lo: int,
+               group: int, pieces: List[int]):
+    """``experts_apply`` up to the experts' hidden layer, for a cell of a
+    decode_flash decode step whose ``x`` (T, d') is its block of the
+    features: (the combine weights (T, n, C) of the experts ``wts`` holds,
+    from ``lo`` on; each piece's gate and up products side by side,
+    (pieces, n, C, 2 ff), partial sums over the feature blocks). The
+    pieces are whole groups of ``group`` tokens."""
+    dt = x.dtype
+    n, C = wts["w_gate"].shape[0], capacity(group, cfg)
+    with ranges.named("moe_dispatch"):
+        combine = _combine_of(w, ids, slot, keep, lo, n, C)
+        xes = [torch.einsum("gec,gd->ecd", (cg > 0).to(dt), xg)
+               for cg, xg in zip(combine.split(pieces), x.split(pieces))]
+    with ranges.named("moe_experts"):
+        return combine, torch.stack([torch.cat(
+            [torch.einsum("ecd,edf->ecf", xe, wts[k].to(dt))
+             for k in ("w_gate", "w_up")], dim=-1) for xe in xes])
+
+
+def experts_down(wts, gu, combine, pieces: List[int]):
+    """(T, d'): ``experts_apply``'s output from ``experts_up``'s
+    ``combine`` and its products ``gu`` summed over the feature blocks:
+    ``w_down`` onto the block ``wts`` holds of each token's features."""
+    dt = gu.dtype
+    gu = gu.reshape(len(pieces), *combine.shape[1:], -1)
+    with ranges.named("moe_experts"):
+        yes = [torch.einsum("ecf,efd->ecd", F.silu(g) * u,
+                            wts["w_down"].to(dt))
+               for g, u in (t.chunk(2, dim=-1) for t in gu)]
+    with ranges.named("moe_combine"):
+        return torch.cat([torch.einsum("gec,ecd->gd", cg.to(dt), ye)
+                          for cg, ye in zip(combine.split(pieces), yes)])
+
+
 def experts_apply(cfg: ModelConfig, wts, x, w, ids, slot, keep, lo: int,
                   group: int, pieces: List[int]):
     """(T, d): the output of the experts ``wts`` holds (from ``lo`` on)

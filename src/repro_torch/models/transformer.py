@@ -23,6 +23,7 @@ self caches stacked ``(groups, p-1, ...)``, the cross KV ``(groups,
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -34,8 +35,8 @@ from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models import params as P
-from repro_torch.models.common import (matmul, mlp_apply, mlp_specs, rms_norm,
-                                       rms_norm_specs)
+from repro_torch.models.common import (gated, matmul, mlp_apply, mlp_specs,
+                                       rms_norm, rms_norm_specs, sum_squares)
 
 
 def block_specs(cfg: ModelConfig, *, moe: bool) -> Dict:
@@ -52,21 +53,27 @@ def block_specs(cfg: ModelConfig, *, moe: bool) -> Dict:
 
 
 def _attention_out(cfg: ModelConfig, ctx: ShardingCtx, wa, h, positions,
-                   q_chunk, causal: bool = True):
+                   q_chunk, causal: bool = True,
+                   kv_block: Optional[Tuple[int, int]] = None):
     """(attn(h) through ``wo``, k, v) of the heads ``wa`` holds: all of
     them, or a tensor-parallel cell's own (then a partial sum). ``causal``
     False: bidirectional, with no window or softcap, whatever ``cfg``
-    says (whisper's encoder, ``attention_full``)."""
+    says (whisper's encoder, ``attention_full``). ``kv_block``: ``wa``
+    holds the cell's q heads and every kv head (``Plan.qheads``), and
+    the q heads read the kv heads ``[lo, hi)``; k and v of every kv head
+    are returned."""
     B, S, _ = h.shape
     q = A.project_q(cfg, wa, h, positions, ctx)
     k, v = A.project_kv(cfg, wa, h, positions, ctx)
+    ka, va = (k, v) if kv_block is None else (
+        t[:, :, kv_block[0]:kv_block[1]] for t in (k, v))
     if causal:
-        o = A.attention_auto(q, k, v, causal=cfg.causal,
+        o = A.attention_auto(q, ka, va, causal=cfg.causal,
                              window=cfg.sliding_window,
                              softcap=cfg.attn_logit_softcap, q_chunk=q_chunk,
                              ctx=ctx)
     else:
-        o = A.attention_full(q, k, v)
+        o = A.attention_full(q, ka, va)
     return matmul(o.reshape(B, S, -1), wa["wo"]), k, v
 
 
@@ -214,6 +221,28 @@ def _normed(x, adds, scale, eps: float):
     return x, rms_norm(x, scale, eps)
 
 
+def _normed_on(tc, x, adds, scale: Callable, eps: float):
+    """``_normed`` on the tape of ``tc``, its scale ``scale()``: one
+    segment; in a decode_flash decode step (``Plan.decode_2d``), on the
+    cell's block of the features, each row's sum of squares totalled over
+    the feature axes between two segments and the scale's block."""
+    tape, plan = tc.tape, tc.plan
+    if not plan.decode_2d:
+        return tape.run(lambda x, *a: _normed(x, a, scale(), eps), x,
+                        *adds)
+
+    def squares(x, *a):
+        x = _resid(x, a)
+        return x, sum_squares(x)
+
+    x, ss = tape.run(squares, x, *adds)
+    ss = tape.total(ss, plan.features)
+    h, = tape.run(lambda x, ss: (rms_norm(
+        x, tc.feature_block(scale()), eps,
+        mean_square=ss / scale().shape[-1]),), x, ss)
+    return x, h
+
+
 def _same(t):
     return t
 
@@ -225,13 +254,14 @@ def _attn_half(cfg, ctx, tc, wl, x, adds, positions, q_chunk, *,
     to it; with ``kv`` (a serve's prefill) also the cell's k and v, each
     passed through ``kv`` in the local segment: (x, adds, (k, v))."""
     tape = tc.tape
-    local = tc.plan.attn
+    local = tc.plan.attn or tc.plan.qheads
+    kv_block = tc.kv_heads(cfg) if tc.plan.qheads else None
     x, h = tape.run(lambda x, *a: _normed(x, a, wl()["ln1"], cfg.norm_eps),
                     x, *adds)
 
     def work(h):
         o, k, v = _attention_out(cfg, ctx, wl()["attn"], h, positions,
-                                 q_chunk, causal)
+                                 q_chunk, causal, kv_block)
         return (o,) if kv is None else (o, kv(k), kv(v))
 
     part, *cache = tape.run(work, tape.enter(h) if local else h)
@@ -245,12 +275,26 @@ def _mlp_half(cfg, run, ctx, tc, wl, x, adds, *, act: Optional[str] = None):
     aux=None)."""
     tape = tc.tape
     local = tc.plan.mlp
-    x, h = tape.run(lambda x, *a: _normed(x, a, wl()["ln2"], cfg.norm_eps),
-                    x, *adds)
-    part, = tape.run(lambda h: (mlp_apply(wl()["mlp"], h, ctx,
-                                          act or cfg.act),),
-                     tape.enter(h) if local else h)
+    x, h = _normed_on(tc, x, adds, lambda: wl()["ln2"], cfg.norm_eps)
+    if tc.plan.decode_2d:  # the gate and up products of the cell's features
+        gu, = tape.run(lambda h: (_products(h, wl()["mlp"], (
+            "w_gate", "w_up")),), h)
+        gu = tape.exit(gu, tc.plan.features)
+        part, = tape.run(lambda gu: (matmul(gated(
+            *gu.chunk(2, dim=-1), act or cfg.act), wl()["mlp"]["w_down"]),),
+            gu)
+    else:
+        part, = tape.run(lambda h: (mlp_apply(wl()["mlp"], h, ctx,
+                                              act or cfg.act),),
+                         tape.enter(h) if local else h)
     return x, (tape.exit(part) if local else part,), None
+
+
+def _products(h, w, names):
+    """``h`` times each leaf ``w[name]``, side by side on the last dim:
+    in a decode_flash decode step the partial products of the cell's block
+    of the features, which one exit sums over the feature axes."""
+    return torch.cat([matmul(h, w[name]) for name in names], dim=-1)
 
 
 def _xattn_half(cfg, ctx, tc, wl, x, adds, src, ln: str, *,
@@ -313,6 +357,8 @@ def _moe_half(cfg, run, ctx, tc, wl, x, adds):
     from repro_torch.distributed import spmd
 
     tape, plan = tc.tape, tc.plan
+    if plan.decode_2d:
+        return _moe_2d(cfg, ctx, tc, wl, x, adds)
     B, S, d = x.shape
     T = B * S
     batch = plan.batch_axes
@@ -359,6 +405,69 @@ def _moe_half(cfg, run, ctx, tc, wl, x, adds):
     part, = tape.run(experts, h_in, w_in, ids, slot, keep)
     y = tape.exit(part) if plan.experts else part
     return x, (y, *rest), aux
+
+
+def _moe_2d(cfg, ctx, tc, wl, x, adds):
+    """The MoE half of a decode_flash decode step, dense dispatch, on the
+    cell's block of the features (``Plan.decode_2d``; every row in every
+    cell, one token group): the router's partial logits of the cell's
+    experts summed over the feature axes and gathered over ``model``, so
+    that every cell routes every token alike; the dispatch of the cell's
+    features, its experts' gate and up products and the shared MLP's
+    (where it has one) summed over the feature axes in one exit; ``w_down``
+    onto the cell's features, the combine and the shared MLP's rows
+    summed over ``model`` where they are the cell's own. Returns (x,
+    adds, aux)."""
+    tape, plan = tc.tape, tc.plan
+    x, h = _normed_on(tc, x, adds, lambda: wl()["ln2"], cfg.norm_eps)
+    B, S, db = h.shape
+    T = B * S
+    group, _ = M.moe_groups(T, 1)
+    pieces = M.group_pieces(0, T, group)
+
+    def wm():
+        return wl()["moe"]
+
+    lg, = tape.run(lambda h: (M.router_logits(wm(), h.reshape(T, db),
+                                              pieces),), h)
+    lg = tape.exit(lg, plan.features)
+    if plan.experts:
+        lg = tape.all_gather(lg, tp.AXIS, 1)
+    w, ids, slot, keep, aux = tape.run(
+        lambda lg: M.route_logits(cfg, lg, group), lg)
+    first = tc.block(cfg.num_experts)[0] if plan.experts else 0
+    shared = cfg.shared_expert
+
+    def ups(h, w, ids, slot, keep):
+        combine, gu = M.experts_up(cfg, wm(), h.reshape(T, db), w, ids,
+                                   slot, keep, first, group, pieces)
+        parts = [gu.reshape(-1)]
+        if shared:
+            parts.append(_products(h, wm()["shared"],
+                                   ("w_gate", "w_up")).reshape(-1))
+        return combine, torch.cat(parts)
+
+    combine, flat = tape.run(ups, h, w, ids, slot, keep)
+    flat = tape.exit(flat, plan.features)
+
+    def downs(combine, flat):
+        """(the sum of the outputs that are partial sums over ``model``,
+        the sum of the others), each None where there is none."""
+        n = (len(pieces) * combine.shape[1] * combine.shape[2] * 2
+             * wm()["w_gate"].shape[-1])
+        parts = [(M.experts_down(wm(), flat[:n], combine, pieces).reshape(
+            B, S, db), plan.experts)]
+        if shared:
+            gu = flat[n:].reshape(B, S, -1)
+            parts.append((matmul(gated(*gu.chunk(2, dim=-1), cfg.act),
+                                 wm()["shared"]["w_down"]), plan.shared))
+        return [functools.reduce(torch.add, ts) if ts else None
+                for ts in ([t for t, mine in parts if mine],
+                           [t for t, mine in parts if not mine])]
+
+    part, rest = tape.run(downs, combine, flat)
+    out = (None if part is None else tape.exit(part), rest)
+    return x, tuple(t for t in out if t is not None), aux
 
 
 def _a2a_half(cfg, run, ctx, tc, wl, x, adds):
@@ -490,11 +599,14 @@ def attn_decode_half(cfg: ModelConfig, ctx: ShardingCtx, tc, wl, x, adds, ck,
     cell's heads, the token written into the whole cache (``cut`` None;
     ``use_flash`` on a mesh: ``flash_decode``) or into a serve cell's
     shard of it (``attention.cell_decode``) and attended over, ``wo`` and
-    the exit. Returns (x, adds, ck, cv)."""
-    tape = tc.tape
-    local = tc.plan.attn
-    x, h = tape.run(lambda x, *a: _normed(x, a, wl()["ln1"], cfg.norm_eps),
-                    x, *adds)
+    the exit. In a decode_flash decode step (``Plan.decode_2d``) q, k and
+    v come from the cell's block of the features (``_qkv_2d``), the cell
+    attends on its rows and its sequence block with every head, and its
+    columns of the whole output go into its rows of ``wo``. Returns (x,
+    adds, ck, cv)."""
+    tape, plan = tc.tape, tc.plan
+    local = plan.qcols if plan.decode_2d else plan.attn
+    x, h = _normed_on(tc, x, adds, lambda: wl()["ln1"], cfg.norm_eps)
     B = x.shape[0]
 
     def qkv(h):
@@ -503,7 +615,10 @@ def attn_decode_half(cfg: ModelConfig, ctx: ShardingCtx, tc, wl, x, adds, ck,
         return (A.project_q(cfg, wa, h, posv, ctx),
                 *A.project_kv(cfg, wa, h, posv, ctx))
 
-    q, k, v = tape.run(qkv, tape.enter(h) if local else h)
+    if plan.decode_2d:
+        q, k, v = _qkv_2d(cfg, tc, wl, h, pos)
+    else:
+        q, k, v = tape.run(qkv, tape.enter(h) if local else h)
     window, softcap = cfg.sliding_window, cfg.attn_logit_softcap
     if cut is not None:
         o, ck, cv = A.cell_decode(tape, q, k, v, ck, cv, pos, cut,
@@ -516,9 +631,50 @@ def attn_decode_half(cfg: ModelConfig, ctx: ShardingCtx, tc, wl, x, adds, ck,
         else:
             o = A.decode_attention(q, ck, cv, pos, window=window,
                                    softcap=softcap)
-    part, = tape.run(lambda o: (matmul(o.reshape(B, 1, -1),
-                                       wl()["attn"]["wo"]),), o)
+
+    def out(o):
+        wo = wl()["attn"]["wo"]
+        o = o.reshape(B, 1, -1)
+        if plan.decode_2d and local:  # the cell's rows of wo
+            o = o.narrow(-1, tc.index() * wo.shape[0], wo.shape[0])
+        return (matmul(o, wo),)
+
+    part, = tape.run(out, o)
     return x, (tape.exit(part) if local else part,), ck, cv
+
+
+def _qkv_2d(cfg: ModelConfig, tc, wl, h, pos: int):
+    """q of every head and k, v of every kv head of one token from the
+    cell's block ``h`` of its features (``Plan.decode_2d``): the partial
+    products with the cell's columns of ``wq`` and every column of ``wk``
+    and ``wv`` summed over the feature axes in one exit, the biases added
+    to the sums, q's columns gathered over ``model`` where ``wq``'s are
+    cut there (``Plan.qcols``: they need not fall on heads)."""
+    tape = tc.tape
+
+    def wa():
+        return wl()["attn"]
+
+    y, = tape.run(lambda h: (_products(h, wa(), ("wq", "wk", "wv")),), h)
+    y = tape.exit(y, tc.plan.features)
+
+    def split(y):
+        nq, nkv = wa()["wq"].shape[1], wa()["wk"].shape[1]
+        q, k, v = y.split((nq, nkv, nkv), dim=-1)
+        return (A.biased(q, wa(), "bq"), A.biased(k, wa(), "bk"),
+                A.biased(v, wa(), "bv"))
+
+    q, k, v = tape.run(split, y)
+    if tc.plan.qcols:
+        q = tape.all_gather(q, tp.AXIS, 2)
+
+    def heads(q, k, v):
+        posv = torch.full(q.shape[:2], pos, dtype=torch.int32,
+                          device=q.device)
+        return (A.heads_of(cfg, q, posv, True), A.heads_of(cfg, k, posv, True),
+                A.heads_of(cfg, v, posv, False))
+
+    return tape.run(heads, q, k, v)
 
 
 def layer_decode(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx, tc, wl,

@@ -35,10 +35,37 @@ logits its vocabulary columns and the greedy token the group's argmax.
 The outputs come back as ``MeshArray``s, the cache laid out by
 ``lm.cache_specs``' shardings.
 
-The ``seqpar`` and ``decode_flash`` rulesets on a mesh run the model
-whole on whole tensors, ``decode_flash``'s ``flash_decode`` its own
-``shard_map``: that is the path for them, chosen by ``partitioned``, not
-a fallback.
+Under ``decode_flash`` the dense and MoE families (dense dispatch) are
+partitioned too. The rules lay the weights out as ``baseline`` does but
+for ``wk``, ``wv``, ``bk`` and ``bv``, which ``model`` does not cut; the
+cache holds the cell's rows over the data axes, its sequence block over
+``model`` and every kv head; the tokens are whole. A decode step is 2-D
+tensor parallel and gathers no weight (``Plan.decode_2d``): the rules
+keep the weights cut over both axes so that a token's step moves only
+activations of one token a row, never the weights, which are 100 MB and
+more a layer at full size. Each cell holds the residual stream's block of
+features over the data axes (the weights' ``fsdp`` cut), takes its
+partial products with its shards and sums them over the data axes (the
+projections out of the features, the norms' sums of squares, the
+logits) or over ``model`` (those into them, the embedding), gathers q
+over ``model``, attends on its rows and its sequence block with every
+head, the partials combined by log-sum-exp over ``model`` and the output
+gathered over the data axes (``attention.cell_decode`` with
+``CacheCut.rows``), as the reference's ``flash_decode`` does; a cache
+whose slots do not split over ``model`` is refused, as there. The
+prefill does gather each layer's weights over the data axes, as the
+baseline's does: its activations are a whole prompt a row, so the
+partial sums of the 2-D layout would move the prompt's length times the
+bytes a decode step moves, more than the weights. Each cell runs on its
+rows of the tokens, its attention on its own q heads and the kv heads
+they read where the q heads split over ``model`` (``Plan.qheads``),
+and keeps its sequence block of every kv head as its cache: no
+all-to-all.
+
+The ``seqpar`` ruleset, and the other families under ``decode_flash``,
+run the model whole on whole tensors on a mesh, ``decode_flash``'s
+``flash_decode`` its own ``shard_map``: that is the path for them,
+chosen by ``partitioned``, not a fallback.
 """
 
 from __future__ import annotations
@@ -51,8 +78,8 @@ import torch
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeSpec
 from repro_torch.distributed import spmd
 from repro_torch.distributed import tensor_parallel as tp
-from repro_torch.distributed.sharding import (BASELINE, MeshArray,
-                                              ShardingCtx, place)
+from repro_torch.distributed.sharding import (BASELINE, DECODE_FLASH,
+                                              MeshArray, ShardingCtx, place)
 from repro_torch.models import lm, params as P
 from repro_torch.models.attention import CacheCut
 from repro_torch.train.step import CellLayout, _names, _padded
@@ -61,9 +88,15 @@ from repro_torch.train.step import CellLayout, _names, _padded
 def partitioned(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx) -> bool:
     """Whether the serve programs of ``cfg`` run partitioned over
     ``ctx.mesh``: every family under ``baseline`` or ``moe_a2a`` (whose
-    rules are ``BASELINE``)."""
-    return (ctx.mesh is not None and ctx.rules is BASELINE
-            and run.sharding_rules in ("baseline", "moe_a2a"))
+    rules are ``BASELINE``); the dense and MoE families under
+    ``decode_flash`` with the dense MoE dispatch."""
+    if ctx.mesh is None:
+        return False
+    if ctx.rules is BASELINE:
+        return run.sharding_rules in ("baseline", "moe_a2a")
+    return (ctx.rules is DECODE_FLASH and run.sharding_rules == "decode_flash"
+            and cfg.family in ("dense", "moe")
+            and (not cfg.is_moe or run.moe_impl == "dense"))
 
 
 def _argmax(logits):
@@ -118,12 +151,14 @@ class _Layout:
     """A partitioned serve program's layout over the mesh, for a batch of
     ``B`` rows and a self-attention cache of ``S`` slots: the specs of its
     arguments and outputs, the cells' ``CellLayout``, the tensor-parallel
-    plan and where ``model`` cuts the cache (``attention.CacheCut``'s
-    ``dim`` and ``conv``)."""
+    plan, where ``model`` cuts the cache (``attention.CacheCut``'s
+    ``dim`` and ``conv``), the cache's rows where the step's tokens hold
+    every row (``CacheCut.rows``) and whether the cells gather the
+    weights (all but a decode_flash decode step)."""
 
     param_specs: Any
     cache_specs: Any
-    batch: Tuple  # the tokens' spec (the batch rule's)
+    batch: Tuple  # the tokens' spec (a prefill's: the cache's rows)
     embeds: Dict[str, Tuple]  # the prefill's image or frame embeddings'
     logits: Tuple
     cells: CellLayout
@@ -131,6 +166,8 @@ class _Layout:
     local: Any
     cut_dim: Optional[int]
     conv: bool
+    rows: Tuple[str, ...] = ()
+    gather: bool = True
 
 
 def _self_kv(cache):
@@ -160,18 +197,28 @@ def _model_cut(entry) -> bool:
     return tp.AXIS in _names(entry)
 
 
-def _layout(cfg: ModelConfig, ctx: ShardingCtx, B: int, S: int) -> _Layout:
+def _layout(cfg: ModelConfig, ctx: ShardingCtx, B: int, S: int,
+            kind: str) -> _Layout:
     pspecs = lm.param_specs(cfg)
 
     def specs(tree):
         return P.map_specs(lambda s: ctx.spec(s.logical, s.shape), tree)
 
     param_specs = specs(pspecs)
-    batch = ctx.spec(("batch",), (B,))
+    # the cache's rows: the batch rule's but under decode_flash, whose
+    # tokens hold every row; a prefill cell takes its rows of them
+    rows = ctx.spec(("cache_batch",), (B,))
+    flash = ctx.rules is DECODE_FLASH
+    batch = ctx.spec(("batch",), (B,)) if kind == "decode" else rows
     cells = CellLayout(ctx.mesh, pspecs, param_specs,
-                       _names(batch[0]) if batch else ())
+                       _names(rows[0]) if rows else ())
     plan = tp.plan_for(cfg, pspecs, param_specs, cells.sizes,
-                       cells.batch_axes)
+                       cells.batch_axes, qheads=flash)
+    if flash and kind == "decode":
+        fsdp = ctx.spec(("fsdp",), (cfg.d_model,))
+        plan = dataclasses.replace(plan, decode_2d=True, features=tuple(
+            a for a in _names(fsdp[0] if fsdp else None)
+            if cells.sizes[a] > 1))
     shape = ShapeSpec("serve", "decode", S, B)
     cache_tensors = lm.cache_specs(cfg, shape)
     cache_specs = specs(cache_tensors)
@@ -181,10 +228,10 @@ def _layout(cfg: ModelConfig, ctx: ShardingCtx, B: int, S: int) -> _Layout:
         spec = _padded(spec, len(ts.shape))
         by_axis = dict(zip(ts.logical, spec))
         if by_axis.get("batch", by_axis.get("cache_batch")) != (
-                batch[0] if batch else None):
+                rows[0] if rows else None):
             raise NotImplementedError(f"a cache leaf {path} laid out as "
                                       f"{spec} with the batch cut as "
-                                      f"{batch}")
+                                      f"{rows}")
         name = path.split(".")[-1]
         flag = _STATE_HEADS.get(name)
         if flag and _model_cut(by_axis["heads"]) != getattr(plan, flag):
@@ -212,18 +259,27 @@ def _layout(cfg: ModelConfig, ctx: ShardingCtx, B: int, S: int) -> _Layout:
         raise NotImplementedError(f"a cross KV laid out as "
                                   f"{entries(_cross_kv)} with the cross "
                                   f"attention model-local: {plan.xattn}")
+    if plan.decode_2d and plan.size > 1 and cut_dim != 1:
+        # flash_decode's shard_map cuts the cache's slots over model
+        raise ValueError(f"a decode_flash decode step over a cache of {S} "
+                         f"slots, which do not split over the "
+                         f"{plan.size} cells of {tp.AXIS!r}")
     logits = (batch[0] if batch else None, tp.AXIS) if plan.vocab else batch
     inputs = specs(lm.input_specs(cfg, ShapeSpec("serve", "prefill", S, B)))
     embeds = {k: v for k, v in inputs.items() if k != "tokens"}
     return _Layout(param_specs, cache_specs, batch, embeds, logits, cells,
                    plan, tp.local_leaves(plan, pspecs), cut_dim,
-                   any(convs))
+                   any(convs), cells.batch_axes if plan.decode_2d else (),
+                   not plan.decode_2d)
 
 
 def _gathered(lay: _Layout, tree, specs, local, label: str):
     """``tree``'s leaves gathered from the cell's shards (each kept the
     cell's own over ``model`` where it is model-local), labelled for
-    ``spmd.observe``."""
+    ``spmd.observe``; in a decode_flash decode step the cell's shards as
+    they are."""
+    if not lay.gather:
+        return tree
     with spmd.labelled(label):
         return P.tree_map(lay.cells.gather, tree, specs, local)
 
@@ -285,7 +341,7 @@ def _partitioned(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx,
             S = 1 if kv is None else kv.shape[-3]
         key = (B, S)
         if key not in layouts:
-            layouts[key] = _layout(cfg, ctx, B, S)
+            layouts[key] = _layout(cfg, ctx, B, S, kind)
         return layouts[key]
 
     def cell_at(*args):
@@ -295,7 +351,7 @@ def _partitioned(cfg: ModelConfig, run: RunConfig, ctx: ShardingCtx,
             batch = rest[-1]
             tc = tp.Cell(tp.Forward(), lay.plan)
             cut = CacheCut(lay.cut_dim, lay.plan.size, tc.index(),
-                           lay.plan.attn, lay.conv)
+                           lay.plan.attn, lay.conv, lay.rows)
             top = _top(lay, params)
 
             def stack(*path):

@@ -226,14 +226,15 @@ def _dense_moe_flops(cfg, T):
 
 
 def test_mesh_cells_refuse_collectives_they_cannot_count(tmp_path):
-    """decode_flash on the 16 x 16 mesh gathers its output over the data
+    """decode_flash on the 16 x 16 mesh, where it serves the model whole
+    in each data cell (whisper-small's), gathers its output over the data
     axes, which one data cell's trace runs over one cell: the cell is
     refused (FAIL), not counted short; on one card it runs."""
-    r = dryrun.run_cell("smollm-135m", "decode_32k", "single",
+    r = dryrun.run_cell("whisper-small", "decode_32k", "single",
                         "decode_flash", str(tmp_path), smoke=True)
     assert not r["ok"] and "data axes" in r["error"]
-    r = dryrun.run_cell("smollm-135m", "decode_32k", "card", "decode_flash",
-                        str(tmp_path), smoke=True)
+    r = dryrun.run_cell("whisper-small", "decode_32k", "card",
+                        "decode_flash", str(tmp_path), smoke=True)
     assert r["ok"] and r["n_chips"] == 1
 
 

@@ -897,7 +897,9 @@ def test_planted_breaches_fail_the_reference_differential(reference,
     (DANUBE, "decode_32k", "multi", "baseline", True),
     (OLMOE, "decode_32k", "single", "moe_a2a", True),
     (SCOUT, "prefill_32k", "multi", "baseline", True),
-    (SMOLLM, "prefill_32k", "single", "decode_flash", False),
+    (SMOLLM, "prefill_32k", "single", "decode_flash", True),
+    (OLMOE, "decode_32k", "single", "decode_flash", True),
+    ("whisper-small", "prefill_32k", "single", "decode_flash", False),
     ("llama-3.2-vision-11b", "decode_32k", "single", "baseline", True),
     ("llama-3.2-vision-11b", "prefill_32k", "multi", "baseline", True),
     ("whisper-small", "prefill_32k", "multi", "baseline", True),
@@ -908,10 +910,12 @@ def test_planted_breaches_fail_the_reference_differential(reference,
 def test_dryrun_traces_a_partitioned_serve_cell(tmp_path, arch, shape, mesh,
                                                 ruleset, partitioned):
     """On the reference's meshes a serve cell of any family under the
-    ``baseline`` or ``moe_a2a`` rules is traced as its first cell alone:
-    its collectives counted by axes, none left unissued; the
-    ``decode_flash`` and ``seqpar`` rulesets still serve the model whole
-    in their data cell and name the collectives GSPMD would insert."""
+    ``baseline`` or ``moe_a2a`` rules, and of the dense and MoE families
+    under ``decode_flash``, is traced as its first cell alone: its
+    collectives counted by axes, none left unissued; the ``seqpar``
+    ruleset, and the other families under ``decode_flash``, still serve
+    the model whole in their data cell and name the collectives GSPMD
+    would insert."""
     from repro_torch.launch import dryrun
 
     r = dryrun.run_cell(arch, shape, mesh, ruleset, str(tmp_path),
